@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's single-chip in-situ frame on one CUDA card.
+"""Drive the PyTorch/CUDA port's in-situ frames on one CUDA card: the
+single-chip frame and the distributed sort-last frame.
 
     python3 chip_smoke.py               # the whole run (needs one card)
     python3 chip_smoke.py --profile     # + device time by kernel
@@ -24,7 +25,19 @@ and prints no result):
    2 warm-up frames, 6 timed frames, with every kernel's launch count
    read from that run and required > 0; then the sim and the march
    timed apart; then the frame held against the CPU's plain versions on
-   a small grid.
+   a small grid;
+4. the distributed frame on an 8-rank in-process mesh (the reference's
+   8-rank shape; 64 x 512 x 512 slabs, composited into K_out=16 slots
+   with a 6-step threshold search): the seed, 2 warm-up and 6 timed
+   temporal frames with the launch counts read from that run (K4 once
+   per rank and frame); the sim, the march summed over the ranks, the
+   column exchange and the composite timed apart; the PSNR against the
+   single-chip march at the same state and eye (information); K4 (the
+   composite's resegment) against its plain version at the per-rank
+   shapes, on a seeded stream and on a real column block of the frame
+   (thresholds and live slots exact, colour and depth within 1e-6);
+   then the distributed frame on a 32^3 volume over 4 ranks held
+   against the CPU's plain versions in both march regimes.
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -57,6 +70,19 @@ STENCIL_FLOPS_PER_CELL_STEP = 32
 # K1 per pixel per slice: distance (8), start/count/transmittance (6),
 # premultiplied accumulation (8), the two depths and their min/max (4)
 SEG_FLOPS_PER_PIXEL_SLICE = 26
+# K4 per pixel per slot: a counting pass (distance 8, gap test 2) times
+# the search iterations, and the write pass (distance 8, gap test 2,
+# accumulation 8)
+RESEG_COUNT_FLOPS, RESEG_WRITE_FLOPS = 10, 18
+# the kernels of each path
+FRAME_KERNELS = ("grayscott_fused", "seg_fold_compact", "count_multi")
+DIST_KERNELS = FRAME_KERNELS + ("resegment_sorted",)
+# the distributed frame: the reference's 8-rank mesh, composited into
+# K_OUT slots with the default 6-step threshold search
+RANKS = 8
+K_OUT = 16
+COMP_ITERS = 6
+SMALL_RANKS = 4
 
 
 def log(key, value):
@@ -90,6 +116,13 @@ def median_ms(fn, reps: int, setup=None) -> float:
 
 def clone(xs):
     return tuple(x.clone() for x in xs)
+
+
+def require_launched(launches, names, path):
+    for name in names:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on "
+                                 f"{path}")
 
 
 def max_abs(a, b) -> float:
@@ -351,6 +384,7 @@ def run_frame(dev, profile=False):
 
     from scenery_insitu_tpu_torch import kernels
     from scenery_insitu_tpu_torch.core.camera import Camera, orbit
+    from scenery_insitu_tpu_torch.core.vdi import VDI
     from scenery_insitu_tpu_torch.models.pipelines import \
         grayscott_vdi_frame_step
     from scenery_insitu_tpu_torch.ops import slicer
@@ -389,31 +423,14 @@ def run_frame(dev, profile=False):
         ev.append(a.elapsed_time(b))
     launches = kernels.launches()
     log("frame.launches", json.dumps(launches))
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the "
-                                 f"main path")
+    require_launched(launches, FRAME_KERNELS, "the single-chip frame")
     ev.sort()
     wall.sort()
     log("frame.ms_per_frame", f"{ev[len(ev) // 2]:.3f} (median of "
         f"{TIMED_FRAMES}, CUDA events; host clock {wall[len(wall) // 2]:.3f})")
 
-    want_c = (K, 4, step.spec.nj, step.spec.ni)
-    want_d = (K, 2, step.spec.nj, step.spec.ni)
-    if tuple(color.shape) != want_c or tuple(depth.shape) != want_d:
-        raise AssertionError(f"VDI shapes {tuple(color.shape)}, "
-                             f"{tuple(depth.shape)}; expected {want_c}, "
-                             f"{want_d}")
-    live = torch.isfinite(depth[:, 0])
-    if not bool(torch.isfinite(color).all()):
-        raise AssertionError("VDI color is not finite")
-    if not bool((torch.isfinite(depth) | (depth == torch.inf)).all()):
-        raise AssertionError("VDI depth holds NaN or -inf")
-    n_live = int(live.sum())
-    log("frame.live_slots", f"{n_live} of {live.numel()} "
-        f"(pixels with a slot: {int(live.any(0).sum())})")
-    if n_live == 0:
-        raise AssertionError("the VDI has no live slot")
+    nj, ni = step.spec.nj, step.spec.ni
+    check_vdi("frame", VDI(color, depth), (K, 4, nj, ni), (K, 2, nj, ni))
     if not bool(torch.isfinite(u).all() & torch.isfinite(v).all()):
         raise AssertionError("sim state is not finite")
 
@@ -433,49 +450,100 @@ def run_frame(dev, profile=False):
     log("frame.sim_ms", f"{sim_ms:.3f}")
     log("frame.march_ms", f"{march_ms:.3f}")
     if profile:
-        profile_frames(step, u, v, thr, eye)
+        state = [u, v, thr]
+
+        def one(i):
+            _, _, state[0], state[1], state[2] = step(*state[:2], eye(i),
+                                                      state[2])
+
+        profile_frames("profile", one)
     return launches
 
 
-def profile_frames(step, u, v, thr, eye, frames=2):
-    """Device time by kernel over ``frames`` frames (torch.profiler) and
-    the device's busy share of the window's CUDA-event time; the Chrome
-    trace goes to chiprun_out/frame_trace.json."""
+def profile_frames(prefix, frame, frames=2):
+    """Device time by kernel over ``frames`` calls of ``frame(i)``
+    (torch.profiler, after one unrecorded warm-up call), the device's
+    busy share of the window's CUDA-event time, and from the trace the
+    idle gaps and the host-to-device copies and stream synchronisations
+    a frame makes; logged under ``prefix``. The Chrome trace goes to
+    chiprun_out/<prefix>_trace.json."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
-    with profile(activities=acts) as prof:
+    with profile(activities=acts, schedule=schedule(
+            wait=0, warmup=1, active=frames, repeat=1)) as prof:
+        frame(99)
+        # the warm-up frame's device work ends before the window opens
+        torch.cuda.synchronize()
+        prof.step()
         a.record()
         for i in range(frames):
-            _, _, u, v, thr = step(u, v, eye(100 + i), thr)
-        b.record()
-        b.synchronize()
+            frame(100 + i)
+            if i == frames - 1:
+                b.record()
+                b.synchronize()
+            prof.step()
     window_ms = a.elapsed_time(b)
     # device-side rows (kernels, copies, fills) make the busy time; an
     # operator's row repeats the device time of the kernels it launched,
     # so it is listed apart (the port's own kernels have no operator row).
     # "Command Buffer Full" marks the host waiting on a full launch queue,
-    # not device work.
+    # not device work, and a "ProfilerStep#" row spans a whole step.
     kern, ops = [], []
     for e in prof.key_averages():
-        if e.self_device_time_total <= 0 or e.key == "Command Buffer Full":
+        if e.self_device_time_total <= 0 or e.key == "Command Buffer Full" \
+                or e.key.startswith("ProfilerStep"):
             continue
         row = (e.self_device_time_total / 1e3, e.count, e.key)
         (kern if e.device_type == DeviceType.CUDA else ops).append(row)
     busy = sum(r[0] for r in kern)
-    log("profile.window_ms", f"{window_ms:.3f} ({frames} frames)")
-    log("profile.device_busy_ms", f"{busy:.3f} (busy share "
+    log(f"{prefix}.window_ms", f"{window_ms:.3f} ({frames} frames)")
+    log(f"{prefix}.device_busy_ms", f"{busy:.3f} (busy share "
         f"{busy / window_ms:.3f})")
     for kind, rows in (("kernel", kern), ("op", ops)):
         for ms, n, key in sorted(rows, reverse=True)[:12]:
-            print(f"profile.{kind} {ms / frames:10.3f} ms/frame "
+            print(f"{prefix}.{kind} {ms / frames:10.3f} ms/frame "
                   f"{n // frames:6d} calls/frame  {key[:90]}", flush=True)
     os.makedirs("chiprun_out", exist_ok=True)
-    prof.export_chrome_trace(os.path.join("chiprun_out", "frame_trace.json"))
+    path = os.path.join("chiprun_out", f"{prefix}_trace.json")
+    prof.export_chrome_trace(path)
+    trace_gaps(prefix, path, frames)
+
+
+def trace_gaps(prefix, path, frames):
+    """From a Chrome trace: the union of the device's busy intervals
+    over the span from its first to its last device event, the idle
+    gaps between them, and per frame the host-to-device copies and the
+    host's stream synchronisations (each one drains the device's queue
+    before the host launches on)."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    dev = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                 if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy, gaps, (s0, e0) = 0.0, [], dev[0]
+    for s1, e1 in dev[1:]:
+        if s1 > e0:
+            busy += e0 - s0
+            gaps.append(s1 - e0)
+            s0, e0 = s1, e1
+        else:
+            e0 = max(e0, e1)
+    busy += e0 - s0
+    span = dev[-1][1] - dev[0][0]
+    h2d = sum(1 for e in events if e.get("cat") == "gpu_memcpy"
+              and "HtoD" in e.get("name", ""))
+    syncs = sum(1 for e in events if e.get("cat") == "cuda_runtime"
+                and e.get("name") == "cudaStreamSynchronize")
+    log(f"{prefix}.trace", f"device ops {len(dev) / frames:.0f}/frame, "
+        f"busy {busy / 1e3:.3f} of {span / 1e3:.3f} ms (share "
+        f"{busy / span:.3f}), idle gaps {sum(gaps) / 1e3 / frames:.3f} "
+        f"ms/frame ({sum(g for g in gaps if g > 100) / 1e3 / frames:.3f} "
+        f"in gaps over 0.1 ms), host-to-device copies "
+        f"{h2d / frames:.1f}/frame, stream syncs {syncs / frames:.1f}/frame")
 
 
 def check_small_frame(dev):
@@ -518,13 +586,334 @@ def check_small_frame(dev):
                              "plain versions")
 
 
+# ------------------------------------------------------------- phase 4
+
+
+BASE_EYE = (0.0, 0.6, 3.0)
+
+
+def dist_steps(dev, n, grid, base_eye, fold="auto"):
+    """The distributed temporal step of an ``n``-rank mesh on ``dev``
+    for a ``grid``^3 volume, in the march regime of ``base_eye``: (mesh,
+    spec, tf, configs, seed, step, camera(i))."""
+    from scenery_insitu_tpu_torch.config import (CompositeConfig,
+                                                 SliceMarchConfig, VDIConfig)
+    from scenery_insitu_tpu_torch.core.camera import Camera, orbit
+    from scenery_insitu_tpu_torch.core.transfer import for_dataset
+    from scenery_insitu_tpu_torch.ops import slicer
+    from scenery_insitu_tpu_torch.parallel import pipeline as dp
+    from scenery_insitu_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(n, device=dev)
+    base = Camera.create(base_eye, fov_y_deg=50.0, near=0.5, far=20.0,
+                         device=dev)
+    vcfg = VDIConfig(max_supersegments=K, adaptive_mode="temporal",
+                     histogram_bins=BINS)
+    ccfg = CompositeConfig(max_output_supersegments=K_OUT,
+                           adaptive_iters=COMP_ITERS)
+    spec = slicer.make_spec(base, (grid,) * 3,
+                            SliceMarchConfig(fold=fold, chunk=CHUNK),
+                            axis_sign=slicer.choose_axis(base),
+                            multiple_of=n)
+    tf = for_dataset("gray_scott", device=dev)
+    seed = dp.distributed_initial_threshold_mxu(mesh, tf, spec, vcfg)
+    step = dp.distributed_vdi_step_mxu_temporal(mesh, tf, spec, vcfg, ccfg)
+
+    def camera(i):
+        return Camera.create(orbit(base, yaw_of(i)).eye, fov_y_deg=50.0,
+                             near=0.5, far=20.0, device=dev)
+
+    return mesh, spec, tf, (vcfg, ccfg), seed, step, camera
+
+
+def check_vdi(prefix, vdi, want_c, want_d):
+    import torch
+
+    if tuple(vdi.color.shape) != want_c or tuple(vdi.depth.shape) != want_d:
+        raise AssertionError(f"{prefix}: VDI shapes {tuple(vdi.color.shape)}"
+                             f", {tuple(vdi.depth.shape)}; expected "
+                             f"{want_c}, {want_d}")
+    if not bool(torch.isfinite(vdi.color).all()):
+        raise AssertionError(f"{prefix}: VDI color is not finite")
+    if not bool((torch.isfinite(vdi.depth) | (vdi.depth == torch.inf))
+                .all()):
+        raise AssertionError(f"{prefix}: VDI depth holds NaN or -inf")
+    live = torch.isfinite(vdi.depth[:, 0])
+    log(f"{prefix}.live_slots", f"{int(live.sum())} of {live.numel()} "
+        f"(pixels with a slot: {int(live.any(0).sum())})")
+    if not bool(live.any()):
+        raise AssertionError(f"{prefix}: the VDI has no live slot")
+
+
+def image_psnr(a, b) -> float:
+    """PSNR in dB of two premultiplied images over white, rgb in [0, 1]."""
+    import torch
+
+    def over_white(img):
+        return (img[:3] + (1.0 - img[3:4])).clamp(0.0, 1.0)
+
+    mse = float(torch.mean((over_white(a) - over_white(b)) ** 2))
+    return math.inf if mse == 0.0 else 10.0 * math.log10(1.0 / mse)
+
+
+def run_dist_frame(dev, profile=False):
+    """The distributed temporal frame at the flagship size on an
+    8-rank mesh: K3 advances the whole grid, `shard_volume` cuts it into
+    z-slabs, and the step marches every slab, exchanges the column
+    blocks and composites them through K4. ``seed`` once, 2 warm-up and
+    6 timed frames with the launch counts read from that run; then the
+    frame's phases timed apart on its final state; then, as information,
+    the PSNR of its image against the single-chip march at the same eye.
+    Returns the launch counts and the frame's exchanged column blocks."""
+    import torch
+
+    from scenery_insitu_tpu_torch import kernels
+    from scenery_insitu_tpu_torch.config import VDIConfig
+    from scenery_insitu_tpu_torch.core.vdi import render_vdi_same_view
+    from scenery_insitu_tpu_torch.core.volume import Volume
+    from scenery_insitu_tpu_torch.ops import slicer
+    from scenery_insitu_tpu_torch.ops.composite import composite_vdis
+    from scenery_insitu_tpu_torch.parallel import pipeline as dp
+    from scenery_insitu_tpu_torch.parallel.mesh import shard_volume
+    from scenery_insitu_tpu_torch.sim import grayscott as gs
+
+    mesh, spec, tf, (vcfg, ccfg), seed, step, camera = dist_steps(
+        dev, RANKS, GRID, BASE_EYE)
+    log("dist.spec", f"{spec} ranks={RANKS} slab={GRID // RANKS}x{GRID}x"
+        f"{GRID} k_out={K_OUT} composite_iters={COMP_ITERS}")
+    st = gs.GrayScott.init((GRID,) * 3, seed=SEED, device=dev)
+    u, v = st.u, st.v
+    box = Volume.centered(v, extent=2.0)
+    origin, spacing = box.origin, box.spacing
+
+    def frame(u, v, thr, i):
+        state = gs.multi_step_fast(gs.GrayScott(u, v, st.params), SIM_STEPS)
+        (vdi, _), thr = step(shard_volume(state.field, mesh), origin,
+                             spacing, camera(i), thr)
+        return vdi, state.u, state.v, thr
+
+    kernels.reset_launches()
+    thr = seed(shard_volume(v, mesh), origin, spacing, camera(-1))
+    for i in range(WARMUP_FRAMES):
+        vdi, u, v, thr = frame(u, v, thr, i)
+    torch.cuda.synchronize()
+    ev, wall = [], []
+    for i in range(WARMUP_FRAMES, WARMUP_FRAMES + TIMED_FRAMES):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        h0 = time.perf_counter()
+        a.record()
+        vdi, u, v, thr = frame(u, v, thr, i)
+        b.record()
+        b.synchronize()
+        wall.append((time.perf_counter() - h0) * 1e3)
+        ev.append(a.elapsed_time(b))
+    launches = kernels.launches()
+    log("dist.launches", json.dumps(launches))
+    require_launched(launches, DIST_KERNELS, "the distributed frame")
+    frames = WARMUP_FRAMES + TIMED_FRAMES
+    if launches["resegment_sorted"] != RANKS * frames:
+        raise AssertionError(f"K4 launched {launches['resegment_sorted']} "
+                             f"times in {frames} frames of {RANKS} ranks")
+    ev.sort()
+    wall.sort()
+    log("dist.ms_per_frame", f"{ev[len(ev) // 2]:.3f} (median of "
+        f"{TIMED_FRAMES}, CUDA events; host clock "
+        f"{wall[len(wall) // 2]:.3f})")
+    check_vdi("dist", vdi, (K_OUT, 4, spec.nj, spec.ni),
+              (K_OUT, 2, spec.nj, spec.ni))
+    if not bool(torch.isfinite(thr.thr).all()):
+        raise AssertionError("dist: threshold maps are not finite")
+
+    # the phases, timed apart on the final state
+    sim_ms = median_ms(lambda _: gs.multi_step_fast(
+        gs.GrayScott(u, v, st.params), SIM_STEPS), 5)
+    slabs = shard_volume(v, mesh)
+    halo = dp._halo_for(slabs, spec)
+    cam = camera(WARMUP_FRAMES + TIMED_FRAMES)
+
+    def march(_):
+        return [dp._mxu_rank_generate(slabs, halo, r, origin, spacing, cam,
+                                      spec, tf, vcfg,
+                                      dp._rank_thr(thr, r, spec.nj))[0]
+                for r in range(RANKS)]
+
+    march_ms = median_ms(march, 3)
+    frags = march(None)
+    colors = torch.stack([f.color for f in frags])
+    depths = torch.stack([f.depth for f in frags])
+    del frags
+    exchange_ms = median_ms(lambda _: dp._exchange_vdi_columns(
+        colors, depths, RANKS), 5)
+    rc, rd = dp._exchange_vdi_columns(colors, depths, RANKS)
+    del colors, depths
+    composite_ms = median_ms(lambda _: [
+        composite_vdis(rc[j], rd[j], ccfg) for j in range(RANKS)], 3)
+    log("dist.sim_ms", f"{sim_ms:.3f}")
+    log("dist.march_ms", f"{march_ms:.3f} (sum over {RANKS} ranks)")
+    log("dist.exchange_ms", f"{exchange_ms:.3f}")
+    log("dist.composite_ms", f"{composite_ms:.3f} (sort + K4, {RANKS} "
+        f"column blocks)")
+    if profile:
+        state = [u, v, thr]
+
+        def one(i):
+            _, state[0], state[1], state[2] = frame(*state, i)
+
+        profile_frames("dist.profile", one)
+
+    # information only: the same state and eye, histogram thresholds,
+    # against the single-chip march
+    hcfg = VDIConfig(max_supersegments=K, adaptive_mode="histogram",
+                     histogram_bins=BINS)
+    dvdi, _ = dp.distributed_vdi_step_mxu(mesh, tf, spec, hcfg, ccfg)(
+        slabs, origin, spacing, cam)
+    svdi, _, _ = slicer.generate_vdi_mxu(Volume.centered(v, extent=2.0), tf,
+                                         cam, spec, hcfg)
+    psnr = image_psnr(render_vdi_same_view(dvdi), render_vdi_same_view(svdi))
+    log("dist.psnr_vs_single_chip_db", f"{psnr:.2f} (information; "
+        f"histogram thresholds, same state and eye)")
+    return launches, rc, rd
+
+
+def seeded_sorted_stream(nk, h, w, dev, seed):
+    """A per-pixel depth-sorted stream as the composite sees it: a random
+    number of live slots front to back (repeated colours, depth gaps,
+    alphas below the empty cut), then empty slots."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *s: torch.rand(s, generator=g, device=dev)
+    start = torch.sort(1.0 + 4.0 * r(nk, h, w), dim=0).values
+    end = start + torch.where(r(nk, h, w) < 0.5, 0.001, 0.2)
+    rgb = r(nk, 3, h, w)
+    dup = (r(nk, 1, h, w) < 0.3) & (torch.arange(nk, device=dev)
+                                    .reshape(nk, 1, 1, 1) > 0)
+    rgb = torch.where(dup, torch.roll(rgb, 1, 0), rgb)
+    a = 0.05 + 0.9 * r(nk, 1, h, w)
+    a = torch.where(r(nk, 1, h, w) < 0.1, 5e-5, a)
+    n_live = (r(h, w) * (nk + 1)).floor()
+    live = torch.arange(nk, device=dev).reshape(nk, 1, 1) < n_live
+    color = torch.where(live[:, None], torch.cat([rgb * a, a], 1), 0.0)
+    depth = torch.where(live[:, None], torch.stack([start, end], 1),
+                        torch.inf)
+    return color.contiguous(), depth.contiguous()
+
+
+def k4_bound(sc, iters):
+    """Bytes and operations the resegment of ``sc`` needs: every slot's
+    alpha (to find where the stream ends), colour and depth of the slots
+    up to one past the last non-empty one, the K_OUT output slots."""
+    import torch
+
+    nk, _, h, w = sc.shape
+    nonempty = sc[:, 3] >= 1e-4
+    idx = torch.arange(1, nk + 1, device=sc.device).reshape(nk, 1, 1)
+    walked = torch.clamp((nonempty * idx).amax(0) + 1, max=nk)
+    slots = float(walked.sum())
+    nbytes = 4 * (nk * h * w + 5 * slots + 6 * K_OUT * h * w)
+    return bound_ms(nbytes, slots * (iters * RESEG_COUNT_FLOPS
+                                     + RESEG_WRITE_FLOPS)), slots / (h * w)
+
+
+def check_resegment(dev, rc, rd):
+    """K4 against its plain version on the card at the distributed
+    frame's per-rank shapes: a seeded stream and the frame's own
+    exchanged column block with the most live slots. Thresholds and
+    live slots exact, colour and depth within 1e-6; times, bound."""
+    import torch
+
+    from scenery_insitu_tpu_torch.ops import cuda_composite as cc
+    from scenery_insitu_tpu_torch.ops.composite import sort_stream
+
+    _, n, k, _, h, w = rc.shape
+    j = int(torch.isfinite(rd[:, :, :, 0]).flatten(1).sum(1).argmax())
+    frame_block = sort_stream(rc[j].reshape(n * k, 4, h, w),
+                              rd[j].reshape(n * k, 2, h, w))
+    seeded = seeded_sorted_stream(n * k, h, w, dev, SEED)
+    res = {}
+    for name, (sc, sd) in (("seeded", seeded), ("frame_block", frame_block)):
+        tk = torch.empty((h, w), device=dev)
+        tp = torch.empty((h, w), device=dev)
+        ck = cc.resegment_sorted(sc, sd, None, K_OUT,
+                                 adaptive_iters=COMP_ITERS, threshold_out=tk)
+        cp = cc.resegment_sorted_plain(sc, sd, None, K_OUT,
+                                       adaptive_iters=COMP_ITERS,
+                                       threshold_out=tp)
+        torch.cuda.synchronize()
+        thr_mism = int((tk != tp).sum())
+        slot_mism = int((torch.isfinite(ck[1][:, 0]).sum(0)
+                         != torch.isfinite(cp[1][:, 0]).sum(0)).sum())
+        log(f"resegment_{name}.mismatches", f"thresholds {thr_mism}, live "
+            f"slot counts {slot_mism} (must be 0)")
+        if thr_mism or slot_mism:
+            raise AssertionError(f"resegment_{name}: K4 differs from its "
+                                 f"plain version in thresholds or counts")
+        err = max(max_abs(ck[0], cp[0]), max_abs(ck[1], cp[1]))
+        check(f"resegment_{name}", err, 1e-6)
+        ms = median_ms(lambda _: cc.resegment_sorted(
+            sc, sd, None, K_OUT, adaptive_iters=COMP_ITERS), 20)
+        pms = median_ms(lambda _: cc.resegment_sorted_plain(
+            sc, sd, None, K_OUT, adaptive_iters=COMP_ITERS), 3)
+        (b, by), walked = k4_bound(sc, COMP_ITERS)
+        log(f"resegment_{name}.ms", f"{ms:.4f} plain_ms={pms:.4f} "
+            f"bound_ms={b:.4f} ({by}) nk={n * k} hw={h}x{w} "
+            f"slots_walked_per_pixel={walked:.2f}")
+        res[name] = dict(err=err, ms=ms, plain_ms=pms, bound_ms=b,
+                         bound_by=by)
+    return res
+
+
+def check_small_dist(dev):
+    """The distributed step on the card (K1, K2, K4) against the CPU's
+    plain versions on a 32^3 Gray-Scott volume over 4 ranks, in both
+    march regimes: seed + 3 temporal frames from the same inputs."""
+    import torch
+
+    from scenery_insitu_tpu_torch.core.vdi import render_vdi_same_view
+    from scenery_insitu_tpu_torch.core.volume import Volume
+    from scenery_insitu_tpu_torch.parallel.mesh import shard_volume
+    from scenery_insitu_tpu_torch.sim import grayscott as gs
+
+    n = 32
+    v0 = gs.multi_step(gs.GrayScott.init((n,) * 3, seed=SEED, device="cpu"),
+                       2 * SIM_STEPS).v
+    box = Volume.centered(v0, extent=2.0)
+    for regime, eye in (("z", BASE_EYE), ("x", (3.0, 0.6, 0.4))):
+        outs = {}
+        for name, d in (("cuda", dev), ("cpu", "cpu")):
+            mesh, spec, _, _, seed, step, camera = dist_steps(
+                d, SMALL_RANKS, n, eye, fold="pallas_seg")
+            data = shard_volume(v0.to(d), mesh)
+            origin, spacing = box.origin.to(d), box.spacing.to(d)
+            thr = seed(data, origin, spacing, camera(-1))
+            imgs = []
+            for i in range(3):
+                (vdi, _), thr = step(data, origin, spacing, camera(i), thr)
+                imgs.append(render_vdi_same_view(vdi).cpu())
+            outs[name] = (torch.stack(imgs), thr.thr.cpu(), spec)
+        log(f"small_dist_{regime}.spec", outs["cpu"][2])
+        diff = (outs["cuda"][0] - outs["cpu"][0]).abs()
+        tdiff = float((outs["cuda"][1] - outs["cpu"][1]).abs().max())
+        log(f"small_dist_{regime}.image_max_abs_diff",
+            f"{float(diff.max()):.3e}")
+        log(f"small_dist_{regime}.image_mean_abs_diff",
+            f"{float(diff.mean()):.3e}")
+        log(f"small_dist_{regime}.threshold_max_abs_diff", f"{tdiff:.3e}")
+        if not (float(diff.max()) <= 1e-4 and float(diff.mean()) <= 1e-4):
+            raise AssertionError(f"the card's distributed frame ({regime} "
+                                 f"march) differs from the CPU's plain "
+                                 f"versions")
+
+
 # ---------------------------------------------------------------- main
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile two frames: device time by kernel "
+                    help="also profile two frames of each path: device "
+                         "time by kernel "
                          "and the device's busy share")
     args = ap.parse_args(argv)
 
@@ -555,6 +944,12 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     launches = run_frame(dev, args.profile)
     check_small_frame(dev)
+    torch.cuda.empty_cache()
+    dist_launches, rc, rd = run_dist_frame(dev, args.profile)
+    reseg = check_resegment(dev, rc, rd)
+    del rc, rd
+    torch.cuda.empty_cache()
+    check_small_dist(dev)
 
     table = [
         dict(name="grayscott_fused", route="cuda",
@@ -582,10 +977,20 @@ def main(argv=None) -> int:
              plain_ms=fold[16]["count"]["plain_ms"],
              bound_ms=fold[16]["count"]["bound_ms"],
              bound_by=fold[16]["count"]["bound_by"], library_ms=None),
+        dict(name="resegment_sorted", route="cuda",
+             source="scenery_insitu_tpu_torch/csrc/resegment.cu",
+             replaces="scenery_insitu_tpu/ops/pallas_composite.py:172",
+             launches=dist_launches["resegment_sorted"],
+             max_abs_err=max(r["err"] for r in reseg.values()),
+             ms=reseg["frame_block"]["ms"],
+             plain_ms=reseg["frame_block"]["plain_ms"],
+             bound_ms=reseg["frame_block"]["bound_ms"],
+             bound_by=reseg["frame_block"]["bound_by"], library_ms=None),
     ]
     log("library_ms", "null for every kernel: no single PyTorch call "
-        "computes the fused Gray-Scott steps, the segmented write fold or "
-        "the multi-threshold count")
+        "computes the fused Gray-Scott steps, the segmented write fold, "
+        "the multi-threshold count or the sort-and-resegment of a "
+        "supersegment stream")
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

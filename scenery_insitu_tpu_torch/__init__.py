@@ -1,4 +1,6 @@
-"""PyTorch/CUDA port of the single-chip in-situ VDI frame.
+"""PyTorch/CUDA port of the in-situ VDI frame: the single-chip frame
+(``models/pipelines.py``) and the distributed sort-last frame over an
+in-process rank mesh (``parallel/``).
 
 A second package beside ``scenery_insitu_tpu`` (the JAX reference, which
 this package never imports). It keeps the reference's conventions at

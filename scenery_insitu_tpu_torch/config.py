@@ -1,9 +1,10 @@
-"""Configuration dataclasses of the single-chip frame.
+"""Configuration dataclasses of the frame and the distributed frame.
 
 The port's own copy of the reference's ``config.py`` classes that the
-frame reads: same field names, defaults and validation messages. Only the
-single-chip values of the sort-last exchange settings are accepted; the
-distributed composite is a later slice of the port (ROADMAP queue A8).
+frames read: same field names, defaults and validation messages. Of the
+sort-last exchange settings only the ``all_to_all`` exchange, the
+``f32`` wire and the ``frame`` schedule are accepted; the others are a
+later slice of the port (ROADMAP queue A8b).
 """
 
 from __future__ import annotations
@@ -85,8 +86,10 @@ class CompositeConfig:
     max_output_supersegments: int = 20
     adaptive: bool = True
     adaptive_iters: int = 6
-    # merge-fold schedule: "auto" | "xla" | "pallas" (the fused resegment
-    # kernel is ROADMAP B3 and raises here)
+    # merge-fold schedule: "xla" (the sequential machine over the slots),
+    # "pallas" (the fused resegment, kernel K4 in ops/cuda_composite.py;
+    # its plain version on a CPU tensor) or "auto" (K4 on a CUDA tensor,
+    # "xla" on the CPU)
     backend: str = "auto"
     exchange: str = "all_to_all"
     wire: str = "f32"
@@ -102,15 +105,17 @@ class CompositeConfig:
         if self.schedule not in ("frame", "waves"):
             raise ValueError(f"schedule must be 'frame' or 'waves', "
                              f"got {self.schedule!r}")
-        single = (("exchange", "all_to_all"), ("wire", "f32"),
+        if self.backend not in ("auto", "xla", "pallas"):
+            raise ValueError(f"backend must be 'auto', 'xla' or 'pallas', "
+                             f"got {self.backend!r}")
+        ported = (("exchange", "all_to_all"), ("wire", "f32"),
                   ("schedule", "frame"))
-        for name, value in single:
+        for name, value in ported:
             if getattr(self, name) != value:
                 raise ValueError(
-                    f"{name}={getattr(self, name)!r} configures the "
-                    f"distributed composite, which this port does not run "
-                    f"yet (ROADMAP queue A8); the single-chip value is "
-                    f"{value!r}")
+                    f"{name}={getattr(self, name)!r} is a distributed "
+                    f"composite setting this port does not run yet "
+                    f"(ROADMAP queue A8b); the ported value is {value!r}")
 
 
 @dataclass(frozen=True)

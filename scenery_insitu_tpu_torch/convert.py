@@ -53,14 +53,17 @@ def transfer_function(tf, device=None) -> TransferFunction:
 
 
 def threshold_state(state, device=None) -> ThresholdState:
-    """thr, lo, hi f32[H, W]."""
+    """thr, lo, hi f32[H, W]; for the distributed temporal step, the
+    rank-stacked maps f32[n*nj, ni] (rank r's rows r*nj:(r+1)*nj)."""
     dev = resolve_device(device)
     return ThresholdState(*(_tensor(x, np.float32, dev) for x in
                             _fields(state, ThresholdState._fields)))
 
 
 def vdi(value, device=None) -> VDI:
-    """color f32[K,4,H,W], depth f32[K,2,H,W]."""
+    """color f32[K,4,H,W], depth f32[K,2,H,W]; a distributed step's VDI
+    is the global one, every rank's column block side by side (what the
+    reference's W-sharded output holds)."""
     dev = resolve_device(device)
     return VDI(*(_tensor(x, np.float32, dev) for x in
                  _fields(value, VDI._fields)))

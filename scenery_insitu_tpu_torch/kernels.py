@@ -9,8 +9,9 @@ starts one ``nvcc`` per missing library and waits for all of them, so
 the kernels compile in parallel.
 
 The libraries are loaded with ``ctypes``: every pointer and the stream
-are passed as ``c_void_p``, every C entry returns ``cudaGetLastError()``
-and `launch` raises when it is not 0. Nothing here falls back: a kernel
+are passed as ``c_void_p``, every int as ``c_int`` and every float as
+``c_float``; every C entry returns ``cudaGetLastError()`` and `launch`
+raises when it is not 0. Nothing here falls back: a kernel
 that does not build or does not launch raises.
 
 Every wrapper calls `launch`, which adds one to the kernel's launch
@@ -39,7 +40,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: name -> (library, argtypes); each returns cudaError_t
 ENTRIES = {
     # rgba, length, thr, sk0, sk1, color, depth, small, C, K, H, W, stream
@@ -48,6 +49,10 @@ ENTRIES = {
     "count_multi": ("count_multi", [_P] * 5 + [_I] * 4 + [_P]),
     # u, v, params, u_out, v_out, D, H, W, T, stream
     "grayscott_fused": ("stencil", [_P] * 5 + [_I] * 4 + [_P]),
+    # sc, sd, thr, color, depth, thr_out (or NULL), NK, K_out, H, W,
+    # iters, gap_eps, thr_max, stream
+    "resegment_sorted": ("resegment", [_P] * 6 + [_I] * 5 + [_F] * 2
+                         + [_P]),
 }
 LIBRARIES = tuple(sorted({lib for lib, _ in ENTRIES.values()}))
 

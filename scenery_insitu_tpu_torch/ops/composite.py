@@ -1,8 +1,12 @@
 """Sort-last VDI compositing: merge N ranks' sub-VDIs of the same pixels
 into one VDI of at most K_out supersegments. The N·K segments of a pixel
 are sorted by start depth and folded through the supersegment machine
-for re-segmentation. With one rank whose VDI already fits, the input is
-returned unchanged (padded to K_out).
+for re-segmentation: the adaptive threshold search and the write fold,
+either as the sequential machine over the slots (``backend="xla"``) or
+fused in kernel K4 (``backend="pallas"``, ``ops/cuda_composite.py``).
+``"auto"`` picks K4 for a CUDA tensor and the sequential machine on the
+CPU. With one rank whose VDI already fits, the input is returned
+unchanged (padded to K_out).
 """
 
 from __future__ import annotations
@@ -13,7 +17,7 @@ import torch
 
 from scenery_insitu_tpu_torch.config import CompositeConfig
 from scenery_insitu_tpu_torch.core.vdi import VDI
-from scenery_insitu_tpu_torch.ops import supersegments as ss
+from scenery_insitu_tpu_torch.ops import cuda_composite as cc
 
 
 def composite_vdis(colors: torch.Tensor, depths: torch.Tensor,
@@ -70,33 +74,24 @@ def resegment_stream(sc: torch.Tensor, sd: torch.Tensor,
                      gap_eps: float = 1e-4) -> VDI:
     """Re-segment one per-pixel depth-sorted stream into at most
     ``cfg.max_output_supersegments`` supersegments: adaptive threshold
-    search by counting passes, then one ``push`` fold."""
+    search by counting passes, then one ``push`` fold, under the
+    backend of ``cfg.backend``."""
     cfg = cfg or CompositeConfig()
     _, _, h, w = sc.shape
     k_out = cfg.max_output_supersegments
-    dev = sc.device
-    if cfg.backend == "pallas":
-        raise NotImplementedError(
-            "backend='pallas' needs the fused resegment kernel "
-            "(pallas_composite.resegment_sorted), which this port does not "
-            "have yet (ROADMAP B3)")
-    if cfg.backend not in ("auto", "xla"):
-        raise ValueError(f"unknown composite backend {cfg.backend!r}")
-
-    if cfg.adaptive:
-        def count_fn(thr):
-            st = ss.init_count(h, w, device=dev)
-            for c, d in zip(sc, sd):
-                st = ss.push_count(st, thr, c, d[0], d[1], gap_eps)
-            return st.count
-        threshold = ss.adaptive_threshold(count_fn, k_out,
-                                          cfg.adaptive_iters, h, w,
-                                          device=dev)
-    else:
-        threshold = torch.zeros((h, w), device=dev)
-
-    state = ss.init_state(k_out, h, w, device=dev)
-    for c, d in zip(sc, sd):
-        state = ss.push(state, k_out, threshold, c, d[0], d[1], gap_eps)
-    color, depth = ss.finalize(state)
+    backend = cfg.backend
+    if backend == "auto":
+        backend = "pallas" if sc.device.type == "cuda" else "xla"
+    iters = cfg.adaptive_iters if cfg.adaptive else 0
+    if backend == "pallas":
+        # fully fused: the threshold search runs inside the kernel
+        color, depth = cc.resegment_sorted(sc, sd, None, k_out, gap_eps,
+                                           adaptive_iters=iters)
+        return VDI(color, depth)
+    # the sequential machine; with no search iterations an adaptive
+    # composite keeps the bisection's upper end, as the reference does
+    thr = torch.full((h, w), 2.0 if cfg.adaptive else 0.0,
+                     dtype=torch.float32, device=sc.device)
+    color, depth = cc.resegment_sorted_plain(sc, sd, thr, k_out, gap_eps,
+                                             adaptive_iters=iters)
     return VDI(color, depth)

@@ -93,10 +93,13 @@ def choose_axis(cam: Camera) -> Tuple[int, int]:
 
 def make_spec(cam: Camera, vol_shape: Tuple[int, int, int],
               cfg: Optional[SliceMarchConfig] = None,
-              axis_sign: Optional[Tuple[int, int]] = None) -> AxisSpec:
+              axis_sign: Optional[Tuple[int, int]] = None,
+              multiple_of: int = 1) -> AxisSpec:
     """Static spec for a camera and a volume shape ([D, H, W]).
 
-    The card is not a TPU, so the reference's off-TPU rules hold:
+    ``multiple_of`` rounds the intermediate dims up to a multiple of it:
+    the distributed step splits the width into one column block per
+    rank. The card is not a TPU, so the reference's off-TPU rules hold:
     ``matmul_dtype`` resolves to f32 (bf16 resampling is a later PR) and
     ``occupancy_vtiles=-1`` to 0. ``fold="auto"`` resolves by the
     camera's device: ``pallas_seg`` (kernels K1/K2) on CUDA, ``xla`` on
@@ -105,7 +108,8 @@ def make_spec(cam: Camera, vol_shape: Tuple[int, int, int],
     axis, sign = axis_sign or choose_axis(cam)
     u_axis, v_axis = _UV[axis]
     dims_xyz = (vol_shape[2], vol_shape[1], vol_shape[0])
-    rnd = lambda n: max(8, int(-(-int(n * cfg.scale) // 8)) * 8)
+    step = int(8 * multiple_of // np.gcd(8, multiple_of))
+    rnd = lambda n: max(step, int(-(-int(n * cfg.scale) // step)) * step)
     ni = rnd(dims_xyz[u_axis])
     nj = rnd(dims_xyz[v_axis])
     fold = cfg.fold
@@ -180,13 +184,17 @@ def permute_volume(vol: Volume, spec: AxisSpec) -> torch.Tensor:
     return volp.contiguous()
 
 
-def make_axis_camera(vol: Volume, cam: Camera,
-                     spec: AxisSpec) -> AxisCamera:
+def make_axis_camera(vol: Volume, cam: Camera, spec: AxisSpec,
+                     box_min: Optional[torch.Tensor] = None,
+                     box_max: Optional[torch.Tensor] = None) -> AxisCamera:
     """The virtual camera of this frame; its footprint is the volume's
-    AABB."""
+    AABB, or ``box_min``/``box_max`` when given: the distributed step
+    passes the global volume's box, so every rank marches the same slice
+    ladder onto the same intermediate grid."""
     a, ua, va = spec.axis, spec.u_axis, spec.v_axis
     dev = vol.origin.device
-    box_min, box_max = vol.world_min, vol.world_max
+    box_min = vol.world_min if box_min is None else box_min
+    box_max = vol.world_max if box_max is None else box_max
 
     eye = cam.eye
     ew, eu, ev = eye[a], eye[ua], eye[va]
@@ -251,13 +259,16 @@ def _axis_params(vol: Volume, spec: AxisSpec):
             vol.origin[va], vol.spacing[va], nv)
 
 
-def _interp_matrix(pos: torch.Tensor, origin, spacing,
-                   n: int) -> torch.Tensor:
+def _interp_matrix(pos: torch.Tensor, origin, spacing, n: int,
+                   bounds=None) -> torch.Tensor:
     """Banded bilinear interpolation weights of world positions ``pos
     [C, M]`` against voxel rows 0..n-1 -> ``[C, M, n]``. Clamp-to-edge
-    inside the volume extent, zero outside."""
+    inside the volume extent, zero outside; ``bounds`` (lo, hi) further
+    restricts to the half-open world interval a rank owns."""
     x = (pos - origin) / spacing - 0.5
     valid = (x >= -0.5) & (x <= n - 0.5)
+    if bounds is not None:
+        valid &= (pos >= bounds[0]) & (pos < bounds[1])
     xc = torch.clamp(x, 0.0, n - 1.0)
     cols = torch.arange(n, dtype=torch.float32,
                         device=pos.device).reshape(1, 1, n)
@@ -330,7 +341,7 @@ def _tile_hits(occ_tiles, axcam, spec, local_w0, s_total, nchunks, nv, ov,
 def slice_march(vol: Volume, tf: TransferFunction, axcam: AxisCamera,
                 spec: AxisSpec, consume: Callable, carry0, occupancy=None,
                 shaded_compact: bool = False,
-                volp: Optional[torch.Tensor] = None):
+                volp: Optional[torch.Tensor] = None, v_bounds=None):
     """The chunked slice march. Calls ``consume(carry, rgba [C,4,Nj,Ni],
     t0 [C,Nj,Ni], t1 [C,Nj,Ni]) -> carry`` for each chunk of slices,
     front to back, and returns the final carry. rgba is premultiplied,
@@ -346,7 +357,12 @@ def slice_march(vol: Volume, tf: TransferFunction, axcam: AxisCamera,
     ``shaded_compact=True`` replaces the depth planes by the per-slice
     ratios: ``consume(carry, rgba, sk0 [C], sk1 [C])`` where the plane
     form's t0/t1 are ``sk0*length`` / ``sk1*length`` (length =
-    ``axcam.ray_lengths()``) — the feed of kernel K1."""
+    ``axcam.ray_lengths()``) — the feed of kernel K1.
+
+    ``v_bounds`` (lo, hi): the half-open world interval of the in-plane
+    v axis this volume owns; samples outside it are transparent. A rank
+    of the distributed step whose slab is cut across v owns its rows
+    only, so every sample belongs to exactly one rank."""
     occ_tiles = None
     if isinstance(occupancy, tuple):
         occupancy, occ_tiles = occupancy
@@ -402,7 +418,7 @@ def slice_march(vol: Volume, tf: TransferFunction, axcam: AxisCamera,
         pos_u = eu + (axcam.u_grid[None, :] - eu) * sk[:, None]   # [C, Ni]
         pos_v = ev + (axcam.v_grid[None, :] - ev) * sk[:, None]   # [C, Nj]
         wu = _interp_matrix(pos_u, ou, su, nu)                    # [C,Ni,Nu]
-        wv = _interp_matrix(pos_v, ov, sv, nv)                    # [C,Nj,Nv]
+        wv = _interp_matrix(pos_v, ov, sv, nv, v_bounds)          # [C,Nj,Nv]
         inside = ((wv.sum(-1) > 0.0)[:, :, None]
                   & (wu.sum(-1) > 0.0)[:, None, :])
         keep = inside & live[:, None, None]
@@ -453,6 +469,8 @@ def slice_march(vol: Volume, tf: TransferFunction, axcam: AxisCamera,
 
 def _vdi_meta(vol: Volume, axcam: AxisCamera, ni: int,
               nj: int) -> VDIMetadata:
+    """The VDI's metadata; ``volume_dims`` are ``vol``'s own (the
+    distributed step puts the global volume's in their place)."""
     dev = vol.origin.device
     dims = torch.tensor(vol.dims_xyz, dtype=torch.float32, device=dev)
     model = torch.diag(torch.cat([vol.spacing, torch.ones(1, device=dev)]))
@@ -487,17 +505,20 @@ def _histogram_threshold(march, cfg: VDIConfig, k, nj: int, ni: int,
 
 
 def _frame_march(vol: Volume, tf: TransferFunction, cam: Camera,
-                 spec: AxisSpec):
+                 spec: AxisSpec, box_min=None, box_max=None, v_bounds=None):
     """The frame's virtual camera and its march over one permuted copy
     and one occupancy gate: returns (axcam, march) with ``march(consume,
-    carry0, compact=False)`` a `slice_march` of this frame."""
-    axcam = make_axis_camera(vol, cam, spec)
+    carry0, compact=False)`` a `slice_march` of this frame.
+    ``box_min``/``box_max``: see `make_axis_camera`; ``v_bounds``: see
+    `slice_march`."""
+    axcam = make_axis_camera(vol, cam, spec, box_min, box_max)
     volp = permute_volume(vol, spec)
     occ = occupancy_for(vol, tf, spec, volp=volp)
 
     def march(consume, carry0, compact=False):
         return slice_march(vol, tf, axcam, spec, consume, carry0,
-                           occupancy=occ, shaded_compact=compact, volp=volp)
+                           occupancy=occ, shaded_compact=compact, volp=volp,
+                           v_bounds=v_bounds)
 
     return axcam, march
 
@@ -543,13 +564,17 @@ def _write_march(march, axcam, spec, threshold, k, device, count: bool):
 
 
 def generate_vdi_mxu(vol: Volume, tf: TransferFunction, cam: Camera,
-                     spec: AxisSpec, cfg: Optional[VDIConfig] = None
+                     spec: AxisSpec, cfg: Optional[VDIConfig] = None,
+                     box_min: Optional[torch.Tensor] = None,
+                     box_max: Optional[torch.Tensor] = None, v_bounds=None
                      ) -> Tuple[VDI, VDIMetadata, AxisCamera]:
     """VDI generation on the slice march, with the threshold of
     ``cfg.adaptive_mode`` "histogram" (one counting march over all
     candidates), "search" (``adaptive_iters`` counting marches) or fixed
     (``adaptive=False``). ``adaptive_mode="temporal"`` carries state:
-    use `generate_vdi_mxu_temporal`."""
+    use `generate_vdi_mxu_temporal`. ``box_min``/``box_max``/``v_bounds``
+    are a distributed rank's: see `make_axis_camera` and
+    `slice_march`."""
     cfg = cfg or VDIConfig()
     k = cfg.max_supersegments
     nj, ni = spec.nj, spec.ni
@@ -559,7 +584,8 @@ def generate_vdi_mxu(vol: Volume, tf: TransferFunction, cam: Camera,
             "adaptive_mode='temporal' carries per-frame threshold state — "
             "call generate_vdi_mxu_temporal(..., threshold=...) instead "
             "(seed the state with initial_threshold())")
-    axcam, march = _frame_march(vol, tf, cam, spec)
+    axcam, march = _frame_march(vol, tf, cam, spec, box_min, box_max,
+                                v_bounds)
     if cfg.adaptive and cfg.adaptive_mode == "histogram":
         threshold = _histogram_threshold(march, cfg, k, nj, ni, spec.fold,
                                          dev)
@@ -581,12 +607,15 @@ def generate_vdi_mxu(vol: Volume, tf: TransferFunction, cam: Camera,
 
 
 def initial_threshold(vol: Volume, tf: TransferFunction, cam: Camera,
-                      spec: AxisSpec, cfg: Optional[VDIConfig] = None
+                      spec: AxisSpec, cfg: Optional[VDIConfig] = None,
+                      box_min: Optional[torch.Tensor] = None,
+                      box_max: Optional[torch.Tensor] = None, v_bounds=None
                       ) -> ss.ThresholdState:
     """Seed state of the temporal threshold controller ([nj, ni] maps):
-    one histogram counting march on the current scene."""
+    one histogram counting march on the current scene.
+    ``box_min``/``box_max``/``v_bounds``: see `generate_vdi_mxu`."""
     cfg = cfg or VDIConfig()
-    _, march = _frame_march(vol, tf, cam, spec)
+    _, march = _frame_march(vol, tf, cam, spec, box_min, box_max, v_bounds)
     thr = _histogram_threshold(march, cfg, cfg.max_supersegments, spec.nj,
                                spec.ni, spec.fold, vol.data.device)
     return ss.init_threshold_state(thr, cfg.thr_min, cfg.thr_max)
@@ -596,6 +625,9 @@ def generate_vdi_mxu_temporal(vol: Volume, tf: TransferFunction,
                               cam: Camera, spec: AxisSpec,
                               threshold: ss.ThresholdState,
                               cfg: Optional[VDIConfig] = None,
+                              box_min: Optional[torch.Tensor] = None,
+                              box_max: Optional[torch.Tensor] = None,
+                              v_bounds=None,
                               ) -> Tuple[VDI, VDIMetadata, AxisCamera,
                                          ss.ThresholdState]:
     """VDI generation with ONE march per frame (adaptive_mode
@@ -603,10 +635,12 @@ def generate_vdi_mxu_temporal(vol: Volume, tf: TransferFunction,
     with `initial_threshold`); the write march yields the true per-pixel
     segment count, and ``update_threshold`` bisects the map toward the
     target band for the next frame. Returns (vdi, meta, axcam,
-    next_threshold)."""
+    next_threshold). ``box_min``/``box_max``/``v_bounds``: see
+    `generate_vdi_mxu`."""
     cfg = cfg or VDIConfig()
     k = cfg.max_supersegments
-    axcam, march = _frame_march(vol, tf, cam, spec)
+    axcam, march = _frame_march(vol, tf, cam, spec, box_min, box_max,
+                                v_bounds)
     color, depth, count = _write_march(march, axcam, spec, threshold.thr, k,
                                        vol.data.device, count=True)
     next_thr = ss.update_threshold(threshold, count, k,

@@ -1,9 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a card.
 
-K1 (segmented write fold), K2 (multi-threshold count) and K3 (fused
-Gray-Scott stencil) are built from ``scenery_insitu_tpu_torch/csrc`` at
-first use. Every test here needs a CUDA device and skips without one; on
-the card run them with
+K1 (segmented write fold), K2 (multi-threshold count), K3 (fused
+Gray-Scott stencil) and K4 (the composite's resegment) are built from
+``scenery_insitu_tpu_torch/csrc`` at first use. Every test here needs
+a CUDA device and skips without one; on the card run them with
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 
@@ -11,13 +11,15 @@ the card run them with
 does not use). Tolerances: K2 counts exact; K1 within 1e-5 (the kernel
 sums a slot's items sequentially, the plain version with one reduction);
 K3 within 1e-6 per fused step (the library is built without FMA
-contraction, so it repeats the plain version's rounding)."""
+contraction, so it repeats the plain version's rounding); K4 thresholds
+and live slots exact, colours and depths within 1e-6."""
 
 import numpy as np
 import pytest
 import torch
 
 from scenery_insitu_tpu_torch import kernels
+from scenery_insitu_tpu_torch.ops import cuda_composite as cc
 from scenery_insitu_tpu_torch.ops import cuda_march as cm
 from scenery_insitu_tpu_torch.ops import cuda_seg as cs
 from scenery_insitu_tpu_torch.ops import supersegments as ss
@@ -45,6 +47,30 @@ def _stream(c, h, w, dev, seed):
         (rng.random((c, 1, h, w)) > 0.4)
     rgba = np.concatenate([rgb * a, a], axis=1).astype(np.float32)
     return torch.from_numpy(rgba).to(dev)
+
+
+def sorted_stream(nk, h, w, seed):
+    """A per-pixel depth-sorted stream as the composite sees it after its
+    sort: live slots front to back, then empty ones (zero colour, +inf
+    depth). Neighbouring slots repeat a colour (distance 0), leave depth
+    gaps, or carry an alpha below the empty cut, so every break of the
+    machine occurs."""
+    rng = np.random.default_rng(seed)
+    start = np.sort(rng.uniform(1.0, 5.0, (nk, h, w)), axis=0)
+    end = start + rng.choice([0.001, 0.02, 0.2], (nk, h, w))
+    rgb = rng.uniform(0.0, 1.0, (nk, 3, h, w))
+    dup = (rng.random((nk, 1, h, w)) < 0.3) & \
+        (np.arange(nk)[:, None, None, None] > 0)
+    rgb = np.where(dup, np.roll(rgb, 1, axis=0), rgb)
+    a = rng.uniform(0.05, 0.95, (nk, 1, h, w))
+    a = np.where(rng.random((nk, 1, h, w)) < 0.1, 5e-5, a)
+    color = np.concatenate([rgb * a, a], axis=1)
+    n_live = rng.integers(0, nk + 1, (h, w))
+    live = np.arange(nk)[:, None, None] < n_live[None]
+    color = np.where(live[:, None], color, 0.0).astype(np.float32)
+    depth = np.where(live[:, None], np.stack([start, end], axis=1), np.inf)
+    thr = rng.uniform(0.0, 0.5, (h, w)).astype(np.float32)
+    return color, depth.astype(np.float32), thr
 
 
 def _err(a, b):
@@ -112,6 +138,26 @@ def test_count_multi_matches_plain_exactly(dev, chunks, bins, hw):
     torch.cuda.synchronize()
     for a, b in zip(kern, plain):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("nk,k_out,hw,iters", [(32, 16, (40, 80), 6),
+                                                (8, 5, (13, 37), 0),
+                                                (6, 9, (3, 130), 6)])
+def test_resegment_matches_plain(dev, nk, k_out, hw, iters):
+    color, depth, thr = (torch.from_numpy(x).to(dev) for x in
+                         sorted_stream(nk, *hw, seed=nk))
+    tk = torch.empty(hw, device=dev)
+    tp = torch.empty(hw, device=dev)
+    before = kernels.launches()["resegment_sorted"]
+    kern = cc.resegment_sorted(color, depth, thr, k_out,
+                               adaptive_iters=iters, threshold_out=tk)
+    assert kernels.launches()["resegment_sorted"] == before + 1
+    plain = cc.resegment_sorted_plain(color, depth, thr, k_out,
+                                      adaptive_iters=iters, threshold_out=tp)
+    torch.cuda.synchronize()
+    assert torch.equal(tk, tp)
+    for a, b in zip(kern, plain):
+        assert _err(a, b) <= 1e-6
 
 
 def test_wrappers_raise_on_cpu_operand_mixed_with_cuda(dev):

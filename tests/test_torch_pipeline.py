@@ -230,11 +230,24 @@ def test_composite_matches_reference(n, k, k_out):
 
 
 def test_composite_pallas_backend_is_not_ported_yet():
-    color, depth = _vdi_stack(8, 1, 3, 8, 8)
-    with pytest.raises(NotImplementedError, match="B3"):
-        tcomp.composite_vdis(torch.from_numpy(color), torch.from_numpy(depth),
-                             tcfg.CompositeConfig(max_output_supersegments=2,
-                                                  backend="pallas"))
+    """The test of ``backend="pallas"``, which raised until kernel K4
+    was ported under its name: on the CPU the fused resegment (the plain
+    version of K4) equals the reference's Pallas path (interpret mode)
+    within 1e-6, for one rank with fewer output slots than input slots
+    and for two ranks."""
+    for n, k, k_out in ((1, 3, 2), (2, 3, 4)):
+        color, depth = _vdi_stack(8 + n, n, k, 8, 8)
+        cfg = dict(max_output_supersegments=k_out, adaptive_iters=3,
+                   backend="pallas")
+        jo = jcomp.composite_vdis(jnp.asarray(color), jnp.asarray(depth),
+                                  jcfg.CompositeConfig(**cfg))
+        to = tcomp.composite_vdis(torch.from_numpy(color),
+                                  torch.from_numpy(depth),
+                                  tcfg.CompositeConfig(**cfg))
+        np.testing.assert_allclose(np_(to.color), np.asarray(jo.color),
+                                   atol=1e-6)
+        np.testing.assert_allclose(np_(to.depth), np.asarray(jo.depth),
+                                   atol=1e-6)
 
 
 def test_frame_step_options():

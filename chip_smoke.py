@@ -12,13 +12,18 @@ and prints no result):
    versions, and the build of every kernel from ``csrc/`` with its wall
    seconds;
 2. every kernel against its plain PyTorch version on the card, on seeded
-   inputs at the flagship shapes and on real shaded chunks of the frame:
-   K3 (fused Gray-Scott stencil) at 512^3 for T=4 and T=2, K1 (segmented
+   inputs at the flagship shapes and on real chunks of the frame: K3
+   (fused Gray-Scott stencil) at 512^3 for T=4 and T=2, K1 (segmented
    write fold) and K2 (multi-threshold count) at C=16 and C=1, K=16,
-   B=16, 640x640. Each prints its largest difference against the stated
-   tolerance, its median time from CUDA events, the plain version's
-   time, and its bound (the larger of bytes / 3.35 TB/s and operations /
-   67 TFLOP/s, the H100 SXM's f32 rate outside the tensor cores);
+   B=16, 640x640; B1b (K1's planes form) equal to K1 bit for bit on the
+   frame's chunks and a seeded chunk; B7 (the machine's fold) with and
+   without its count on a seeded chunk and the frame's chunks; B5 (shade
+   and fold) on the frame's raw value chunks and B6 over the whole raw
+   stream, B6 equal to B5 chunk after chunk bit for bit. Each prints
+   its largest difference against the stated tolerance, its median time
+   from CUDA events, the plain version's time, and its bound (the larger
+   of bytes / 3.35 TB/s and operations / 67 TFLOP/s, the H100 SXM's f32
+   rate outside the tensor cores);
 3. the frame at the flagship size (512^3 Gray-Scott, 10 sim steps a
    frame, K=16, 16 histogram bins, chunk 16, temporal thresholds, the
    eye oscillating within the z march regime): ``init_threshold`` once,
@@ -26,6 +31,13 @@ and prints no result):
    read from that run and required > 0; then the sim and the march
    timed apart; then the frame held against the CPU's plain versions on
    a small grid;
+3b. the same frame under the folds ``pallas`` (B7), ``pallas_fused``
+   (B5) and ``fused_stream`` (B6), each run as phase 3 runs it with the
+   launch counts set to 0 before it and read after it (its kernel must
+   launch), each VDI against the phase 3 fold's at the same state, eye
+   and threshold (PSNR at least 60 dB, with the share of pixels whose
+   live slot count differs), and each fold's 32^3 frame against the
+   CPU's plain versions;
 4. the distributed frame on an 8-rank in-process mesh (the reference's
    8-rank shape; 64 x 512 x 512 slabs, composited into K_out=16 slots
    with a 6-step threshold search): the seed, 2 warm-up and 6 timed
@@ -74,6 +86,22 @@ SEG_FLOPS_PER_PIXEL_SLICE = 26
 # the search iterations, and the write pass (distance 8, gap test 2,
 # accumulation 8)
 RESEG_COUNT_FLOPS, RESEG_WRITE_FLOPS = 10, 18
+# B7 per pixel per slice: distance (8), break and close predicates (6),
+# the under-accumulation (8), the start count (3), the depths (2)
+MACHINE_FLOPS_PER_PIXEL_SLICE = 27
+# B5/B6, counted from the run's own samples: every sample's dead test
+# (1); a live sample's (v >= -0.5) value clamp (2), power (counted as 10:
+# a logarithm, a multiply and an exponential), opacity clamp and
+# subtractions (4), alpha knots and K1's fold; a non-empty sample's
+# colour knots and premultiply (3). Each non-zero knot slope costs 4
+# (subtract, max, multiply, add). A dead sample's alpha is 0 whatever
+# the knots give, and an empty sample's colour is never read.
+DEAD_TEST_FLOPS, ALPHA_FLOPS_PER_SAMPLE, PREMUL_FLOPS = 1, 16, 3
+SHADE_FLOPS_PER_KNOT = 4
+# the fold schedules of the fold phase and the kernel each launches
+FOLD_KERNELS = {"pallas": "fold_chunk", "pallas_fused": "fused_fold_chunk",
+                "fused_stream": "fused_stream_fold"}
+FOLD_PSNR_DB = 60.0
 # the kernels of each path
 FRAME_KERNELS = ("grayscott_fused", "seg_fold_compact", "count_multi")
 DIST_KERNELS = FRAME_KERNELS + ("resegment_sorted",)
@@ -325,14 +353,268 @@ def check_fold_and_count(dev, real_chunks, real_thr, real_length):
     return res
 
 
+def planes(sk, length):
+    """Depth planes t = sk * length, one f32 multiply each (what the
+    compact form computes in the kernel)."""
+    return (sk[:, None, None] * length[None]).contiguous()
+
+
+def packed_equal(a, b):
+    return all(bool((x == y).all()) for x, y in zip(a, b))
+
+
+def timed(fold_k, fold_p, base, reps=20):
+    """(kernel ms, plain ms): medians over fresh copies of ``base``."""
+    return (median_ms(fold_k, reps, lambda: clone(base)),
+            median_ms(fold_p, 3, lambda: clone(base)))
+
+
+def fused_flops(raw, ratio, tf):
+    """Operations B5/B6 need on the value chunks ``raw`` [(val, sk)]:
+    the dead test on every sample, the alpha shading and K1's fold on
+    the live ones, the colour knots and premultiply on the non-empty
+    ones (what these chunks' data needs, not the most it could).
+    Returns (operations, live samples, non-empty samples)."""
+    import torch
+
+    from scenery_insitu_tpu_torch.ops import cuda_fused as cf
+    from scenery_insitu_tpu_torch.ops import supersegments as ss
+
+    nz_a = int(torch.count_nonzero(tf.alpha_m))
+    nz_c = int(torch.count_nonzero(tf.color_m))
+    total = live = solid = 0
+    for val, _ in raw:
+        total += val.numel()
+        live += int((val >= -0.5).sum())
+        solid += int((cf.shade_plain(val, ratio, tf)[:, 3]
+                      >= ss.EMPTY_ALPHA).sum())
+    ops = (DEAD_TEST_FLOPS * total
+           + (ALPHA_FLOPS_PER_SAMPLE + SHADE_FLOPS_PER_KNOT * nz_a
+              + SEG_FLOPS_PER_PIXEL_SLICE) * live
+           + (SHADE_FLOPS_PER_KNOT * nz_c + PREMUL_FLOPS) * solid)
+    return ops, live, solid
+
+
+def check_new_folds(dev, cap):
+    """B1b, B7, B5 and B6 against their plain versions on the card, on
+    the frame's captured chunks and on a seeded stream, with their times
+    and bounds. B1b must equal K1's compact form bit for bit; B7's
+    counts, B5's and B6's start counts exactly, colour and depth within
+    1e-6; B6 must equal B5 chunk after chunk bit for bit."""
+    import torch
+
+    from scenery_insitu_tpu_torch.ops import cuda_fused as cf
+    from scenery_insitu_tpu_torch.ops import cuda_march as cm
+    from scenery_insitu_tpu_torch.ops import cuda_seg as cs
+
+    thr, length, ratio, tf = cap["thr"], cap["length"], cap["ratio"], \
+        cap["tf"]
+    h, w = thr.shape
+    hw = h * w
+    res = {}
+
+    # B1b: the frame's chunks through both K1 forms, then a seeded chunk
+    compact = cs.init_seg_packed(K, h, w, device=dev)
+    plane = cs.init_seg_packed(K, h, w, device=dev)
+    for rgba, sk0, sk1 in cap["chunks"]:
+        cs.fold_chunk_packed(compact, rgba, thr, max_k=K, sk0=sk0, sk1=sk1,
+                             length=length)
+        cs.fold_chunk_packed(plane, rgba, thr, max_k=K, t0=planes(sk0, length),
+                             t1=planes(sk1, length))
+    torch.cuda.synchronize()
+    if not packed_equal(compact, plane):
+        raise AssertionError("seg_fold_planes differs from K1's compact "
+                             "form on the frame's chunks")
+    log("seg_fold_planes_frame_chunks", "equal to K1's compact form bit "
+        "for bit")
+    del compact, plane
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    sthr = (0.05 + 0.5 * torch.rand((h, w), generator=g, device=dev))
+    rgba = seeded_stream(CHUNK, h, w, dev, SEED + 7)
+    sk0 = torch.linspace(1.0, 1.5, CHUNK, device=dev)
+    sk1 = (sk0 + 0.5 / CHUNK).contiguous()
+    t0, t1 = planes(sk0, length), planes(sk1, length)
+    pre0 = torch.linspace(0.5, 0.9, 16, device=dev)
+    pre_rgba = seeded_stream(16, h, w, dev, 99)
+    base = cs.init_seg_packed(K, h, w, device=dev)
+    cs.fold_chunk_packed_plain(base, pre_rgba, sthr, max_k=K,
+                               t0=planes(pre0, length),
+                               t1=planes(pre0 + 0.025, length))
+    kern = cs.fold_chunk_packed(clone(base), rgba, sthr, max_k=K, t0=t0,
+                                t1=t1)
+    comp = cs.fold_chunk_packed(clone(base), rgba, sthr, max_k=K, sk0=sk0,
+                                sk1=sk1, length=length)
+    plain = cs.fold_chunk_packed_plain(clone(base), rgba, sthr, max_k=K,
+                                       t0=t0, t1=t1)
+    torch.cuda.synchronize()
+    if not packed_equal(kern, comp):
+        raise AssertionError("seg_fold_planes differs from K1's compact "
+                             "form on a seeded chunk")
+    err = packed_err(kern, plain)
+    check("seg_fold_planes", err, 1e-5)
+    ms, pms = timed(lambda st: cs.fold_chunk_packed(
+        st, rgba, sthr, max_k=K, t0=t0, t1=t1), lambda st:
+        cs.fold_chunk_packed_plain(st, rgba, sthr, max_k=K, t0=t0, t1=t1),
+        base)
+    rows = touched_rows(rgba, base[2], sthr, K)
+    b, by = bound_ms(4 * (CHUNK * 6 * hw + hw + 2 * 5 * hw + 2 * 6 * rows),
+                     SEG_FLOPS_PER_PIXEL_SLICE * CHUNK * hw)
+    log("seg_fold_planes.ms", f"{ms:.4f} plain_ms={pms:.4f} "
+        f"bound_ms={b:.4f} ({by})")
+    res["seg_fold_planes"] = dict(err=err, ms=ms, plain_ms=pms, bound_ms=b,
+                                  bound_by=by)
+
+    # B7: a seeded chunk after one folded chunk, without and with count
+    mbase = cm.init_packed(K, h, w, device=dev)
+    cm.fold_chunk_plain(mbase, pre_rgba, planes(pre0, length),
+                        planes(pre0 + 0.025, length), sthr, max_k=K)
+    errs = []
+    for with_count in (False, True):
+        ck = torch.zeros((h, w), dtype=torch.int32, device=dev)
+        cp = ck.clone()
+        kern = cm.fold_chunk(clone(mbase), rgba, t0, t1, sthr, max_k=K,
+                             count=ck if with_count else None)
+        plain = cm.fold_chunk_plain(clone(mbase), rgba, t0, t1, sthr,
+                                    max_k=K, count=cp if with_count else None)
+        if with_count:
+            kern, plain = kern[0], plain[0]
+        torch.cuda.synchronize()
+        if not (torch.equal(ck, cp) and torch.equal(kern[2][11],
+                                                   plain[2][11])):
+            raise AssertionError(f"fold_chunk (count={with_count}): counts "
+                                 f"or slot counters differ")
+        errs.append(packed_err(kern, plain))
+        check(f"fold_chunk_count{int(with_count)}", errs[-1], 1e-6)
+    cnt = torch.zeros((h, w), dtype=torch.int32, device=dev)
+    ms, pms = timed(lambda st: cm.fold_chunk(st, rgba, t0, t1, sthr,
+                                             max_k=K, count=cnt),
+                    lambda st: cm.fold_chunk_plain(st, rgba, t0, t1, sthr,
+                                                   max_k=K, count=cnt),
+                    mbase)
+    closes = float((kern[2][11] - mbase[2][11]).sum())
+    b, by = bound_ms(4 * (CHUNK * 6 * hw + hw + 2 * 12 * hw + 2 * hw
+                          + 6 * closes),
+                     MACHINE_FLOPS_PER_PIXEL_SLICE * CHUNK * hw)
+    log("fold_chunk.ms", f"{ms:.4f} plain_ms={pms:.4f} bound_ms={b:.4f} "
+        f"({by}) closes_per_pixel={closes / hw:.3f}")
+    # the frame's chunks, with the temporal count
+    packs = [cm.init_packed(K, h, w, device=dev) for _ in range(2)]
+    cnts = [torch.zeros((h, w), dtype=torch.int32, device=dev)
+            for _ in range(2)]
+    for rgba_c, sk0_c, sk1_c in cap["chunks"]:
+        a0, a1 = planes(sk0_c, length), planes(sk1_c, length)
+        cm.fold_chunk(packs[0], rgba_c, a0, a1, thr, max_k=K, count=cnts[0])
+        cm.fold_chunk_plain(packs[1], rgba_c, a0, a1, thr, max_k=K,
+                            count=cnts[1])
+    torch.cuda.synchronize()
+    log("fold_chunk_frame_chunks.count_mismatches",
+        f"{int((cnts[0] != cnts[1]).sum())} (must be 0)")
+    if not torch.equal(cnts[0], cnts[1]):
+        raise AssertionError("fold_chunk: counts differ on the frame's "
+                             "chunks")
+    errs.append(packed_err(*packs))
+    check("fold_chunk_frame_chunks", errs[-1], 1e-6)
+    res["fold_chunk"] = dict(err=max(errs), ms=ms, plain_ms=pms, bound_ms=b,
+                             bound_by=by)
+    del packs, cnts, mbase
+
+    # B5 over the frame's raw chunks, from the initial state
+    ds = cap["ds"]
+    k5 = cs.init_seg_packed(K, h, w, device=dev)
+    p5 = cs.init_seg_packed(K, h, w, device=dev)
+    live = [int((val > -0.5).sum()) for val, _ in cap["raw"]]
+    j = live.index(max(live))
+    base5 = None
+    for i, (val, sk) in enumerate(cap["raw"]):
+        if i == j:
+            base5 = clone(k5)
+        args = (val, length, ratio, sk, (sk + ds).contiguous(), thr)
+        cf.fused_fold_chunk(k5, *args, max_k=K, tf=tf)
+        cf.fused_fold_chunk_plain(p5, *args, max_k=K, tf=tf)
+    torch.cuda.synchronize()
+    mism = int((k5[2][0] != p5[2][0]).sum())
+    log("fused_fold_chunk_frame_chunks.count_mismatches",
+        f"{mism} (must be 0)")
+    if mism:
+        raise AssertionError("fused_fold_chunk: start counts differ")
+    err5 = packed_err(k5, p5)
+    check("fused_fold_chunk_frame_chunks", err5, 1e-6)
+    val, sk = cap["raw"][j]
+    args = (val, length, ratio, sk, (sk + ds).contiguous(), thr)
+    ms, pms = timed(lambda st: cf.fused_fold_chunk(st, *args, max_k=K, tf=tf),
+                    lambda st: cf.fused_fold_chunk_plain(st, *args, max_k=K,
+                                                         tf=tf), base5)
+    rows = touched_rows(cf.shade_plain(val, ratio, tf), base5[2], thr, K)
+    ops, n_live, n_solid = fused_flops([(val, sk)], ratio, tf)
+    b, by = bound_ms(4 * (CHUNK * hw + 3 * hw + 2 * CHUNK + cf.NKNOTS
+                          + 2 * 5 * hw + 2 * 6 * rows), ops)
+    log("fused_fold_chunk.ms", f"{ms:.4f} plain_ms={pms:.4f} "
+        f"bound_ms={b:.4f} ({by}) chunk={j} samples={CHUNK * hw} "
+        f"live={n_live} non_empty={n_solid}")
+    # what a skipped chunk costs B5: one -1 plane (the chunked feed) or a
+    # whole chunk of them (the feed of the gathered stream)
+    for planes_n in (1, CHUNK):
+        dead = torch.full((planes_n, h, w), -1.0, device=dev)
+        dsk = sk[:planes_n].contiguous()
+        dargs = (dead, length, ratio, dsk, (dsk + ds).contiguous(), thr)
+        dms = median_ms(lambda st: cf.fused_fold_chunk(
+            st, *dargs, max_k=K, tf=tf), 20, lambda: clone(base5))
+        log(f"fused_fold_chunk_dead_C{planes_n}.ms", f"{dms:.4f}")
+    res["fused_fold_chunk"] = dict(err=err5, ms=ms, plain_ms=pms,
+                                   bound_ms=b, bound_by=by)
+    del base5, p5
+
+    # B6 over the whole captured stream
+    val = torch.cat([v for v, _ in cap["raw"]])
+    sk = torch.cat([s for _, s in cap["raw"]])
+    args = (val, length, ratio, sk, (sk + ds).contiguous(), thr)
+    init = cs.init_seg_packed(K, h, w, device=dev)
+    k6 = cf.fused_stream_fold(clone(init), *args, max_k=K, chunk=CHUNK, tf=tf)
+    p6 = cf.fused_stream_fold_plain(clone(init), *args, max_k=K, chunk=CHUNK,
+                                    tf=tf)
+    torch.cuda.synchronize()
+    mism = int((k6[2][0] != p6[2][0]).sum())
+    log("fused_stream_fold.count_mismatches", f"{mism} (must be 0)")
+    if mism:
+        raise AssertionError("fused_stream_fold: start counts differ")
+    err6 = packed_err(k6, p6)
+    check("fused_stream_fold", err6, 1e-6)
+    if not packed_equal(k6, k5):
+        raise AssertionError("fused_stream_fold differs from "
+                             "fused_fold_chunk chunk after chunk")
+    log("fused_stream_fold_vs_chunks", "equal to fused_fold_chunk chunk "
+        "after chunk bit for bit")
+    ms = median_ms(lambda st: cf.fused_stream_fold(
+        st, *args, max_k=K, chunk=CHUNK, tf=tf), 5, lambda: clone(init))
+    pms = median_ms(lambda st: cf.fused_stream_fold_plain(
+        st, *args, max_k=K, chunk=CHUNK, tf=tf), 1, lambda: clone(init))
+    s_total = val.shape[0]
+    rows = float(torch.clamp(k6[2][0], max=K).sum())
+    ops, n_live, n_solid = fused_flops(cap["raw"], ratio, tf)
+    b, by = bound_ms(4 * (s_total * hw + 3 * hw + 2 * s_total + cf.NKNOTS
+                          + 2 * 5 * hw + 2 * 6 * rows), ops)
+    log("fused_stream_fold.ms", f"{ms:.4f} plain_ms={pms:.4f} "
+        f"bound_ms={b:.4f} ({by}) slices={s_total} samples="
+        f"{s_total * hw} live={n_live} non_empty={n_solid}")
+    res["fused_stream_fold"] = dict(err=err6, ms=ms, plain_ms=pms,
+                                    bound_ms=b, bound_by=by)
+    return res
+
+
 def capture_chunks(dev, u, v, eye):
     """The shaded chunks (rgba, sk0, sk1) of one write march of the
-    flagship frame, with its seed threshold and ray lengths."""
+    flagship frame, with its seed threshold and ray lengths, and the same
+    march's raw value chunks (val, sk) as the fused folds see them, every
+    skipped chunk a full chunk of -1 planes; the raw chunks' opacity
+    ratios and the transfer function."""
+    import torch
+
     from scenery_insitu_tpu_torch.config import SliceMarchConfig, VDIConfig
     from scenery_insitu_tpu_torch.core.camera import Camera
     from scenery_insitu_tpu_torch.core.transfer import for_dataset
     from scenery_insitu_tpu_torch.core.volume import Volume
     from scenery_insitu_tpu_torch.ops import slicer
+    from scenery_insitu_tpu_torch.ops.sampling import nominal_step
 
     tf = for_dataset("gray_scott", device=dev)
     vol = Volume.centered(v, extent=2.0)
@@ -350,10 +632,22 @@ def capture_chunks(dev, u, v, eye):
         chunks.append((rgba.clone(), sk0.clone(), sk1.clone()))
         return carry
 
-    slicer.slice_march(vol, tf, axcam, spec, keep, None,
-                       occupancy=slicer.occupancy_for(vol, tf, spec),
+    occ = slicer.occupancy_for(vol, tf, spec)
+    slicer.slice_march(vol, tf, axcam, spec, keep, None, occupancy=occ,
                        shaded_compact=True)
-    return chunks, thr.contiguous(), axcam.ray_lengths().contiguous()
+    raw = []
+
+    def keep_raw(carry, val, sk):
+        raw.append((val.clone(), sk.clone()))
+        return carry
+
+    slicer.slice_march(vol, tf, axcam, spec, keep_raw, None, occupancy=occ,
+                       raw=True, raw_full_skip=True)
+    length = axcam.ray_lengths().contiguous()
+    ds = torch.abs(axcam.dwm) / axcam.zp
+    ratio = (ds * length / nominal_step(vol)).contiguous()
+    return dict(chunks=chunks, raw=raw, thr=thr.contiguous(), length=length,
+                ds=ds, ratio=ratio, tf=tf)
 
 
 # ------------------------------------------------------------- phase 3
@@ -379,7 +673,15 @@ def yaw_of(i):
     return 0.35 * math.sin(0.7 * (i + 1))
 
 
-def run_frame(dev, profile=False):
+def run_frame(dev, profile=False, fold="auto", prefix="frame",
+              kernel_names=FRAME_KERNELS, time_sim=True):
+    """The flagship temporal frame under ``fold``: ``init_threshold``,
+    the warm-up and timed frames with the launch counts read from that
+    run (every kernel of ``kernel_names`` launched), then the march and
+    (``time_sim``) the sim timed apart, each the median of TIMED_FRAMES.
+    The sim is the same K3 work under every fold, so the fold frames
+    leave it to phase 3. Logs under ``prefix``; returns the launch
+    counts and the final (u, v, thresholds, step)."""
     import torch
 
     from scenery_insitu_tpu_torch import kernels
@@ -394,8 +696,8 @@ def run_frame(dev, profile=False):
                          far=20.0, device=dev)
     step = grayscott_vdi_frame_step(grid_shape=(GRID,) * 3,
                                     axis_sign=slicer.choose_axis(base),
-                                    **frame_config(dev))
-    log("frame.spec", step.spec)
+                                    **frame_config(dev, fold))
+    log(f"{prefix}.spec", step.spec)
     st = gs.GrayScott.init((GRID,) * 3, seed=SEED, device=dev)
     u, v = st.u, st.v
     eye = lambda i: orbit(base, yaw_of(i)).eye
@@ -405,7 +707,7 @@ def run_frame(dev, profile=False):
     t0 = time.perf_counter()
     thr = step.init_threshold(u, v, eye(-1))
     torch.cuda.synchronize()
-    log("frame.init_threshold_s", f"{time.perf_counter() - t0:.3f}")
+    log(f"{prefix}.init_threshold_s", f"{time.perf_counter() - t0:.3f}")
     for i in range(WARMUP_FRAMES):
         color, depth, u, v, thr = step(u, v, eye(i), thr)
     torch.cuda.synchronize()
@@ -422,15 +724,16 @@ def run_frame(dev, profile=False):
         wall.append((time.perf_counter() - h0) * 1e3)
         ev.append(a.elapsed_time(b))
     launches = kernels.launches()
-    log("frame.launches", json.dumps(launches))
-    require_launched(launches, FRAME_KERNELS, "the single-chip frame")
+    log(f"{prefix}.launches", json.dumps(launches))
+    require_launched(launches, kernel_names,
+                     f"the single-chip frame (fold {step.spec.fold})")
     ev.sort()
     wall.sort()
-    log("frame.ms_per_frame", f"{ev[len(ev) // 2]:.3f} (median of "
+    log(f"{prefix}.ms_per_frame", f"{ev[len(ev) // 2]:.3f} (median of "
         f"{TIMED_FRAMES}, CUDA events; host clock {wall[len(wall) // 2]:.3f})")
 
     nj, ni = step.spec.nj, step.spec.ni
-    check_vdi("frame", VDI(color, depth), (K, 4, nj, ni), (K, 2, nj, ni))
+    check_vdi(prefix, VDI(color, depth), (K, 4, nj, ni), (K, 2, nj, ni))
     if not bool(torch.isfinite(u).all() & torch.isfinite(v).all()):
         raise AssertionError("sim state is not finite")
 
@@ -438,17 +741,22 @@ def run_frame(dev, profile=False):
     from scenery_insitu_tpu_torch.core.transfer import for_dataset
     from scenery_insitu_tpu_torch.core.volume import Volume
 
-    sim_ms = median_ms(lambda _: gs.multi_step_fast(
-        gs.GrayScott(u, v, st.params), SIM_STEPS), 5)
+    if time_sim:
+        sim_ms = median_ms(lambda _: gs.multi_step_fast(
+            gs.GrayScott(u, v, st.params), SIM_STEPS), TIMED_FRAMES)
+        log(f"{prefix}.sim_ms", f"{sim_ms:.3f}")
     cfg = frame_config(dev)
     tf = for_dataset("gray_scott", device=dev)
     vol = Volume.centered(v, extent=2.0)
     cam = Camera.create(eye(0), fov_y_deg=50.0, near=0.5, far=20.0,
                         device=dev)
+    allocs = torch.cuda.memory_stats().get("num_device_alloc", 0)
     march_ms = median_ms(lambda _: slicer.generate_vdi_mxu_temporal(
-        vol, tf, cam, step.spec, thr, cfg["vdi_cfg"]), 5)
-    log("frame.sim_ms", f"{sim_ms:.3f}")
-    log("frame.march_ms", f"{march_ms:.3f}")
+        vol, tf, cam, step.spec, thr, cfg["vdi_cfg"]), TIMED_FRAMES)
+    allocs = torch.cuda.memory_stats().get("num_device_alloc", 0) - allocs
+    log(f"{prefix}.march_ms", f"{march_ms:.3f} (median of {TIMED_FRAMES} "
+        f"marches "
+        f"alone; device allocations in them: {allocs})")
     if profile:
         state = [u, v, thr]
 
@@ -456,8 +764,61 @@ def run_frame(dev, profile=False):
             _, _, state[0], state[1], state[2] = step(*state[:2], eye(i),
                                                       state[2])
 
-        profile_frames("profile", one)
-    return launches
+        profile_frames("profile" if prefix == "frame" else
+                       f"{prefix}.profile", one)
+    return launches, (u, v, thr, step)
+
+
+def run_fold_frames(dev, ref, profile=False):
+    """The flagship frame under each fold of FOLD_KERNELS, through
+    ``grayscott_vdi_frame_step`` exactly as phase 3 runs it, with the
+    launch counts set to 0 before each fold's run and read after it (the
+    fold's kernel must launch). Then each fold's VDI against the phase 3
+    frame's fold (``pallas_seg``) at the same state, eye and threshold:
+    PSNR of the two images at least FOLD_PSNR_DB, and the share of
+    pixels whose live slot count differs. Returns {fold: (launches,
+    psnr)}."""
+    import torch
+
+    from scenery_insitu_tpu_torch.core.camera import Camera, orbit
+    from scenery_insitu_tpu_torch.core.transfer import for_dataset
+    from scenery_insitu_tpu_torch.core.vdi import render_vdi_same_view
+    from scenery_insitu_tpu_torch.core.volume import Volume
+    from scenery_insitu_tpu_torch.ops import slicer
+
+    u, v, thr, ref_step = ref
+    cfg = frame_config(dev)["vdi_cfg"]
+    tf = for_dataset("gray_scott", device=dev)
+    base = Camera.create((0.0, 0.6, 3.0), fov_y_deg=50.0, near=0.5,
+                         far=20.0, device=dev)
+    cam = Camera.create(orbit(base, yaw_of(0)).eye, fov_y_deg=50.0,
+                        near=0.5, far=20.0, device=dev)
+    vol = Volume.centered(v, extent=2.0)
+    want, _, _, _ = slicer.generate_vdi_mxu_temporal(
+        vol, tf, cam, ref_step.spec, thr, cfg)
+    want_img = render_vdi_same_view(want)
+    want_live = torch.isfinite(want.depth[:, 0]).sum(0)
+    out = {}
+    for fold, name in FOLD_KERNELS.items():
+        torch.cuda.empty_cache()
+        launches, (_, _, _, step) = run_frame(
+            dev, profile, fold=fold, prefix=f"fold_{fold}",
+            kernel_names=(name, "grayscott_fused", "count_multi"),
+            time_sim=False)
+        got, _, _, _ = slicer.generate_vdi_mxu_temporal(
+            vol, tf, cam, step.spec, thr, cfg)
+        psnr = image_psnr(render_vdi_same_view(got), want_img)
+        live = torch.isfinite(got.depth[:, 0]).sum(0)
+        share = float((live != want_live).float().mean())
+        log(f"fold_{fold}.psnr_vs_pallas_seg_db", f"{psnr:.2f} (gate "
+            f">= {FOLD_PSNR_DB}; pixels whose live slot count differs: "
+            f"{share:.6f})")
+        if not psnr >= FOLD_PSNR_DB:
+            raise AssertionError(f"fold {fold}: image {psnr:.2f} dB from "
+                                 f"the pallas_seg frame")
+        out[fold] = (launches, psnr)
+        del got
+    return out
 
 
 def profile_frames(prefix, frame, frames=2):
@@ -546,9 +907,10 @@ def trace_gaps(prefix, path, frames):
         f"{h2d / frames:.1f}/frame, stream syncs {syncs / frames:.1f}/frame")
 
 
-def check_small_frame(dev):
-    """The kernel path on the card against the plain versions on the
-    CPU, 3 temporal frames on a 32^3 grid from the same inputs."""
+def check_small_frame(dev, fold="pallas_seg"):
+    """The kernel path of ``fold`` on the card against its plain
+    versions on the CPU, 3 temporal frames on a 32^3 grid from the same
+    inputs."""
     import torch
 
     from scenery_insitu_tpu_torch.core.camera import Camera, orbit
@@ -566,7 +928,7 @@ def check_small_frame(dev):
     for name, d in (("cuda", dev), ("cpu", "cpu")):
         step = grayscott_vdi_frame_step(
             grid_shape=(n,) * 3, axis_sign=axis_sign,
-            **frame_config(d, fold="pallas_seg"))
+            **frame_config(d, fold=fold))
         u, v = st.u.to(d), st.v.to(d)
         thr = step.init_threshold(u, v, orbit(base, 0.1).eye.to(d))
         imgs = []
@@ -575,15 +937,17 @@ def check_small_frame(dev):
                                            .eye.to(d), thr)
             imgs.append(render_vdi_same_view(VDI(color, depth)).cpu())
         outs[name] = (torch.stack(imgs), u.cpu(), v.cpu())
+    prefix = "small_frame" if fold == "pallas_seg" else \
+        f"small_frame_{fold}"
     uerr = max(max_abs(outs["cuda"][1], outs["cpu"][1]),
                max_abs(outs["cuda"][2], outs["cpu"][2]))
-    check("small_frame.sim", uerr, 1e-6 * 3 * SIM_STEPS)
+    check(f"{prefix}.sim", uerr, 1e-6 * 3 * SIM_STEPS)
     diff = (outs["cuda"][0] - outs["cpu"][0]).abs()
-    log("small_frame.image_max_abs_diff", f"{float(diff.max()):.3e}")
-    log("small_frame.image_mean_abs_diff", f"{float(diff.mean()):.3e}")
+    log(f"{prefix}.image_max_abs_diff", f"{float(diff.max()):.3e}")
+    log(f"{prefix}.image_mean_abs_diff", f"{float(diff.mean()):.3e}")
     if not (float(diff.max()) <= 1e-4 and float(diff.mean()) <= 1e-4):
-        raise AssertionError("the card's frame differs from the CPU's "
-                             "plain versions")
+        raise AssertionError(f"the card's frame (fold {fold}) differs from "
+                             f"the CPU's plain versions")
 
 
 # ------------------------------------------------------------- phase 4
@@ -936,20 +1300,37 @@ def main(argv=None) -> int:
     log("device", torch.cuda.get_device_name(0))
     log("build_s", f"{kernels.build():.2f}")
 
+    t0 = time.perf_counter()
+
+    def phase_done(name):
+        log(f"{name}.wall_s", f"{time.perf_counter() - t0:.1f} (since the "
+            f"build)")
+
     g = gs_init(dev)
-    chunks, thr, length = capture_chunks(dev, g.u, g.v, (0.0, 0.6, 3.0))
+    cap = capture_chunks(dev, g.u, g.v, (0.0, 0.6, 3.0))
     stencil = check_stencil(dev)
-    fold = check_fold_and_count(dev, chunks, thr, length)
-    del chunks, thr, length, g
+    fold = check_fold_and_count(dev, cap["chunks"], cap["thr"],
+                                cap["length"])
+    new = check_new_folds(dev, cap)
+    del cap, g
     torch.cuda.empty_cache()
-    launches = run_frame(dev, args.profile)
+    phase_done("phase2")
+    launches, ref = run_frame(dev, args.profile)
     check_small_frame(dev)
+    phase_done("phase3")
+    folds = run_fold_frames(dev, ref, args.profile)
+    del ref
+    phase_done("phase3b.frames")
+    for f in FOLD_KERNELS:
+        check_small_frame(dev, f)
     torch.cuda.empty_cache()
+    phase_done("phase3b")
     dist_launches, rc, rd = run_dist_frame(dev, args.profile)
     reseg = check_resegment(dev, rc, rd)
     del rc, rd
     torch.cuda.empty_cache()
     check_small_dist(dev)
+    phase_done("phase4")
 
     table = [
         dict(name="grayscott_fused", route="cuda",
@@ -987,10 +1368,33 @@ def main(argv=None) -> int:
              bound_ms=reseg["frame_block"]["bound_ms"],
              bound_by=reseg["frame_block"]["bound_by"], library_ms=None),
     ]
+    # the kernels of this slice: B1b has no caller on any path (the
+    # reference's planes form serves tests only), so its launches on
+    # the paths are 0; each fold kernel's count is its fold frame's run
+    sources = {"seg_fold_planes": ("seg_fold.cu", "ops/pallas_seg.py:252"),
+               "fold_chunk": ("fold_chunk.cu", "ops/pallas_march.py:367"),
+               "fused_fold_chunk": ("fused_fold.cu", "ops/pallas_seg.py:426"),
+               "fused_stream_fold": ("fused_fold.cu",
+                                     "ops/pallas_seg.py:514")}
+    runs = {name: folds[f][0][name] for f, name in FOLD_KERNELS.items()}
+    runs["seg_fold_planes"] = launches["seg_fold_planes"]
+    for name, (src, site) in sources.items():
+        r = new[name]
+        table.append(dict(
+            name=name, route="cuda",
+            source=f"scenery_insitu_tpu_torch/csrc/{src}",
+            replaces=f"scenery_insitu_tpu/{site}", launches=runs[name],
+            max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=None))
+    # K3's one body replaces both stencil sites (3-D and 2-D grids)
+    table[0]["also_replaces"] = ["scenery_insitu_tpu/sim/pallas_stencil.py"
+                                 ":240"]
     log("library_ms", "null for every kernel: no single PyTorch call "
         "computes the fused Gray-Scott steps, the segmented write fold, "
-        "the multi-threshold count or the sort-and-resegment of a "
-        "supersegment stream")
+        "the multi-threshold count, the sort-and-resegment of a "
+        "supersegment stream, the supersegment machine or the shading "
+        "and fold of a value stream")
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -66,8 +66,23 @@ class SliceMarchConfig:
     skip_empty: bool = True
     # in-plane occupancy tiles: -1 resolves to 0 (chunk-level skipping)
     occupancy_vtiles: int = -1
-    # supersegment-fold schedule: "auto" | "xla" | "seg" | "pallas_seg"
-    # (the names of the reference; "pallas_seg" is the K1 kernel here)
+    # Supersegment-fold schedule for the VDI marches (the reference's
+    # names; the kernels are ops/cuda_*.py):
+    #   "xla"          sequential supersegments.push machine, state
+    #                  round-tripped per slice (the reference schedule);
+    #   "pallas"       the same machine in kernel B7 (ops/cuda_march.py),
+    #                  the temporal count riding along;
+    #   "seg"          segmented-scan fold (ops/seg_fold.py): start flags,
+    #                  segment ids and transmittance data-parallel, [K]
+    #                  state touched once per chunk;
+    #   "pallas_seg"   the seg fold in kernel K1 (ops/cuda_seg.py);
+    #   "pallas_fused" shade-in-kernel: the TF, opacity correction and
+    #                  depths move into the fold, kernel B5
+    #                  (ops/cuda_fused.py), fed the raw value planes;
+    #   "fused_stream" the whole-march fused fold: the value planes of
+    #                  every chunk gathered into one f32[S, Nj, Ni] buffer,
+    #                  then one launch of kernel B6;
+    #   "auto"         pallas_seg on CUDA, xla on the CPU.
     fold: str = "auto"
 
     def __post_init__(self):

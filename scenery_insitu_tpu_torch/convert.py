@@ -69,6 +69,23 @@ def vdi(value, device=None) -> VDI:
                  _fields(value, VDI._fields)))
 
 
+def packed_state(packed, device=None):
+    """A reference fold's packed state triple ``(color f32[K,4,H,W],
+    depth f32[K,2,H,W], small f32[R,H,W])`` as port tensors: the seg
+    fold's (``pallas_seg.init_seg_packed``, R = 5) or the machine's
+    (``pallas_march.init_packed``, R = 12). Raises on another layout."""
+    dev = resolve_device(device)
+    color, depth, small = (_tensor(x, np.float32, dev) for x in packed)
+    k, _, h, w = color.shape
+    if tuple(depth.shape) != (k, 2, h, w) or small.dim() != 3 \
+            or small.shape[0] not in (5, 12) \
+            or tuple(small.shape[1:]) != (h, w):
+        raise ValueError(f"not a packed fold state: color "
+                         f"{tuple(color.shape)}, depth {tuple(depth.shape)}"
+                         f", small {tuple(small.shape)} (5 or 12 rows)")
+    return color, depth, small
+
+
 _META_DTYPES = {"window_dims": np.int32, "index": np.int32,
                 "precision": np.int32}
 

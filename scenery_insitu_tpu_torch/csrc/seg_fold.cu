@@ -1,13 +1,18 @@
 // K1 — segmented write fold of one chunk of shaded slices into the K-slot
-// supersegment state, compact depth form (t = sk * length computed here).
+// supersegment state. Two entries share one body: the compact depth form
+// (seg_fold_compact: t = sk * length computed here) and the planes form
+// (seg_fold_planes, B1b: t0/t1 f32[C,H,W] read from memory).
 //
 // Replaces the TPU kernel scenery_insitu_tpu/ops/pallas_seg.py,
-// fold_chunk_packed (compact form), kernel body _seg_kernel_compact with
-// _phase_a / _phase_b. Plain version and oracle: seg_fold.seg_fold_chunk,
-// run by ops/cuda_seg.py::fold_chunk_packed_plain.
+// fold_chunk_packed, compact form (kernel body _seg_kernel_compact) and
+// planes form (kernel body _seg_kernel), both with _phase_a / _phase_b.
+// Plain version and oracle: seg_fold.seg_fold_chunk, run by
+// ops/cuda_seg.py::fold_chunk_packed_plain. Given planes that are the
+// product sk * length (one f32 multiply, as here), the two forms are
+// equal bit for bit.
 //
 // What bounds it on the H100: bytes. Per chunk a pixel reads its C x 4
-// rgba values, its length and threshold, reads and writes the 5-float
+// rgba values, its length (or its C x 2 depths) and threshold, reads and writes the 5-float
 // small state, and reads and writes the color (4) and depth (2) rows of
 // the slots the chunk touched; the arithmetic is ~20 flops per slice.
 //
@@ -53,16 +58,21 @@ __device__ __forceinline__ void flush(float* color, float* depth, int slot,
     od[hw] = fmaxf(od[hw], dmax);
 }
 
+// PLANES: t0/t1 are f32[C,H,W] planes (length, sk0 and sk1 unused);
+// otherwise t = sk0[s] * length and sk1[s] * length (t0, t1 unused)
+template <bool PLANES>
 __global__ void __launch_bounds__(kThreads)
-seg_fold_compact_kernel(const float* __restrict__ rgba,
-                        const float* __restrict__ length,
-                        const float* __restrict__ thr,
-                        const float* __restrict__ sk0,
-                        const float* __restrict__ sk1,
-                        float* __restrict__ color,
-                        float* __restrict__ depth,
-                        float* __restrict__ small,
-                        int c, int k, long long hw) {
+seg_fold_kernel(const float* __restrict__ rgba,
+                const float* __restrict__ length,
+                const float* __restrict__ thr,
+                const float* __restrict__ sk0,
+                const float* __restrict__ sk1,
+                const float* __restrict__ t0,
+                const float* __restrict__ t1,
+                float* __restrict__ color,
+                float* __restrict__ depth,
+                float* __restrict__ small,
+                int c, int k, long long hw) {
     const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (p >= hw) return;
 
@@ -71,7 +81,7 @@ seg_fold_compact_kernel(const float* __restrict__ rgba,
           pr2 = small[3 * hw + p];
     bool pe = small[4 * hw + p] > 0.5f;
     const float th = thr[p];
-    const float ln = length[p];
+    const float ln = PLANES ? 0.0f : length[p];
     const float kf = (float)(k - 1);
 
     float t_run = 1.0f;
@@ -105,8 +115,13 @@ seg_fold_compact_kernel(const float* __restrict__ rgba,
             acc[1] += g * t_here;
             acc[2] += b * t_here;
             acc[3] += a * t_here;
-            dmin = fminf(dmin, sk0[s] * ln);
-            dmax = fmaxf(dmax, sk1[s] * ln);
+            if (PLANES) {
+                dmin = fminf(dmin, t0[(long long)s * hw + p]);
+                dmax = fmaxf(dmax, t1[(long long)s * hw + p]);
+            } else {
+                dmin = fminf(dmin, sk0[s] * ln);
+                dmax = fmaxf(dmax, sk1[s] * ln);
+            }
             pr0 = r;
             pr1 = g;
             pr2 = b;
@@ -131,7 +146,21 @@ extern "C" int seg_fold_compact(const float* rgba, const float* length,
                                 cudaStream_t stream) {
     const long long hw = (long long)h * w;
     const unsigned blocks = (unsigned)((hw + kThreads - 1) / kThreads);
-    seg_fold_compact_kernel<<<blocks, kThreads, 0, stream>>>(
-        rgba, length, thr, sk0, sk1, color, depth, small, c, k, hw);
+    seg_fold_kernel<false><<<blocks, kThreads, 0, stream>>>(
+        rgba, length, thr, sk0, sk1, nullptr, nullptr, color, depth, small,
+        c, k, hw);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int seg_fold_planes(const float* rgba, const float* t0,
+                               const float* t1, const float* thr,
+                               float* color, float* depth, float* small,
+                               int c, int k, int h, int w,
+                               cudaStream_t stream) {
+    const long long hw = (long long)h * w;
+    const unsigned blocks = (unsigned)((hw + kThreads - 1) / kThreads);
+    seg_fold_kernel<true><<<blocks, kThreads, 0, stream>>>(
+        rgba, nullptr, thr, nullptr, nullptr, t0, t1, color, depth, small,
+        c, k, hw);
     return (int)cudaGetLastError();
 }

@@ -45,6 +45,16 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 ENTRIES = {
     # rgba, length, thr, sk0, sk1, color, depth, small, C, K, H, W, stream
     "seg_fold_compact": ("seg_fold", [_P] * 8 + [_I] * 4 + [_P]),
+    # rgba, t0, t1, thr, color, depth, small, C, K, H, W, stream
+    "seg_fold_planes": ("seg_fold", [_P] * 7 + [_I] * 4 + [_P]),
+    # rgba, t0, t1, thr, color, depth, small, count (or NULL), C, K, H, W,
+    # gap_eps, stream
+    "fold_chunk": ("fold_chunk", [_P] * 8 + [_I] * 4 + [_F, _P]),
+    # val, length, ratio, thr, sk0, sk1, knots, color, depth, small, C, K,
+    # H, W, stream
+    "fused_fold_chunk": ("fused_fold", [_P] * 10 + [_I] * 4 + [_P]),
+    # as fused_fold_chunk with S, chunk in place of C
+    "fused_stream_fold": ("fused_fold", [_P] * 10 + [_I] * 5 + [_P]),
     # rgba, tvec, count, prev, fe, C, B, H, W, stream
     "count_multi": ("count_multi", [_P] * 5 + [_I] * 4 + [_P]),
     # u, v, params, u_out, v_out, D, H, W, T, stream
@@ -138,6 +148,23 @@ def launch(entry: str, *args) -> None:
         raise RuntimeError(f"CUDA kernel {entry} failed to launch: "
                            f"cudaError {err}")
     _LAUNCHES[entry] += 1
+
+
+def check_operands(want, anchor: str) -> None:
+    """Raise unless every operand of ``want`` (name -> (tensor, shape,
+    dtype)) lies on the device of operand ``anchor``, has its dtype and
+    shape, and is contiguous: what a kernel's C entry assumes."""
+    dev = want[anchor][0].device
+    for name, (t, shape, dtype) in want.items():
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, {anchor} on {dev}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                             f"expected {tuple(shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
 
 
 def reset_launches() -> None:

@@ -26,21 +26,12 @@ from scenery_insitu_tpu_torch.ops import supersegments as ss
 
 def _check(sc, sd, threshold, threshold_out):
     nk, _, h, w = sc.shape
-    dev = sc.device
-    want = {"sc": (sc, (nk, 4, h, w)), "sd": (sd, (nk, 2, h, w)),
-            "threshold": (threshold, (h, w))}
+    f32 = torch.float32
+    want = {"sc": (sc, (nk, 4, h, w), f32), "sd": (sd, (nk, 2, h, w), f32),
+            "threshold": (threshold, (h, w), f32)}
     if threshold_out is not None:
-        want["threshold_out"] = (threshold_out, (h, w))
-    for name, (t, shape) in want.items():
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, sc on {dev}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                             f"expected {shape}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+        want["threshold_out"] = (threshold_out, (h, w), f32)
+    kernels.check_operands(want, "sc")
     if nk < 1:
         raise ValueError("the stream holds at least one slot")
 

@@ -13,15 +13,25 @@ path length, and fed chunk by chunk, front to back, to a supersegment
 fold. The VDI lives on the virtual camera's grid and its metadata
 carries the virtual projection and view.
 
-Folds (``SliceMarchConfig.fold``, the reference's names): ``xla`` (the
-sequential ``supersegments.push`` machine), ``seg`` (the segmented-scan
-fold, ``ops/seg_fold.py``) and ``pallas_seg`` (the same fold through
-kernel K1, ``ops/cuda_seg.py``, with the histogram count through kernel
-K2, ``ops/cuda_march.py``). ``auto`` resolves to ``pallas_seg`` on CUDA
-and to ``xla`` on the CPU, as the reference resolves it on and off the
-TPU. The chunk loop is a Python loop; chunk occupancy is copied to the
-host once per march, and the kernel folds update their packed state in
-place.
+Folds (``SliceMarchConfig.fold``, the reference's names):
+
+- ``xla``: the sequential ``supersegments.push`` machine;
+- ``seg``: the segmented-scan fold (``ops/seg_fold.py``);
+- ``pallas``: the machine through kernel B7 (``ops/cuda_march.py``),
+  with the temporal count riding the same kernel;
+- ``pallas_seg``: the segmented fold through kernel K1
+  (``ops/cuda_seg.py``), fed shaded rgba and per-slice depth ratios;
+- ``pallas_fused``: shading moved into the fold, kernel B5
+  (``ops/cuda_fused.py``), fed the raw value planes chunk by chunk;
+- ``fused_stream``: the value planes of the whole march gathered into
+  one ``f32[S, Nj, Ni]`` buffer, then one launch of kernel B6.
+
+Every fold but ``xla`` and ``seg`` counts the histogram seed through
+kernel K2 (``ops/cuda_march.py``). ``auto`` resolves to ``pallas_seg``
+on CUDA and to ``xla`` on the CPU, as the reference resolves it on and
+off the TPU. The chunk loop is a Python loop; chunk occupancy is copied
+to the host once per march, and the kernel folds update their packed
+state in place.
 """
 
 from __future__ import annotations
@@ -37,6 +47,7 @@ from scenery_insitu_tpu_torch.core.camera import Camera, frustum, look_at
 from scenery_insitu_tpu_torch.core.transfer import TransferFunction
 from scenery_insitu_tpu_torch.core.vdi import VDI, VDIMetadata
 from scenery_insitu_tpu_torch.core.volume import Volume
+from scenery_insitu_tpu_torch.ops import cuda_fused as cf
 from scenery_insitu_tpu_torch.ops import cuda_march as cm
 from scenery_insitu_tpu_torch.ops import cuda_seg as cs
 from scenery_insitu_tpu_torch.ops import seg_fold as sf
@@ -48,11 +59,10 @@ _DATA_DIM = {0: -1, 1: -2, 2: -3}
 # march axis -> (u axis, v axis), both xyz indices
 _UV = {2: (0, 1), 1: (0, 2), 0: (1, 2)}
 
-FOLDS = ("xla", "seg", "pallas_seg")
-# fold schedules of the reference whose kernels are still to port
-_FOLDS_LATER = {"pallas": "B7 (pallas_march.fold_chunk)",
-                "pallas_fused": "B5 (pallas_seg.fused_fold_chunk)",
-                "fused_stream": "B6 (pallas_seg.fused_stream_fold)"}
+FOLDS = ("xla", "pallas", "seg", "pallas_seg", "pallas_fused",
+         "fused_stream")
+# the folds whose histogram seed counts through kernel K2
+_K2_FOLDS = ("pallas", "pallas_seg", "pallas_fused", "fused_stream")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,7 +77,7 @@ class AxisSpec:
     matmul_dtype: str = "f32"  # resampling matmul operand dtype
     s_floor: float = 1e-3     # min depth ratio: slices closer are dropped
     skip_empty: bool = True   # chunk-occupancy empty-space skipping
-    fold: str = "xla"         # "xla" | "seg" | "pallas_seg"
+    fold: str = "xla"         # one of FOLDS
     render_dtype: str = "f32"  # storage dtype of the marched volume copy
     # in-plane occupancy tiles: 0 = whole-chunk skipping only; N > 0 also
     # gates output row blocks whose bilinear support lies in empty tiles
@@ -115,13 +125,10 @@ def make_spec(cam: Camera, vol_shape: Tuple[int, int, int],
     fold = cfg.fold
     if fold == "auto":
         fold = "pallas_seg" if cam.eye.device.type == "cuda" else "xla"
-    if fold in _FOLDS_LATER:
-        raise NotImplementedError(
-            f"fold={fold!r} needs kernel {_FOLDS_LATER[fold]}, which this "
-            f"port does not have yet (ROADMAP queue B)")
     if fold not in FOLDS:
         raise ValueError(f"unknown fold schedule {fold!r} (expected 'auto', "
-                         "'xla', 'seg' or 'pallas_seg')")
+                         "'xla', 'pallas', 'seg', 'pallas_seg', "
+                         "'pallas_fused' or 'fused_stream')")
     vt = cfg.occupancy_vtiles
     if vt < 0:
         vt = 0
@@ -341,7 +348,8 @@ def _tile_hits(occ_tiles, axcam, spec, local_w0, s_total, nchunks, nv, ov,
 def slice_march(vol: Volume, tf: TransferFunction, axcam: AxisCamera,
                 spec: AxisSpec, consume: Callable, carry0, occupancy=None,
                 shaded_compact: bool = False,
-                volp: Optional[torch.Tensor] = None, v_bounds=None):
+                volp: Optional[torch.Tensor] = None, v_bounds=None,
+                raw: bool = False, raw_full_skip: bool = False):
     """The chunked slice march. Calls ``consume(carry, rgba [C,4,Nj,Ni],
     t0 [C,Nj,Ni], t1 [C,Nj,Ni]) -> carry`` for each chunk of slices,
     front to back, and returns the final carry. rgba is premultiplied,
@@ -358,6 +366,21 @@ def slice_march(vol: Volume, tf: TransferFunction, axcam: AxisCamera,
     ratios: ``consume(carry, rgba, sk0 [C], sk1 [C])`` where the plane
     form's t0/t1 are ``sk0*length`` / ``sk1*length`` (length =
     ``axcam.ray_lengths()``) — the feed of kernel K1.
+
+    ``raw=True`` feeds the resampled VALUE planes instead, unshaded:
+    ``consume(carry, val [C,Nj,Ni], sk [C])`` with the value clipped to
+    [0, 1] and ``-1`` where a sample is dead (outside the volume or
+    ``v_bounds``, or a dropped slice), and the per-slice depth ratios —
+    the feed of the fused kernels B5/B6, which shade themselves. A
+    skipped chunk feeds one ``-1`` plane with its first slice's ratio;
+    ``raw_full_skip=True`` feeds a whole chunk of ``-1`` planes with
+    their ratios instead, so a consumer that gathers the whole stream
+    receives C planes from every chunk. Both feeds leave B5's state the
+    same (a dead plane only marks the previous sample empty); the one
+    plane is kept for ``pallas_fused`` because B5 over a 16-plane dead
+    chunk costs 0.22-0.24 ms against 0.035-0.058 ms for one plane at
+    640 x 640 (``chip_smoke.py``'s ``fused_fold_chunk_dead_C*`` lines,
+    NVIDIA H100 80GB HBM3 at 700 W), 0.7-0.8 ms a flagship frame.
 
     ``v_bounds`` (lo, hi): the half-open world interval of the in-plane
     v axis this volume owns; samples outside it are transparent. A rank
@@ -394,7 +417,18 @@ def slice_march(vol: Volume, tf: TransferFunction, axcam: AxisCamera,
         occupancy.detach().cpu().numpy()
     hits = None if occ_tiles is None else _tile_hits(
         occ_tiles, axcam, spec, local_w0, s_total, nchunks, nv, ov, sv)
-    zero_rows = lambda rows: torch.zeros((c, 4, rows, spec.ni), device=dev)
+    if raw:
+        dead_rows = lambda rows: torch.full((c, rows, spec.ni), -1.0,
+                                            device=dev)
+    else:
+        dead_rows = lambda rows: torch.zeros((c, 4, rows, spec.ni),
+                                             device=dev)
+
+    def rows_val(wv_r, slices, wu, keep_r, ratio_r):
+        """Raw-mode block: resampled values ([C, B, Ni]) clipped to [0, 1]
+        BEFORE the -1 sentinel is written where a sample is dead."""
+        val = torch.bmm(torch.bmm(wv_r, slices), wu.transpose(1, 2))
+        return torch.where(keep_r, torch.clamp(val, 0.0, 1.0), -1.0)
 
     def rows_rgba(wv_r, slices, wu, keep_r, ratio_r):
         """Resample + shade one block of output rows ([C, 4, B, Ni])."""
@@ -423,8 +457,9 @@ def slice_march(vol: Volume, tf: TransferFunction, axcam: AxisCamera,
                   & (wu.sum(-1) > 0.0)[:, None, :])
         keep = inside & live[:, None, None]
 
+        rows_fn = rows_val if raw else rows_rgba
         if hits is None:
-            rgba = rows_rgba(wv, slices, wu, keep, ratio)
+            rgba = rows_fn(wv, slices, wu, keep, ratio)
         else:
             nb = hits.shape[1]
             bsz = spec.nj // nb
@@ -433,11 +468,13 @@ def slice_march(vol: Volume, tf: TransferFunction, axcam: AxisCamera,
                 b0 = b * bsz
                 b1 = spec.nj if b == nb - 1 else b0 + bsz
                 blocks.append(
-                    rows_rgba(wv[:, b0:b1], slices, wu, keep[:, b0:b1],
-                              ratio[b0:b1]) if hits[ci, b]
-                    else zero_rows(b1 - b0))
-            rgba = torch.cat(blocks, dim=2)
+                    rows_fn(wv[:, b0:b1], slices, wu, keep[:, b0:b1],
+                            ratio[b0:b1]) if hits[ci, b]
+                    else dead_rows(b1 - b0))
+            rgba = torch.cat(blocks, dim=1 if raw else 2)
 
+        if raw:
+            return consume(carry, rgba, sk)
         if shaded_compact:
             return consume(carry, rgba, sk, sk + ds)
         t0 = sk[:, None, None] * length[None]
@@ -449,6 +486,13 @@ def slice_march(vol: Volume, tf: TransferFunction, axcam: AxisCamera,
         # like the stream of empties the full march would have produced
         s0 = float(spec.sign) * (local_w0 + float(ci * c) * axcam.dwm
                                  - ew) / axcam.zp
+        if raw and raw_full_skip:
+            sk_c = s0 + torch.arange(c, dtype=torch.float32, device=dev) * ds
+            return consume(carry, torch.full((c, spec.nj, spec.ni), -1.0,
+                                             device=dev), sk_c)
+        if raw:
+            return consume(carry, torch.full((1, spec.nj, spec.ni), -1.0,
+                                             device=dev), s0[None])
         empty = torch.zeros((1, 4, spec.nj, spec.ni), device=dev)
         if shaded_compact:
             return consume(carry, empty, s0[None], s0[None] + ds)
@@ -484,10 +528,10 @@ def _vdi_meta(vol: Volume, axcam: AxisCamera, ni: int,
 def _histogram_threshold(march, cfg: VDIConfig, k, nj: int, ni: int,
                          fold: str, device) -> torch.Tensor:
     """One counting march for all candidate thresholds at once (kernel
-    K2 under the kernel fold, sequential ``push_count`` otherwise)."""
+    K2 under the kernel folds, sequential ``push_count`` otherwise)."""
     tvec = ss.threshold_candidates(cfg.histogram_bins, cfg.thr_max,
                                    device=device)
-    if fold == "pallas_seg":
+    if fold in _K2_FOLDS:
         def consume_multi(carry, rgba, t0, t1):
             return cm.count_multi_chunk(carry, rgba, tvec)
 
@@ -508,26 +552,70 @@ def _frame_march(vol: Volume, tf: TransferFunction, cam: Camera,
                  spec: AxisSpec, box_min=None, box_max=None, v_bounds=None):
     """The frame's virtual camera and its march over one permuted copy
     and one occupancy gate: returns (axcam, march) with ``march(consume,
-    carry0, compact=False)`` a `slice_march` of this frame.
+    carry0, **options)`` a `slice_march` of this frame (options:
+    ``shaded_compact``, ``raw``, ``raw_full_skip``).
     ``box_min``/``box_max``: see `make_axis_camera`; ``v_bounds``: see
     `slice_march`."""
     axcam = make_axis_camera(vol, cam, spec, box_min, box_max)
     volp = permute_volume(vol, spec)
     occ = occupancy_for(vol, tf, spec, volp=volp)
 
-    def march(consume, carry0, compact=False):
+    def march(consume, carry0, **options):
         return slice_march(vol, tf, axcam, spec, consume, carry0,
-                           occupancy=occ, shaded_compact=compact, volp=volp,
-                           v_bounds=v_bounds)
+                           occupancy=occ, volp=volp, v_bounds=v_bounds,
+                           **options)
 
     return axcam, march
 
 
-def _write_march(march, axcam, spec, threshold, k, device, count: bool):
+def _fused_march(march, vol, tf, axcam, spec, threshold, k):
+    """The write march of the fused folds: the raw value planes, shaded
+    and folded by kernel B5 chunk by chunk (``pallas_fused``), or
+    gathered into one ``f32[S_pad, Nj, Ni]`` buffer, skipped chunks as
+    ``-1`` planes, and folded by one launch of kernel B6
+    (``fused_stream``: ~839 MB of buffer at 512 slices of 640 x 640).
+    Returns the fold state."""
+    nj, ni, c = spec.nj, spec.ni, spec.chunk
+    dev = vol.data.device
+    length = axcam.ray_lengths()
+    ds = torch.abs(axcam.dwm) / axcam.zp
+    ratio = ds * length / nominal_step(vol)
+    packed = cs.init_seg_packed(k, nj, ni, device=dev)
+    knots = cf.tf_knots(tf)             # once a march, not once a launch
+    if spec.fold == "pallas_fused":
+        def consume(packed, val, sk):
+            return cf.fused_fold_chunk(packed, val, length, ratio, sk,
+                                       sk + ds, threshold, max_k=k, tf=tf,
+                                       knots=knots)
+
+        packed = march(consume, packed, raw=True)
+    else:
+        s_total = vol.data.shape[_DATA_DIM[spec.axis]]
+        s_pad = -(-s_total // c) * c
+        buf = torch.empty((s_pad, nj, ni), device=dev)
+        skb = torch.empty((s_pad,), device=dev)
+
+        def consume(i, val, sk):
+            buf[i * c:(i + 1) * c] = val
+            skb[i * c:(i + 1) * c] = sk
+            return i + 1
+
+        march(consume, 0, raw=True, raw_full_skip=True)
+        cf.fused_stream_fold(packed, buf, length, ratio, skb, skb + ds,
+                             threshold, max_k=k, chunk=c, tf=tf, knots=knots)
+    return cs.unpack_seg_state(packed)
+
+
+def _write_march(march, vol, tf, axcam, spec, threshold, k, count: bool):
     """The write march of ``spec.fold``. Returns (color, depth, count)
     where count is the true per-pixel start count (``count=True``) or
     None."""
     nj, ni = spec.nj, spec.ni
+    device = vol.data.device
+    if spec.fold in ("pallas_fused", "fused_stream"):
+        state = _fused_march(march, vol, tf, axcam, spec, threshold, k)
+        color, depth = sf.seg_finalize(state)
+        return color, depth, state.cnt
     if spec.fold == "pallas_seg":
         length = axcam.ray_lengths()
 
@@ -536,10 +624,22 @@ def _write_march(march, axcam, spec, threshold, k, device, count: bool):
                                         sk0=sk0, sk1=sk1, length=length)
 
         packed = march(consume, cs.init_seg_packed(k, nj, ni, device=device),
-                       compact=True)
+                       shaded_compact=True)
         state = cs.unpack_seg_state(packed)
         color, depth = sf.seg_finalize(state)
         return color, depth, state.cnt
+    if spec.fold == "pallas":
+        cnt = torch.zeros((nj, ni), dtype=torch.int32,
+                          device=device) if count else None
+
+        def consume(packed, rgba, t0, t1):
+            cm.fold_chunk(packed, rgba, t0, t1, threshold, max_k=k,
+                          count=cnt)
+            return packed
+
+        packed = march(consume, cm.init_packed(k, nj, ni, device=device))
+        color, depth = ss.finalize(cm.unpack_state(packed))
+        return color, depth, cnt
     if spec.fold == "seg":
         def consume(st, rgba, t0, t1):
             return sf.seg_fold_chunk(st, rgba, t0, t1, threshold, max_k=k)
@@ -601,8 +701,8 @@ def generate_vdi_mxu(vol: Volume, tf: TransferFunction, cam: Camera,
     else:
         threshold = torch.full((nj, ni), cfg.threshold, device=dev)
 
-    color, depth, _ = _write_march(march, axcam, spec, threshold, k, dev,
-                                   count=False)
+    color, depth, _ = _write_march(march, vol, tf, axcam, spec, threshold,
+                                   k, count=False)
     return VDI(color, depth), _vdi_meta(vol, axcam, ni, nj), axcam
 
 
@@ -641,8 +741,8 @@ def generate_vdi_mxu_temporal(vol: Volume, tf: TransferFunction,
     k = cfg.max_supersegments
     axcam, march = _frame_march(vol, tf, cam, spec, box_min, box_max,
                                 v_bounds)
-    color, depth, count = _write_march(march, axcam, spec, threshold.thr, k,
-                                       vol.data.device, count=True)
+    color, depth, count = _write_march(march, vol, tf, axcam, spec,
+                                       threshold.thr, k, count=True)
     next_thr = ss.update_threshold(threshold, count, k,
                                    cfg.adaptive_delta, cfg.thr_min,
                                    cfg.thr_max, cfg.temporal_track)

@@ -57,14 +57,13 @@ class GrayScott(NamedTuple):
         d, h, w = grid
         u = np.ones(grid, np.float32)
         v = np.zeros(grid, np.float32)
-        zz, yy, xx = np.meshgrid(np.arange(d), np.arange(h), np.arange(w),
-                                 indexing="ij")
 
         def stamp(c, r):
-            mask = ((np.abs(zz - c[0]) < r) & (np.abs(yy - c[1]) < r)
-                    & (np.abs(xx - c[2]) < r))
-            u[mask] = 0.5
-            v[mask] = 0.25
+            # the cells with |index - c| < r on every axis
+            box = tuple(slice(max(int(ci) - r + 1, 0), int(ci) + r)
+                        for ci in c)
+            u[box] = 0.5
+            v[box] = 0.25
 
         stamp((d // 2, h // 2, w // 2), max(min(d, h, w) // 4, 2))
         rng = np.random.default_rng(seed)

@@ -165,14 +165,17 @@ def test_make_spec_axis_camera_and_permute(eye):
 
 
 def test_make_spec_off_tpu_rules_and_folds():
-    _, tv, _, tc = _pair(EYES[0])
+    jv, tv, jc, tc = _pair(EYES[0])
     shape = tuple(tv.data.shape)
     ts = tsl.make_spec(tc, shape, tcfg.SliceMarchConfig(matmul_dtype="bf16"))
     assert ts.matmul_dtype == "f32" and ts.vtiles == 0
     assert ts.fold == "xla"            # "auto" on a CPU camera
     for fold in ("pallas", "pallas_fused", "fused_stream"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tsl.make_spec(tc, shape, tcfg.SliceMarchConfig(fold=fold))
+        ts = tsl.make_spec(tc, shape, tcfg.SliceMarchConfig(fold=fold))
+        js = jsl.make_spec(jc, jv.data.shape, jcfg.SliceMarchConfig(
+            matmul_dtype="f32", fold=fold))
+        assert ts.fold == fold
+        assert dataclasses.asdict(ts) == dataclasses.asdict(js)
     with pytest.raises(ValueError):
         tsl.make_spec(tc, shape, tcfg.SliceMarchConfig(fold="bogus"))
 

@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a card.
 
-K1 (segmented write fold), K2 (multi-threshold count), K3 (fused
-Gray-Scott stencil) and K4 (the composite's resegment) are built from
+K1 (segmented write fold) and its planes form B1b, K2
+(multi-threshold count), K3 (fused Gray-Scott stencil), K4 (the
+composite's resegment), B7 (the machine's write fold) and B5/B6 (shade
+and fold, per chunk and over the whole march) are built from
 ``scenery_insitu_tpu_torch/csrc`` at first use. Every test here needs
 a CUDA device and skips without one; on the card run them with
 
@@ -12,7 +14,10 @@ does not use). Tolerances: K2 counts exact; K1 within 1e-5 (the kernel
 sums a slot's items sequentially, the plain version with one reduction);
 K3 within 1e-6 per fused step (the library is built without FMA
 contraction, so it repeats the plain version's rounding); K4 thresholds
-and live slots exact, colours and depths within 1e-6."""
+and live slots exact, colours and depths within 1e-6; B1b equal to
+K1's compact form bit for bit; B7 counts exact, colour and depth within
+1e-6 (it repeats the machine's arithmetic); B5 and B6 start counts
+exact, colour and depth within 1e-6."""
 
 import numpy as np
 import pytest
@@ -167,3 +172,124 @@ def test_wrappers_raise_on_cpu_operand_mixed_with_cuda(dev):
                              max_k=2, sk0=torch.ones(1, device=dev),
                              sk1=torch.ones(1, device=dev),
                              length=torch.ones((8, 8), device=dev))
+
+
+def _planes(sk, length):
+    return (sk[:, None, None] * length[None]).contiguous()
+
+
+@pytest.mark.parametrize("chunks,k,hw", [((16, 1, 16), 16, (37, 90)),
+                                         ((5, 3), 4, (13, 37))])
+def test_seg_fold_planes_equals_compact_and_plain(dev, chunks, k, hw):
+    """B1b (K1's planes form) fed t = sk * length equals K1's compact
+    form bit for bit, and its plain version within 1e-5, counts exact."""
+    h, w = hw
+    g = torch.Generator(device=dev).manual_seed(3)
+    thr = 0.05 + 0.5 * torch.rand(hw, generator=g, device=dev)
+    length = 1.0 + torch.rand(hw, generator=g, device=dev)
+    planes, compact, plain = (cs.init_seg_packed(k, h, w, device=dev)
+                              for _ in range(3))
+    before = kernels.launches()["seg_fold_planes"]
+    lo = 0.5
+    for i, c in enumerate(chunks):
+        rgba = _stream(c, h, w, dev, 30 + i)
+        sk0 = torch.linspace(lo, lo + 0.3, c, device=dev)
+        sk1 = (sk0 + 0.02).contiguous()
+        lo += 0.4
+        t0, t1 = _planes(sk0, length), _planes(sk1, length)
+        cs.fold_chunk_packed(planes, rgba, thr, max_k=k, t0=t0, t1=t1)
+        cs.fold_chunk_packed(compact, rgba, thr, max_k=k, sk0=sk0, sk1=sk1,
+                             length=length)
+        cs.fold_chunk_packed_plain(plain, rgba, thr, max_k=k, t0=t0, t1=t1)
+    torch.cuda.synchronize()
+    assert kernels.launches()["seg_fold_planes"] == before + len(chunks)
+    for a, b, p in zip(planes, compact, plain):
+        assert torch.equal(a, b)
+        assert _err(a, p) <= 1e-5
+    assert torch.equal(planes[2][0], plain[2][0])
+
+
+@pytest.mark.parametrize("chunks,k,hw,gap_eps", [((16, 1, 16), 6, (37, 90),
+                                                  -1.0),
+                                                 ((5, 3), 1, (13, 37), 1e-4),
+                                                 ((8,), 16, (8, 300), -1.0)])
+def test_fold_chunk_matches_plain(dev, chunks, k, hw, gap_eps):
+    """B7 (the machine's fold) against its sequential push/push_count
+    plain version: counts and slot counters exact, colour and depth
+    within 1e-6."""
+    h, w = hw
+    g = torch.Generator(device=dev).manual_seed(4)
+    thr = 0.05 + 0.5 * torch.rand(hw, generator=g, device=dev)
+    kern, plain = (cm.init_packed(k, h, w, device=dev) for _ in range(2))
+    ck, cp = (torch.zeros(hw, dtype=torch.int32, device=dev)
+              for _ in range(2))
+    t = 0.0
+    for i, c in enumerate(chunks):
+        rgba = _stream(c, h, w, dev, 40 + i)
+        step = 0.1 + 0.05 * (torch.rand((c, h, w), generator=g, device=dev)
+                             < 0.3)
+        t0 = (t + torch.cumsum(step, 0)).contiguous()
+        t1 = (t0 + 0.1).contiguous()
+        t = float(t1.max())
+        cm.fold_chunk(kern, rgba, t0, t1, thr, max_k=k, count=ck,
+                      gap_eps=gap_eps)
+        cm.fold_chunk_plain(plain, rgba, t0, t1, thr, max_k=k, count=cp,
+                            gap_eps=gap_eps)
+    torch.cuda.synchronize()
+    assert torch.equal(ck, cp)
+    assert torch.equal(kern[2][11], plain[2][11])
+    for a, b in zip(kern, plain):
+        assert _err(a, b) <= 1e-6
+
+
+def _values(s, h, w, dev, seed):
+    rng = np.random.default_rng(seed)
+    val = rng.uniform(-0.2, 1.2, (s, h, w)).astype(np.float32)
+    val = np.where(rng.random((s, h, w)) < 0.2, np.float32(-1.0), val)
+    rep = (rng.random((s, h, w)) < 0.3) & (np.arange(s)[:, None, None] > 0)
+    val = np.where(rep, np.roll(val, 1, axis=0), val)
+    sk = 0.6 + 0.02 * torch.arange(s, dtype=torch.float32, device=dev)
+    length = torch.from_numpy(
+        (2.0 + rng.random((h, w))).astype(np.float32)).to(dev)
+    ratio = torch.from_numpy(
+        (0.8 + 0.5 * rng.random((h, w))).astype(np.float32)).to(dev)
+    thr = torch.from_numpy(
+        (0.02 + 0.3 * rng.random((h, w))).astype(np.float32)).to(dev)
+    return torch.from_numpy(val).to(dev), sk, length, ratio, thr
+
+
+@pytest.mark.parametrize("c,k,hw,tf_name", [(16, 16, (37, 90), "gray_scott"),
+                                            (5, 3, (13, 37), "procedural")])
+def test_fused_fold_and_stream_match_plain(dev, c, k, hw, tf_name):
+    """B5 over three chunks and B6 over the same stream against their
+    plain versions: start counts exact, colour and depth within 1e-6;
+    B6 equals B5 chunk after chunk bit for bit."""
+    from scenery_insitu_tpu_torch.core.transfer import for_dataset
+    from scenery_insitu_tpu_torch.ops import cuda_fused as cf
+
+    h, w = hw
+    tf = for_dataset(tf_name, device=dev)
+    val, sk, length, ratio, thr = _values(3 * c, h, w, dev, c + k)
+    sk1 = (sk + 0.02).contiguous()
+    b5, b5p = (cs.init_seg_packed(k, h, w, device=dev) for _ in range(2))
+    before = kernels.launches()
+    for lo in range(0, 3 * c, c):
+        args = (val[lo:lo + c], length, ratio, sk[lo:lo + c],
+                sk1[lo:lo + c], thr)
+        cf.fused_fold_chunk(b5, *args, max_k=k, tf=tf)
+        cf.fused_fold_chunk_plain(b5p, *args, max_k=k, tf=tf)
+    b6, b6p = (cs.init_seg_packed(k, h, w, device=dev) for _ in range(2))
+    cf.fused_stream_fold(b6, val, length, ratio, sk, sk1, thr, max_k=k,
+                         chunk=c, tf=tf)
+    cf.fused_stream_fold_plain(b6p, val, length, ratio, sk, sk1, thr,
+                               max_k=k, chunk=c, tf=tf)
+    torch.cuda.synchronize()
+    after = kernels.launches()
+    assert after["fused_fold_chunk"] == before["fused_fold_chunk"] + 3
+    assert after["fused_stream_fold"] == before["fused_stream_fold"] + 1
+    for kern, plain in ((b5, b5p), (b6, b6p)):
+        assert torch.equal(kern[2][0], plain[2][0])
+        for a, b in zip(kern, plain):
+            assert _err(a, b) <= 1e-6
+    for a, b in zip(b5, b6):
+        assert torch.equal(a, b)

@@ -98,6 +98,28 @@ def test_init_and_params_match_reference():
     assert float(s.params.vector()[0]) == pytest.approx(0.03)
 
 
+@pytest.mark.parametrize("grid,seed", [((12, 16, 20), 3), ((16, 9, 24), 5)])
+def test_init_seed_cubes_are_the_cells_within_radius(grid, seed):
+    """Each seed cube is the set of cells with |index - centre| < r on
+    every axis, the reference's mask, for the central cube and the
+    numpy-drawn satellites, cut at the grid's edges."""
+    d, h, w = grid
+    zz, yy, xx = np.meshgrid(np.arange(d), np.arange(h), np.arange(w),
+                             indexing="ij")
+    rs = max(min(grid) // 8, 2)
+    cubes = [((d // 2, h // 2, w // 2), max(min(grid) // 4, 2))]
+    rng = np.random.default_rng(seed)
+    cubes += [(rng.integers(rs, np.array([d - rs, h - rs, w - rs])), rs)
+              for _ in range(4)]
+    mask = np.zeros(grid, bool)
+    for c, r in cubes:
+        mask |= ((np.abs(zz - c[0]) < r) & (np.abs(yy - c[1]) < r)
+                 & (np.abs(xx - c[2]) < r))
+    st = tgs.GrayScott.init(grid, seed=seed, device=CPU)
+    np.testing.assert_array_equal(st.u.numpy(), np.where(mask, 0.5, 1.0))
+    np.testing.assert_array_equal(st.v.numpy(), np.where(mask, 0.25, 0.0))
+
+
 def test_step_fused_rejects_bad_operands():
     _, ts = _states((8, 8, 8))
     p = ts.params.vector()

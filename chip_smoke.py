@@ -49,7 +49,22 @@ and prints no result):
    shapes, on a seeded stream and on a real column block of the frame
    (thresholds and live slots exact, colour and depth within 1e-6);
    then the distributed frame on a 32^3 volume over 4 ranks held
-   against the CPU's plain versions in both march regimes.
+   against the CPU's plain versions in both march regimes;
+5. the sim-fused occupancy frame: (a) B4b (K3 with the ranges epilogue,
+   checked with phase 2's kernels on its state) on the 512^3 state at
+   T=4 and T=2 and on ragged grids whose bricks
+   straddle K3's blocks (v partly negative on one), its u', v' equal to
+   K3's bit for bit and its per-brick ranges equal to its plain
+   version's and to ``field_ranges`` of its own v' exactly, timed
+   against K3; (b) the flagship frame of phase 3 under
+   ``occupancy="pyramid"`` and ``occupancy="sim"`` (16 in-plane tiles),
+   run and timed as phase 3 runs it (B4b once a frame under "sim"), each
+   image at least 60 dB from phase 3's chunk-skip frame at the same
+   state, eye and threshold, with the largest difference; (c) the 32^3
+   ``occupancy="sim"`` frame under every fold against the CPU's plain
+   versions; (d) one run of the benchmark twin
+   (``scenery_insitu_tpu_torch.bench``) with ``SITPU_BENCH_SKIP=sim`` at
+   512^3, its JSON line logged as ``bench_twin``.
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -104,6 +119,9 @@ FOLD_KERNELS = {"pallas": "fold_chunk", "pallas_fused": "fused_fold_chunk",
 FOLD_PSNR_DB = 60.0
 # the kernels of each path
 FRAME_KERNELS = ("grayscott_fused", "seg_fold_compact", "count_multi")
+SIM_OCC_KERNELS = FRAME_KERNELS + ("grayscott_fused_ranges",)
+OCC_PSNR_DB = 60.0
+BENCH_FRAMES = 5
 DIST_KERNELS = FRAME_KERNELS + ("resegment_sorted",)
 # the distributed frame: the reference's 8-rank mesh, composited into
 # K_OUT slots with the default 6-step threshold search
@@ -653,12 +671,12 @@ def capture_chunks(dev, u, v, eye):
 # ------------------------------------------------------------- phase 3
 
 
-def frame_config(device, fold="auto"):
+def frame_config(device, fold="auto", occupancy=None):
     from scenery_insitu_tpu_torch.config import (CompositeConfig,
                                                  SliceMarchConfig, VDIConfig)
 
     return dict(
-        sim_steps=SIM_STEPS,
+        sim_steps=SIM_STEPS, occupancy=occupancy,
         vdi_cfg=VDIConfig(max_supersegments=K, adaptive_iters=2,
                           adaptive_mode="temporal", histogram_bins=BINS),
         comp_cfg=CompositeConfig(max_output_supersegments=K,
@@ -674,14 +692,16 @@ def yaw_of(i):
 
 
 def run_frame(dev, profile=False, fold="auto", prefix="frame",
-              kernel_names=FRAME_KERNELS, time_sim=True):
-    """The flagship temporal frame under ``fold``: ``init_threshold``,
-    the warm-up and timed frames with the launch counts read from that
-    run (every kernel of ``kernel_names`` launched), then the march and
-    (``time_sim``) the sim timed apart, each the median of TIMED_FRAMES.
-    The sim is the same K3 work under every fold, so the fold frames
-    leave it to phase 3. Logs under ``prefix``; returns the launch
-    counts and the final (u, v, thresholds, step)."""
+              kernel_names=FRAME_KERNELS, time_sim=True, occupancy=None):
+    """The flagship temporal frame under ``fold`` and the empty-space
+    mode ``occupancy``: ``init_threshold``, the warm-up and timed frames
+    with the launch counts read from that run (every kernel of
+    ``kernel_names`` launched), then the march and (``time_sim``) the
+    sim timed apart, each the median of TIMED_FRAMES. The sim is the
+    same K3 work under every fold, so the fold frames leave it to phase
+    3; under ``occupancy="sim"`` it is the sim with B4b's ranges and the
+    march includes the pyramid built from them. Logs under ``prefix``;
+    returns the launch counts and the final (u, v, thresholds, step)."""
     import torch
 
     from scenery_insitu_tpu_torch import kernels
@@ -696,7 +716,7 @@ def run_frame(dev, profile=False, fold="auto", prefix="frame",
                          far=20.0, device=dev)
     step = grayscott_vdi_frame_step(grid_shape=(GRID,) * 3,
                                     axis_sign=slicer.choose_axis(base),
-                                    **frame_config(dev, fold))
+                                    **frame_config(dev, fold, occupancy))
     log(f"{prefix}.spec", step.spec)
     st = gs.GrayScott.init((GRID,) * 3, seed=SEED, device=dev)
     u, v = st.u, st.v
@@ -740,9 +760,12 @@ def run_frame(dev, profile=False, fold="auto", prefix="frame",
     # the split: the sim advance and the march, timed apart on this state
     from scenery_insitu_tpu_torch.core.transfer import for_dataset
     from scenery_insitu_tpu_torch.core.volume import Volume
+    from scenery_insitu_tpu_torch.ops import occupancy as occ
 
+    sim_occ = occupancy == "sim"
     if time_sim:
-        sim_ms = median_ms(lambda _: gs.multi_step_fast(
+        advance = gs.multi_step_fast_ranges if sim_occ else gs.multi_step_fast
+        sim_ms = median_ms(lambda _: advance(
             gs.GrayScott(u, v, st.params), SIM_STEPS), TIMED_FRAMES)
         log(f"{prefix}.sim_ms", f"{sim_ms:.3f}")
     cfg = frame_config(dev)
@@ -750,9 +773,15 @@ def run_frame(dev, profile=False, fold="auto", prefix="frame",
     vol = Volume.centered(v, extent=2.0)
     cam = Camera.create(eye(0), fov_y_deg=50.0, near=0.5, far=20.0,
                         device=dev)
+    pyramid = lambda: None
+    if sim_occ:
+        # the sim's ranges of this field (B4b's equal these exactly, 5a)
+        rng = occ.field_ranges(v, *occ.default_bricks(tuple(v.shape)))
+        pyramid = lambda: occ.pyramid_from_ranges(rng, vol, tf, step.spec)
     allocs = torch.cuda.memory_stats().get("num_device_alloc", 0)
     march_ms = median_ms(lambda _: slicer.generate_vdi_mxu_temporal(
-        vol, tf, cam, step.spec, thr, cfg["vdi_cfg"]), TIMED_FRAMES)
+        vol, tf, cam, step.spec, thr, cfg["vdi_cfg"], occupancy=pyramid()),
+        TIMED_FRAMES)
     allocs = torch.cuda.memory_stats().get("num_device_alloc", 0) - allocs
     log(f"{prefix}.march_ms", f"{march_ms:.3f} (median of {TIMED_FRAMES} "
         f"marches "
@@ -907,10 +936,10 @@ def trace_gaps(prefix, path, frames):
         f"{h2d / frames:.1f}/frame, stream syncs {syncs / frames:.1f}/frame")
 
 
-def check_small_frame(dev, fold="pallas_seg"):
-    """The kernel path of ``fold`` on the card against its plain
-    versions on the CPU, 3 temporal frames on a 32^3 grid from the same
-    inputs."""
+def check_small_frame(dev, fold="pallas_seg", occupancy=None):
+    """The kernel path of ``fold`` (and empty-space mode ``occupancy``)
+    on the card against its plain versions on the CPU, 3 temporal frames
+    on a 32^3 grid from the same inputs."""
     import torch
 
     from scenery_insitu_tpu_torch.core.camera import Camera, orbit
@@ -928,7 +957,7 @@ def check_small_frame(dev, fold="pallas_seg"):
     for name, d in (("cuda", dev), ("cpu", "cpu")):
         step = grayscott_vdi_frame_step(
             grid_shape=(n,) * 3, axis_sign=axis_sign,
-            **frame_config(d, fold=fold))
+            **frame_config(d, fold=fold, occupancy=occupancy))
         u, v = st.u.to(d), st.v.to(d)
         thr = step.init_threshold(u, v, orbit(base, 0.1).eye.to(d))
         imgs = []
@@ -939,6 +968,8 @@ def check_small_frame(dev, fold="pallas_seg"):
         outs[name] = (torch.stack(imgs), u.cpu(), v.cpu())
     prefix = "small_frame" if fold == "pallas_seg" else \
         f"small_frame_{fold}"
+    if occupancy is not None:
+        prefix = f"small_frame_{occupancy}_{fold}"
     uerr = max(max_abs(outs["cuda"][1], outs["cpu"][1]),
                max_abs(outs["cuda"][2], outs["cpu"][2]))
     check(f"{prefix}.sim", uerr, 1e-6 * 3 * SIM_STEPS)
@@ -1270,6 +1301,156 @@ def check_small_dist(dev):
                                  f"versions")
 
 
+# ------------------------------------------------------------- phase 5
+
+
+def check_stencil_ranges(dev, g):
+    """B4b against K3 and its plain version: the 512^3 state ``g`` with
+    the default bricks (16 x 32 x 512 cells, one brick a block) at T=4
+    and T=2, and ragged grids whose bricks straddle K3's 16 x 16 x 32
+    blocks, one with v partly negative. Its u', v' must equal K3's bit
+    for bit, its ranges ``field_ranges`` of its own v' and its plain
+    version's exactly. Times B4b against K3 at T=4 and T=2 (the frame's
+    last pass, the one that carries the epilogue) on the 512^3 state."""
+    import torch
+
+    from scenery_insitu_tpu_torch.ops import occupancy as occ
+    from scenery_insitu_tpu_torch.sim import cuda_stencil as cst
+    from scenery_insitu_tpu_torch.sim import grayscott as gs
+
+    p = g.params.vector()
+    cases = [(f"{GRID}", g.u, g.v, occ.default_bricks(tuple(g.v.shape)),
+              (4, 2))]
+    for shape, bricks, shift in (((24, 24, 24), None, 0.0),
+                                 ((36, 60, 50), (12, 5), -0.1)):
+        st = gs.GrayScott.init(shape, seed=SEED, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        u = (st.u - 0.05 * torch.rand(shape, generator=gen, device=dev))
+        v = (st.v + shift + 0.05 * torch.rand(shape, generator=gen,
+                                              device=dev))
+        bricks = bricks or occ.default_bricks(shape)
+        cases.append(("x".join(map(str, shape)), u.contiguous(),
+                      v.contiguous(), bricks, (4, 3)))
+    err = 0.0
+    for name, u, v, bricks, ts in cases:
+        for t in ts:
+            ur, vr, lo, hi = cst.step_fused_ranges(u, v, p, t, bricks)
+            uk, vk = cst.step_fused(u, v, p, t)
+            _, _, lp, hp = cst.step_fused_ranges_plain(u, v, p, t, bricks)
+            own = occ.field_ranges(vr, *bricks)
+            torch.cuda.synchronize()
+            tag = f"stencil_ranges_{name}_T{t}"
+            if not (torch.equal(ur, uk) and torch.equal(vr, vk)):
+                raise AssertionError(f"{tag}: u', v' differ from K3's")
+            if not (torch.equal(lo, own.lo) and torch.equal(hi, own.hi)):
+                raise AssertionError(f"{tag}: ranges differ from "
+                                     f"field_ranges of the kernel's v'")
+            e = max(max_abs(lo, lp), max_abs(hi, hp))
+            log(f"{tag}.bricks", f"{bricks} lo in [{float(lo.min()):.4f}, "
+                f"{float(lo.max()):.4f}], hi in [{float(hi.min()):.4f}, "
+                f"{float(hi.max()):.4f}]; u', v' equal K3's bit for bit")
+            check(tag, e, 0.0)
+            err = max(err, e)
+    u, v, bricks = g.u, g.v, cases[0][3]
+    cells = u.numel()
+    out = {}
+    for t in (4, 2):
+        ms = median_ms(lambda _: cst.step_fused_ranges(u, v, p, t, bricks),
+                       10)
+        k3_ms = median_ms(lambda _: cst.step_fused(u, v, p, t), 10)
+        pms = median_ms(lambda _: cst.step_fused_ranges_plain(
+            u, v, p, t, bricks), 3)
+        # K3's bytes and operations, plus the ranges written and a compare
+        # a cell for each of min and max
+        b, by = bound_ms(4 * 4 * cells + 2 * 4 * bricks[0] * bricks[1],
+                         (STENCIL_FLOPS_PER_CELL_STEP * t + 2) * cells)
+        log(f"stencil_ranges_T{t}.ms", f"{ms:.4f} k3_ms={k3_ms:.4f} "
+            f"plain_ms={pms:.4f} bound_ms={b:.4f} ({by}) bricks={bricks}")
+        out[t] = dict(err=err, ms=ms, k3_ms=k3_ms, plain_ms=pms, bound_ms=b,
+                      bound_by=by)
+    return out
+
+
+def run_occupancy_frames(dev, ref, profile=False):
+    """The flagship frame under ``occupancy="pyramid"`` and ``"sim"``,
+    through ``grayscott_vdi_frame_step`` as phase 3 runs it, the launch
+    counts set to 0 before each run and read after it (B4b once a frame
+    under "sim"). Then each mode's VDI against phase 3's chunk-skip frame
+    at the same state, eye and threshold: PSNR at least OCC_PSNR_DB, the
+    largest image difference and the share of pixels whose live slot
+    count differs. Returns {mode: launches}."""
+    import torch
+
+    from scenery_insitu_tpu_torch.core.camera import Camera, orbit
+    from scenery_insitu_tpu_torch.core.transfer import for_dataset
+    from scenery_insitu_tpu_torch.core.vdi import render_vdi_same_view
+    from scenery_insitu_tpu_torch.core.volume import Volume
+    from scenery_insitu_tpu_torch.ops import occupancy as occ
+    from scenery_insitu_tpu_torch.ops import slicer
+
+    u, v, thr, ref_step = ref
+    cfg = frame_config(dev)["vdi_cfg"]
+    tf = for_dataset("gray_scott", device=dev)
+    base = Camera.create(BASE_EYE, fov_y_deg=50.0, near=0.5, far=20.0,
+                         device=dev)
+    cam = Camera.create(orbit(base, yaw_of(0)).eye, fov_y_deg=50.0,
+                        near=0.5, far=20.0, device=dev)
+    vol = Volume.centered(v, extent=2.0)
+    want, _, _, _ = slicer.generate_vdi_mxu_temporal(
+        vol, tf, cam, ref_step.spec, thr, cfg)
+    want_img = render_vdi_same_view(want)
+    want_live = torch.isfinite(want.depth[:, 0]).sum(0)
+    rng = occ.field_ranges(v, *occ.default_bricks(tuple(v.shape)))
+    out = {}
+    for mode in ("pyramid", "sim"):
+        torch.cuda.empty_cache()
+        launches, (_, _, _, step) = run_frame(
+            dev, profile, prefix=f"occ_{mode}", occupancy=mode,
+            kernel_names=SIM_OCC_KERNELS if mode == "sim" else FRAME_KERNELS,
+            time_sim=mode == "sim")
+        frames = WARMUP_FRAMES + TIMED_FRAMES
+        if mode == "sim" and launches["grayscott_fused_ranges"] != frames:
+            raise AssertionError(
+                f"B4b launched {launches['grayscott_fused_ranges']} times "
+                f"in {frames} frames")
+        pyr = (occ.pyramid_from_ranges(rng, vol, tf, step.spec)
+               if mode == "sim" else
+               occ.pyramid_from_volume(vol, tf, step.spec))
+        log(f"occ_{mode}.pyramid", f"vtiles={step.spec.vtiles} live cells "
+            f"{float(pyr.live_fraction()):.4f}, live chunks "
+            f"{int(pyr.chunks.sum())} of {pyr.chunks.numel()}")
+        got, _, _, _ = slicer.generate_vdi_mxu_temporal(
+            vol, tf, cam, step.spec, thr, cfg,
+            occupancy=pyr if mode == "sim" else None)
+        img = render_vdi_same_view(got)
+        psnr = image_psnr(img, want_img)
+        diff = float((img - want_img).abs().max())
+        live = torch.isfinite(got.depth[:, 0]).sum(0)
+        share = float((live != want_live).float().mean())
+        log(f"occ_{mode}.psnr_vs_chunk_skip_db", f"{psnr:.2f} (gate >= "
+            f"{OCC_PSNR_DB}; largest image difference {diff:.3e}; pixels "
+            f"whose live slot count differs: {share:.6f})")
+        if not psnr >= OCC_PSNR_DB:
+            raise AssertionError(f"occupancy {mode}: image {psnr:.2f} dB "
+                                 f"from the chunk-skip frame")
+        out[mode] = launches
+        del got
+    return out
+
+
+def run_bench_twin(dev):
+    """One run of the benchmark twin at the flagship size with the
+    sim-fused occupancy; its JSON line is logged as ``bench_twin``."""
+    from scenery_insitu_tpu_torch import bench
+
+    res = bench.run(dev, env={"SITPU_BENCH_GRID": str(GRID),
+                         "SITPU_BENCH_SKIP": "sim",
+                         "SITPU_BENCH_FRAMES": str(BENCH_FRAMES)})
+    log("bench_twin", json.dumps(res))
+    if not (res["value"] > 0 and res["occupancy"]["mode"] == "sim"):
+        raise AssertionError(f"bench twin: {res}")
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -1312,14 +1493,15 @@ def main(argv=None) -> int:
     fold = check_fold_and_count(dev, cap["chunks"], cap["thr"],
                                 cap["length"])
     new = check_new_folds(dev, cap)
-    del cap, g
+    del cap
+    ranges = check_stencil_ranges(dev, g)
+    del g
     torch.cuda.empty_cache()
     phase_done("phase2")
     launches, ref = run_frame(dev, args.profile)
     check_small_frame(dev)
     phase_done("phase3")
     folds = run_fold_frames(dev, ref, args.profile)
-    del ref
     phase_done("phase3b.frames")
     for f in FOLD_KERNELS:
         check_small_frame(dev, f)
@@ -1331,6 +1513,15 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     check_small_dist(dev)
     phase_done("phase4")
+    occ_launches = run_occupancy_frames(dev, ref, args.profile)
+    del ref
+    torch.cuda.empty_cache()
+    phase_done("phase5.frames")
+    for f in ("pallas_seg",) + tuple(FOLD_KERNELS) + ("seg", "xla"):
+        check_small_frame(dev, f, occupancy="sim")
+    torch.cuda.empty_cache()
+    run_bench_twin(dev)
+    phase_done("phase5")
 
     table = [
         dict(name="grayscott_fused", route="cuda",
@@ -1387,14 +1578,25 @@ def main(argv=None) -> int:
             max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=None))
-    # K3's one body replaces both stencil sites (3-D and 2-D grids)
+    # K3's one body replaces both stencil sites (3-D and 2-D grids), and
+    # B4b both sites' ranges epilogue
     table[0]["also_replaces"] = ["scenery_insitu_tpu/sim/pallas_stencil.py"
                                  ":240"]
+    table.append(dict(
+        name="grayscott_fused_ranges", route="cuda",
+        source="scenery_insitu_tpu_torch/csrc/stencil.cu",
+        replaces="scenery_insitu_tpu/sim/pallas_stencil.py:125",
+        also_replaces=["scenery_insitu_tpu/sim/pallas_stencil.py:404"],
+        launches=occ_launches["sim"]["grayscott_fused_ranges"],
+        max_abs_err=ranges[4]["err"], ms=ranges[4]["ms"],
+        plain_ms=ranges[4]["plain_ms"], bound_ms=ranges[4]["bound_ms"],
+        bound_by=ranges[4]["bound_by"], library_ms=None))
     log("library_ms", "null for every kernel: no single PyTorch call "
         "computes the fused Gray-Scott steps, the segmented write fold, "
         "the multi-threshold count, the sort-and-resegment of a "
-        "supersegment stream, the supersegment machine or the shading "
-        "and fold of a value stream")
+        "supersegment stream, the supersegment machine, the shading "
+        "and fold of a value stream or the stencil with per-brick "
+        "ranges")
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,6 +17,7 @@ import torch
 from scenery_insitu_tpu_torch.core.transfer import TransferFunction
 from scenery_insitu_tpu_torch.core.vdi import VDI, VDIMetadata
 from scenery_insitu_tpu_torch.device import resolve_device
+from scenery_insitu_tpu_torch.ops.occupancy import FieldRanges
 from scenery_insitu_tpu_torch.ops.supersegments import ThresholdState
 from scenery_insitu_tpu_torch.sim.grayscott import GrayScott, GrayScottParams
 
@@ -58,6 +59,14 @@ def threshold_state(state, device=None) -> ThresholdState:
     dev = resolve_device(device)
     return ThresholdState(*(_tensor(x, np.float32, dev) for x in
                             _fields(state, ThresholdState._fields)))
+
+
+def field_ranges(ranges, device=None) -> FieldRanges:
+    """Per-brick value ranges ``lo, hi f32[nzb, nyb]`` (the reference's
+    ``occupancy.FieldRanges``)."""
+    dev = resolve_device(device)
+    return FieldRanges(*(_tensor(x, np.float32, dev) for x in
+                         _fields(ranges, FieldRanges._fields)))
 
 
 def vdi(value, device=None) -> VDI:

@@ -59,6 +59,8 @@ ENTRIES = {
     "count_multi": ("count_multi", [_P] * 5 + [_I] * 4 + [_P]),
     # u, v, params, u_out, v_out, D, H, W, T, stream
     "grayscott_fused": ("stencil", [_P] * 5 + [_I] * 4 + [_P]),
+    # u, v, params, u_out, v_out, lo, hi, D, H, W, T, nzb, nyb, stream
+    "grayscott_fused_ranges": ("stencil", [_P] * 7 + [_I] * 6 + [_P]),
     # sc, sd, thr, color, depth, thr_out (or NULL), NK, K_out, H, W,
     # iters, gap_eps, thr_max, stream
     "resegment_sorted": ("resegment", [_P] * 6 + [_I] * 5 + [_F] * 2

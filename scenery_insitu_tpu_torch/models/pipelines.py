@@ -16,6 +16,7 @@ from scenery_insitu_tpu_torch.core.transfer import (TransferFunction,
                                                     for_dataset)
 from scenery_insitu_tpu_torch.core.volume import Volume
 from scenery_insitu_tpu_torch.device import resolve_device
+from scenery_insitu_tpu_torch.ops import occupancy as occupancy_mod
 from scenery_insitu_tpu_torch.ops import slicer
 from scenery_insitu_tpu_torch.ops.composite import composite_vdis
 from scenery_insitu_tpu_torch.sim import grayscott as gs
@@ -24,16 +25,12 @@ from scenery_insitu_tpu_torch.sim import grayscott as gs
 def resolve_occupancy_cfg(slicer_cfg: SliceMarchConfig,
                           occupancy: Optional[str]) -> SliceMarchConfig:
     """Apply an empty-space-skipping mode to a SliceMarchConfig; None
-    keeps it as it is. "sim" (ranges from the fused stencil) is a later
-    slice of the port."""
+    keeps it as it is. "pyramid" and "sim" turn the in-plane tiles on;
+    "sim" takes the pyramid's ranges from the sim pass (see
+    `grayscott_vdi_frame_step`)."""
     if occupancy is None:
         return slicer_cfg
-    if occupancy == "sim":
-        raise NotImplementedError(
-            "occupancy='sim' needs the fused stencil's ranges epilogue and "
-            "occupancy.pyramid_from_ranges, which this port does not have "
-            "yet (ROADMAP queue A3)")
-    if occupancy not in ("off", "chunk", "pyramid"):
+    if occupancy not in ("off", "chunk", "pyramid", "sim"):
         raise ValueError(f"occupancy must be 'off', 'chunk', 'pyramid' "
                          f"or 'sim', got {occupancy!r}")
     if occupancy == "off":
@@ -73,6 +70,10 @@ def grayscott_vdi_frame_step(sim_steps: int = 5,
     signature there is no image width, height or ray step count (those
     are the gather engine's). ``sim_fused`` advances the sim through the
     fused stencil (kernel K3 on CUDA) instead of the roll formulation.
+    ``occupancy="sim"`` builds each frame's occupancy pyramid from the
+    per-brick ranges of the new field that the sim pass returns (the
+    stencil's ranges epilogue, or one reduction of the field when
+    ``sim_fused`` is off), so the march never sweeps the volume for it.
     ``device=None`` means CUDA."""
     dev = resolve_device(device)
     tf = tf or for_dataset("gray_scott", device=dev)
@@ -87,6 +88,7 @@ def grayscott_vdi_frame_step(sim_steps: int = 5,
     if engine not in ("auto", "mxu"):
         raise ValueError(f"unknown render engine {engine!r} "
                          "(expected 'auto', 'mxu' or 'gather')")
+    sim_occ = occupancy == "sim"
     slicer_cfg = resolve_occupancy_cfg(slicer_cfg or SliceMarchConfig(),
                                        occupancy)
     if render_dtype is None:
@@ -118,15 +120,22 @@ def grayscott_vdi_frame_step(sim_steps: int = 5,
                 "temporal mode carries threshold state: call as "
                 "frame_step(u, v, eye, thr), seeding thr with "
                 "frame_step.init_threshold(u, v, eye)")
-        state = advance(gs.GrayScott(u, v, params), sim_steps)
+        if sim_occ:
+            state, rng = gs.multi_step_fast_ranges(
+                gs.GrayScott(u, v, params), sim_steps, fused=sim_fused)
+        else:
+            state = advance(gs.GrayScott(u, v, params), sim_steps)
         field = state.field if rdt is None else state.field.to(rdt)
         vol = Volume.centered(field, extent=2.0)
+        occ = (occupancy_mod.pyramid_from_ranges(rng, vol, tf, spec)
+               if sim_occ else None)
         cam = camera(eye)
         if temporal:
             vdi, _, _, thr = slicer.generate_vdi_mxu_temporal(
-                vol, tf, cam, spec, thr, vdi_cfg)
+                vol, tf, cam, spec, thr, vdi_cfg, occupancy=occ)
         else:
-            vdi, _, _ = slicer.generate_vdi_mxu(vol, tf, cam, spec, vdi_cfg)
+            vdi, _, _ = slicer.generate_vdi_mxu(vol, tf, cam, spec, vdi_cfg,
+                                                occupancy=occ)
         out = composite_vdis(vdi.color[None], vdi.depth[None], comp_cfg)
         if temporal:
             return out.color, out.depth, state.u, state.v, thr

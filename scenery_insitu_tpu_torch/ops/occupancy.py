@@ -1,8 +1,12 @@
 """Occupancy pyramid: the empty-space structure of the slice march.
 
-Per (chunk x v-tile) cell value ranges of the march-layout volume, built
-in one pass, and the gates derived from them by pushing each range
-through the transfer function's conservative bound (``tf.max_alpha_in``).
+Per (chunk x v-tile) cell value ranges of the march-layout volume, and
+the gates derived from them by pushing each range through the transfer
+function's conservative bound (``tf.max_alpha_in``). The ranges come
+from one pass over the march-layout copy (`pyramid_from_volume`) or,
+with no pass over the volume, from the per-brick ranges of the field in
+data layout that the fused stencil's epilogue emits
+(`pyramid_from_ranges`, fed `FieldRanges`).
 A cell the pyramid gates off is provably zero-alpha: in-plane bilinear
 resampling keeps values inside each covered row pair's range (each band
 carries a one-row apron into its neighbours so every adjacent-row pair
@@ -13,9 +17,81 @@ tile level when the spec tiles in-plane).
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+import math
+from typing import NamedTuple, Optional, Tuple
 
 import torch
+
+from scenery_insitu_tpu_torch.config import OCCUPANCY_VTILES_DEFAULT
+
+# one storage rounding of a bf16 march copy moves a value by at most 2^-8
+# relative; ranges of the f32 sim field widen by this before gating a bf16
+# march (pyramid_from_ranges)
+_BF16_EPS = 2.0 ** -8
+
+
+class FieldRanges(NamedTuple):
+    """Per-brick value ranges of a scalar field in data layout ``[D, H,
+    W]``: brick (i, j) covers ``z in [i*bz, (i+1)*bz) x y in [j*by,
+    (j+1)*by) x all x`` with ``bz = D // lo.shape[0]`` and ``by = H //
+    lo.shape[1]``."""
+
+    lo: torch.Tensor   # f32[nzb, nyb]
+    hi: torch.Tensor   # f32[nzb, nyb]
+
+
+def default_bricks(shape: Tuple[int, int, int]) -> Tuple[int, int]:
+    """The canonical (nzb, nyb) brick grid of a field shape: ~32 z bricks
+    x ~OCCUPANCY_VTILES_DEFAULT y bricks, snapped down to divisors (512^3
+    -> (32, 16), bricks of 16 x 32 x 512 cells)."""
+    d, h, _ = shape
+    return _cap_divisor(d, 32), _cap_divisor(h, OCCUPANCY_VTILES_DEFAULT)
+
+
+def _cap_divisor(n: int, cap: int) -> int:
+    b = min(n, cap)
+    while n % b:
+        b -= 1
+    return b
+
+
+def field_ranges(field: torch.Tensor, nzb: int, nyb: int) -> FieldRanges:
+    """Per-brick min/max of ``field [D, H, W]`` in one sweep of the data
+    layout; needs ``nzb | D`` and ``nyb | H`` (x is reduced whole). The
+    plain version of the fused stencil's ranges epilogue."""
+    d, h, w = field.shape
+    if d % nzb or h % nyb:
+        raise ValueError(f"brick grid ({nzb}, {nyb}) does not divide "
+                         f"field shape {tuple(field.shape)}")
+    x = field.reshape(nzb, d // nzb, nyb, h // nyb, w).to(torch.float32)
+    return FieldRanges(lo=torch.amin(x, dim=(1, 3, 4)),
+                       hi=torch.amax(x, dim=(1, 3, 4)))
+
+
+def remap_ranges(lo: torch.Tensor, hi: torch.Tensor,
+                 to_shape: Tuple[int, int]):
+    """Re-grid brick ranges to another brick count per axis,
+    conservatively: reducing (from % to == 0) is exact, refining (to %
+    from == 0) repeats each coarse range over its fine bricks, and
+    incommensurate counts reduce to their gcd first, then refine."""
+    def one_axis(x, n_to, axis, red):
+        n_from = x.shape[axis]
+        if n_from == n_to:
+            return x
+        if n_from % n_to == 0:
+            shp = x.shape[:axis] + (n_to, n_from // n_to) + x.shape[axis + 1:]
+            return red(x.reshape(shp), dim=axis + 1)
+        if n_to % n_from:
+            g = math.gcd(n_from, n_to)
+            shp = x.shape[:axis] + (g, n_from // g) + x.shape[axis + 1:]
+            x = red(x.reshape(shp), dim=axis + 1)
+            n_from = g
+        return torch.repeat_interleave(x, n_to // n_from, dim=axis)
+
+    for axis in (0, 1):
+        lo = one_axis(lo, to_shape[axis], axis, torch.amin)
+        hi = one_axis(hi, to_shape[axis], axis, torch.amax)
+    return lo, hi
 
 
 class OccupancyPyramid(NamedTuple):
@@ -39,6 +115,15 @@ class OccupancyPyramid(NamedTuple):
         if spec.vtiles > 0:
             return self.chunks, self.tiles
         return self.chunks
+
+    def live_fraction(self) -> torch.Tensor:
+        """f32[]: the share of (chunk x v-tile) cells that can contribute
+        opacity."""
+        return torch.mean(self.tiles.to(torch.float32))
+
+    def chunk_live_fractions(self) -> torch.Tensor:
+        """f32[nchunks]: each chunk's share of live tiles."""
+        return torch.mean(self.tiles.to(torch.float32), dim=1)
 
 
 def resolved_tiles(spec, nv: int) -> int:
@@ -93,3 +178,82 @@ def pyramid_from_volume(vol, tf, spec, volp: Optional[torch.Tensor] = None,
     hi = torch.stack(his, dim=1)
     chunks, tiles = _gates(tf, lo, hi, alpha_eps)
     return OccupancyPyramid(lo, hi, chunks, tiles)
+
+
+def pyramid_from_ranges(ranges: FieldRanges, vol, tf, spec,
+                        alpha_eps: float = 1e-5) -> OccupancyPyramid:
+    """The pyramid from data-layout brick ranges of the field ``vol``
+    wraps (``vol.data [D, H, W]``, scalar), without reading the volume.
+    Each (chunk x v-tile) cell takes the union range of every brick its
+    region can touch: tile bands with their apron rows, the chunk's
+    marched slices mapped to data slices through the march sign, brick
+    intervals rounded outward, zero admitted in the zero-padded last
+    chunk, and a bf16 march copy widening the range by one storage
+    rounding. What it gates off is a subset of what
+    `pyramid_from_volume` gates off, and the march's skip path is exact,
+    so the frame is the same."""
+    if vol.data.dim() != 3:
+        raise ValueError("sim field ranges describe a scalar field; "
+                         "pre-shaded RGBA volumes build from the volume")
+    d, h, w = vol.data.shape
+    nzb, nyb = ranges.lo.shape
+    if d % nzb or h % nyb:
+        raise ValueError(f"brick grid {tuple(ranges.lo.shape)} does not "
+                         f"divide volume shape {tuple(vol.data.shape)}")
+    bz, by = d // nzb, h // nyb
+    a = spec.axis
+
+    # orient the brick grid as [slice-axis bricks, v-axis bricks]
+    if a == 2:            # march z, v = y
+        sl_lo, sl_hi = ranges.lo, ranges.hi
+        sb, s_total, vb = bz, d, by
+    elif a == 1:          # march y, v = z
+        sl_lo, sl_hi = ranges.lo.T, ranges.hi.T
+        sb, s_total, vb = by, h, bz
+    else:                 # march x: bricks do not resolve x, so one slice
+        #                   brick spans the march; tiles still resolve z
+        sl_lo = torch.amin(ranges.lo, dim=1)[None, :]
+        sl_hi = torch.amax(ranges.hi, dim=1)[None, :]
+        sb, s_total, vb = w, w, bz
+
+    c = spec.chunk
+    nchunks = -(-s_total // c)
+    nv = vol.data.shape[_data_dim(spec.v_axis)]
+    nt = resolved_tiles(spec, nv)
+
+    # per-tile band ranges along the v bricks, apron rows included
+    band_lo, band_hi = [], []
+    for r0, r1 in _tile_bands(nv, nt):
+        b0, b1 = r0 // vb, -(-r1 // vb)
+        band_lo.append(torch.amin(sl_lo[:, b0:b1], dim=1))
+        band_hi.append(torch.amax(sl_hi[:, b0:b1], dim=1))
+    band_lo = torch.stack(band_lo, dim=1)                   # [nsb, nt]
+    band_hi = torch.stack(band_hi, dim=1)
+
+    # per chunk: marched slice interval -> data interval (sign flip) ->
+    # the slice bricks it touches, rounded outward
+    los, his = [], []
+    for ci in range(nchunks):
+        m0, m1 = ci * c, min((ci + 1) * c, s_total)
+        d0, d1 = (m0, m1) if spec.sign > 0 else (s_total - m1, s_total - m0)
+        b0, b1 = d0 // sb, -(-d1 // sb)
+        lo_c = torch.amin(band_lo[b0:b1], dim=0)
+        hi_c = torch.amax(band_hi[b0:b1], dim=0)
+        if (ci + 1) * c > s_total:
+            # _pad_to_chunks zero-pads the last chunk: zero enters its range
+            lo_c = torch.clamp(lo_c, max=0.0)
+            hi_c = torch.clamp(hi_c, min=0.0)
+        los.append(lo_c)
+        his.append(hi_c)
+    lo = torch.stack(los)                                   # [nchunks, nt]
+    hi = torch.stack(his)
+    if spec.render_dtype == "bf16":
+        lo = lo - torch.abs(lo) * _BF16_EPS
+        hi = hi + torch.abs(hi) * _BF16_EPS
+    chunks, tiles = _gates(tf, lo, hi, alpha_eps)
+    return OccupancyPyramid(lo, hi, chunks, tiles)
+
+
+def _data_dim(axis_xyz: int) -> int:
+    """xyz axis index -> the Volume.data dim, counted from the end."""
+    return {0: -1, 1: -2, 2: -3}[axis_xyz]

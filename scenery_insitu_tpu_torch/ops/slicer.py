@@ -549,16 +549,23 @@ def _histogram_threshold(march, cfg: VDIConfig, k, nj: int, ni: int,
 
 
 def _frame_march(vol: Volume, tf: TransferFunction, cam: Camera,
-                 spec: AxisSpec, box_min=None, box_max=None, v_bounds=None):
+                 spec: AxisSpec, box_min=None, box_max=None, v_bounds=None,
+                 occupancy=None):
     """The frame's virtual camera and its march over one permuted copy
     and one occupancy gate: returns (axcam, march) with ``march(consume,
     carry0, **options)`` a `slice_march` of this frame (options:
     ``shaded_compact``, ``raw``, ``raw_full_skip``).
     ``box_min``/``box_max``: see `make_axis_camera`; ``v_bounds``: see
-    `slice_march`."""
+    `slice_march`. ``occupancy``: a caller's
+    ``ops/occupancy.OccupancyPyramid`` for this volume and spec (built
+    once a frame, for example from the sim's field ranges), whose gate
+    replaces the pyramid built here from the permuted copy."""
     axcam = make_axis_camera(vol, cam, spec, box_min, box_max)
     volp = permute_volume(vol, spec)
-    occ = occupancy_for(vol, tf, spec, volp=volp)
+    if occupancy is None:
+        occ = occupancy_for(vol, tf, spec, volp=volp)
+    else:
+        occ = occupancy.gate(spec)
 
     def march(consume, carry0, **options):
         return slice_march(vol, tf, axcam, spec, consume, carry0,
@@ -666,15 +673,15 @@ def _write_march(march, vol, tf, axcam, spec, threshold, k, count: bool):
 def generate_vdi_mxu(vol: Volume, tf: TransferFunction, cam: Camera,
                      spec: AxisSpec, cfg: Optional[VDIConfig] = None,
                      box_min: Optional[torch.Tensor] = None,
-                     box_max: Optional[torch.Tensor] = None, v_bounds=None
-                     ) -> Tuple[VDI, VDIMetadata, AxisCamera]:
+                     box_max: Optional[torch.Tensor] = None, v_bounds=None,
+                     occupancy=None) -> Tuple[VDI, VDIMetadata, AxisCamera]:
     """VDI generation on the slice march, with the threshold of
     ``cfg.adaptive_mode`` "histogram" (one counting march over all
     candidates), "search" (``adaptive_iters`` counting marches) or fixed
     (``adaptive=False``). ``adaptive_mode="temporal"`` carries state:
     use `generate_vdi_mxu_temporal`. ``box_min``/``box_max``/``v_bounds``
     are a distributed rank's: see `make_axis_camera` and
-    `slice_march`."""
+    `slice_march`; ``occupancy``: see `_frame_march`."""
     cfg = cfg or VDIConfig()
     k = cfg.max_supersegments
     nj, ni = spec.nj, spec.ni
@@ -685,7 +692,7 @@ def generate_vdi_mxu(vol: Volume, tf: TransferFunction, cam: Camera,
             "call generate_vdi_mxu_temporal(..., threshold=...) instead "
             "(seed the state with initial_threshold())")
     axcam, march = _frame_march(vol, tf, cam, spec, box_min, box_max,
-                                v_bounds)
+                                v_bounds, occupancy)
     if cfg.adaptive and cfg.adaptive_mode == "histogram":
         threshold = _histogram_threshold(march, cfg, k, nj, ni, spec.fold,
                                          dev)
@@ -727,7 +734,7 @@ def generate_vdi_mxu_temporal(vol: Volume, tf: TransferFunction,
                               cfg: Optional[VDIConfig] = None,
                               box_min: Optional[torch.Tensor] = None,
                               box_max: Optional[torch.Tensor] = None,
-                              v_bounds=None,
+                              v_bounds=None, occupancy=None,
                               ) -> Tuple[VDI, VDIMetadata, AxisCamera,
                                          ss.ThresholdState]:
     """VDI generation with ONE march per frame (adaptive_mode
@@ -735,12 +742,12 @@ def generate_vdi_mxu_temporal(vol: Volume, tf: TransferFunction,
     with `initial_threshold`); the write march yields the true per-pixel
     segment count, and ``update_threshold`` bisects the map toward the
     target band for the next frame. Returns (vdi, meta, axcam,
-    next_threshold). ``box_min``/``box_max``/``v_bounds``: see
-    `generate_vdi_mxu`."""
+    next_threshold). ``box_min``/``box_max``/``v_bounds``/``occupancy``:
+    see `generate_vdi_mxu`."""
     cfg = cfg or VDIConfig()
     k = cfg.max_supersegments
     axcam, march = _frame_march(vol, tf, cam, spec, box_min, box_max,
-                                v_bounds)
+                                v_bounds, occupancy)
     color, depth, count = _write_march(march, vol, tf, axcam, spec,
                                        threshold.thr, k, count=True)
     next_thr = ss.update_threshold(threshold, count, k,

@@ -7,6 +7,12 @@ times. `multi_step_fused` keeps the reference's greedy decomposition of
 ``n`` steps into fused passes (``pallas_stencil._multi_step_impl``), so
 both run the same sequence of steps. The kernel takes any grid shape:
 there is no ``T | tz | D`` constraint.
+
+`step_fused_ranges` is the same pass with the occupancy epilogue (the
+reference's ``with_ranges`` variant, B4b): it also returns the per-brick
+min/max of the new v on the caller's ``(nzb, nyb)`` brick grid, exactly
+``occupancy.field_ranges`` of it. `multi_step_fused_ranges` attaches the
+epilogue to the last pass only, the one whose ranges reach the caller.
 """
 
 from __future__ import annotations
@@ -83,3 +89,68 @@ def multi_step_fused(u: torch.Tensor, v: torch.Tensor, params: torch.Tensor,
     for t in decompose(n):
         u, v = step_fused(u, v, params, t)
     return u, v
+
+
+def _check_bricks(v, bricks):
+    nzb, nyb = bricks
+    d, h, _ = v.shape
+    if nzb < 1 or nyb < 1 or d % nzb or h % nyb:
+        raise ValueError(f"brick grid ({nzb}, {nyb}) does not divide "
+                         f"field shape {tuple(v.shape)}")
+
+
+def step_fused_ranges(u: torch.Tensor, v: torch.Tensor,
+                      params: torch.Tensor, t_steps: int,
+                      bricks: Tuple[int, int]):
+    """One fused pass with the ranges epilogue: returns ``(u', v', lo,
+    hi)`` with ``lo, hi f32[nzb, nyb]`` the min/max of v' per brick of
+    ``bricks = (nzb, nyb)`` (``nzb | D``, ``nyb | H``)."""
+    if not 1 <= t_steps <= FUSE_T:
+        raise ValueError(f"t_steps must be in 1..{FUSE_T}, got {t_steps}")
+    _check(u, v, params)
+    _check_bricks(v, bricks)
+    if u.device.type == "cpu":
+        return step_fused_ranges_plain(u, v, params, t_steps, bricks)
+    if u.device.type != "cuda":
+        raise ValueError(f"unsupported device {u.device}")
+    nzb, nyb = bricks
+    uo = torch.empty_like(u)
+    vo = torch.empty_like(v)
+    # the kernel folds into these with atomics: seeded on every call
+    lo = torch.full((nzb, nyb), torch.inf, device=u.device)
+    hi = torch.full((nzb, nyb), -torch.inf, device=u.device)
+    d, h, w = u.shape
+    kernels.launch("grayscott_fused_ranges", u.data_ptr(), v.data_ptr(),
+                   params.data_ptr(), uo.data_ptr(), vo.data_ptr(),
+                   lo.data_ptr(), hi.data_ptr(), d, h, w, t_steps, nzb, nyb)
+    return uo, vo, lo, hi
+
+
+def step_fused_ranges_plain(u: torch.Tensor, v: torch.Tensor,
+                            params: torch.Tensor, t_steps: int,
+                            bricks: Tuple[int, int]):
+    """Plain version of the ranges epilogue: `step_fused_plain`, then
+    ``occupancy.field_ranges`` of the new v. Any device."""
+    from scenery_insitu_tpu_torch.ops.occupancy import field_ranges
+
+    u, v = step_fused_plain(u, v, params, t_steps)
+    r = field_ranges(v, *bricks)
+    return u, v, r.lo, r.hi
+
+
+def multi_step_fused_ranges(u: torch.Tensor, v: torch.Tensor,
+                            params: torch.Tensor, n: int,
+                            bricks: Tuple[int, int]):
+    """``n`` steps as `multi_step_fused`, the last pass with the ranges
+    epilogue: ``(u', v', lo, hi)``, the ranges those of the final v. For
+    ``n == 0`` no pass runs and the ranges are those of ``v`` as it
+    is."""
+    passes = decompose(n)
+    if not passes:
+        from scenery_insitu_tpu_torch.ops.occupancy import field_ranges
+
+        r = field_ranges(v, *bricks)
+        return u, v, r.lo, r.hi
+    for t in passes[:-1]:
+        u, v = step_fused(u, v, params, t)
+    return step_fused_ranges(u, v, params, passes[-1], bricks)

@@ -4,7 +4,9 @@ The update is elementwise plus a 6-point Laplacian with periodic
 boundaries (``torch.roll``). `multi_step_fast` is the single-device fast
 path: on a CUDA tensor it runs the fused stencil kernel K3
 (``sim/cuda_stencil.py``); on the CPU it runs K3's plain version, which
-is `step` repeated.
+is `step` repeated. `multi_step_fast_ranges` also returns the field's
+per-brick value ranges, the frame's occupancy structure, from the
+stencil's epilogue.
 """
 
 from __future__ import annotations
@@ -119,3 +121,25 @@ def multi_step_fast(state: GrayScott, n: int) -> GrayScott:
     p = state.params
     u, v = cuda_stencil.multi_step_fused(state.u, state.v, p.vector(), n)
     return GrayScott(u, v, p)
+
+
+def multi_step_fast_ranges(state: GrayScott, n: int, bricks=None,
+                           fused: bool = True):
+    """`multi_step_fast` that also returns the per-brick min/max of the
+    rendered field (``ops/occupancy.FieldRanges``): ``fused=True`` takes
+    them from the last fused pass's epilogue (the ranges kernel on CUDA,
+    its plain version on the CPU); ``fused=False`` runs the roll
+    formulation `multi_step` and reduces the final field once.
+    ``bricks = (nzb, nyb)`` is the brick grid (default
+    ``occupancy.default_bricks``). Returns ``(state', FieldRanges)``."""
+    from scenery_insitu_tpu_torch.ops import occupancy as occ
+    from scenery_insitu_tpu_torch.sim import cuda_stencil
+
+    bricks = tuple(bricks or occ.default_bricks(tuple(state.v.shape)))
+    p = state.params
+    if fused:
+        u, v, lo, hi = cuda_stencil.multi_step_fused_ranges(
+            state.u, state.v, p.vector(), n, bricks)
+        return GrayScott(u, v, p), occ.FieldRanges(lo, hi)
+    st = multi_step(state, n)
+    return st, occ.field_ranges(st.field, *bricks)

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a card.
 
 K1 (segmented write fold) and its planes form B1b, K2
-(multi-threshold count), K3 (fused Gray-Scott stencil), K4 (the
+(multi-threshold count), K3 (fused Gray-Scott stencil) and its ranges
+epilogue B4b, K4 (the
 composite's resegment), B7 (the machine's write fold) and B5/B6 (shade
 and fold, per chunk and over the whole march) are built from
 ``scenery_insitu_tpu_torch/csrc`` at first use. Every test here needs
@@ -13,7 +14,9 @@ a CUDA device and skips without one; on the card run them with
 does not use). Tolerances: K2 counts exact; K1 within 1e-5 (the kernel
 sums a slot's items sequentially, the plain version with one reduction);
 K3 within 1e-6 per fused step (the library is built without FMA
-contraction, so it repeats the plain version's rounding); K4 thresholds
+contraction, so it repeats the plain version's rounding); B4b's u, v
+equal K3's bit for bit and its per-brick ranges equal
+``occupancy.field_ranges`` of its own v exactly; K4 thresholds
 and live slots exact, colours and depths within 1e-6; B1b equal to
 K1's compact form bit for bit; B7 counts exact, colour and depth within
 1e-6 (it repeats the machine's arithmetic); B5 and B6 start counts
@@ -27,6 +30,7 @@ from scenery_insitu_tpu_torch import kernels
 from scenery_insitu_tpu_torch.ops import cuda_composite as cc
 from scenery_insitu_tpu_torch.ops import cuda_march as cm
 from scenery_insitu_tpu_torch.ops import cuda_seg as cs
+from scenery_insitu_tpu_torch.ops import occupancy as occ
 from scenery_insitu_tpu_torch.ops import supersegments as ss
 from scenery_insitu_tpu_torch.sim import cuda_stencil as cst
 from scenery_insitu_tpu_torch.sim import grayscott as gs
@@ -100,6 +104,52 @@ def test_stencil_matches_plain(dev, t_steps, shape):
     up, vp = cst.step_fused_plain(u, v, p, t_steps)
     torch.cuda.synchronize()
     assert max(_err(uk, up), _err(vk, vp)) <= 1e-6 * t_steps
+
+
+@pytest.mark.parametrize("t_steps,shape,bricks,shift", [
+    (4, (64, 64, 64), (4, 2), 0.0),        # one brick a block
+    (2, (24, 24, 24), None, 0.0),          # (24, 12): bricks of 1 x 2 rows
+    (3, (36, 60, 50), (12, 5), -0.1),      # ragged, v partly negative
+    (1, (9, 37, 70), (3, 37), -0.3)])
+def test_stencil_ranges_matches_k3_and_field_ranges(dev, t_steps, shape,
+                                                    bricks, shift):
+    st = gs.GrayScott.init(shape, seed=2, device=dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    u = (st.u - 0.05 * torch.rand(shape, generator=g, device=dev))
+    v = (st.v + shift + 0.05 * torch.rand(shape, generator=g, device=dev))
+    p = st.params.vector()
+    bricks = bricks or occ.default_bricks(shape)
+    before = kernels.launches()["grayscott_fused_ranges"]
+    ur, vr, lo, hi = cst.step_fused_ranges(u, v, p, t_steps, bricks)
+    assert kernels.launches()["grayscott_fused_ranges"] == before + 1
+    # a second call on the same operands: the seeds are reset every call
+    lo2, hi2 = cst.step_fused_ranges(u, v, p, t_steps, bricks)[2:]
+    uk, vk = cst.step_fused(u, v, p, t_steps)
+    _, _, lp, hp = cst.step_fused_ranges_plain(u, v, p, t_steps, bricks)
+    torch.cuda.synchronize()
+    assert torch.equal(ur, uk) and torch.equal(vr, vk)
+    want = occ.field_ranges(vr, *bricks)
+    for got in ((lo, hi), (lo2, hi2)):
+        assert torch.equal(got[0], want.lo) and torch.equal(got[1], want.hi)
+    assert max(_err(lo, lp), _err(hi, hp)) <= 1e-6 * t_steps
+    if shift < 0:
+        assert bool((lo < 0).any())
+
+
+def test_multi_step_ranges_launches_the_epilogue_once(dev):
+    st = gs.GrayScott.init((32, 32, 32), seed=3, device=dev)
+    p = st.params.vector()
+    before = kernels.launches()
+    u, v, lo, hi = cst.multi_step_fused_ranges(st.u, st.v, p, 10, (8, 4))
+    after = kernels.launches()
+    assert after["grayscott_fused_ranges"] == \
+        before["grayscott_fused_ranges"] + 1
+    assert after["grayscott_fused"] == before["grayscott_fused"] + 2
+    uk, vk = cst.multi_step_fused(st.u, st.v, p, 10)
+    want = occ.field_ranges(vk, 8, 4)
+    torch.cuda.synchronize()
+    assert torch.equal(u, uk) and torch.equal(v, vk)
+    assert torch.equal(lo, want.lo) and torch.equal(hi, want.hi)
 
 
 @pytest.mark.parametrize("chunks,k,hw", [((16, 1, 16), 16, (64, 80)),

@@ -264,8 +264,10 @@ def test_frame_step_options():
     cfg = tcfg.SliceMarchConfig()
     assert tpipe.resolve_occupancy_cfg(cfg, "pyramid").occupancy_vtiles == 16
     assert tpipe.resolve_occupancy_cfg(cfg, "chunk").occupancy_vtiles == 0
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpipe.resolve_occupancy_cfg(cfg, "sim")
+    assert tpipe.resolve_occupancy_cfg(cfg, "sim") == \
+        tpipe.resolve_occupancy_cfg(cfg, "pyramid")
+    with pytest.raises(ValueError, match="occupancy must be"):
+        tpipe.resolve_occupancy_cfg(cfg, "bricks")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tpipe.grayscott_vdi_frame_step(engine="gather", device=CPU)
     with pytest.raises(ValueError, match="grid_shape"):

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's in-situ frames on one CUDA card: the
-single-chip frame and the distributed sort-last frame.
+single-chip frame, the distributed sort-last frame and the fold
+microbenchmark.
 
     python3 chip_smoke.py               # the whole run (needs one card)
     python3 chip_smoke.py --profile     # + device time by kernel
@@ -64,7 +65,19 @@ and prints no result):
    ``occupancy="sim"`` frame under every fold against the CPU's plain
    versions; (d) one run of the benchmark twin
    (``scenery_insitu_tpu_torch.bench``) with ``SITPU_BENCH_SKIP=sim`` at
-   512^3, its JSON line logged as ``bench_twin``.
+   512^3, its JSON line logged as ``bench_twin``;
+6. the fold microbenchmark (the twin of the reference's
+   ``benchmarks/fold_microbench.py``): (a) B8 (the deferred close events
+   in registers) and B9 (in shared memory) against their plain versions
+   and against B7 on the frame's captured chunks and on seeded streams
+   at 320 x 320 and 640 x 640 (C = 16, K = 16, and K = 4 filling the slot
+   cap): slot counters exact, colour and depth within 1e-6, with whether
+   they equal B7 bit for bit; each timed at 640 x 640 for several (C, K)
+   beside B7 and its bound, with its registers, local-memory bytes and
+   block size; (b) the twin's sweep with ``--check`` over every variant
+   at S = 256 (320 x 320) and S = 512 (640 x 640), K = 16, C = 16, its
+   JSON rows logged, the launch counts set to 0 before it and read after
+   it (B8 and B9 each S/C launches a march).
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -129,6 +142,16 @@ RANKS = 8
 K_OUT = 16
 COMP_ITERS = 6
 SMALL_RANKS = 4
+# the fold microbenchmark (phase 6): the reference's default S = 256
+# (320 x 320) and the flagship's 512 (640 x 640), K = 16, C = 16
+MICRO_GRIDS = (256, 512)
+MICRO_ITERS = 3
+EVENT_KERNELS = {"events": "events_fold_chunk",
+                 "scratch": "scratch_fold_chunk"}
+# B8's and B9's seeded gates: (image side, K, chunks); the timed (C, K)
+# pairs at the largest side, the first the microbenchmark's
+EVENT_SEEDED = ((320, K, 1), (640, K, 1), (640, 4, 3))
+EVENT_TIMED = ((16, 16), (8, 16), (32, 16), (16, 4))
 
 
 def log(key, value):
@@ -1451,6 +1474,189 @@ def run_bench_twin(dev):
         raise AssertionError(f"bench twin: {res}")
 
 
+# ------------------------------------------------------------- phase 6
+
+
+def event_bound(rgba, closes):
+    """B8's and B9's bound: B7's without the count (each input read
+    once, the state read and written once, the closing slots' rows
+    written)."""
+    c, _, h, w = rgba.shape
+    hw = h * w
+    return bound_ms(4 * (c * 6 * hw + hw + 2 * 12 * hw + 6 * closes),
+                    (MACHINE_FLOPS_PER_PIXEL_SLICE - 3) * c * hw)
+
+
+def fold_events(fold, state, chunks, thr, k):
+    """``chunks`` [(rgba, t0, t1)] through B8's or B9's ``fold`` (or its
+    plain version) into ``state``, a ``((color, depth), small)`` pair."""
+    for rgba, t0, t1 in chunks:
+        fold(*state, rgba, t0, t1, thr, max_k=k)
+    return state
+
+
+def check_event_case(tag, chunks, thr, k, base=None):
+    """B8 and B9 over ``chunks`` from ``base`` (default: the initial
+    state) against their plain versions and B7: slot counters exact,
+    colour and depth within 1e-6. Returns (largest difference, whether
+    both equal B7 bit for bit)."""
+    import torch
+
+    from scenery_insitu_tpu_torch.benchmarks import fold_microbench as fm
+    from scenery_insitu_tpu_torch.ops import cuda_march as cm
+
+    h, w = thr.shape
+    if base is None:
+        base = cm.init_packed(k, h, w, device=thr.device)
+    flat = lambda st: (*st[0], st[1])
+    state = lambda: ((base[0].clone(), base[1].clone()), base[2].clone())
+    b7 = clone(base)
+    for rgba, t0, t1 in chunks:
+        cm.fold_chunk(b7, rgba, t0, t1, thr, max_k=k)
+    err, bitwise = 0.0, True
+    for name, fold, plain in (
+            ("events_fold_chunk", fm.events_fold_chunk,
+             fm.events_fold_chunk_plain),
+            ("scratch_fold_chunk", fm.scratch_fold_chunk,
+             fm.scratch_fold_chunk_plain)):
+        got = flat(fold_events(fold, state(), chunks, thr, k))
+        want = flat(fold_events(plain, state(), chunks, thr, k))
+        torch.cuda.synchronize()
+        for other, what in ((want, "its plain version"), (b7, "B7")):
+            if not torch.equal(got[2][11], other[2][11]):
+                raise AssertionError(f"{name}_{tag}: slot counters differ "
+                                     f"from {what}")
+        e = max(packed_err(got, want), packed_err(got, b7))
+        check(f"{name}_{tag}", e, 1e-6)
+        err = max(err, e)
+        bitwise = bitwise and packed_equal(got, b7)
+    log(f"events_{tag}.pixels_at_slot_cap",
+        f"{float((b7[2][11] == k - 1).float().mean()):.4f}; B8 and B9 "
+        f"{'equal' if bitwise else 'differ from'} B7 bit for bit")
+    return err, bitwise
+
+
+def check_event_folds(dev):
+    """Phase 6 (a): B8 and B9 against their plain versions and B7 on the
+    frame's captured chunks (K = 16) and on seeded streams at 320 x 320
+    and 640 x 640 (C = 16, K = 16, after one folded chunk), and a K = 4
+    stream that fills the slot cap; then each kernel's time against its
+    bound and its plain version at 640 x 640, with B7's in the same run,
+    and the registers, local memory and block size of each timed build."""
+    import torch
+
+    from scenery_insitu_tpu_torch import kernels
+    from scenery_insitu_tpu_torch.benchmarks import fold_microbench as fm
+    from scenery_insitu_tpu_torch.ops import cuda_march as cm
+
+    g = gs_init(dev)
+    cap = capture_chunks(dev, g.u, g.v, (0.0, 0.6, 3.0))
+    del g
+    length = cap["length"]
+    frame = [(rgba, planes(sk0, length), planes(sk1, length))
+             for rgba, sk0, sk1 in cap["chunks"]]
+    err, bitwise = check_event_case("frame_chunks", frame, cap["thr"], K)
+    del cap, frame
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    seeded = {}
+    for side, k, n in EVENT_SEEDED:
+        thr = (0.05 + 0.5 * torch.rand((side, side), generator=gen,
+                                       device=dev))
+        pre = seeded_stream(CHUNK, side, side, dev, 99)
+        t = lambda i: torch.full((CHUNK, side, side), 0.0, device=dev) + \
+            (0.1 * (i * CHUNK + 1 + torch.arange(
+                CHUNK, device=dev, dtype=torch.float32)))[:, None, None]
+        base = cm.init_packed(k, side, side, device=dev)
+        cm.fold_chunk_plain(base, pre, t(0), t(0) + 0.1, thr, max_k=k)
+        chunks = [(seeded_stream(CHUNK, side, side, dev, SEED + 10 + i),
+                   t(i + 1), t(i + 1) + 0.1) for i in range(n)]
+        e, same = check_event_case(f"seeded_{side}_K{k}", chunks, thr, k,
+                                   base)
+        err, bitwise = max(err, e), bitwise and same
+        seeded[(side, k)] = (chunks, thr, base)
+    log("events.bit_for_bit_with_b7", bitwise)
+
+    side = EVENT_SEEDED[-1][0]
+    chunks, thr, base16 = seeded[(side, K)]
+    res = {}
+    for c, k in EVENT_TIMED:
+        rgba, t0, t1 = chunks[0]
+        rgba, t0, t1 = (x[:c] if c <= CHUNK else torch.cat([x, x])[:c]
+                        for x in (rgba, t0, t1))
+        t0, t1 = t0.contiguous(), t1.contiguous()
+        base = base16 if k == K else seeded[(side, 4)][2]
+        st = lambda: ((base[0].clone(), base[1].clone()), base[2].clone())
+        b7 = cm.fold_chunk(clone(base), rgba, t0, t1, thr, max_k=k)
+        closes = float((b7[2][11] - base[2][11]).sum())
+        b, by = event_bound(rgba, closes)
+        b7_ms = median_ms(lambda s: cm.fold_chunk(s, rgba, t0, t1, thr,
+                                                  max_k=k), 20,
+                          lambda: clone(base))
+        for name, fold, plain, which in (
+                ("events_fold_chunk", fm.events_fold_chunk,
+                 fm.events_fold_chunk_plain, 1),
+                ("scratch_fold_chunk", fm.scratch_fold_chunk,
+                 fm.scratch_fold_chunk_plain, 2)):
+            ms = median_ms(lambda s: fold(*s, rgba, t0, t1, thr, max_k=k),
+                           20, st)
+            first = (c, k) == EVENT_TIMED[0]
+            pms = median_ms(lambda s: plain(*s, rgba, t0, t1, thr, max_k=k),
+                            3, st) if first else None
+            regs, local, most = kernels.query("fold_chunk_attributes",
+                                              which, c, k, nout=3)
+            threads = fm.scratch_threads(c) if which == 2 else 256
+            log(f"{name}_C{c}_K{k}.ms", f"{ms:.4f} fold_chunk_ms="
+                f"{b7_ms:.4f} plain_ms={pms if pms is None else round(pms, 4)}"
+                f" bound_ms={b:.4f} ({by}) closes_per_pixel="
+                f"{closes / rgba[0, 0].numel():.3f} registers={regs} "
+                f"local_bytes={local} threads={threads} "
+                f"max_threads={most}")
+            if first:
+                res[name] = dict(err=err, ms=ms, plain_ms=pms, bound_ms=b,
+                                 bound_by=by, fold_chunk_ms=b7_ms)
+    regs, local, _ = kernels.query("fold_chunk_attributes", 0, CHUNK, K,
+                                   nout=3)
+    log("fold_chunk.attributes", f"registers={regs} local_bytes={local}")
+    return res
+
+
+def run_microbench(dev):
+    """Phase 6 (b): the fold microbenchmark twin with ``--check`` over
+    every variant at each grid of MICRO_GRIDS (K = 16, C = 16), its rows
+    logged as ``microbench_<grid>``; the launch counts set to 0 before
+    the sweep and read after it. B8 and B9 must launch S/C times a march.
+    Returns (launches, {grid: rows})."""
+    from scenery_insitu_tpu_torch import kernels
+    from scenery_insitu_tpu_torch.benchmarks import fold_microbench as fm
+
+    rows = {}
+    kernels.reset_launches()
+    for grid in MICRO_GRIDS:
+        rows[grid] = fm.sweep(
+            fm.VARIANTS, grid, CHUNK, K, iters=MICRO_ITERS, check=True,
+            device=dev,
+            emit=lambda r, g=grid: log(f"microbench_{g}", json.dumps(r)))
+    launches = kernels.launches()
+    require_launched(launches, EVENT_KERNELS.values(), "the microbenchmark "
+                     "sweep")
+    for variant, name in EVENT_KERNELS.items():
+        want = 0
+        for grid, rs in rows.items():
+            r = next(x for x in rs if x["variant"] == variant)
+            per_march = r["launches"].get(name, 0) / r["marches"]
+            if per_march != grid // CHUNK:
+                raise AssertionError(f"{variant} at S={grid}: {per_march} "
+                                     f"launches a march, not "
+                                     f"{grid // CHUNK}")
+            want += r["launches"][name]
+        if launches[name] != want:
+            raise AssertionError(f"{name}: {launches[name]} launches, the "
+                                 f"sweep's rows count {want}")
+    log("microbench.launches", json.dumps(launches))
+    return launches, rows
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -1522,6 +1728,14 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     run_bench_twin(dev)
     phase_done("phase5")
+    events = check_event_folds(dev)
+    torch.cuda.empty_cache()
+    phase_done("phase6.gates")
+    t6 = time.perf_counter()
+    micro_launches, _ = run_microbench(dev)
+    log("phase6.wall_s", f"{time.perf_counter() - t6:.1f} (the sweep)")
+    torch.cuda.empty_cache()
+    phase_done("phase6")
 
     table = [
         dict(name="grayscott_fused", route="cuda",
@@ -1591,10 +1805,24 @@ def main(argv=None) -> int:
         max_abs_err=ranges[4]["err"], ms=ranges[4]["ms"],
         plain_ms=ranges[4]["plain_ms"], bound_ms=ranges[4]["bound_ms"],
         bound_by=ranges[4]["bound_by"], library_ms=None))
+    # the microbenchmark's deferred-event folds: launches from its sweep
+    for name, site in (("events_fold_chunk", "benchmarks/fold_microbench.py"
+                        ":237"),
+                       ("scratch_fold_chunk", "benchmarks/fold_microbench.py"
+                        ":346")):
+        r = events[name]
+        table.append(dict(
+            name=name, route="cuda",
+            source="scenery_insitu_tpu_torch/csrc/fold_chunk.cu",
+            replaces=site, launches=micro_launches[name],
+            max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=None))
     log("library_ms", "null for every kernel: no single PyTorch call "
         "computes the fused Gray-Scott steps, the segmented write fold, "
         "the multi-threshold count, the sort-and-resegment of a "
-        "supersegment stream, the supersegment machine, the shading "
+        "supersegment stream, the supersegment machine (with its close "
+        "events deferred or not), the shading "
         "and fold of a value stream or the stencil with per-brick "
         "ranges")
     print(json.dumps({"kernels": table}), flush=True)

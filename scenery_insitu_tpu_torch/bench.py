@@ -17,7 +17,9 @@ Knobs (environment, the reference's names and defaults; the grid and
 frame count default to 512 and 25 on a card, 128 and 5 on the CPU):
 ``SITPU_BENCH_GRID``, ``K``, ``FRAMES``, ``SIM_STEPS``,
 ``ADAPTIVE_ITERS``, ``ADAPTIVE_MODE``, ``FOLD``, ``CHUNK``, ``VTILES``,
-``SKIP`` (off|chunk|pyramid|sim) and ``SIM_FUSED``, each prefixed
+``SKIP`` (off|chunk|pyramid|sim), ``SIM_FUSED`` and ``RENDER_DTYPE``
+(f32|bf16, the march's copy of the field; bf16 from a grid of 1024 up,
+as the reference defaults it), each prefixed
 ``SITPU_BENCH_``. The knobs of parts this package does not have yet
 raise, naming their ROADMAP row. There is no platform fallback: without
 a card it raises unless ``--device cpu`` is given.
@@ -41,7 +43,6 @@ import torch
 _UNPORTED = {
     "ENGINE": ("mxu", "the gather engine", "queue A9"),
     "SCAN_FRAMES": ("0", "the one-launch frame loop", "queue A7"),
-    "RENDER_DTYPE": ("f32", "a bf16 march copy", "queue A1"),
     "AUTOTUNE": ("0", "the fold race at warm-up", "queue A7"),
     "PROFILE": ("0", "the phase attribution", "queue A12"),
     "EXCHANGE": ("all_to_all", "the ring exchange", "queue A8b, item 1"),
@@ -61,18 +62,26 @@ def bench_config(env: Mapping[str, str], on_card: bool) -> dict:
         value = get(name, ported)
         if name == "ENGINE" and value == "auto":
             value = ported
-        if name == "RENDER_DTYPE" and value == "float32":
-            value = ported
         if value != ported:
             raise NotImplementedError(
                 f"SITPU_BENCH_{name}={value}: {what} is not ported yet "
                 f"(ROADMAP {row})")
+    grid = int(get("GRID", 512 if on_card else 128))
+    # the march's copy of the field: bf16 from 1024^3 up, as the
+    # reference defaults it; the long spellings map to the short
+    render_dtype = get("RENDER_DTYPE", "bf16" if grid >= 1024 else "f32")
+    render_dtype = {"bfloat16": "bf16", "float32": "f32"}.get(
+        render_dtype, render_dtype)
+    if render_dtype not in ("f32", "bf16"):
+        raise ValueError(f"SITPU_BENCH_RENDER_DTYPE must be f32|bf16 "
+                         f"(or float32|bfloat16), got {render_dtype!r}")
     skip = get("SKIP", "") or None
     if skip not in (None, "off", "chunk", "pyramid", "sim"):
         raise ValueError(f"SITPU_BENCH_SKIP must be off|chunk|pyramid|sim,"
                          f" got {skip!r}")
     return dict(
-        grid=int(get("GRID", 512 if on_card else 128)),
+        grid=grid,
+        render_dtype=render_dtype,
         k=int(get("K", 16)),
         frames=int(get("FRAMES", 25 if on_card else 5)),
         sim_steps=int(get("SIM_STEPS", 10)),
@@ -126,7 +135,8 @@ def run(device=None, env: Optional[Mapping[str, str]] = None) -> dict:
                                  adaptive_iters=cfg["adaptive_iters"]),
         engine="mxu", grid_shape=(grid,) * 3,
         axis_sign=slicer.choose_axis(base), slicer_cfg=march_cfg,
-        sim_fused=cfg["sim_fused"], occupancy=cfg["skip"], device=dev)
+        render_dtype=cfg["render_dtype"], sim_fused=cfg["sim_fused"],
+        occupancy=cfg["skip"], device=dev)
     spec = step.spec
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     eye = lambda yaw: orbit(base, yaw).eye

@@ -50,6 +50,10 @@ ENTRIES = {
     # rgba, t0, t1, thr, color, depth, small, count (or NULL), C, K, H, W,
     # gap_eps, stream
     "fold_chunk": ("fold_chunk", [_P] * 8 + [_I] * 4 + [_F, _P]),
+    # rgba, t0, t1, thr, color, depth, small, C, K, H, W, stream
+    "events_fold_chunk": ("fold_chunk", [_P] * 7 + [_I] * 4 + [_P]),
+    # as events_fold_chunk with the threads per block after W
+    "scratch_fold_chunk": ("fold_chunk", [_P] * 7 + [_I] * 5 + [_P]),
     # val, length, ratio, thr, sk0, sk1, knots, color, depth, small, C, K,
     # H, W, stream
     "fused_fold_chunk": ("fused_fold", [_P] * 10 + [_I] * 4 + [_P]),
@@ -67,6 +71,13 @@ ENTRIES = {
                          + [_P]),
 }
 LIBRARIES = tuple(sorted({lib for lib, _ in ENTRIES.values()}))
+# C functions that launch nothing: name -> (library, argtypes); each
+# returns cudaError_t and writes its answer through its last pointer
+QUERIES = {
+    # which (0 B7, 1 B8, 2 B9), C, K, out int[3]: registers, local-memory
+    # bytes, the largest block
+    "fold_chunk_attributes": ("fold_chunk", [_I] * 3 + [_P]),
+}
 
 _LAUNCHES: collections.Counter = collections.Counter()
 _LOADED: Dict[str, ctypes.CDLL] = {}
@@ -128,7 +139,7 @@ def _library(name: str) -> ctypes.CDLL:
     if lib is None:
         build([name])
         lib = ctypes.CDLL(library_path(name))
-        for entry, (owner, argtypes) in ENTRIES.items():
+        for entry, (owner, argtypes) in {**ENTRIES, **QUERIES}.items():
             if owner == name:
                 fn = getattr(lib, entry)
                 fn.argtypes = argtypes
@@ -150,6 +161,17 @@ def launch(entry: str, *args) -> None:
         raise RuntimeError(f"CUDA kernel {entry} failed to launch: "
                            f"cudaError {err}")
     _LAUNCHES[entry] += 1
+
+
+def query(name: str, *args, nout: int) -> tuple:
+    """Call the query ``name`` of `QUERIES` (no launch, nothing counted)
+    with ``args`` and an int[nout] it fills; raises when it fails."""
+    owner = QUERIES[name][0]
+    out = (ctypes.c_int * nout)()
+    err = getattr(_library(owner), name)(*args, out)
+    if err != 0:
+        raise RuntimeError(f"{name}{args} failed: cudaError {err}")
+    return tuple(out)
 
 
 def check_operands(want, anchor: str) -> None:

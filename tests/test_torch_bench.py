@@ -34,13 +34,61 @@ def test_bench_prints_one_json_line(monkeypatch, capsys):
     assert cfg["platform"] == "cpu" and cfg["power_limit"] is None
 
 
+# knobs that raised once and are ported now: value -> resolved setting
+PORTED_KNOBS = {"RENDER_DTYPE": {"bf16": "bf16"}}
+
+
 @pytest.mark.parametrize("knob,value", [
     ("ENGINE", "gather"), ("SCAN_FRAMES", "1"), ("RENDER_DTYPE", "bf16"),
     ("AUTOTUNE", "1"), ("PROFILE", "1"), ("EXCHANGE", "ring"),
     ("WIRE", "qpack8"), ("SCHEDULE", "waves"), ("REBALANCE", "occupancy")])
 def test_bench_unported_knobs_raise(knob, value):
+    """Each knob of a part not yet ported raises, naming its ROADMAP row;
+    a knob ported since (the render dtype, the bf16 march copy) takes the
+    value instead."""
+    env = {f"SITPU_BENCH_{knob}": value}
+    if knob in PORTED_KNOBS:
+        cfg = bench.bench_config(env, on_card=False)
+        assert cfg[knob.lower()] == PORTED_KNOBS[knob][value]
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
-        bench.bench_config({f"SITPU_BENCH_{knob}": value}, on_card=False)
+        bench.bench_config(env, on_card=False)
+
+
+
+@pytest.mark.parametrize("grid,want", [(128, "f32"), (512, "f32"),
+                                       (1024, "bf16"), (2048, "bf16")])
+def test_bench_render_dtype_defaults_by_grid(grid, want):
+    """As the reference's bench.py: the bf16 march copy from 1024^3 up."""
+    cfg = bench.bench_config({"SITPU_BENCH_GRID": str(grid)}, on_card=True)
+    assert cfg["render_dtype"] == want
+
+
+@pytest.mark.parametrize("value,want", [("bfloat16", "bf16"),
+                                        ("float32", "f32"), ("f32", "f32")])
+def test_bench_render_dtype_long_spellings(value, want):
+    cfg = bench.bench_config({"SITPU_BENCH_RENDER_DTYPE": value,
+                              "SITPU_BENCH_GRID": "1024"}, on_card=False)
+    assert cfg["render_dtype"] == want
+
+
+@pytest.mark.parametrize("value", ["f16", "fp8", "BF16", ""])
+def test_bench_render_dtype_bad_value_raises(value):
+    with pytest.raises(ValueError, match="RENDER_DTYPE"):
+        bench.bench_config({"SITPU_BENCH_RENDER_DTYPE": value},
+                           on_card=False)
+
+
+def test_bench_bf16_run_reports_render_dtype(monkeypatch, capsys):
+    """A 16^3 CPU run with the bf16 march copy: the frame step gets the
+    dtype and the JSON line's config reports it from the step's spec."""
+    for name, value in (("GRID", "16"), ("FRAMES", "1"), ("K", "4"),
+                        ("RENDER_DTYPE", "bf16")):
+        monkeypatch.setenv(f"SITPU_BENCH_{name}", value)
+    assert bench.main(["--device", "cpu"]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["config"]["render_dtype"] == "bf16"
+    assert out["value"] > 0
 
 
 def test_bench_defaults_and_bad_values():

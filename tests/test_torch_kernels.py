@@ -19,8 +19,10 @@ equal K3's bit for bit and its per-brick ranges equal
 ``occupancy.field_ranges`` of its own v exactly; K4 thresholds
 and live slots exact, colours and depths within 1e-6; B1b equal to
 K1's compact form bit for bit; B7 counts exact, colour and depth within
-1e-6 (it repeats the machine's arithmetic); B5 and B6 start counts
-exact, colour and depth within 1e-6."""
+1e-6 (it repeats the machine's arithmetic); B8 and B9 (the reference
+microbenchmark's deferred-event folds) slot counters exact, colour and
+depth within 1e-6 of their plain versions and of B7; B5 and B6 start
+counts exact, colour and depth within 1e-6."""
 
 import numpy as np
 import pytest
@@ -290,6 +292,54 @@ def test_fold_chunk_matches_plain(dev, chunks, k, hw, gap_eps):
     assert torch.equal(kern[2][11], plain[2][11])
     for a, b in zip(kern, plain):
         assert _err(a, b) <= 1e-6
+
+
+@pytest.mark.parametrize("c,k,n,hw", [(16, 16, 3, (37, 90)),
+                                      (16, 4, 4, (13, 37)),
+                                      (8, 8, 5, (8, 300)),
+                                      (32, 16, 2, (40, 41)),
+                                      (1, 4, 9, (16, 33))])
+def test_event_folds_match_plain_and_b7(dev, c, k, n, hw):
+    """B8 (events in registers) and B9 (events in shared memory) against
+    their plain versions and against B7, over ``n`` chunks (K = 4 fills
+    the slot cap): slot counters exact, colour and depth within 1e-6."""
+    from scenery_insitu_tpu_torch.benchmarks import fold_microbench as fm
+
+    h, w = hw
+    g = torch.Generator(device=dev).manual_seed(5)
+    thr = 0.05 + 0.5 * torch.rand(hw, generator=g, device=dev)
+    b7 = cm.init_packed(k, h, w, device=dev)
+    states = {f: fm.events_init(k, h, w, device=dev)
+              for f in (fm.events_fold_chunk, fm.events_fold_chunk_plain,
+                        fm.scratch_fold_chunk, fm.scratch_fold_chunk_plain)}
+    for i in range(n):
+        rgba = _stream(c, h, w, dev, 60 + i)
+        t0 = (0.1 * (i * c + 1 + torch.arange(c, device=dev,
+                                               dtype=torch.float32))
+              )[:, None, None].expand(c, h, w).contiguous()
+        t1 = (t0 + 0.1).contiguous()
+        cm.fold_chunk(b7, rgba, t0, t1, thr, max_k=k)
+        for fold, (big, small) in states.items():
+            fold(big, small, rgba, t0, t1, thr, max_k=k)
+    torch.cuda.synchronize()
+    if k == 4:
+        assert int(b7[2][11].max()) == k - 1
+    for big, small in states.values():
+        assert torch.equal(small[11], b7[2][11])
+        for a, b in zip((*big, small), b7):
+            assert _err(a, b) <= 1e-6
+
+
+def test_event_fold_kernel_attributes(dev):
+    """The query the chip run reads: registers, local-memory bytes and
+    the largest block of B7, B8 at (16, 16) and B9 at C = 16."""
+    from scenery_insitu_tpu_torch.benchmarks import fold_microbench as fm
+
+    for which, c, k in ((0, 16, 16), (1, 16, 16), (2, 16, 16)):
+        regs, local, max_threads = kernels.query(
+            "fold_chunk_attributes", which, c, k, nout=3)
+        assert 0 < regs <= 255 and local >= 0
+        assert max_threads >= fm.scratch_threads(c)
 
 
 def _values(s, h, w, dev, seed):

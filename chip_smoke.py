@@ -14,7 +14,9 @@ and prints no result):
    seconds;
 2. every kernel against its plain PyTorch version on the card, on seeded
    inputs at the flagship shapes and on real chunks of the frame: K3
-   (fused Gray-Scott stencil) at 512^3 for T=4 and T=2, K1 (segmented
+   (fused Gray-Scott stencil) at 512^3 for T=4 and T=2, bit for bit,
+   with the registers, local bytes, shared bytes, resident blocks an SM
+   and tile of its build for each T and its achieved GB/s, K1 (segmented
    write fold) and K2 (multi-threshold count) at C=16 and C=1, K=16,
    B=16, 640x640; B1b (K1's planes form) equal to K1 bit for bit on the
    frame's chunks and a seeded chunk; B7 (the machine's fold) with and
@@ -22,7 +24,9 @@ and prints no result):
    and fold) on the frame's raw value chunks and B6 over the whole raw
    stream, B6 equal to B5 chunk after chunk bit for bit. Each prints
    its largest difference against the stated tolerance, its median time
-   from CUDA events, the plain version's time, and its bound (the larger
+   from CUDA events (K3's and B4b's of 10 launches back to back, so the
+   wrapper's host time hides behind the previous launch; the others' of
+   one launch), the plain version's time, and its bound (the larger
    of bytes / 3.35 TB/s and operations / 67 TFLOP/s, the H100 SXM's f32
    rate outside the tensor cores);
 3. the frame at the flagship size (512^3 Gray-Scott, 10 sim steps a
@@ -53,11 +57,12 @@ and prints no result):
    against the CPU's plain versions in both march regimes;
 5. the sim-fused occupancy frame: (a) B4b (K3 with the ranges epilogue,
    checked with phase 2's kernels on its state) on the 512^3 state at
-   T=4 and T=2 and on ragged grids whose bricks
-   straddle K3's blocks (v partly negative on one), its u', v' equal to
+   T=4 and T=2 and on ragged grids whose brick edges fall inside K3's
+   tiles and z segments (v partly negative on one), its u', v' equal to
    K3's bit for bit and its per-brick ranges equal to its plain
    version's and to ``field_ranges`` of its own v' exactly, timed
-   against K3; (b) the flagship frame of phase 3 under
+   against K3 in turns, with its builds as phase 2 logs K3's; (b) the
+   flagship frame of phase 3 under
    ``occupancy="pyramid"`` and ``occupancy="sim"`` (16 in-plane tiles),
    run and timed as phase 3 runs it (B4b once a frame under "sim"), each
    image at least 60 dB from phase 3's chunk-skip frame at the same
@@ -183,6 +188,18 @@ def median_ms(fn, reps: int, setup=None) -> float:
     return times[len(times) // 2]
 
 
+def stream_ms(fn, launches: int = 10, reps: int = 5) -> float:
+    """Device ms a call of ``fn()`` with the stream kept full: the median
+    over ``reps`` of the CUDA-event time of ``launches`` calls back to
+    back, over ``launches``. Unlike `median_ms` of one call, the host's
+    time in the wrapper hides behind the previous launch."""
+    def run(_):
+        for _ in range(launches):
+            fn()                    # each result freed before the next
+
+    return median_ms(run, reps) / launches
+
+
 def clone(xs):
     return tuple(x.clone() for x in xs)
 
@@ -228,6 +245,7 @@ def check_stencil(dev):
     v = (st.v + 0.05 * torch.rand(st.v.shape, generator=g,
                                   device=dev)).contiguous()
     p = st.params.vector()
+    log_stencil_builds("stencil", ranges=False)
     out = {}
     for t in (4, 2):
         uk, vk = cst.step_fused(u, v, p, t)
@@ -235,15 +253,38 @@ def check_stencil(dev):
         torch.cuda.synchronize()
         err = max(max_abs(uk, up), max_abs(vk, vp))
         check(f"stencil_T{t}", err, 1e-6 * t)
-        ms = median_ms(lambda _: cst.step_fused(u, v, p, t), 10)
+        # the kernel repeats the plain version's operations: bit for bit
+        if not (torch.equal(uk, up) and torch.equal(vk, vp)):
+            raise AssertionError(f"stencil_T{t}: K3 differs from its plain "
+                                 f"version")
+        ms = stream_ms(lambda: cst.step_fused(u, v, p, t))
+        one = median_ms(lambda _: cst.step_fused(u, v, p, t), 10)
         pms = median_ms(lambda _: cst.step_fused_plain(u, v, p, t), 3)
         cells = u.numel()
         b, by = bound_ms(4 * 4 * cells,
                          STENCIL_FLOPS_PER_CELL_STEP * t * cells)
         log(f"stencil_T{t}.ms", f"{ms:.4f} plain_ms={pms:.4f} "
-            f"bound_ms={b:.4f} ({by})")
+            f"bound_ms={b:.4f} ({by}) one_launch_ms={one:.4f} (the host's "
+            f"wrapper time included)")
+        log(f"stencil_T{t}.achieved_gb_s", f"{4 * 4 * cells / ms / 1e6:.1f} "
+            f"(the bound's bytes / ms; {HBM_BYTES_PER_S / 1e9:.0f} peak)")
         out[t] = dict(err=err, ms=ms, plain_ms=pms, bound_ms=b, bound_by=by)
     return out
+
+
+def log_stencil_builds(prefix, ranges):
+    """Registers, local bytes, shared bytes a block, resident blocks an
+    SM and the tile of K3's (``ranges=False``) or B4b's build for every
+    T, from ``cudaFuncGetAttributes`` and the occupancy calculator."""
+    from scenery_insitu_tpu_torch.sim import cuda_stencil as cst
+
+    for t in range(1, cst.FUSE_T + 1):
+        a = cst.attributes(t, ranges)
+        log(f"{prefix}_T{t}.build",
+            f"registers={a['registers']} local_bytes={a['local_bytes']} "
+            f"shared_bytes={a['shared_bytes']} "
+            f"blocks_per_sm={a['blocks_per_sm']} threads={a['threads']} "
+            f"core={a['core_x']}x{a['core_y']} seg_z={a['seg_z']}")
 
 
 def seeded_stream(c, h, w, dev, seed):
@@ -1329,12 +1370,13 @@ def check_small_dist(dev):
 
 def check_stencil_ranges(dev, g):
     """B4b against K3 and its plain version: the 512^3 state ``g`` with
-    the default bricks (16 x 32 x 512 cells, one brick a block) at T=4
-    and T=2, and ragged grids whose bricks straddle K3's 16 x 16 x 32
-    blocks, one with v partly negative. Its u', v' must equal K3's bit
-    for bit, its ranges ``field_ranges`` of its own v' and its plain
-    version's exactly. Times B4b against K3 at T=4 and T=2 (the frame's
-    last pass, the one that carries the epilogue) on the 512^3 state."""
+    the default bricks (16 x 32 x 512 cells) at T=4 and T=2, and ragged
+    grids whose brick edges fall inside K3's xy tiles and z segments,
+    one with v partly negative. Its u', v' must equal K3's bit for bit,
+    its ranges ``field_ranges`` of its own v' and its plain version's
+    exactly. Times B4b against K3 at T=4 and T=2 (the frame's last pass,
+    the one that carries the epilogue) on the 512^3 state, and logs its
+    builds."""
     import torch
 
     from scenery_insitu_tpu_torch.ops import occupancy as occ
@@ -1345,7 +1387,8 @@ def check_stencil_ranges(dev, g):
     cases = [(f"{GRID}", g.u, g.v, occ.default_bricks(tuple(g.v.shape)),
               (4, 2))]
     for shape, bricks, shift in (((24, 24, 24), None, 0.0),
-                                 ((36, 60, 50), (12, 5), -0.1)):
+                                 ((36, 60, 50), (12, 5), -0.1),
+                                 ((260, 70, 100), (26, 7), 0.0)):
         st = gs.GrayScott.init(shape, seed=SEED, device=dev)
         gen = torch.Generator(device=dev).manual_seed(SEED)
         u = (st.u - 0.05 * torch.rand(shape, generator=gen, device=dev))
@@ -1374,13 +1417,17 @@ def check_stencil_ranges(dev, g):
                 f"{float(hi.max()):.4f}]; u', v' equal K3's bit for bit")
             check(tag, e, 0.0)
             err = max(err, e)
+    log_stencil_builds("stencil_ranges", ranges=True)
     u, v, bricks = g.u, g.v, cases[0][3]
     cells = u.numel()
     out = {}
     for t in (4, 2):
-        ms = median_ms(lambda _: cst.step_fused_ranges(u, v, p, t, bricks),
-                       10)
-        k3_ms = median_ms(lambda _: cst.step_fused(u, v, p, t), 10)
+        # in turns, B4b, K3, K3, B4b, each with the stream kept full
+        b4b = lambda: cst.step_fused_ranges(u, v, p, t, bricks)
+        k3 = lambda: cst.step_fused(u, v, p, t)
+        turns = [stream_ms(f) for f in (b4b, k3, k3, b4b)]
+        ms, k3_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+        one = median_ms(lambda _: b4b(), 10)
         pms = median_ms(lambda _: cst.step_fused_ranges_plain(
             u, v, p, t, bricks), 3)
         # K3's bytes and operations, plus the ranges written and a compare
@@ -1388,7 +1435,12 @@ def check_stencil_ranges(dev, g):
         b, by = bound_ms(4 * 4 * cells + 2 * 4 * bricks[0] * bricks[1],
                          (STENCIL_FLOPS_PER_CELL_STEP * t + 2) * cells)
         log(f"stencil_ranges_T{t}.ms", f"{ms:.4f} k3_ms={k3_ms:.4f} "
-            f"plain_ms={pms:.4f} bound_ms={b:.4f} ({by}) bricks={bricks}")
+            f"plain_ms={pms:.4f} bound_ms={b:.4f} ({by}) bricks={bricks} "
+            f"turns={'/'.join(f'{x:.4f}' for x in turns)} "
+            f"one_launch_ms={one:.4f}")
+        log(f"stencil_ranges_T{t}.achieved_gb_s",
+            f"{4 * 4 * cells / ms / 1e6:.1f} (K3 {4 * 4 * cells / k3_ms / 1e6:.1f}"
+            f"); B4b / K3 = {ms / k3_ms:.4f}")
         out[t] = dict(err=err, ms=ms, k3_ms=k3_ms, plain_ms=pms, bound_ms=b,
                       bound_by=by)
     return out

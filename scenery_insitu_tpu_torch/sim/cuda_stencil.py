@@ -5,14 +5,38 @@ steps; on a CUDA tensor it launches the kernel (or raises), on a CPU
 tensor it runs `step_fused_plain`, which is ``grayscott.step`` applied T
 times. `multi_step_fused` keeps the reference's greedy decomposition of
 ``n`` steps into fused passes (``pallas_stencil._multi_step_impl``), so
-both run the same sequence of steps. The kernel takes any grid shape:
-there is no ``T | tz | D`` constraint.
+both run the same sequence of steps. The kernel takes any grid shape,
+periodic on every axis, also one smaller than its halo: there is no
+``T | tz | D`` constraint.
+
+The kernel streams through z (2.5-D blocking with a wavefront in time):
+a block of 8 warps owns a 32 x 32 xy tile, the (32 - 2T)^2 core plus a
+halo of T in x and y, and a segment of 128 planes (64 at T = 1, 2), and
+walks the segment once. Each thread holds 4 rows of one column, so the x
+neighbours are warp shuffles and the y neighbours registers (the strip
+ends come from the neighbouring warps through shared memory); level s of
+plane p - s is computed as soon as input plane p has landed, the T
+levels' last two planes stay in registers, and level T is stored as it
+is made. Input planes are copied three ahead into a shared-memory ring
+with ``cp.async``. What bounds it: device-memory bytes (one read and one
+write of u and v, 16 B a cell; the halo re-reads and the 2T-plane
+warm-up of a segment add ~1.78 x 1.06 to the reads at T = 4, served from
+L2 where neighbouring blocks share it), then the 29 f32 operations a
+cell and level issued without FMA contraction, on 7.1 cell-levels a
+stored cell at T = 4 (the halo is recomputed): at T = 4 these, not the
+bytes, set its time. The geometry is fixed in the source; `attributes`
+reports each build's registers, shared memory, resident blocks and tile.
+The arithmetic follows ``grayscott.step`` operation for operation, so
+the kernel equals the plain version bit for bit.
 
 `step_fused_ranges` is the same pass with the occupancy epilogue (the
 reference's ``with_ranges`` variant, B4b): it also returns the per-brick
 min/max of the new v on the caller's ``(nzb, nyb)`` brick grid, exactly
-``occupancy.field_ranges`` of it. `multi_step_fused_ranges` attaches the
-epilogue to the last pass only, the one whose ranges reach the caller.
+``occupancy.field_ranges`` of it (each row's stored v folds into a
+running min/max in registers; each warp makes one atomic pair a brick
+when its z walk leaves the brick). `multi_step_fused_ranges` attaches
+the epilogue to the last pass only, the one whose ranges reach the
+caller.
 """
 
 from __future__ import annotations
@@ -70,6 +94,19 @@ def step_fused(u: torch.Tensor, v: torch.Tensor, params: torch.Tensor,
                    params.data_ptr(), uo.data_ptr(), vo.data_ptr(),
                    d, h, w, t_steps)
     return uo, vo
+
+
+def attributes(t_steps: int, ranges: bool = False) -> dict:
+    """The build of K3 (or B4b, ``ranges=True``) for ``t_steps`` on the
+    current card: registers and local-memory bytes a thread, shared bytes
+    a block, resident blocks an SM, threads a block, and the tile (core
+    x, core y, z segment). Needs a card: it loads the kernel library."""
+    if not 1 <= t_steps <= FUSE_T:
+        raise ValueError(f"t_steps must be in 1..{FUSE_T}, got {t_steps}")
+    out = kernels.query("stencil_attributes", t_steps, int(ranges), nout=8)
+    keys = ("registers", "local_bytes", "shared_bytes", "blocks_per_sm",
+            "threads", "core_x", "core_y", "seg_z")
+    return dict(zip(keys, out))
 
 
 def step_fused_plain(u: torch.Tensor, v: torch.Tensor, params: torch.Tensor,

@@ -14,7 +14,8 @@ a CUDA device and skips without one; on the card run them with
 does not use). Tolerances: K2 counts exact; K1 within 1e-5 (the kernel
 sums a slot's items sequentially, the plain version with one reduction);
 K3 within 1e-6 per fused step (the library is built without FMA
-contraction, so it repeats the plain version's rounding); B4b's u, v
+contraction, so it repeats the plain version's rounding), and bit for
+bit on the z-streaming geometry's edge cases; B4b's u, v
 equal K3's bit for bit and its per-brick ranges equal
 ``occupancy.field_ranges`` of its own v exactly; K4 thresholds
 and live slots exact, colours and depths within 1e-6; B1b equal to
@@ -152,6 +153,67 @@ def test_multi_step_ranges_launches_the_epilogue_once(dev):
     torch.cuda.synchronize()
     assert torch.equal(u, uk) and torch.equal(v, vk)
     assert torch.equal(lo, want.lo) and torch.equal(hi, want.hi)
+
+
+def _gs_operands(shape, dev, seed, shift=0.0):
+    """u in [0.5, 1) and v in [shift, shift + 0.3): seeded noise, any
+    shape (``GrayScott.init`` needs room for its seed cubes)."""
+    rng = np.random.default_rng(seed)
+    u = torch.from_numpy(1.0 - 0.5 * rng.random(shape, dtype=np.float32))
+    v = torch.from_numpy(shift + 0.3 * rng.random(shape, dtype=np.float32))
+    p = gs.GrayScottParams.create(device=dev).vector()
+    return u.to(dev), v.to(dev), p
+
+
+# the z-streaming geometry: 32 x 32 xy tiles (core 32 - 2T), z segments
+# of 64 planes (T = 1, 2) or 128 (T = 3, 4); every axis smaller than the
+# halo, D and W not multiples of the segment or the core, several tiles
+# and segments on every axis
+@pytest.mark.parametrize("t_steps,shape", [
+    (4, (3, 5, 7)), (3, (3, 5, 7)), (2, (2, 1, 3)), (1, (1, 1, 1)),
+    (4, (130, 70, 100)), (3, (130, 70, 100)), (2, (130, 70, 100)),
+    (1, (130, 70, 100)), (2, (70, 33, 29)), (4, (65, 24, 25)),
+    (3, (128, 26, 52)), (4, (260, 30, 40))])
+def test_stencil_streaming_equals_plain_bitwise(dev, t_steps, shape):
+    u, v, p = _gs_operands(shape, dev, 5)
+    before = kernels.launches()["grayscott_fused"]
+    uk, vk = cst.step_fused(u, v, p, t_steps)
+    assert kernels.launches()["grayscott_fused"] == before + 1
+    up, vp = cst.step_fused_plain(u, v, p, t_steps)
+    torch.cuda.synchronize()
+    assert torch.equal(uk, up) and torch.equal(vk, vp)
+
+
+# brick edges inside a z segment (10-plane bricks, 64/128-plane segments)
+# and inside a y tile (10-row bricks, 24- to 30-row cores), v partly
+# negative on one
+@pytest.mark.parametrize("t_steps,shift", [(4, 0.0), (2, -0.1), (1, 0.0),
+                                           (3, -0.3)])
+def test_stencil_ranges_bricks_inside_segments_and_tiles(dev, t_steps,
+                                                         shift):
+    shape, bricks = (130, 70, 100), (13, 7)
+    u, v, p = _gs_operands(shape, dev, 6, shift)
+    ur, vr, lo, hi = cst.step_fused_ranges(u, v, p, t_steps, bricks)
+    uk, vk = cst.step_fused(u, v, p, t_steps)
+    up, vp = cst.step_fused_plain(u, v, p, t_steps)
+    torch.cuda.synchronize()
+    assert torch.equal(ur, uk) and torch.equal(vr, vk)
+    assert torch.equal(uk, up) and torch.equal(vk, vp)
+    want = occ.field_ranges(vp, *bricks)
+    assert torch.equal(lo, want.lo) and torch.equal(hi, want.hi)
+    if shift < 0:
+        assert bool((lo < 0).any())
+
+
+def test_stencil_attributes(dev):
+    for ranges in (False, True):
+        for t in range(1, cst.FUSE_T + 1):
+            a = cst.attributes(t, ranges)
+            assert a["registers"] > 0 and a["blocks_per_sm"] >= 1
+            assert a["core_x"] == 32 - 2 * t and a["core_y"] == 32 - 2 * t
+            assert a["shared_bytes"] <= 232448
+    with pytest.raises(ValueError):
+        cst.attributes(5)
 
 
 @pytest.mark.parametrize("chunks,k,hw", [((16, 1, 16), 16, (64, 80)),

@@ -18,17 +18,28 @@ and prints no result):
    with the registers, local bytes, shared bytes, resident blocks an SM
    and tile of its build for each T and its achieved GB/s, K1 (segmented
    write fold) and K2 (multi-threshold count) at C=16 and C=1, K=16,
-   B=16, 640x640; B1b (K1's planes form) equal to K1 bit for bit on the
+   B=16, 640x640, and on the frame's own chunks; K1's builds (C=16, and
+   the generic one C=1 takes; registers, local and shared bytes, blocks
+   an SM) and, over one frame's 32 chunks, its summed time ("K1 ms a
+   frame") with that work's bound (the bytes the 32 folds need from
+   HBM; the sum of the launches' own bounds beside it), GB/s and the
+   histogram of the slots a pixel touches a chunk; B1b (K1's planes form) equal to K1 bit for bit on the
    frame's chunks and a seeded chunk; B7 (the machine's fold) with and
    without its count on a seeded chunk and the frame's chunks; B5 (shade
    and fold) on the frame's raw value chunks and B6 over the whole raw
    stream, B6 equal to B5 chunk after chunk bit for bit. Each prints
    its largest difference against the stated tolerance, its median time
    from CUDA events (K3's and B4b's of 10 launches back to back, so the
-   wrapper's host time hides behind the previous launch; the others' of
-   one launch), the plain version's time, and its bound (the larger
-   of bytes / 3.35 TB/s and operations / 67 TFLOP/s, the H100 SXM's f32
-   rate outside the tensor cores);
+   wrapper's host time hides behind the previous launch; K1's and B1b's
+   of 10 launches back to back behind a device sleep, each on a state
+   cloned before the window, with the one-launch time beside; the
+   others' of one launch), the plain version's time, and its bound (the
+   larger of bytes / 3.35 TB/s and operations / 67 TFLOP/s, the H100
+   SXM's f32 rate outside the tensor cores). ``--k1-compare NAME=PATH``
+   serves the same wrapper from another design of ``csrc/seg_fold.cu``
+   (e.g. an earlier commit's), checks it the same way and times it in
+   turns with K1 and B1b (K1, other, other, K1) on the seeded chunks and
+   the frame's chunks;
 3. the frame at the flagship size (512^3 Gray-Scott, 10 sim steps a
    frame, K=16, 16 histogram bins, chunk 16, temporal thresholds, the
    eye oscillating within the z march regime): ``init_threshold`` once,
@@ -82,7 +93,9 @@ and prints no result):
    block size; (b) the twin's sweep with ``--check`` over every variant
    at S = 256 (320 x 320) and S = 512 (640 x 640), K = 16, C = 16, its
    JSON rows logged, the launch counts set to 0 before it and read after
-   it (B8 and B9 each S/C launches a march).
+   it (B8 and B9 each S/C launches a march; B1b, which the
+   ``pallas_seg`` and ``tf_pallas_seg`` variants run, must launch: the
+   kernel table's B1b count is this sweep's).
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -91,6 +104,7 @@ The line before the last is the JSON kernel table; the last line is
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import math
 import os
@@ -150,6 +164,9 @@ SMALL_RANKS = 4
 # the fold microbenchmark (phase 6): the reference's default S = 256
 # (320 x 320) and the flagship's 512 (640 x 640), K = 16, C = 16
 MICRO_GRIDS = (256, 512)
+# device sleep ahead of a timed window (~10 ms at the H100's clocks), so
+# the host's launches queue behind it
+LEAD_CYCLES = 20_000_000
 MICRO_ITERS = 3
 EVENT_KERNELS = {"events": "events_fold_chunk",
                  "scratch": "scratch_fold_chunk"}
@@ -303,9 +320,9 @@ def seeded_stream(c, h, w, dev, seed):
     return torch.cat([rgb * alpha, alpha], dim=1).contiguous()
 
 
-def touched_rows(rgba, small, thr, k):
-    """(pixel, slot) state rows one K1 call reads and writes: the
-    distinct slots of each pixel's non-empty slices in this chunk."""
+def touched_mask(rgba, small, thr, k):
+    """The state rows one K1 call reads and writes: bool [K, H, W], true
+    where a non-empty slice of this chunk lands in slot s of a pixel."""
     import torch
 
     from scenery_insitu_tpu_torch.ops import seg_fold as sf
@@ -313,15 +330,94 @@ def touched_rows(rgba, small, thr, k):
     emp, starts = sf.chunk_flags(rgba, small[1:4], small[4] > 0.5, thr)
     sid = small[0][None] + torch.cumsum(starts.to(torch.float32), 0) - 1
     slot = torch.clamp(sid, 0, k - 1)
-    return int(sum(((slot == s) & ~emp).any(0).sum() for s in range(k)))
+    return torch.stack([((slot == s) & ~emp).any(0) for s in range(k)])
 
 
-def k1_bound(rgba, small, thr, k):
+def touched_rows(rgba, small, thr, k):
+    """(pixel, slot) state rows one K1 call reads and writes."""
+    return int(touched_mask(rgba, small, thr, k).sum())
+
+
+def k1_work(rgba, small, thr, k):
+    """(bytes, operations) one K1 call on these inputs must move and do:
+    rgba, length and threshold read, the ratios, small read and written,
+    and the touched rows read and written."""
     c, _, h, w = rgba.shape
     hw = h * w
     rows = touched_rows(rgba, small, thr, k)
     nbytes = 4 * (c * 4 * hw + 2 * hw + 2 * c + 2 * 5 * hw + 2 * 6 * rows)
-    return bound_ms(nbytes, SEG_FLOPS_PER_PIXEL_SLICE * c * hw)
+    return nbytes, SEG_FLOPS_PER_PIXEL_SLICE * c * hw
+
+
+def lead():
+    """Enqueue ~10 ms of device sleep, so that the launches the host
+    makes next queue up behind it and a window opened after it holds
+    device time only (the stream kept full)."""
+    import torch
+
+    torch.cuda._sleep(LEAD_CYCLES)
+
+
+def fresh_ms(fold, base, launches=10, reps=5) -> float:
+    """Device ms a call of ``fold(state)`` with the stream kept full:
+    ``launches`` calls back to back, each on its own copy of ``base``
+    cloned before the window (so each does the same work as one call on
+    ``base``), behind `lead`; the median over ``reps`` over
+    ``launches``."""
+    import torch
+
+    def setup():
+        states = [clone(base) for _ in range(launches)]
+        torch.cuda.synchronize()
+        lead()
+        return states
+
+    def run(states):
+        for st in states:
+            fold(st)
+
+    return median_ms(run, reps, setup) / launches
+
+
+def compare_folds(specs):
+    """{name: fold} for each ``NAME=PATH`` of ``--k1-compare``, another
+    design of ``csrc/seg_fold.cu`` with the same C entries: fold is
+    `cuda_seg.fold_chunk_packed` served by that source's build
+    (`kernels.source_override`), built here; each build's attributes are
+    logged where its source has the query."""
+    from scenery_insitu_tpu_torch import kernels
+    from scenery_insitu_tpu_torch.ops import cuda_seg as cs
+
+    folds = {}
+    for spec in specs:
+        name, path = spec.split("=", 1)
+        with kernels.source_override("seg_fold", path):
+            secs = kernels.build(["seg_fold"])
+            log(f"k1_compare_{name}.build_s", f"{secs:.1f}")
+            with open(path) as f:
+                if "seg_fold_attributes" in f.read():
+                    log_k1_builds(f"k1_compare_{name}_")
+
+        def fold(*args, path=path, **kw):
+            with kernels.source_override("seg_fold", path):
+                return cs.fold_chunk_packed(*args, **kw)
+
+        folds[name] = fold
+    return folds
+
+
+def log_k1_builds(prefix=""):
+    """Registers, local bytes, shared bytes a block, resident blocks an
+    SM, threads a block and slices held at once of K1's and B1b's builds
+    (C = 16 unrolled; the generic one, which C = 1 takes), from
+    ``cudaFuncGetAttributes`` and the occupancy calculator."""
+    from scenery_insitu_tpu_torch.ops import cuda_seg as cs
+
+    for planes, tag in ((False, "seg_fold"), (True, "seg_fold_planes")):
+        for c, name in ((16, "C16"), (1, "C1_generic")):
+            a = cs.attributes(c, planes)
+            log(f"{prefix}{tag}_{name}.build",
+                " ".join(f"{n}={v}" for n, v in a.items()))
 
 
 def k2_bound(rgba, b):
@@ -347,13 +443,22 @@ def packed_err(a, b):
     return max(max_abs(x, y) for x, y in zip(a, b))
 
 
-def check_fold_and_count(dev, real_chunks, real_thr, real_length):
+def check_fold_and_count(dev, real_chunks, real_thr, real_length,
+                         compare=None):
+    """K1 and K2 against their plain versions on seeded chunks at C = 16
+    and C = 1 and on the frame's own chunks. K1 is timed with the stream
+    kept full on states cloned before the window (`fresh_ms`; its one
+    launch beside it), and over the frame's chunks as one frame folds
+    them; each ``compare`` build (``--k1-compare``) is checked the same
+    way and timed in turns with K1 (K1, other, other, K1)."""
     import torch
 
     from scenery_insitu_tpu_torch.ops import cuda_march as cm
     from scenery_insitu_tpu_torch.ops import cuda_seg as cs
     from scenery_insitu_tpu_torch.ops import supersegments as ss
 
+    compare = compare or {}
+    log_k1_builds()
     h, w = real_thr.shape          # the frame's intermediate grid
     g = torch.Generator(device=dev).manual_seed(SEED)
     thr = (0.05 + 0.5 * torch.rand((h, w), generator=g, device=dev))
@@ -372,24 +477,37 @@ def check_fold_and_count(dev, real_chunks, real_thr, real_length):
                                    thr, max_k=K, sk0=pre0,
                                    sk1=(pre0 + 0.025).contiguous(),
                                    length=length)
-        kern = cs.fold_chunk_packed(clone(base), rgba, thr, max_k=K,
-                                    sk0=sk0, sk1=sk1, length=length)
-        plain = cs.fold_chunk_packed_plain(clone(base), rgba, thr, max_k=K,
-                                           sk0=sk0, sk1=sk1, length=length)
-        torch.cuda.synchronize()
-        err1 = packed_err(kern, plain)
-        check(f"seg_fold_C{c}", err1, 1e-5)
-        if not torch.equal(kern[2][0], plain[2][0]):
-            raise AssertionError(f"seg_fold_C{c}: start counts differ")
-        ms1 = median_ms(lambda st: cs.fold_chunk_packed(
-            st, rgba, thr, max_k=K, sk0=sk0, sk1=sk1, length=length), 20,
-            lambda: clone(base))
+        args = dict(max_k=K, sk0=sk0, sk1=sk1, length=length)
+        plain = cs.fold_chunk_packed_plain(clone(base), rgba, thr, **args)
+        folds = {"k1": cs.fold_chunk_packed, **compare}
+        errs = {}
+        for name, fold in folds.items():
+            got = fold(clone(base), rgba, thr, **args)
+            torch.cuda.synchronize()
+            tag = f"seg_fold_C{c}" + ("" if name == "k1" else f"_{name}")
+            errs[name] = packed_err(got, plain)
+            check(tag, errs[name], 1e-5)
+            if not torch.equal(got[2][0], plain[2][0]):
+                raise AssertionError(f"{tag}: start counts differ")
+        err1 = errs["k1"]
+        k1 = lambda st: cs.fold_chunk_packed(st, rgba, thr, **args)
+        ms1 = fresh_ms(k1, base)
+        one = median_ms(k1, 20, lambda: clone(base))
         pms1 = median_ms(lambda st: cs.fold_chunk_packed_plain(
-            st, rgba, thr, max_k=K, sk0=sk0, sk1=sk1, length=length), 3,
-            lambda: clone(base))
-        b1, by1 = k1_bound(rgba, base[2], thr, K)
+            st, rgba, thr, **args), 3, lambda: clone(base))
+        nbytes, flops = k1_work(rgba, base[2], thr, K)
+        b1, by1 = bound_ms(nbytes, flops)
         log(f"seg_fold_C{c}.ms", f"{ms1:.4f} plain_ms={pms1:.4f} "
-            f"bound_ms={b1:.4f} ({by1})")
+            f"bound_ms={b1:.4f} ({by1}) one_launch_ms={one:.4f} (the "
+            f"host's wrapper time included); stream kept full on states "
+            f"cloned before the window")
+        log(f"seg_fold_C{c}.achieved_gb_s", f"{nbytes / ms1 / 1e6:.1f} (the "
+            f"bound's bytes / ms; {HBM_BYTES_PER_S / 1e9:.0f} peak); touched "
+            f"rows a pixel {touched_rows(rgba, base[2], thr, K) / (h * w):.3f}")
+        for name, fold in compare.items():
+            other = lambda st: fold(st, rgba, thr, **args)
+            turns = [fresh_ms(f, base) for f in (k1, other, other, k1)]
+            log(f"seg_fold_C{c}.vs_{name}", in_turns(turns, nbytes))
 
         cbase = cm.init_count_multi_packed(BINS, h, w, device=dev)
         ck = cm.count_multi_chunk(clone(cbase), rgba, tvec)
@@ -408,19 +526,34 @@ def check_fold_and_count(dev, real_chunks, real_thr, real_length):
         log(f"count_C{c}.ms", f"{ms2:.4f} plain_ms={pms2:.4f} "
             f"bound_ms={b2:.4f} ({by2})")
         res[c] = dict(seg=dict(err=err1, ms=ms1, plain_ms=pms1, bound_ms=b1,
-                               bound_by=by1),
+                               bound_by=by1, one_launch_ms=one),
                       count=dict(err=err2, ms=ms2, plain_ms=pms2,
                                  bound_ms=b2, bound_by=by2))
 
     # the frame's own shaded chunks, folded and counted end to end
-    kern = fold_chunks(cs.fold_chunk_packed,
-                       cs.init_seg_packed(K, h, w, device=dev), real_chunks,
-                       real_thr, real_length)
-    plain = fold_chunks(cs.fold_chunk_packed_plain,
-                        cs.init_seg_packed(K, h, w, device=dev), real_chunks,
+    init = lambda: cs.init_seg_packed(K, h, w, device=dev)
+    smalls = []
+    kern = init()
+    for rgba, sk0, sk1 in real_chunks:
+        smalls.append(kern[2].clone())
+        cs.fold_chunk_packed(kern, rgba, real_thr, max_k=K, sk0=sk0, sk1=sk1,
+                             length=real_length)
+    plain = fold_chunks(cs.fold_chunk_packed_plain, init(), real_chunks,
                         real_thr, real_length)
     torch.cuda.synchronize()
-    check("seg_fold_frame_chunks", packed_err(kern, plain), 1e-5)
+    err = packed_err(kern, plain)
+    check("seg_fold_frame_chunks", err, 1e-5)
+    if not torch.equal(kern[2][0], plain[2][0]):
+        raise AssertionError("seg_fold_frame_chunks: start counts differ")
+    for name, fold in compare.items():
+        got = fold_chunks(fold, init(), real_chunks, real_thr, real_length)
+        torch.cuda.synchronize()
+        check(f"seg_fold_frame_chunks_{name}", packed_err(got, plain), 1e-5)
+    res["frame"] = k1_frame(real_chunks, smalls, real_thr, real_length,
+                            init, compare)
+    res["frame"]["err"] = err
+    del kern, plain, smalls
+
     ck = count_chunks(cm.count_multi_chunk,
                       cm.init_count_multi_packed(BINS, h, w, device=dev),
                       real_chunks, tvec)
@@ -433,6 +566,80 @@ def check_fold_and_count(dev, real_chunks, real_thr, real_length):
     log("frame_chunks", f"{len(real_chunks)} (C="
         f"{sorted({c[0].shape[0] for c in real_chunks})})")
     return res
+
+
+def in_turns(turns, nbytes):
+    """The log line of a K1 timing in turns (K1, other, other, K1)."""
+    ms, other = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    return (f"k1_ms={ms:.4f} other_ms={other:.4f} other/k1={other / ms:.3f} "
+            f"turns={'/'.join(f'{x:.4f}' for x in turns)} k1_gb_s="
+            f"{nbytes / ms / 1e6:.1f} other_gb_s={nbytes / other / 1e6:.1f}")
+
+
+def k1_frame(chunks, smalls, thr, length, init, compare):
+    """K1 over one flagship frame's write march: its captured chunks
+    folded in order into a fresh state, all launches back to back behind
+    `lead` (the stream kept full), the median of 5; the bound of the
+    same work; the histogram of the slots a pixel touches a chunk. Each
+    ``compare`` build in turns.
+
+    The bound counts the bytes the 32 folds need from HBM: every chunk's
+    rgba and ratios, the small state, threshold and length read once and
+    the small state written once, and each (pixel, slot) row any chunk
+    touches read once and written once. The sum of the 32 launches'
+    own bounds, which count the per-pixel state and the rows at every
+    launch, is logged beside it."""
+    import torch
+
+    from scenery_insitu_tpu_torch.ops import cuda_seg as cs
+
+    run = lambda fold: (lambda st: fold_chunks(fold, st, chunks, thr,
+                                               length))
+
+    def setup():
+        st = init()
+        torch.cuda.synchronize()
+        lead()
+        return st
+
+    k1 = run(cs.fold_chunk_packed)
+    ms = median_ms(k1, 5, setup)
+    h, w = thr.shape
+    rows = torch.zeros((K, h, w), dtype=torch.bool, device=thr.device)
+    hist = torch.zeros(K + 1, dtype=torch.int64, device=thr.device)
+    nbytes, flops, launch_bytes = 4 * (2 * 5 + 2) * h * w, 0, 0
+    for (rgba, _, _), small in zip(chunks, smalls):
+        c = rgba.shape[0]
+        mask = touched_mask(rgba, small, thr, K)
+        rows |= mask
+        hist += torch.bincount(mask.sum(0).flatten(), minlength=K + 1)
+        nbytes += 4 * (c * 4 * h * w + 2 * c)
+        b, f = k1_work(rgba, small, thr, K)
+        launch_bytes, flops = launch_bytes + b, flops + f
+    nbytes += 4 * 2 * 6 * int(rows.sum())
+    bound, by = bound_ms(nbytes, flops)
+    launch_bound, _ = bound_ms(launch_bytes, flops)
+    n_c = collections.Counter(rgba.shape[0] for rgba, _, _ in chunks)
+    log("seg_fold_frame.ms", f"{ms:.4f} bound_ms={bound:.4f} ({by}; "
+        f"{nbytes / (h * w):.1f} B a pixel) launches={len(chunks)} (chunks "
+        f"by C: {dict(n_c)}); the stream kept full, a fresh state each time")
+    log("seg_fold_frame.launch_bounds_sum_ms", f"{launch_bound:.4f} "
+        f"({launch_bytes / (h * w):.1f} B a pixel: the per-pixel state "
+        f"and rows counted at each of the {len(chunks)} launches)")
+    log("seg_fold_frame.achieved_gb_s", f"{nbytes / ms / 1e6:.1f} (the "
+        f"bound's bytes / ms; {HBM_BYTES_PER_S / 1e9:.0f} peak)")
+    hist = hist.tolist()
+    live = sum(hist[1:])
+    log("seg_fold_frame.touched_slots", json.dumps(
+        {"pixel_chunks_by_slots": {i: n for i, n in enumerate(hist) if n},
+         "share_touching_none": hist[0] / sum(hist),
+         "mean_over_touching": sum(i * n for i, n in enumerate(hist))
+         / max(live, 1)}))
+    for name, fold in compare.items():
+        other = run(fold)
+        turns = [median_ms(f, 5, setup) for f in (k1, other, other, k1)]
+        log(f"seg_fold_frame.vs_{name}", in_turns(turns, nbytes))
+    return dict(ms=ms, bound_ms=bound, bound_by=by)
 
 
 def planes(sk, length):
@@ -477,12 +684,14 @@ def fused_flops(raw, ratio, tf):
     return ops, live, solid
 
 
-def check_new_folds(dev, cap):
+def check_new_folds(dev, cap, compare=None):
     """B1b, B7, B5 and B6 against their plain versions on the card, on
     the frame's captured chunks and on a seeded stream, with their times
     and bounds. B1b must equal K1's compact form bit for bit; B7's
     counts, B5's and B6's start counts exactly, colour and depth within
-    1e-6; B6 must equal B5 chunk after chunk bit for bit."""
+    1e-6; B6 must equal B5 chunk after chunk bit for bit. B1b is timed as
+    K1 is (`fresh_ms`), each ``compare`` build's planes entry in turns
+    with it."""
     import torch
 
     from scenery_insitu_tpu_torch.ops import cuda_fused as cf
@@ -534,17 +743,29 @@ def check_new_folds(dev, cap):
                              "form on a seeded chunk")
     err = packed_err(kern, plain)
     check("seg_fold_planes", err, 1e-5)
-    ms, pms = timed(lambda st: cs.fold_chunk_packed(
-        st, rgba, sthr, max_k=K, t0=t0, t1=t1), lambda st:
-        cs.fold_chunk_packed_plain(st, rgba, sthr, max_k=K, t0=t0, t1=t1),
-        base)
+    b1b = lambda st: cs.fold_chunk_packed(st, rgba, sthr, max_k=K, t0=t0,
+                                          t1=t1)
+    ms = fresh_ms(b1b, base)
+    one = median_ms(b1b, 20, lambda: clone(base))
+    pms = median_ms(lambda st: cs.fold_chunk_packed_plain(
+        st, rgba, sthr, max_k=K, t0=t0, t1=t1), 3, lambda: clone(base))
     rows = touched_rows(rgba, base[2], sthr, K)
-    b, by = bound_ms(4 * (CHUNK * 6 * hw + hw + 2 * 5 * hw + 2 * 6 * rows),
-                     SEG_FLOPS_PER_PIXEL_SLICE * CHUNK * hw)
+    nbytes = 4 * (CHUNK * 6 * hw + hw + 2 * 5 * hw + 2 * 6 * rows)
+    b, by = bound_ms(nbytes, SEG_FLOPS_PER_PIXEL_SLICE * CHUNK * hw)
     log("seg_fold_planes.ms", f"{ms:.4f} plain_ms={pms:.4f} "
-        f"bound_ms={b:.4f} ({by})")
+        f"bound_ms={b:.4f} ({by}) one_launch_ms={one:.4f} (the host's "
+        f"wrapper time included); stream kept full on states cloned before "
+        f"the window")
+    log("seg_fold_planes.achieved_gb_s", f"{nbytes / ms / 1e6:.1f}")
+    for name, fold in (compare or {}).items():
+        got = fold(clone(base), rgba, sthr, max_k=K, t0=t0, t1=t1)
+        torch.cuda.synchronize()
+        check(f"seg_fold_planes_{name}", packed_err(got, plain), 1e-5)
+        other = lambda st: fold(st, rgba, sthr, max_k=K, t0=t0, t1=t1)
+        turns = [fresh_ms(f, base) for f in (b1b, other, other, b1b)]
+        log(f"seg_fold_planes.vs_{name}", in_turns(turns, nbytes))
     res["seg_fold_planes"] = dict(err=err, ms=ms, plain_ms=pms, bound_ms=b,
-                                  bound_by=by)
+                                  bound_by=by, one_launch_ms=one)
 
     # B7: a seeded chunk after one folded chunk, without and with count
     mbase = cm.init_packed(K, h, w, device=dev)
@@ -1677,7 +1898,9 @@ def run_microbench(dev):
     """Phase 6 (b): the fold microbenchmark twin with ``--check`` over
     every variant at each grid of MICRO_GRIDS (K = 16, C = 16), its rows
     logged as ``microbench_<grid>``; the launch counts set to 0 before
-    the sweep and read after it. B8 and B9 must launch S/C times a march.
+    the sweep and read after it. B8 and B9 must launch S/C times a march,
+    and B1b (the ``pallas_seg`` and ``tf_pallas_seg`` variants) at
+    least once.
     Returns (launches, {grid: rows})."""
     from scenery_insitu_tpu_torch import kernels
     from scenery_insitu_tpu_torch.benchmarks import fold_microbench as fm
@@ -1690,8 +1913,8 @@ def run_microbench(dev):
             device=dev,
             emit=lambda r, g=grid: log(f"microbench_{g}", json.dumps(r)))
     launches = kernels.launches()
-    require_launched(launches, EVENT_KERNELS.values(), "the microbenchmark "
-                     "sweep")
+    require_launched(launches, (*EVENT_KERNELS.values(), "seg_fold_planes"),
+                     "the microbenchmark sweep")
     for variant, name in EVENT_KERNELS.items():
         want = 0
         for grid, rs in rows.items():
@@ -1718,6 +1941,11 @@ def main(argv=None) -> int:
                     help="also profile two frames of each path: device "
                          "time by kernel "
                          "and the device's busy share")
+    ap.add_argument("--k1-compare", action="append", default=[],
+                    metavar="NAME=PATH",
+                    help="another design of csrc/seg_fold.cu (the same C "
+                         "entries) to check and time in turns with K1 and "
+                         "B1b in phase 2; repeatable")
     args = ap.parse_args(argv)
 
     import torch
@@ -1745,12 +1973,13 @@ def main(argv=None) -> int:
         log(f"{name}.wall_s", f"{time.perf_counter() - t0:.1f} (since the "
             f"build)")
 
+    compare = compare_folds(args.k1_compare)
     g = gs_init(dev)
     cap = capture_chunks(dev, g.u, g.v, (0.0, 0.6, 3.0))
     stencil = check_stencil(dev)
     fold = check_fold_and_count(dev, cap["chunks"], cap["thr"],
-                                cap["length"])
-    new = check_new_folds(dev, cap)
+                                cap["length"], compare)
+    new = check_new_folds(dev, cap, compare)
     del cap
     ranges = check_stencil_ranges(dev, g)
     del g
@@ -1802,10 +2031,14 @@ def main(argv=None) -> int:
              source="scenery_insitu_tpu_torch/csrc/seg_fold.cu",
              replaces="scenery_insitu_tpu/ops/pallas_seg.py:237",
              launches=launches["seg_fold_compact"],
-             max_abs_err=fold[16]["seg"]["err"], ms=fold[16]["seg"]["ms"],
+             max_abs_err=max(fold[16]["seg"]["err"], fold[1]["seg"]["err"],
+                             fold["frame"]["err"]),
+             ms=fold[16]["seg"]["ms"],
              plain_ms=fold[16]["seg"]["plain_ms"],
              bound_ms=fold[16]["seg"]["bound_ms"],
-             bound_by=fold[16]["seg"]["bound_by"], library_ms=None),
+             bound_by=fold[16]["seg"]["bound_by"], library_ms=None,
+             frame_ms=fold["frame"]["ms"],
+             frame_bound_ms=fold["frame"]["bound_ms"]),
         dict(name="count_multi", route="cuda",
              source="scenery_insitu_tpu_torch/csrc/count_multi.cu",
              replaces="scenery_insitu_tpu/ops/pallas_march.py:426",
@@ -1825,16 +2058,17 @@ def main(argv=None) -> int:
              bound_ms=reseg["frame_block"]["bound_ms"],
              bound_by=reseg["frame_block"]["bound_by"], library_ms=None),
     ]
-    # the kernels of this slice: B1b has no caller on any path (the
-    # reference's planes form serves tests only), so its launches on
-    # the paths are 0; each fold kernel's count is its fold frame's run
+    # the kernels of this slice: B1b has no caller on a frame path; the
+    # microbenchmark's pallas_seg and tf_pallas_seg variants run it, so
+    # its count is that sweep's; each fold kernel's count is its fold
+    # frame's run
     sources = {"seg_fold_planes": ("seg_fold.cu", "ops/pallas_seg.py:252"),
                "fold_chunk": ("fold_chunk.cu", "ops/pallas_march.py:367"),
                "fused_fold_chunk": ("fused_fold.cu", "ops/pallas_seg.py:426"),
                "fused_stream_fold": ("fused_fold.cu",
                                      "ops/pallas_seg.py:514")}
     runs = {name: folds[f][0][name] for f, name in FOLD_KERNELS.items()}
-    runs["seg_fold_planes"] = launches["seg_fold_planes"]
+    runs["seg_fold_planes"] = micro_launches["seg_fold_planes"]
     for name, (src, site) in sources.items():
         r = new[name]
         table.append(dict(

@@ -22,6 +22,7 @@ went through the kernels.
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -81,10 +82,15 @@ QUERIES = {
     # shared bytes a block, resident blocks an SM, threads a block, the
     # core's x and y extent, the z segment's planes
     "stencil_attributes": ("stencil", [_I] * 2 + [_P]),
+    # C (16, 1, or any other for the generic build), planes (0 K1, 1
+    # B1b), out int[6]: registers, local-memory bytes, shared bytes a
+    # block, resident blocks an SM, threads a block, slices held at once
+    "seg_fold_attributes": ("seg_fold", [_I] * 2 + [_P]),
 }
 
 _LAUNCHES: collections.Counter = collections.Counter()
-_LOADED: Dict[str, ctypes.CDLL] = {}
+_LOADED: Dict[str, ctypes.CDLL] = {}   # by source path
+_SOURCES: Dict[str, str] = {}          # `source_override`'s sources
 
 
 def _nvcc() -> str:
@@ -97,8 +103,27 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
+def source_path(name: str) -> str:
+    """The CUDA source library ``name`` is built from: ``csrc/<name>.cu``
+    unless `source_override` serves another."""
+    return _SOURCES.get(name, os.path.join(CSRC_DIR, f"{name}.cu"))
+
+
+@contextlib.contextmanager
+def source_override(name: str, path: str):
+    """Within the block, build and load library ``name`` from the source
+    at ``path`` (another design of ``csrc/<name>.cu`` with the same C
+    entries), so that the same wrappers launch it and count its launches:
+    how two designs are timed against each other in one process."""
+    _SOURCES[name] = os.path.abspath(path)
+    try:
+        yield
+    finally:
+        del _SOURCES[name]
+
+
 def library_path(name: str) -> str:
-    src = os.path.join(CSRC_DIR, f"{name}.cu")
+    src = source_path(name)
     h = hashlib.sha256()
     with open(src, "rb") as f:
         h.update(f.read())
@@ -121,15 +146,14 @@ def build(names: Optional[Iterable[str]] = None) -> float:
     for n in todo:
         out = library_path(n)
         tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR,
-                                                           f"{n}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, source_path(n)]
         procs.append((n, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
     errors = []
     for n, out, tmp, p in procs:
         log, _ = p.communicate()
         if p.returncode != 0:
-            errors.append(f"nvcc failed for csrc/{n}.cu "
+            errors.append(f"nvcc failed for {source_path(n)} "
                           f"(exit {p.returncode}):\n{log.decode()}")
         else:
             os.replace(tmp, out)
@@ -139,16 +163,18 @@ def build(names: Optional[Iterable[str]] = None) -> float:
 
 
 def _library(name: str) -> ctypes.CDLL:
-    lib = _LOADED.get(name)
+    src = source_path(name)
+    lib = _LOADED.get(src)
     if lib is None:
         build([name])
         lib = ctypes.CDLL(library_path(name))
         for entry, (owner, argtypes) in {**ENTRIES, **QUERIES}.items():
-            if owner == name:
+            # an overriding source may predate a query; calling it raises
+            if owner == name and (entry in ENTRIES or hasattr(lib, entry)):
                 fn = getattr(lib, entry)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
-        _LOADED[name] = lib
+        _LOADED[src] = lib
     return lib
 
 

@@ -15,6 +15,12 @@ updates the three state tensors IN PLACE and returns the same triple.
 On a CUDA tensor it launches the kernel (or raises); on a CPU tensor it
 runs `fold_chunk_packed_plain`, the plain version the kernel is held
 against.
+
+The kernel has one build for a live chunk's slice count, C = 16, with
+the walk unrolled, and a generic build for any other C (a skipped
+chunk's one sample included); both issue 4 slices' loads before they
+walk them. `attributes` reports each build's registers, memory,
+resident blocks and the slices it holds at once.
 """
 
 from __future__ import annotations
@@ -88,6 +94,20 @@ def _depth_form(c, h, w, sk0, sk1, length, t0, t1) -> dict:
         return {n: (x, (c, h, w), f32) for n, x in planes.items()}
     return {"sk0": (sk0, (c,), f32), "sk1": (sk1, (c,), f32),
             "length": (length, (h, w), f32)}
+
+
+def attributes(c: int, planes: bool = False) -> dict:
+    """The build of K1 (``planes=False``) or B1b that a chunk of ``c``
+    slices takes, on the current card: registers and local-memory bytes
+    a thread, shared bytes a block, resident blocks an SM, threads a
+    block and the slices it holds at once (the smaller of ``c`` and 4).
+    Needs a card: it loads the kernel library."""
+    if c < 1:
+        raise ValueError("a chunk holds at least one slice")
+    out = kernels.query("seg_fold_attributes", c, int(planes), nout=6)
+    keys = ("registers", "local_bytes", "shared_bytes", "blocks_per_sm",
+            "threads", "slices")
+    return dict(zip(keys, out))
 
 
 def as_plane(value, h, w, dev) -> torch.Tensor:

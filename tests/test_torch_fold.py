@@ -19,7 +19,7 @@ from scenery_insitu_tpu.ops import pallas_march as jpm
 from scenery_insitu_tpu.ops import pallas_seg as jpsg
 from scenery_insitu_tpu.ops import seg_fold as jsf
 from scenery_insitu_tpu.ops import supersegments as jss
-from scenery_insitu_tpu_torch import convert
+from scenery_insitu_tpu_torch import convert, kernels
 from scenery_insitu_tpu_torch.ops import cuda_march as cm
 from scenery_insitu_tpu_torch.ops import cuda_seg as cs
 from scenery_insitu_tpu_torch.ops import seg_fold as tsf
@@ -205,6 +205,61 @@ def test_plain_k1_matches_pallas_seg_interpret(chunks, k):
         np.testing.assert_array_equal(np_(tp[2][0]), np.asarray(jp[2][0]))
 
 
+# (chunks as (C, kind), K, (H, W), threshold): the edges K1's card
+# builds are tested on — saturated counts, threshold 0 and +inf, empty
+# chunks after live ones, the generic build's C = 7 and 33, W not a
+# multiple of 4 (H a multiple of the reference's TILE_H)
+K1_EDGES = {
+    "saturated": (((16, "live"), (16, "live"), (16, "live")), 4, (16, 40),
+                  "rand"),
+    "thr0": (((16, "live"), (7, "live")), 16, (8, 40), "zero"),
+    "thr_inf": (((16, "live"), (16, "live")), 4, (8, 40), "inf"),
+    "empty_after_live": (((16, "live"), (16, "empty"), (1, "empty"),
+                          (16, "live")), 4, (8, 40), "rand"),
+    "c7": (((7, "live"), (7, "live"), (7, "live")), 4, (16, 40), "rand"),
+    "c33": (((33, "live"),), 16, (8, 40), "rand"),
+    "w37": (((16, "live"), (1, "live")), 4, (8, 37), "rand"),
+    "w90_k1": (((33, "live"), (7, "live")), 1, (8, 90), "rand"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(K1_EDGES))
+def test_plain_k1_matches_pallas_seg_interpret_edges(case):
+    """The plain K1 against the reference's compact-form Pallas fold in
+    interpret mode on the edge cases of K1's card tests, the packed state
+    carried across chunks; the bars of
+    test_plain_k1_matches_pallas_seg_interpret."""
+    chunks, k, (h, w), thr_kind = K1_EDGES[case]
+    thr = {"rand": (np.random.default_rng(7).random((h, w)) * 0.5),
+           "zero": np.zeros((h, w)),
+           "inf": np.full((h, w), np.inf)}[thr_kind].astype(np.float32)
+    jp = jpsg.init_seg_packed(k, h, w)
+    tp = cs.init_seg_packed(k, h, w, device=CPU)
+    for i, (c, kind) in enumerate(chunks):
+        rgba, sk0, sk1, length = _compact(60 + i, c, h, w)
+        if kind == "empty":
+            rgba = np.zeros_like(rgba)
+        jp = jpsg.fold_chunk_packed(jp, jnp.asarray(rgba),
+                                    threshold=jnp.asarray(thr), max_k=k,
+                                    sk0=jnp.asarray(sk0),
+                                    sk1=jnp.asarray(sk1),
+                                    length=jnp.asarray(length),
+                                    interpret=True)
+        cs.fold_chunk_packed(tp, T(rgba), T(thr), max_k=k, sk0=T(sk0),
+                             sk1=T(sk1), length=T(length))
+        for name, a, b in zip(("color", "depth", "small"), tp, jp):
+            np.testing.assert_allclose(np_(a), np.asarray(b), rtol=1e-5,
+                                       atol=1e-5, err_msg=f"{name} {i}")
+        np.testing.assert_array_equal(np_(tp[2][0]), np.asarray(jp[2][0]))
+    cnt = np_(tp[2][0])
+    if case == "saturated":
+        assert cnt.min() > k
+    if thr_kind == "zero":
+        # every non-empty slice whose colour differs from the last starts
+        assert cnt.max() > 16
+    assert cnt.max() > 0
+
+
 def test_plain_k1_matches_seg_fold_chunk_and_round_trips():
     """fold_chunk_packed's plain branch = the reference seg_fold_chunk
     on the unpacked state with t = sk * length; pack/unpack are exact
@@ -285,3 +340,25 @@ def test_wrappers_reject_bad_operands():
         cm.count_multi_chunk(cm.init_count_multi_packed(33, h, w,
                                                         device=CPU),
                              T(rgba), torch.zeros(33))
+
+
+def test_kernels_source_override_serves_another_source(tmp_path):
+    """`kernels.source_override` builds a library from another source
+    inside the block (a library path of its own, from that source's
+    hash) and from ``csrc/`` again after it, also when the block
+    raises: how chip_smoke.py times another K1 design through the same
+    wrapper."""
+    own, own_lib = (kernels.source_path("seg_fold"),
+                    kernels.library_path("seg_fold"))
+    other = tmp_path / "seg_fold.cu"
+    with open(own) as f:
+        other.write_text(f.read() + "\n// another design\n")
+    with kernels.source_override("seg_fold", str(other)):
+        assert kernels.source_path("seg_fold") == str(other)
+        assert kernels.library_path("seg_fold") != own_lib
+        assert kernels.source_path("stencil") != str(other)
+    with pytest.raises(KeyError):
+        with kernels.source_override("seg_fold", str(other)):
+            raise KeyError("inside the block")
+    assert kernels.source_path("seg_fold") == own
+    assert kernels.library_path("seg_fold") == own_lib

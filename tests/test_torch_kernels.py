@@ -19,7 +19,9 @@ bit on the z-streaming geometry's edge cases; B4b's u, v
 equal K3's bit for bit and its per-brick ranges equal
 ``occupancy.field_ranges`` of its own v exactly; K4 thresholds
 and live slots exact, colours and depths within 1e-6; B1b equal to
-K1's compact form bit for bit; B7 counts exact, colour and depth within
+K1's compact form bit for bit (every build of both: C = 16 unrolled,
+C = 1, 7 and 33 generic; saturated counts, empty chunks,
+threshold 0 and +inf); B7 counts exact, colour and depth within
 1e-6 (it repeats the machine's arithmetic); B8 and B9 (the reference
 microbenchmark's deferred-event folds) slot counters exact, colour and
 depth within 1e-6 of their plain versions and of B7; B5 and B6 start
@@ -321,6 +323,91 @@ def test_seg_fold_planes_equals_compact_and_plain(dev, chunks, k, hw):
         assert torch.equal(a, b)
         assert _err(a, p) <= 1e-5
     assert torch.equal(planes[2][0], plain[2][0])
+
+
+def _k1_both_forms(k, hw, dev, chunks, thr, seed):
+    """Fold ``chunks`` [(C, kind)] ("live": a seeded chunk, "empty": all
+    zero) through K1's compact form, B1b and the plain version from one
+    state, checking after each chunk: K1 within 1e-5 of the plain
+    version with the start counts exact, B1b equal to K1 bit for bit.
+    Returns K1's state."""
+    h, w = hw
+    g = torch.Generator(device=dev).manual_seed(seed)
+    length = 1.0 + torch.rand(hw, generator=g, device=dev)
+    compact, planes, plain = (cs.init_seg_packed(k, h, w, device=dev)
+                              for _ in range(3))
+    lo = 0.5
+    for i, (c, kind) in enumerate(chunks):
+        rgba = _stream(c, h, w, dev, seed + i)
+        if kind == "empty":
+            rgba = torch.zeros_like(rgba)
+        sk0 = torch.linspace(lo, lo + 0.3, c, device=dev)
+        sk1 = (sk0 + 0.02).contiguous()
+        lo += 0.4
+        before = kernels.launches()
+        cs.fold_chunk_packed(compact, rgba, thr, max_k=k, sk0=sk0, sk1=sk1,
+                             length=length)
+        cs.fold_chunk_packed(planes, rgba, thr, max_k=k, t0=_planes(
+            sk0, length), t1=_planes(sk1, length))
+        cs.fold_chunk_packed_plain(plain, rgba, thr, max_k=k, sk0=sk0,
+                                   sk1=sk1, length=length)
+        after = kernels.launches()
+        assert after["seg_fold_compact"] == before["seg_fold_compact"] + 1
+        assert after["seg_fold_planes"] == before["seg_fold_planes"] + 1
+        torch.cuda.synchronize()
+        for a, b, p in zip(compact, planes, plain):
+            assert torch.equal(a, b)
+            assert _err(a, p) <= 1e-5
+        assert torch.equal(compact[2][0], plain[2][0])
+    return compact
+
+
+@pytest.mark.parametrize("hw", [(37, 90), (13, 37), (64, 640)])
+@pytest.mark.parametrize("k", [1, 4, 16])
+@pytest.mark.parametrize("c", [1, 16, 7, 33])
+def test_seg_fold_builds_match_plain(dev, c, k, hw):
+    """Every build of K1 and B1b (unrolled C = 16; the generic one at the
+    march's other count, C = 1, and at C = 7 and 33) after a live chunk of 16, so slots continue across the
+    boundary, then a second chunk of C."""
+    g = torch.Generator(device=dev).manual_seed(c * 100 + k)
+    thr = 0.05 + 0.5 * torch.rand(hw, generator=g, device=dev)
+    _k1_both_forms(k, hw, dev, ((16, "live"), (c, "live"), (c, "live")),
+                   thr, seed=40 + c)
+
+
+@pytest.mark.parametrize("c", [1, 16, 7, 33])
+@pytest.mark.parametrize("case", ["saturated", "empty_after_live", "thr0",
+                                  "thr_inf"])
+def test_seg_fold_edge_states(dev, case, c):
+    """K1 and B1b on a state whose counts already exceed K (every record
+    merges into slot K-1), an all-empty chunk after a live one, threshold
+    0 (every non-empty slice of a new colour starts) and +inf (starts
+    only after gaps)."""
+    hw, k = (37, 90), 4
+    thr = {"saturated": 0.2, "empty_after_live": 0.2, "thr0": 0.0,
+           "thr_inf": float("inf")}[case]
+    thr = torch.full(hw, thr, device=dev)
+    chunks = {"saturated": ((16, "live"), (16, "live"), (c, "live")),
+              "empty_after_live": ((16, "live"), (c, "empty"),
+                                   (c, "live")),
+              "thr0": ((c, "live"), (c, "live")),
+              "thr_inf": ((c, "live"), (16, "live"), (c, "live"))}[case]
+    out = _k1_both_forms(k, hw, dev, chunks, thr, seed=70 + c)
+    if case == "saturated":
+        assert float(out[2][0].min()) > k
+
+
+def test_seg_fold_attributes(dev):
+    """Every K1/B1b build keeps its walk in registers (0 local bytes)
+    and fits at least one block an SM."""
+    for planes in (False, True):
+        for c, held in ((16, 4), (1, 1), (7, 4), (33, 4)):
+            a = cs.attributes(c, planes)
+            assert a["local_bytes"] == 0, (c, planes, a)
+            assert a["blocks_per_sm"] >= 1 and a["registers"] > 0
+            assert a["threads"] > 0 and a["slices"] == held
+    with pytest.raises(ValueError):
+        cs.attributes(0)
 
 
 @pytest.mark.parametrize("chunks,k,hw,gap_eps", [((16, 1, 16), 6, (37, 90),

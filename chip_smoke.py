@@ -6,6 +6,11 @@ microbenchmark.
     python3 chip_smoke.py               # the whole run (needs one card)
     python3 chip_smoke.py --profile     # + device time by kernel
 
+``--profile`` adds to each frame of phases 3 to 5 two profiled frames:
+device time by kernel and by operator, each of the port's own kernels'
+device ms and launches a frame by build (``<prefix>.port_kernel``),
+the busy share, the idle gaps, copies and synchronisations.
+
 Phases, each of which raises on failure (the script then exits non-zero
 and prints no result):
 
@@ -27,19 +32,27 @@ and prints no result):
    frame's chunks and a seeded chunk; B7 (the machine's fold) with and
    without its count on a seeded chunk and the frame's chunks; B5 (shade
    and fold) on the frame's raw value chunks and B6 over the whole raw
-   stream, B6 equal to B5 chunk after chunk bit for bit. Each prints
-   its largest difference against the stated tolerance, its median time
-   from CUDA events (K3's and B4b's of 10 launches back to back, so the
-   wrapper's host time hides behind the previous launch; K1's and B1b's
-   of 10 launches back to back behind a device sleep, each on a state
-   cloned before the window, with the one-launch time beside; the
-   others' of one launch), the plain version's time, and its bound (the
-   larger of bytes / 3.35 TB/s and operations / 67 TFLOP/s, the H100
-   SXM's f32 rate outside the tensor cores). ``--k1-compare NAME=PATH``
-   serves the same wrapper from another design of ``csrc/seg_fold.cu``
-   (e.g. an earlier commit's), checks it the same way and times it in
-   turns with K1 and B1b (K1, other, other, K1) on the seeded chunks and
-   the frame's chunks;
+   stream, B6 equal to B5 chunk after chunk bit for bit; B5's and B6's
+   builds (C = 16, C = 1, the generic one), B5 on the fullest chunk and
+   on dead chunks of 1 and 16 planes, "B5 a frame" (the 32 chunks the
+   ``pallas_fused`` march feeds, folded in order into a fresh state,
+   with its bound counted once for the frame and the dead, live-but-empty
+   and non-empty shares of its samples) and B6 over the stream, each
+   with its GB/s. Each prints its largest difference against the stated
+   tolerance, its median time from CUDA events (K3's and B4b's of 10
+   launches back to back, so the wrapper's host time hides behind the
+   previous launch; K1's, B1b's, B5's and B6's of 10 (B6 5) launches
+   back to back behind a device sleep, each on a state cloned before the
+   window, with the one-launch time beside; the others' of one launch),
+   the plain version's time, and its bound (the larger of bytes / 3.35
+   TB/s and operations / 67 TFLOP/s, the H100 SXM's f32 rate outside the
+   tensor cores). ``--k1-compare NAME=PATH`` serves the same wrapper
+   from another design of ``csrc/seg_fold.cu`` (e.g. an earlier
+   commit's), checks it the same way and times it in turns with K1 and
+   B1b (K1, other, other, K1) on the seeded chunks and the frame's
+   chunks; ``--fused-compare NAME=PATH`` does the same for
+   ``csrc/fused_fold.cu`` with B5 and B6 (the fullest chunk, the dead
+   chunks, B5 a frame, B6);
 3. the frame at the flagship size (512^3 Gray-Scott, 10 sim steps a
    frame, K=16, 16 histogram bins, chunk 16, temporal thresholds, the
    eye oscillating within the z march regime): ``init_threshold`` once,
@@ -108,6 +121,7 @@ import collections
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -379,31 +393,42 @@ def fresh_ms(fold, base, launches=10, reps=5) -> float:
     return median_ms(run, reps, setup) / launches
 
 
-def compare_folds(specs):
-    """{name: fold} for each ``NAME=PATH`` of ``--k1-compare``, another
-    design of ``csrc/seg_fold.cu`` with the same C entries: fold is
-    `cuda_seg.fold_chunk_packed` served by that source's build
+def compare_designs(specs, lib, query, log_builds, tag, *wrappers):
+    """{name: (wrapper, ...)} for each ``NAME=PATH`` of ``specs``,
+    another design of ``csrc/<lib>.cu`` with the same C entries: each of
+    ``wrappers`` served by that source's build
     (`kernels.source_override`), built here; each build's attributes are
-    logged where its source has the query."""
+    logged by ``log_builds`` where its source has the ``query``."""
     from scenery_insitu_tpu_torch import kernels
-    from scenery_insitu_tpu_torch.ops import cuda_seg as cs
 
-    folds = {}
+    def served(fn, path):
+        def call(*args, **kw):
+            with kernels.source_override(lib, path):
+                return fn(*args, **kw)
+        return call
+
+    out = {}
     for spec in specs:
         name, path = spec.split("=", 1)
-        with kernels.source_override("seg_fold", path):
-            secs = kernels.build(["seg_fold"])
-            log(f"k1_compare_{name}.build_s", f"{secs:.1f}")
+        with kernels.source_override(lib, path):
+            secs = kernels.build([lib])
+            log(f"{tag}_{name}.build_s", f"{secs:.1f}")
             with open(path) as f:
-                if "seg_fold_attributes" in f.read():
-                    log_k1_builds(f"k1_compare_{name}_")
+                if query in f.read():
+                    log_builds(f"{tag}_{name}_")
+        out[name] = tuple(served(fn, path) for fn in wrappers)
+    return out
 
-        def fold(*args, path=path, **kw):
-            with kernels.source_override("seg_fold", path):
-                return cs.fold_chunk_packed(*args, **kw)
 
-        folds[name] = fold
-    return folds
+def compare_folds(specs):
+    """{name: fold} for each ``NAME=PATH`` of ``--k1-compare``, another
+    design of ``csrc/seg_fold.cu``: fold is `cuda_seg.fold_chunk_packed`
+    served by that source's build."""
+    from scenery_insitu_tpu_torch.ops import cuda_seg as cs
+
+    return {name: fold for name, (fold,) in compare_designs(
+        specs, "seg_fold", "seg_fold_attributes", log_k1_builds,
+        "k1_compare", cs.fold_chunk_packed).items()}
 
 
 def log_k1_builds(prefix=""):
@@ -563,17 +588,23 @@ def check_fold_and_count(dev, real_chunks, real_thr, real_length,
     torch.cuda.synchronize()
     log("count_frame_chunks.mismatches", int((ck[0] != cp[0]).sum()))
     check("count_frame_chunks", float((ck[0] - cp[0]).abs().max()), 0.0)
+    # to set beside K2's device time a frame from the profile
+    k2_frame = sum(k2_bound(c[0], BINS)[0] for c in real_chunks)
+    log("count_frame.bound_ms", f"{k2_frame:.4f} (the frame's "
+        f"{len(real_chunks)} launches' bounds summed)")
     log("frame_chunks", f"{len(real_chunks)} (C="
         f"{sorted({c[0].shape[0] for c in real_chunks})})")
     return res
 
 
-def in_turns(turns, nbytes):
-    """The log line of a K1 timing in turns (K1, other, other, K1)."""
+def in_turns(turns, nbytes, tag="k1"):
+    """The log line of a timing in turns (ours, other, other, ours), ours
+    named ``tag``."""
     ms, other = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
-    return (f"k1_ms={ms:.4f} other_ms={other:.4f} other/k1={other / ms:.3f} "
-            f"turns={'/'.join(f'{x:.4f}' for x in turns)} k1_gb_s="
-            f"{nbytes / ms / 1e6:.1f} other_gb_s={nbytes / other / 1e6:.1f}")
+    return (f"{tag}_ms={ms:.4f} other_ms={other:.4f} other/{tag}="
+            f"{other / ms:.3f} turns={'/'.join(f'{x:.4f}' for x in turns)} "
+            f"{tag}_gb_s={nbytes / ms / 1e6:.1f} other_gb_s="
+            f"{nbytes / other / 1e6:.1f}")
 
 
 def k1_frame(chunks, smalls, thr, length, init, compare):
@@ -658,12 +689,18 @@ def timed(fold_k, fold_p, base, reps=20):
             median_ms(fold_p, 3, lambda: clone(base)))
 
 
-def fused_flops(raw, ratio, tf):
-    """Operations B5/B6 need on the value chunks ``raw`` [(val, sk)]:
-    the dead test on every sample, the alpha shading and K1's fold on
-    the live ones, the colour knots and premultiply on the non-empty
-    ones (what these chunks' data needs, not the most it could).
-    Returns (operations, live samples, non-empty samples)."""
+def fused_work(raw, ratio, tf, rows):
+    """Bytes and operations B5 or B6 need to fold the value chunks
+    ``raw`` [(val, sk)] in order into one state (what these chunks'
+    data needs, not the most it could). Bytes: every value plane and
+    its two ratios read once and the knots; prev-empty written for every
+    pixel; where a pixel has a live sample (v >= -0.5) its ratio read;
+    where it has a non-empty one, its length and threshold read and the
+    rest of the small state read and written once; ``rows`` (pixel,
+    slot) rows read and written once. Operations: the dead test on every
+    sample, the alpha shading and K1's fold on the live ones, the colour
+    knots and premultiply on the non-empty ones. Returns (bytes,
+    operations, live samples, non-empty samples)."""
     import torch
 
     from scenery_insitu_tpu_torch.ops import cuda_fused as cf
@@ -671,20 +708,28 @@ def fused_flops(raw, ratio, tf):
 
     nz_a = int(torch.count_nonzero(tf.alpha_m))
     nz_c = int(torch.count_nonzero(tf.color_m))
-    total = live = solid = 0
+    lit = torch.zeros(ratio.shape, dtype=torch.bool, device=ratio.device)
+    full = torch.zeros_like(lit)
+    planes = live = solid = 0
     for val, _ in raw:
-        total += val.numel()
-        live += int((val >= -0.5).sum())
-        solid += int((cf.shade_plain(val, ratio, tf)[:, 3]
-                      >= ss.EMPTY_ALPHA).sum())
-    ops = (DEAD_TEST_FLOPS * total
+        alive = val >= -0.5
+        drawn = cf.shade_plain(val, ratio, tf)[:, 3] >= ss.EMPTY_ALPHA
+        lit |= alive.any(0)
+        full |= drawn.any(0)
+        planes += val.shape[0]
+        live += int(alive.sum())
+        solid += int(drawn.sum())
+    hw = ratio.numel()
+    nbytes = 4 * (planes * hw + 2 * planes + cf.NKNOTS + hw + int(lit.sum())
+                  + (2 + 5 + 4) * int(full.sum()) + 2 * 6 * rows)
+    ops = (DEAD_TEST_FLOPS * planes * hw
            + (ALPHA_FLOPS_PER_SAMPLE + SHADE_FLOPS_PER_KNOT * nz_a
               + SEG_FLOPS_PER_PIXEL_SLICE) * live
            + (SHADE_FLOPS_PER_KNOT * nz_c + PREMUL_FLOPS) * solid)
-    return ops, live, solid
+    return nbytes, ops, live, solid
 
 
-def check_new_folds(dev, cap, compare=None):
+def check_new_folds(dev, cap, compare=None, fused_compare=None):
     """B1b, B7, B5 and B6 against their plain versions on the card, on
     the frame's captured chunks and on a seeded stream, with their times
     and bounds. B1b must equal K1's compact form bit for bit; B7's
@@ -817,22 +862,137 @@ def check_new_folds(dev, cap, compare=None):
                              "chunks")
     errs.append(packed_err(*packs))
     check("fold_chunk_frame_chunks", errs[-1], 1e-6)
+    # the least a frame's 32 launches need from HBM, counted once for the
+    # frame: every sample's rgba and two depths, the 12-float state and
+    # the count read and written and the threshold read once, and a
+    # 6-float row written at each slot the machine closed
+    samples = sum(rgba_c.shape[0] for rgba_c, _, _ in cap["chunks"]) * hw
+    closes = float(packs[0][2][11].sum())
+    fb, fby = bound_ms(4 * (6 * samples + 2 * 12 * hw + hw + 2 * hw
+                            + 6 * closes),
+                       MACHINE_FLOPS_PER_PIXEL_SLICE * samples)
+    log("fold_chunk_frame.bound_ms", f"{fb:.4f} ({fby}; the frame's "
+        f"{len(cap['chunks'])} chunks, {closes / hw:.3f} slots closed a "
+        f"pixel)")
     res["fold_chunk"] = dict(err=max(errs), ms=ms, plain_ms=pms, bound_ms=b,
                              bound_by=by)
     del packs, cnts, mbase
 
-    # B5 over the frame's raw chunks, from the initial state
-    ds = cap["ds"]
-    k5 = cs.init_seg_packed(K, h, w, device=dev)
-    p5 = cs.init_seg_packed(K, h, w, device=dev)
-    live = [int((val > -0.5).sum()) for val, _ in cap["raw"]]
+    res.update(check_fused_folds(dev, cap, fused_compare))
+    return res
+
+
+def log_fused_builds(prefix=""):
+    """Registers, local bytes, shared bytes a block, resident blocks an
+    SM, threads a block and slices a stage holds of B5's and B6's builds
+    (C = 16 and C = 1 fixed; the generic one), from
+    ``cudaFuncGetAttributes`` and the occupancy calculator."""
+    from scenery_insitu_tpu_torch.ops import cuda_fused as cf
+
+    for c, name in ((16, "C16"), (1, "C1"), (5, "generic")):
+        a = cf.attributes(c)
+        log(f"{prefix}fused_fold_{name}.build",
+            " ".join(f"{n}={v}" for n, v in a.items()))
+
+
+def compare_fused(specs):
+    """{name: (b5, b6)} for each ``NAME=PATH`` of ``--fused-compare``,
+    another design of ``csrc/fused_fold.cu``: the wrappers
+    `cuda_fused.fused_fold_chunk` and `fused_stream_fold` served by that
+    source's build."""
+    from scenery_insitu_tpu_torch.ops import cuda_fused as cf
+
+    return compare_designs(specs, "fused_fold", "fused_fold_attributes",
+                           log_fused_builds, "fused_compare",
+                           cf.fused_fold_chunk, cf.fused_stream_fold)
+
+
+def time_vs(compare_ms, key, label, ours, others, nbytes, timer, tag):
+    """Each fold of ``others`` {name: fn} timed in turns with ``ours``
+    (ours, other, other, ours, each by ``timer``): the log line
+    ``<label>.vs_<name>`` and the other's time at
+    ``compare_ms[name][key]``."""
+    for name, other in others.items():
+        turns = [timer(f) for f in (ours, other, other, ours)]
+        log(f"{label}.vs_{name}", in_turns(turns, nbytes, tag))
+        compare_ms.setdefault(name, {})[key] = (turns[1] + turns[2]) / 2
+
+
+def check_same(name, got, want):
+    """``got`` against the packed state ``want``: start counts exactly,
+    colour and depth within 1e-6."""
+    import torch
+
+    if not torch.equal(got[2][0], want[2][0]):
+        raise AssertionError(f"{name}: start counts differ")
+    check(name, packed_err(got, want), 1e-6)
+
+
+def sample_shares(raw, live, solid):
+    """The log line of the shares of the samples of the value chunks
+    ``raw`` [(val, sk)] that B5/B6 find dead (v < -0.5), live with a
+    corrected alpha below EMPTY_ALPHA, and non-empty (``live`` and
+    ``solid`` samples, from `fused_work`)."""
+    total = sum(val.numel() for val, _ in raw)
+    return json.dumps(dict(samples=total, dead=(total - live) / total,
+                           live_empty=(live - solid) / total,
+                           non_empty=solid / total))
+
+
+def check_fused_folds(dev, cap, compare=None):
+    """B5 and B6 on the frame's captured value chunks: B5 over the 32
+    chunks of the gathered feed (every skipped chunk a whole chunk of -1
+    planes) and B6 over their stream against their plain versions (start
+    counts exact, colour and depth within 1e-6; B6 equal to B5 chunk
+    after chunk bit for bit). Timed with the stream kept full on states
+    cloned before the window (`fresh_ms`, one launch beside it): B5 on
+    the fullest chunk and on dead chunks of 1 and 16 planes, B6 over the
+    stream; "B5 a frame": the 32 chunks the ``pallas_fused`` march feeds
+    (a skipped chunk one -1 plane) folded in order into a fresh state,
+    all launches back to back behind `lead`, with its own bound (counted
+    once for the frame) and the dead, live-but-empty and non-empty
+    shares of its samples. Each ``compare`` build (``--fused-compare``)
+    is checked the same way and timed in turns (new, other, other,
+    new)."""
+    import torch
+
+    from scenery_insitu_tpu_torch.ops import cuda_fused as cf
+    from scenery_insitu_tpu_torch.ops import cuda_seg as cs
+
+    compare = compare or {}
+    thr, length, ratio, tf, ds = (cap[n] for n in ("thr", "length", "ratio",
+                                                   "tf", "ds"))
+    h, w = thr.shape
+    hw = h * w
+    res = {}
+    log_fused_builds()
+    init = lambda: cs.init_seg_packed(K, h, w, device=dev)
+    # the knots built once, as a march does, so no launch in a timed
+    # window builds them
+    kw = dict(max_k=K, tf=tf, knots=cf.tf_knots(tf))
+    args_of = lambda val, sk: (val, length, ratio, sk, (sk + ds).contiguous(),
+                               thr)
+    # each design's B5 on fixed arguments, and B5 over a feed of them
+    b5_of = lambda fold, args: (lambda st: fold(st, *args, **kw))
+
+    def feed_of(fold, feed):
+        def run(st):
+            for args in feed:
+                fold(st, *args, **kw)
+            return st
+        return run
+
+    designs = lambda make: {name: make(o5, o6)
+                            for name, (o5, o6) in compare.items()}
+
+    # B5 over the gathered feed's chunks, from the initial state
+    gathered = [args_of(val, sk) for val, sk in cap["raw"]]
+    live = [int((val >= -0.5).sum()) for val, _ in cap["raw"]]
     j = live.index(max(live))
-    base5 = None
-    for i, (val, sk) in enumerate(cap["raw"]):
-        if i == j:
-            base5 = clone(k5)
-        args = (val, length, ratio, sk, (sk + ds).contiguous(), thr)
-        cf.fused_fold_chunk(k5, *args, max_k=K, tf=tf)
+    base5 = feed_of(cf.fused_fold_chunk, gathered[:j])(init())
+    k5 = feed_of(cf.fused_fold_chunk, gathered[j:])(clone(base5))
+    p5 = init()
+    for args in gathered:
         cf.fused_fold_chunk_plain(p5, *args, max_k=K, tf=tf)
     torch.cuda.synchronize()
     mism = int((k5[2][0] != p5[2][0]).sum())
@@ -842,38 +1002,98 @@ def check_new_folds(dev, cap, compare=None):
         raise AssertionError("fused_fold_chunk: start counts differ")
     err5 = packed_err(k5, p5)
     check("fused_fold_chunk_frame_chunks", err5, 1e-6)
+    del p5
+    for name, (o5, _) in compare.items():
+        check_same(f"fused_fold_chunk_frame_chunks_{name}",
+                   feed_of(o5, gathered)(init()), k5)
+
+    # B5 on the fullest chunk and on dead chunks, stream kept full
+    compare_ms = {}
+    timer = lambda f: fresh_ms(f, base5)
     val, sk = cap["raw"][j]
-    args = (val, length, ratio, sk, (sk + ds).contiguous(), thr)
-    ms, pms = timed(lambda st: cf.fused_fold_chunk(st, *args, max_k=K, tf=tf),
-                    lambda st: cf.fused_fold_chunk_plain(st, *args, max_k=K,
-                                                         tf=tf), base5)
+    args = gathered[j]
+    b5 = b5_of(cf.fused_fold_chunk, args)
+    ms = fresh_ms(b5, base5)
+    one = median_ms(b5, 20, lambda: clone(base5))
+    pms = median_ms(lambda st: cf.fused_fold_chunk_plain(
+        st, *args, max_k=K, tf=tf), 3, lambda: clone(base5))
     rows = touched_rows(cf.shade_plain(val, ratio, tf), base5[2], thr, K)
-    ops, n_live, n_solid = fused_flops([(val, sk)], ratio, tf)
-    b, by = bound_ms(4 * (CHUNK * hw + 3 * hw + 2 * CHUNK + cf.NKNOTS
-                          + 2 * 5 * hw + 2 * 6 * rows), ops)
+    nbytes, ops, n_live, n_solid = fused_work([(val, sk)], ratio, tf, rows)
+    b, by = bound_ms(nbytes, ops)
     log("fused_fold_chunk.ms", f"{ms:.4f} plain_ms={pms:.4f} "
-        f"bound_ms={b:.4f} ({by}) chunk={j} samples={CHUNK * hw} "
-        f"live={n_live} non_empty={n_solid}")
+        f"bound_ms={b:.4f} ({by}) one_launch_ms={one:.4f} (the host's "
+        f"wrapper time included); stream kept full on states cloned before "
+        f"the window; chunk={j} samples={CHUNK * hw} live={n_live} "
+        f"non_empty={n_solid}")
+    log("fused_fold_chunk.achieved_gb_s", f"{nbytes / ms / 1e6:.1f} (the "
+        f"bound's bytes / ms; {HBM_BYTES_PER_S / 1e9:.0f} peak)")
+    time_vs(compare_ms, "ms", "fused_fold_chunk", b5,
+            designs(lambda o5, _: b5_of(o5, args)), nbytes, timer, "b5")
     # what a skipped chunk costs B5: one -1 plane (the chunked feed) or a
-    # whole chunk of them (the feed of the gathered stream)
+    # whole chunk of them (the gathered feed)
     for planes_n in (1, CHUNK):
         dead = torch.full((planes_n, h, w), -1.0, device=dev)
         dsk = sk[:planes_n].contiguous()
-        dargs = (dead, length, ratio, dsk, (dsk + ds).contiguous(), thr)
-        dms = median_ms(lambda st: cf.fused_fold_chunk(
-            st, *dargs, max_k=K, tf=tf), 20, lambda: clone(base5))
-        log(f"fused_fold_chunk_dead_C{planes_n}.ms", f"{dms:.4f}")
-    res["fused_fold_chunk"] = dict(err=err5, ms=ms, plain_ms=pms,
-                                   bound_ms=b, bound_by=by)
-    del base5, p5
+        dargs = args_of(dead, dsk)
+        d5 = b5_of(cf.fused_fold_chunk, dargs)
+        dms = fresh_ms(d5, base5)
+        dbytes, dops, _, _ = fused_work([(dead, dsk)], ratio, tf, 0)
+        db, dby = bound_ms(dbytes, dops)
+        log(f"fused_fold_chunk_dead_C{planes_n}.ms", f"{dms:.4f} "
+            f"bound_ms={db:.4f} ({dby}; {dbytes / hw:.1f} B a pixel) "
+            f"one_launch_ms={median_ms(d5, 20, lambda: clone(base5)):.4f}; "
+            f"stream kept full")
+        time_vs(compare_ms, f"dead_C{planes_n}_ms",
+                f"fused_fold_chunk_dead_C{planes_n}", d5,
+                designs(lambda o5, _: b5_of(o5, dargs)), dbytes, timer,
+                "b5")
+    del base5
 
-    # B6 over the whole captured stream
-    val = torch.cat([v for v, _ in cap["raw"]])
-    sk = torch.cat([s for _, s in cap["raw"]])
-    args = (val, length, ratio, sk, (sk + ds).contiguous(), thr)
-    init = cs.init_seg_packed(K, h, w, device=dev)
-    k6 = cf.fused_stream_fold(clone(init), *args, max_k=K, chunk=CHUNK, tf=tf)
-    p6 = cf.fused_stream_fold_plain(clone(init), *args, max_k=K, chunk=CHUNK,
+    # B5 a frame: the chunks the pallas_fused march feeds, in order
+    feed = cap["raw_b5"]
+    fargs = [args_of(v_, s_) for v_, s_ in feed]
+
+    def setup():
+        st = init()
+        torch.cuda.synchronize()
+        lead()
+        return st
+
+    b5_frame = feed_of(cf.fused_fold_chunk, fargs)
+    frame_ms = median_ms(b5_frame, 5, setup)
+    st = b5_frame(init())
+    torch.cuda.synchronize()
+    if not packed_equal(st, k5):
+        raise AssertionError("B5 over the chunked feed differs from B5 over "
+                             "the gathered feed")
+    planes_n = sum(v_.shape[0] for v_, _ in feed)
+    rows = float(torch.clamp(st[2][0], max=K).sum())
+    fbytes, fops, f_live, f_solid = fused_work(feed, ratio, tf, rows)
+    fb, fby = bound_ms(fbytes, fops)
+    n_c = collections.Counter(v_.shape[0] for v_, _ in feed)
+    log("fused_fold_frame.ms", f"{frame_ms:.4f} bound_ms={fb:.4f} ({fby}; "
+        f"{fbytes / hw:.1f} B a pixel) launches={len(feed)} (chunks by C: "
+        f"{dict(n_c)}, {planes_n} planes); the stream kept full, a fresh "
+        f"state each time; equal to B5 over the gathered feed bit for bit")
+    log("fused_fold_frame.achieved_gb_s", f"{fbytes / frame_ms / 1e6:.1f}")
+    log("fused_fold_frame.samples", sample_shares(feed, f_live, f_solid))
+    time_vs(compare_ms, "frame_ms", "fused_fold_frame", b5_frame,
+            designs(lambda o5, _: feed_of(o5, fargs)), fbytes,
+            lambda f: median_ms(f, 5, setup), "b5")
+    del st
+    res["fused_fold_chunk"] = dict(
+        err=err5, ms=ms, plain_ms=pms, bound_ms=b, bound_by=by,
+        one_launch_ms=one, frame_ms=frame_ms, frame_bound_ms=fb,
+        compare_ms=compare_ms)
+
+    # B6 over the whole gathered stream
+    val = torch.cat([v_ for v_, _ in cap["raw"]])
+    sk = torch.cat([s_ for _, s_ in cap["raw"]])
+    args = args_of(val, sk)
+    b6_of = lambda fold: (lambda st: fold(st, *args, chunk=CHUNK, **kw))
+    b6 = b6_of(cf.fused_stream_fold)
+    k6 = b6(init())
+    p6 = cf.fused_stream_fold_plain(init(), *args, max_k=K, chunk=CHUNK,
                                     tf=tf)
     torch.cuda.synchronize()
     mism = int((k6[2][0] != p6[2][0]).sum())
@@ -887,29 +1107,45 @@ def check_new_folds(dev, cap, compare=None):
                              "fused_fold_chunk chunk after chunk")
     log("fused_stream_fold_vs_chunks", "equal to fused_fold_chunk chunk "
         "after chunk bit for bit")
-    ms = median_ms(lambda st: cf.fused_stream_fold(
-        st, *args, max_k=K, chunk=CHUNK, tf=tf), 5, lambda: clone(init))
+    del p6
+    others6 = designs(lambda _, o6: b6_of(o6))
+    for name, other in others6.items():
+        check_same(f"fused_stream_fold_{name}", other(init()), k6)
+    base6 = init()
+    ms = fresh_ms(b6, base6, launches=5)
+    one = median_ms(b6, 5, lambda: clone(base6))
     pms = median_ms(lambda st: cf.fused_stream_fold_plain(
-        st, *args, max_k=K, chunk=CHUNK, tf=tf), 1, lambda: clone(init))
+        st, *args, max_k=K, chunk=CHUNK, tf=tf), 1, lambda: clone(base6))
     s_total = val.shape[0]
     rows = float(torch.clamp(k6[2][0], max=K).sum())
-    ops, n_live, n_solid = fused_flops(cap["raw"], ratio, tf)
-    b, by = bound_ms(4 * (s_total * hw + 3 * hw + 2 * s_total + cf.NKNOTS
-                          + 2 * 5 * hw + 2 * 6 * rows), ops)
+    nbytes, ops, n_live, n_solid = fused_work(cap["raw"], ratio, tf, rows)
+    b, by = bound_ms(nbytes, ops)
     log("fused_stream_fold.ms", f"{ms:.4f} plain_ms={pms:.4f} "
-        f"bound_ms={b:.4f} ({by}) slices={s_total} samples="
-        f"{s_total * hw} live={n_live} non_empty={n_solid}")
+        f"bound_ms={b:.4f} ({by}) one_launch_ms={one:.4f}; stream kept "
+        f"full on states cloned before the window; slices={s_total} "
+        f"samples={s_total * hw} live={n_live} non_empty={n_solid}")
+    log("fused_stream_fold.achieved_gb_s", f"{nbytes / ms / 1e6:.1f}")
+    log("fused_stream_fold.samples", sample_shares(cap["raw"], n_live,
+                                                   n_solid))
+    compare6 = {}
+    time_vs(compare6, "ms", "fused_stream_fold", b6, others6, nbytes,
+            lambda f: fresh_ms(f, base6, launches=5), "b6")
+    # one launch a march: the frame's B6 time is the march's
     res["fused_stream_fold"] = dict(err=err6, ms=ms, plain_ms=pms,
-                                    bound_ms=b, bound_by=by)
+                                    bound_ms=b, bound_by=by,
+                                    one_launch_ms=one, frame_ms=ms,
+                                    frame_bound_ms=b, compare_ms=compare6)
     return res
 
 
 def capture_chunks(dev, u, v, eye):
     """The shaded chunks (rgba, sk0, sk1) of one write march of the
     flagship frame, with its seed threshold and ray lengths, and the same
-    march's raw value chunks (val, sk) as the fused folds see them, every
-    skipped chunk a full chunk of -1 planes; the raw chunks' opacity
-    ratios and the transfer function."""
+    march's raw value chunks (val, sk) as the fused folds see them: as
+    ``fused_stream`` gathers them (``raw``, every skipped chunk a full
+    chunk of -1 planes) and as ``pallas_fused`` feeds them (``raw_b5``,
+    a skipped chunk one -1 plane); the raw chunks' opacity ratios and
+    the transfer function."""
     import torch
 
     from scenery_insitu_tpu_torch.config import SliceMarchConfig, VDIConfig
@@ -946,11 +1182,14 @@ def capture_chunks(dev, u, v, eye):
 
     slicer.slice_march(vol, tf, axcam, spec, keep_raw, None, occupancy=occ,
                        raw=True, raw_full_skip=True)
+    gathered, raw = raw, []
+    slicer.slice_march(vol, tf, axcam, spec, keep_raw, None, occupancy=occ,
+                       raw=True)
     length = axcam.ray_lengths().contiguous()
     ds = torch.abs(axcam.dwm) / axcam.zp
     ratio = (ds * length / nominal_step(vol)).contiguous()
-    return dict(chunks=chunks, raw=raw, thr=thr.contiguous(), length=length,
-                ds=ds, ratio=ratio, tf=tf)
+    return dict(chunks=chunks, raw=gathered, raw_b5=raw, thr=thr.contiguous(),
+                length=length, ds=ds, ratio=ratio, tf=tf)
 
 
 # ------------------------------------------------------------- phase 3
@@ -1140,8 +1379,9 @@ def profile_frames(prefix, frame, frames=2):
     (torch.profiler, after one unrecorded warm-up call), the device's
     busy share of the window's CUDA-event time, and from the trace the
     idle gaps and the host-to-device copies and stream synchronisations
-    a frame makes; logged under ``prefix``. The Chrome trace goes to
-    chiprun_out/<prefix>_trace.json."""
+    a frame makes; logged under ``prefix``, with each build of the
+    port's own kernels as ``<prefix>.port_kernel``. The Chrome
+    trace goes to chiprun_out/<prefix>_trace.json."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
@@ -1179,6 +1419,16 @@ def profile_frames(prefix, frame, frames=2):
     log(f"{prefix}.window_ms", f"{window_ms:.3f} ({frames} frames)")
     log(f"{prefix}.device_busy_ms", f"{busy:.3f} (busy share "
         f"{busy / window_ms:.3f})")
+    own = collections.defaultdict(lambda: [0.0, 0])
+    for ms, n, key in kern:
+        m = re.match(r"(void )?\(anonymous namespace\)::(\w+(<[^>]*>)?)",
+                     key)
+        if m:
+            own[m.group(2)][0] += ms
+            own[m.group(2)][1] += n
+    for name, (ms, n) in sorted(own.items(), key=lambda x: -x[1][0]):
+        print(f"{prefix}.port_kernel {ms / frames:10.3f} ms/frame "
+              f"{n / frames:6.1f} launches/frame  {name}", flush=True)
     for kind, rows in (("kernel", kern), ("op", ops)):
         for ms, n, key in sorted(rows, reverse=True)[:12]:
             print(f"{prefix}.{kind} {ms / frames:10.3f} ms/frame "
@@ -1541,6 +1791,13 @@ def check_resegment(dev, rc, rd):
             f"slots_walked_per_pixel={walked:.2f}")
         res[name] = dict(err=err, ms=ms, plain_ms=pms, bound_ms=b,
                          bound_by=by)
+    # a frame's K4 launches, one a column block: their bounds summed, to
+    # set beside K4's device time a frame from the profile
+    fb = sum(k4_bound(sort_stream(rc[i].reshape(n * k, 4, h, w),
+                                  rd[i].reshape(n * k, 2, h, w))[0],
+                      COMP_ITERS)[0][0] for i in range(rc.shape[0]))
+    log("resegment_frame.bound_ms", f"{fb:.4f} (the {rc.shape[0]} column "
+        f"blocks' bounds summed: one frame's K4 launches)")
     return res
 
 
@@ -1946,6 +2203,11 @@ def main(argv=None) -> int:
                     help="another design of csrc/seg_fold.cu (the same C "
                          "entries) to check and time in turns with K1 and "
                          "B1b in phase 2; repeatable")
+    ap.add_argument("--fused-compare", action="append", default=[],
+                    metavar="NAME=PATH",
+                    help="another design of csrc/fused_fold.cu (the same C "
+                         "entries) to check and time in turns with B5 and "
+                         "B6 in phase 2; repeatable")
     args = ap.parse_args(argv)
 
     import torch
@@ -1974,12 +2236,13 @@ def main(argv=None) -> int:
             f"build)")
 
     compare = compare_folds(args.k1_compare)
+    fused_compare = compare_fused(args.fused_compare)
     g = gs_init(dev)
     cap = capture_chunks(dev, g.u, g.v, (0.0, 0.6, 3.0))
     stencil = check_stencil(dev)
     fold = check_fold_and_count(dev, cap["chunks"], cap["thr"],
                                 cap["length"], compare)
-    new = check_new_folds(dev, cap, compare)
+    new = check_new_folds(dev, cap, compare, fused_compare)
     del cap
     ranges = check_stencil_ranges(dev, g)
     del g
@@ -2078,6 +2341,13 @@ def main(argv=None) -> int:
             max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=None))
+        if name in ("fused_fold_chunk", "fused_stream_fold"):
+            # B5: its 32 launches over a frame's feed; B6: its one launch
+            # a march. compare_ms: each --fused-compare design's times in
+            # turns
+            table[-1].update(frame_ms=r["frame_ms"],
+                             frame_bound_ms=r["frame_bound_ms"],
+                             compare_ms=r["compare_ms"])
     # K3's one body replaces both stencil sites (3-D and 2-D grids), and
     # B4b both sites' ranges epilogue
     table[0]["also_replaces"] = ["scenery_insitu_tpu/sim/pallas_stencil.py"

@@ -86,6 +86,10 @@ QUERIES = {
     # B1b), out int[6]: registers, local-memory bytes, shared bytes a
     # block, resident blocks an SM, threads a block, slices held at once
     "seg_fold_attributes": ("seg_fold", [_I] * 2 + [_P]),
+    # C (16, 1, or any other for the generic build; B5 and B6 share it),
+    # out int[6]: registers, local-memory bytes, shared bytes a block,
+    # resident blocks an SM, threads a block, slices a stage holds
+    "fused_fold_attributes": ("fused_fold", [_I, _P]),
 }
 
 _LAUNCHES: collections.Counter = collections.Counter()

@@ -48,6 +48,20 @@ def tf_knots(tf) -> torch.Tensor:
     return knots
 
 
+def attributes(c: int) -> dict:
+    """The build of B5 and B6 that chunks of ``c`` slices take, on the
+    current card: registers and local-memory bytes a thread, shared bytes
+    a block, resident blocks an SM, threads a block and the slices a
+    stage holds (the smaller of ``c`` and 16). Needs a card: it loads
+    the kernel library."""
+    if c < 1:
+        raise ValueError("a chunk holds at least one slice")
+    out = kernels.query("fused_fold_attributes", c, nout=6)
+    keys = ("registers", "local_bytes", "shared_bytes", "blocks_per_sm",
+            "threads", "slices")
+    return dict(zip(keys, out))
+
+
 def shade_plain(val: torch.Tensor, ratio: torch.Tensor,
                 tf) -> torch.Tensor:
     """The fused kernels' shading of ``val f32[C,H,W]`` (plain): x =

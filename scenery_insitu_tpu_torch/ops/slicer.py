@@ -378,9 +378,10 @@ def slice_march(vol: Volume, tf: TransferFunction, axcam: AxisCamera,
     receives C planes from every chunk. Both feeds leave B5's state the
     same (a dead plane only marks the previous sample empty); the one
     plane is kept for ``pallas_fused`` because B5 over a 16-plane dead
-    chunk costs 0.22-0.24 ms against 0.035-0.058 ms for one plane at
-    640 x 640 (``chip_smoke.py``'s ``fused_fold_chunk_dead_C*`` lines,
-    NVIDIA H100 80GB HBM3 at 700 W), 0.7-0.8 ms a flagship frame.
+    chunk costs 0.0192 ms against 0.0088 ms for one plane at 640 x 640
+    (``chip_smoke.py``'s ``fused_fold_chunk_dead_C*`` lines, the stream
+    kept full, NVIDIA H100 80GB HBM3 at 700 W), ~0.04 ms a flagship
+    frame.
 
     ``v_bounds`` (lo, hi): the half-open world interval of the in-plane
     v axis this volume owns; samples outside it are transparent. A rank

@@ -20,7 +20,7 @@ from scenery_insitu_tpu.core import transfer as jtf
 from scenery_insitu_tpu.ops import pallas_march as jpm
 from scenery_insitu_tpu.ops import pallas_seg as jpsg
 from scenery_insitu_tpu.ops import supersegments as jss
-from scenery_insitu_tpu_torch import convert
+from scenery_insitu_tpu_torch import convert, kernels
 from scenery_insitu_tpu_torch.core import transfer as ttf
 from scenery_insitu_tpu_torch.ops import cuda_fused as cf
 from scenery_insitu_tpu_torch.ops import cuda_march as cm
@@ -289,6 +289,98 @@ def test_plain_b6_matches_fused_stream_fold_interpret(tf_name, k, c,
         assert torch.equal(a, b)
 
 
+def _unordered_tfs():
+    """The gray_scott transfer function with its knots in another order
+    (the same knots, so the same sums in another order): the kernels
+    cannot stop early on a knot list that does not ascend."""
+    tf = ttf.for_dataset("gray_scott", device=CPU)
+    rng = np.random.default_rng(3)
+    pa, pc = rng.permutation(16), rng.permutation(16)
+    arrays = (np_(tf.alpha_x)[pa], np_(tf.alpha_m)[pa], np_(tf.alpha_b),
+              np_(tf.color_x)[pc], np_(tf.color_m)[pc], np_(tf.color_b))
+    assert (np.diff(arrays[0][arrays[1] != 0]) < 0).any()
+    return (jtf.TransferFunction(*(jnp.asarray(a) for a in arrays)),
+            ttf.TransferFunction.from_arrays(*arrays, device=CPU))
+
+
+def _edge_values(tf, s, h, w, seed):
+    """Value planes on the knots: every knot position of ``tf``, values in
+    (-0.5, 0), above 1, dead (-1) and random in [0, 1]."""
+    rng = np.random.default_rng(seed)
+    knots = np.concatenate([np_(tf.alpha_x), np_(tf.color_x)])
+    pool = np.concatenate([knots[knots <= 1.0],
+                           np.float32([-0.49, -0.25, -1e-7, 1.0 + 1e-6,
+                                       1.5, 7.0, -1.0])]).astype(np.float32)
+    val = rng.choice(pool, (s, h, w))
+    return np.where(rng.random((s, h, w)) < 0.3,
+                    rng.random((s, h, w), dtype=np.float32),
+                    val).astype(np.float32)
+
+
+@pytest.mark.parametrize("case", ["dead_chunk", "on_knots", "saturated",
+                                  "thr0", "thr_inf", "unordered_knots"])
+def test_plain_b5_b6_edge_cases_match_reference_interpret(case):
+    """B5's and B6's plain versions against the reference's fused kernels
+    in interpret mode on the cases the kernels treat apart: a chunk of
+    only -1 planes between live chunks, values exactly on the knots, in
+    (-0.5, 0) and above 1, a state whose start count already exceeds K,
+    threshold 0 and +inf, and knots that do not ascend. Start counts
+    exact, the rest within 1e-5; B6 equal to B5 chunk after chunk."""
+    h, w, c, k = 8, 24, 4, 3
+    if case == "unordered_knots":
+        jtf_, ttf_ = _unordered_tfs()
+    else:
+        jtf_ = jtf.for_dataset("gray_scott")
+        ttf_ = ttf.for_dataset("gray_scott", device=CPU)
+    val, sk, length, ratio, thr = value_stream(90, 3 * c, h, w)
+    if case != "dead_chunk":
+        val = _edge_values(ttf_, 3 * c, h, w, seed=91)
+    else:
+        val[c:2 * c] = -1.0
+    thr = {"thr0": np.zeros_like(thr),
+           "thr_inf": np.full_like(thr, np.inf)}.get(case, thr)
+    sk1 = (sk + np.float32(0.02)).astype(np.float32)
+    jp = jpsg.init_seg_packed(k, h, w)
+    tp = cs.init_seg_packed(k, h, w, device=CPU)
+    if case == "saturated":
+        # a chunk at threshold 0 first: counts pass K before the test
+        pre = np.random.default_rng(92).uniform(
+            0.2, 1.0, (12, h, w)).astype(np.float32)
+        pre_sk = np.linspace(0.1, 0.5, 12, dtype=np.float32)
+        zero = np.zeros_like(thr)
+        jp = jpsg.fused_fold_chunk(
+            jp, jnp.asarray(pre), jnp.asarray(length), jnp.asarray(ratio),
+            jnp.asarray(pre_sk), jnp.asarray(pre_sk + np.float32(0.01)),
+            jnp.asarray(zero), max_k=k, tf=jtf_, interpret=True)
+        cf.fused_fold_chunk(tp, T(pre), T(length), T(ratio), T(pre_sk),
+                            T(pre_sk + np.float32(0.01)), T(zero), max_k=k,
+                            tf=ttf_)
+        assert np_(tp[2][0]).min() > k
+    j6 = jpsg.fused_stream_fold(
+        jp, jnp.asarray(val), jnp.asarray(length), jnp.asarray(ratio),
+        jnp.asarray(sk), jnp.asarray(sk1), jnp.asarray(thr), max_k=k,
+        chunk=c, tf=jtf_, interpret=True)
+    t6 = cf.fused_stream_fold(tuple(x.clone() for x in tp), T(val),
+                              T(length), T(ratio), T(sk), T(sk1), T(thr),
+                              max_k=k, chunk=c, tf=ttf_)
+    np.testing.assert_array_equal(np_(t6[2][0]), np.asarray(j6[2][0]))
+    assert_packed_close(t6, j6, 1e-5, 1e-5)
+    for lo in range(0, 3 * c, c):
+        sl = slice(lo, lo + c)
+        jp = jpsg.fused_fold_chunk(
+            jp, jnp.asarray(val[sl]), jnp.asarray(length),
+            jnp.asarray(ratio), jnp.asarray(sk[sl]), jnp.asarray(sk1[sl]),
+            jnp.asarray(thr), max_k=k, tf=jtf_, interpret=True)
+        cf.fused_fold_chunk(tp, T(val[sl]), T(length), T(ratio), T(sk[sl]),
+                            T(sk1[sl]), T(thr), max_k=k, tf=ttf_)
+        np.testing.assert_array_equal(np_(tp[2][0]), np.asarray(jp[2][0]))
+        assert_packed_close(tp, jp, 1e-5, 1e-5)
+    for a, b in zip(tp, t6):
+        assert torch.equal(a, b)
+    if case == "thr_inf":      # starts only where a sample follows a gap
+        assert np_(tp[2][0]).max() >= 1
+
+
 def test_tf_knots_layout_and_shading():
     """The knot buffer the kernels read, and the plain shading against
     the port's transfer function with the same opacity correction: the
@@ -340,3 +432,23 @@ def test_new_wrappers_reject_bad_operands():
     with pytest.raises(ValueError, match="not a packed fold state"):
         convert.packed_state((np.zeros((2, 4, 8, 8)), np.zeros((2, 2, 8, 8)),
                               np.zeros((7, 8, 8))), device=CPU)
+
+
+def test_fused_fold_source_binds_its_entries_and_keeps_powf():
+    """``csrc/fused_fold.cu`` defines every C entry and query that
+    ``kernels.py`` binds to it (B5, B6 and the build query), and shades
+    with ``powf`` in a library built without FMA contraction or fast
+    math: alpha feeds the empty cut and the start test, so a change of
+    rounding can flip a start count."""
+    with open(kernels.source_path("fused_fold")) as f:
+        src = f.read()
+    names = [n for n, (lib, _) in {**kernels.ENTRIES,
+                                   **kernels.QUERIES}.items()
+             if lib == "fused_fold"]
+    assert sorted(names) == ["fused_fold_attributes", "fused_fold_chunk",
+                             "fused_stream_fold"]
+    for name in names:
+        assert f'extern "C" int {name}(' in src, name
+    assert "powf(" in src and "__powf" not in src
+    assert "-fmad=false" in kernels.NVCC_FLAGS
+    assert not any("fast_math" in f for f in kernels.NVCC_FLAGS)

@@ -25,7 +25,10 @@ threshold 0 and +inf); B7 counts exact, colour and depth within
 1e-6 (it repeats the machine's arithmetic); B8 and B9 (the reference
 microbenchmark's deferred-event folds) slot counters exact, colour and
 depth within 1e-6 of their plain versions and of B7; B5 and B6 start
-counts exact, colour and depth within 1e-6."""
+counts exact, colour and depth within 1e-6, B6 equal to B5 chunk after
+chunk bit for bit (every build: C = 16 and C = 1 fixed, C = 5 and 33
+generic; values on the knots, dead chunks, saturated counts, threshold
+0 and +inf, knots that do not ascend)."""
 
 import numpy as np
 import pytest
@@ -542,3 +545,144 @@ def test_fused_fold_and_stream_match_plain(dev, c, k, hw, tf_name):
             assert _err(a, b) <= 1e-6
     for a, b in zip(b5, b6):
         assert torch.equal(a, b)
+
+
+def _fused_tf(name, dev):
+    """A transfer function by name; "unordered" is gray_scott with its
+    knots permuted (the same sums in another order), a list on which the
+    kernel may not stop early."""
+    from scenery_insitu_tpu_torch.core.transfer import (TransferFunction,
+                                                        for_dataset)
+
+    if name != "unordered":
+        return for_dataset(name, device=dev)
+    tf = for_dataset("gray_scott", device="cpu")
+    rng = np.random.default_rng(3)
+    pa, pc = (torch.from_numpy(rng.permutation(16)) for _ in range(2))
+    return TransferFunction.from_arrays(
+        tf.alpha_x[pa], tf.alpha_m[pa], tf.alpha_b, tf.color_x[pc],
+        tf.color_m[pc], tf.color_b, device=dev)
+
+
+def _edge_values(tf, s, h, w, seed):
+    """Value planes with every knot position of ``tf``, values in
+    (-0.5, 0), above 1, dead (-1) and random in [0, 1]."""
+    rng = np.random.default_rng(seed)
+    knots = torch.cat([tf.alpha_x, tf.color_x]).cpu().numpy()
+    pool = np.concatenate([knots[knots <= 1.0],
+                           np.float32([-0.49, -0.25, -1e-7, 1.0 + 1e-6,
+                                       1.5, 7.0, -1.0])]).astype(np.float32)
+    val = np.where(rng.random((s, h, w)) < 0.4,
+                   rng.random((s, h, w), dtype=np.float32),
+                   rng.choice(pool, (s, h, w)))
+    return val.astype(np.float32)
+
+
+def _fused_both(dev, tf, k, hw, chunks, thr, seed, init=None):
+    """Fold ``chunks`` (value planes f32[C,H,W] each, one C) through B5
+    and its plain version from one state, checking after each chunk:
+    start counts exact, colour and depth within 1e-6. Then B6 over the
+    chunks' stream from the same state against its plain version and
+    equal to B5 chunk after chunk bit for bit. Returns B5's state."""
+    from scenery_insitu_tpu_torch.ops import cuda_fused as cf
+
+    h, w = hw
+    c = chunks[0].shape[0]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    length = 1.0 + torch.rand(hw, generator=g, device=dev)
+    ratio = 0.8 + 0.5 * torch.rand(hw, generator=g, device=dev)
+    start = init or cs.init_seg_packed(k, h, w, device=dev)
+    b5, b5p = (tuple(x.clone() for x in start) for _ in range(2))
+    sks = []
+    for i, val in enumerate(chunks):
+        sk = torch.linspace(0.5 + 0.4 * i, 0.8 + 0.4 * i, c, device=dev)
+        sks.append(sk)
+        args = (val, length, ratio, sk, (sk + 0.02).contiguous(), thr)
+        before = kernels.launches()["fused_fold_chunk"]
+        cf.fused_fold_chunk(b5, *args, max_k=k, tf=tf)
+        assert kernels.launches()["fused_fold_chunk"] == before + 1
+        cf.fused_fold_chunk_plain(b5p, *args, max_k=k, tf=tf)
+        torch.cuda.synchronize()
+        assert torch.equal(b5[2][0], b5p[2][0])
+        for a, b in zip(b5, b5p):
+            assert _err(a, b) <= 1e-6
+    val, sk = torch.cat(chunks).contiguous(), torch.cat(sks)
+    args = (val, length, ratio, sk, (sk + 0.02).contiguous(), thr)
+    b6, b6p = (tuple(x.clone() for x in start) for _ in range(2))
+    before = kernels.launches()["fused_stream_fold"]
+    cf.fused_stream_fold(b6, *args, max_k=k, chunk=c, tf=tf)
+    assert kernels.launches()["fused_stream_fold"] == before + 1
+    cf.fused_stream_fold_plain(b6p, *args, max_k=k, chunk=c, tf=tf)
+    torch.cuda.synchronize()
+    assert torch.equal(b6[2][0], b6p[2][0])
+    for a, b, p in zip(b6, b5, b6p):
+        assert torch.equal(a, b)
+        assert _err(a, p) <= 1e-6
+    return b5
+
+
+@pytest.mark.parametrize("tf_name", ["gray_scott", "procedural"])
+@pytest.mark.parametrize("hw", [(37, 90), (13, 37), (64, 640)])
+@pytest.mark.parametrize("k", [1, 4, 16])
+@pytest.mark.parametrize("c", [1, 16, 5, 33])
+def test_fused_fold_builds_match_plain(dev, c, k, hw, tf_name):
+    """Every build of B5 and B6 (fixed C = 16 and C = 1; the generic
+    one at C = 5 and 33) over three chunks of values on the knots, in
+    (-0.5, 0), above 1 and dead, against the plain versions; B6 equal to
+    B5 chunk after chunk bit for bit."""
+    tf = _fused_tf(tf_name, dev)
+    h, w = hw
+    g = torch.Generator(device=dev).manual_seed(c * 100 + k)
+    thr = 0.02 + 0.3 * torch.rand(hw, generator=g, device=dev)
+    chunks = [torch.from_numpy(_edge_values(tf, c, h, w, 50 + c + i)).to(dev)
+              for i in range(3)]
+    _fused_both(dev, tf, k, hw, chunks, thr, seed=c + k)
+
+
+@pytest.mark.parametrize("c", [1, 16, 5, 33])
+@pytest.mark.parametrize("case", ["dead_chunk", "saturated", "thr0",
+                                  "thr_inf", "unordered_knots"])
+def test_fused_fold_edge_states(dev, case, c):
+    """B5 and B6 on a chunk of only -1 planes between live chunks, a
+    state whose start counts already exceed K, threshold 0 (every
+    non-empty sample of a new colour starts) and +inf (starts only after
+    a gap), and a knot list that does not ascend."""
+    from scenery_insitu_tpu_torch.ops import cuda_fused as cf
+
+    hw, k = (37, 90), 4
+    h, w = hw
+    tf = _fused_tf("unordered" if case == "unordered_knots"
+                   else "gray_scott", dev)
+    thr = {"thr0": 0.0, "thr_inf": float("inf")}.get(case, 0.2)
+    thr = torch.full(hw, thr, device=dev)
+    chunks = [torch.from_numpy(_edge_values(tf, c, h, w, 80 + c + i)).to(dev)
+              for i in range(3)]
+    init = None
+    if case == "dead_chunk":
+        chunks[1] = torch.full((c, h, w), -1.0, device=dev)
+    if case == "saturated":
+        init = cs.init_seg_packed(k, h, w, device=dev)
+        pre = 0.2 + 0.8 * torch.rand((16, h, w), device=dev)
+        sk = torch.linspace(0.1, 0.4, 16, device=dev)
+        one = torch.ones(hw, device=dev)
+        cf.fused_fold_chunk_plain(init, pre, one, one, sk, sk + 0.01,
+                                  torch.zeros(hw, device=dev), max_k=k,
+                                  tf=tf)
+        assert float(init[2][0].min()) > k
+    out = _fused_both(dev, tf, k, hw, chunks, thr, seed=90 + c, init=init)
+    if case == "thr_inf":
+        assert float(out[2][0].max()) >= 1
+
+
+def test_fused_fold_attributes(dev):
+    """Every B5/B6 build keeps its walk in registers (0 local bytes) and
+    fits at least one block an SM."""
+    from scenery_insitu_tpu_torch.ops import cuda_fused as cf
+
+    for c, held in ((16, 16), (1, 1), (5, 5), (33, 16)):
+        a = cf.attributes(c)
+        assert a["local_bytes"] == 0, (c, a)
+        assert a["blocks_per_sm"] >= 1 and a["registers"] > 0
+        assert a["threads"] > 0 and a["slices"] == held
+    with pytest.raises(ValueError):
+        cf.attributes(0)

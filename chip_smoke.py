@@ -5,6 +5,8 @@ microbenchmark.
 
     python3 chip_smoke.py               # the whole run (needs one card)
     python3 chip_smoke.py --profile     # + device time by kernel
+    python3 chip_smoke.py --k4-compare old=OTHER/resegment.cu \
+        --k2-compare old=OTHER/count_multi.cu  # + designs in turns
 
 ``--profile`` adds to each frame of phases 3 to 5 two profiled frames:
 device time by kernel and by operator, each of the port's own kernels'
@@ -41,9 +43,10 @@ and prints no result):
    with its GB/s. Each prints its largest difference against the stated
    tolerance, its median time from CUDA events (K3's and B4b's of 10
    launches back to back, so the wrapper's host time hides behind the
-   previous launch; K1's, B1b's, B5's and B6's of 10 (B6 5) launches
-   back to back behind a device sleep, each on a state cloned before the
-   window, with the one-launch time beside; the others' of one launch),
+   previous launch; K1's, B1b's, K2's, B5's and B6's of 10 (B6 5)
+   launches back to back behind a device sleep, each on a state cloned
+   before the window, with the one-launch time beside; the others' of
+   one launch),
    the plain version's time, and its bound (the larger of bytes / 3.35
    TB/s and operations / 67 TFLOP/s, the H100 SXM's f32 rate outside the
    tensor cores). ``--k1-compare NAME=PATH`` serves the same wrapper
@@ -52,7 +55,16 @@ and prints no result):
    B1b (K1, other, other, K1) on the seeded chunks and the frame's
    chunks; ``--fused-compare NAME=PATH`` does the same for
    ``csrc/fused_fold.cu`` with B5 and B6 (the fullest chunk, the dead
-   chunks, B5 a frame, B6);
+   chunks, B5 a frame, B6). K2 is timed with the stream kept full on
+   carries cloned before the window at C = 16 and C = 1 (the one launch
+   beside it) and over the threshold seed's 32 chunks counted into a
+   fresh carry ("K2 a seed", ``count_frame.ms``, beside its bound with
+   the carry read and written once and the sum of the launches' own
+   bounds), with its builds (``count_multi.build``: C = 16, 1 and the
+   generic one at B = 16, and the padded 32-wide one at B = 5);
+   ``--k2-compare NAME=PATH`` serves ``cuda_march.count_multi_chunk``
+   from another ``csrc/count_multi.cu``, checks it the same way and
+   times it in turns with K2 (C = 16, C = 1, the seed);
 3. the frame at the flagship size (512^3 Gray-Scott, 10 sim steps a
    frame, K=16, 16 histogram bins, chunk 16, temporal thresholds, the
    eye oscillating within the z march regime): ``init_threshold`` once,
@@ -76,7 +88,16 @@ and prints no result):
    single-chip march at the same state and eye (information); K4 (the
    composite's resegment) against its plain version at the per-rank
    shapes, on a seeded stream and on a real column block of the frame
-   (thresholds and live slots exact, colour and depth within 1e-6);
+   (thresholds and live slots exact, colour and depth within 1e-6),
+   each timed with the stream kept full (the one launch beside it), and
+   the frame's 8 column blocks resegmented back to back as one frame
+   (``resegment_frame.ms`` beside ``resegment_frame.bound_ms``), with
+   K4's builds (``resegment.build``: the frame's, the one without the
+   search and the shared-memory list of a K_out above 16);
+   ``--k4-compare NAME=PATH`` serves ``cuda_composite.resegment_sorted``
+   from another ``csrc/resegment.cu``, checks it the same way and times
+   it in turns with K4 (the seeded stream, the fullest block, the
+   frame);
    then the distributed frame on a 32^3 volume over 4 ranks held
    against the CPU's plain versions in both march regimes;
 5. the sim-fused occupancy frame: (a) B4b (K3 with the ranges epilogue,
@@ -219,16 +240,26 @@ def median_ms(fn, reps: int, setup=None) -> float:
     return times[len(times) // 2]
 
 
-def stream_ms(fn, launches: int = 10, reps: int = 5) -> float:
+def stream_ms(fn, launches: int = 10, reps: int = 5,
+              behind_sleep: bool = False) -> float:
     """Device ms a call of ``fn()`` with the stream kept full: the median
     over ``reps`` of the CUDA-event time of ``launches`` calls back to
     back, over ``launches``. Unlike `median_ms` of one call, the host's
-    time in the wrapper hides behind the previous launch."""
+    time in the wrapper hides behind the previous launch. With
+    ``behind_sleep`` the calls also queue behind `lead`, so a wrapper
+    whose host time exceeds its kernel's device time is still timed by
+    the device."""
+    import torch
+
+    def setup():
+        torch.cuda.synchronize()
+        lead()
+
     def run(_):
         for _ in range(launches):
             fn()                    # each result freed before the next
 
-    return median_ms(run, reps) / launches
+    return median_ms(run, reps, setup if behind_sleep else None) / launches
 
 
 def clone(xs):
@@ -445,11 +476,98 @@ def log_k1_builds(prefix=""):
                 " ".join(f"{n}={v}" for n, v in a.items()))
 
 
-def k2_bound(rgba, b):
+def k2_work(rgba, b):
+    """Bytes and operations of one K2 launch: the chunk and the
+    thresholds read once, the counts, prev rgb and prev-empty read and
+    written once; a distance and B compares and adds a slice."""
     c, _, h, w = rgba.shape
     hw = h * w
     nbytes = 4 * (c * 4 * hw + b + 2 * b * hw + 2 * 3 * hw + 2 * hw)
-    return bound_ms(nbytes, (8 + 2 * b) * c * hw)
+    return nbytes, (8 + 2 * b) * c * hw
+
+
+def log_k2_builds(prefix=""):
+    """Registers, local bytes, shared bytes a block, resident blocks an
+    SM, threads a block and slices whose loads go out together of K2's
+    builds (C = 16 and C = 1 fixed, the generic one; B = 16 exact, the
+    padded 32-wide one), from ``cudaFuncGetAttributes`` and the occupancy
+    calculator."""
+    from scenery_insitu_tpu_torch.ops import cuda_march as cm
+
+    for c, b in ((16, BINS), (1, BINS), (7, BINS), (16, 5)):
+        a = cm.count_attributes(c, b)
+        log(f"{prefix}count_multi.build", f"C={c} B={b} " + " ".join(
+            f"{n}={v}" for n, v in a.items()))
+
+
+def compare_counts(specs):
+    """{name: count} for each ``NAME=PATH`` of ``--k2-compare``, another
+    design of ``csrc/count_multi.cu``: count is
+    `cuda_march.count_multi_chunk` served by that source's build."""
+    from scenery_insitu_tpu_torch.ops import cuda_march as cm
+
+    return {name: count for name, (count,) in compare_designs(
+        specs, "count_multi", "count_multi_attributes", log_k2_builds,
+        "k2_compare", cm.count_multi_chunk).items()}
+
+
+def check_counts(name, got, want):
+    """K2's carry ``got`` against the plain version's ``want``: every
+    count, prev rgb and prev-empty flag exactly."""
+    import torch
+
+    mism = int((got[0] != want[0]).sum())
+    log(f"{name}.mismatches", f"{mism} (must be 0)")
+    err = max(packed_err(got[1:], want[1:]),
+              float((got[0] - want[0]).abs().max()))
+    check(name, err, 0.0)
+    if mism or not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"{name}: counts differ from the plain version")
+    return err
+
+
+def k2_frame(chunks, tvec, h, w, dev, compare):
+    """K2 over the threshold seed's counting march: the frame's 32
+    chunks counted in order into a fresh carry, all launches back to
+    back behind `lead`, the median of 5; each ``compare`` build in
+    turns. The bound counts the same work with the carry (counts, prev
+    rgb, prev-empty) read and written once; the sum of the 32 launches'
+    own bounds, which count the carry at every launch, is logged beside
+    it."""
+    import torch
+
+    from scenery_insitu_tpu_torch.ops import cuda_march as cm
+
+    def setup():
+        st = cm.init_count_multi_packed(BINS, h, w, device=dev)
+        torch.cuda.synchronize()
+        lead()
+        return st
+
+    run = lambda count: (lambda st: count_chunks(count, st, chunks, tvec))
+    k2 = run(cm.count_multi_chunk)
+    ms = median_ms(k2, 5, setup)
+    launch_bytes = sum(k2_work(c[0], BINS)[0] for c in chunks)
+    flops = sum(k2_work(c[0], BINS)[1] for c in chunks)
+    carry = 4 * (2 * BINS + 2 * 3 + 2) * h * w
+    nbytes = launch_bytes - (len(chunks) - 1) * carry
+    bound, by = bound_ms(nbytes, flops)
+    launch_bound, _ = bound_ms(launch_bytes, flops)
+    log("count_frame.bound_ms", f"{bound:.4f} ({by}; the {len(chunks)} "
+        f"chunks read once, the carry read and written once)")
+    log("count_frame.ms", f"{ms:.4f} bound_ms={bound:.4f} launches="
+        f"{len(chunks)}; the stream kept full, a fresh carry each time")
+    log("count_frame.launch_bounds_sum_ms", f"{launch_bound:.4f} (the "
+        f"carry counted at each of the {len(chunks)} launches)")
+    log("count_frame.achieved_gb_s", f"{nbytes / ms / 1e6:.1f} (the "
+        f"bound's bytes / ms; {HBM_BYTES_PER_S / 1e9:.0f} peak)")
+    compare_ms = {}
+    for name, count in compare.items():
+        turns = [median_ms(f, 5, setup) for f in (k2, run(count), run(count),
+                                                  k2)]
+        log(f"count_frame.vs_{name}", in_turns(turns, nbytes, "k2"))
+        compare_ms[name] = (turns[1] + turns[2]) / 2
+    return dict(ms=ms, bound_ms=bound, bound_by=by, compare_ms=compare_ms)
 
 
 def fold_chunks(fold, packed, chunks, thr, length):
@@ -469,13 +587,15 @@ def packed_err(a, b):
 
 
 def check_fold_and_count(dev, real_chunks, real_thr, real_length,
-                         compare=None):
+                         compare=None, k2_compare=None):
     """K1 and K2 against their plain versions on seeded chunks at C = 16
-    and C = 1 and on the frame's own chunks. K1 is timed with the stream
-    kept full on states cloned before the window (`fresh_ms`; its one
-    launch beside it), and over the frame's chunks as one frame folds
-    them; each ``compare`` build (``--k1-compare``) is checked the same
-    way and timed in turns with K1 (K1, other, other, K1)."""
+    and C = 1 and on the frame's own chunks. Both are timed with the
+    stream kept full on states cloned before the window (`fresh_ms`;
+    the one launch beside it), and over the frame's chunks as one frame
+    folds (K1) or the threshold seed counts (K2) them; each ``compare``
+    build (``--k1-compare``) and ``k2_compare`` build (``--k2-compare``)
+    is checked the same way and timed in turns (ours, other, other,
+    ours)."""
     import torch
 
     from scenery_insitu_tpu_torch.ops import cuda_march as cm
@@ -483,7 +603,9 @@ def check_fold_and_count(dev, real_chunks, real_thr, real_length,
     from scenery_insitu_tpu_torch.ops import supersegments as ss
 
     compare = compare or {}
+    k2_compare = k2_compare or {}
     log_k1_builds()
+    log_k2_builds()
     h, w = real_thr.shape          # the frame's intermediate grid
     g = torch.Generator(device=dev).manual_seed(SEED)
     thr = (0.05 + 0.5 * torch.rand((h, w), generator=g, device=dev))
@@ -534,26 +656,40 @@ def check_fold_and_count(dev, real_chunks, real_thr, real_length,
             turns = [fresh_ms(f, base) for f in (k1, other, other, k1)]
             log(f"seg_fold_C{c}.vs_{name}", in_turns(turns, nbytes))
 
-        cbase = cm.init_count_multi_packed(BINS, h, w, device=dev)
-        ck = cm.count_multi_chunk(clone(cbase), rgba, tvec)
+        # a carry that has already counted one chunk
+        cbase = cm.count_multi_chunk_plain(
+            cm.init_count_multi_packed(BINS, h, w, device=dev),
+            seeded_stream(16, h, w, dev, 98), tvec)
         cp = cm.count_multi_chunk_plain(clone(cbase), rgba, tvec)
-        torch.cuda.synchronize()
-        mism = int((ck[0] != cp[0]).sum())
-        err2 = max(packed_err(ck[1:], cp[1:]),
-                   float((ck[0] - cp[0]).abs().max()))
-        log(f"count_C{c}.mismatches", f"{mism} (must be 0)")
-        check(f"count_C{c}", err2, 0.0)
-        ms2 = median_ms(lambda st: cm.count_multi_chunk(st, rgba, tvec), 20,
-                        lambda: clone(cbase))
+        err2 = check_counts(f"count_C{c}", cm.count_multi_chunk(
+            clone(cbase), rgba, tvec), cp)
+        for name, count in k2_compare.items():
+            check_counts(f"count_C{c}_{name}", count(clone(cbase), rgba,
+                                                     tvec), cp)
+        k2 = lambda st: cm.count_multi_chunk(st, rgba, tvec)
+        ms2 = fresh_ms(k2, cbase)
+        one2 = median_ms(k2, 20, lambda: clone(cbase))
         pms2 = median_ms(lambda st: cm.count_multi_chunk_plain(
             st, rgba, tvec), 3, lambda: clone(cbase))
-        b2, by2 = k2_bound(rgba, BINS)
+        nbytes2, flops2 = k2_work(rgba, BINS)
+        b2, by2 = bound_ms(nbytes2, flops2)
         log(f"count_C{c}.ms", f"{ms2:.4f} plain_ms={pms2:.4f} "
-            f"bound_ms={b2:.4f} ({by2})")
+            f"bound_ms={b2:.4f} ({by2}) one_launch_ms={one2:.4f} (the "
+            f"host's wrapper time included); stream kept full on states "
+            f"cloned before the window")
+        log(f"count_C{c}.achieved_gb_s", f"{nbytes2 / ms2 / 1e6:.1f} (the "
+            f"bound's bytes / ms; {HBM_BYTES_PER_S / 1e9:.0f} peak)")
+        k2_ms = {}
+        for name, count in k2_compare.items():
+            other = lambda st: count(st, rgba, tvec)
+            turns = [fresh_ms(f, cbase) for f in (k2, other, other, k2)]
+            log(f"count_C{c}.vs_{name}", in_turns(turns, nbytes2, "k2"))
+            k2_ms[name] = (turns[1] + turns[2]) / 2
         res[c] = dict(seg=dict(err=err1, ms=ms1, plain_ms=pms1, bound_ms=b1,
                                bound_by=by1, one_launch_ms=one),
                       count=dict(err=err2, ms=ms2, plain_ms=pms2,
-                                 bound_ms=b2, bound_by=by2))
+                                 bound_ms=b2, bound_by=by2,
+                                 one_launch_ms=one2, compare_ms=k2_ms))
 
     # the frame's own shaded chunks, folded and counted end to end
     init = lambda: cs.init_seg_packed(K, h, w, device=dev)
@@ -579,21 +715,16 @@ def check_fold_and_count(dev, real_chunks, real_thr, real_length,
     res["frame"]["err"] = err
     del kern, plain, smalls
 
-    ck = count_chunks(cm.count_multi_chunk,
-                      cm.init_count_multi_packed(BINS, h, w, device=dev),
-                      real_chunks, tvec)
-    cp = count_chunks(cm.count_multi_chunk_plain,
-                      cm.init_count_multi_packed(BINS, h, w, device=dev),
-                      real_chunks, tvec)
-    torch.cuda.synchronize()
-    log("count_frame_chunks.mismatches", int((ck[0] != cp[0]).sum()))
-    check("count_frame_chunks", float((ck[0] - cp[0]).abs().max()), 0.0)
-    # to set beside K2's device time a frame from the profile
-    k2_frame = sum(k2_bound(c[0], BINS)[0] for c in real_chunks)
-    log("count_frame.bound_ms", f"{k2_frame:.4f} (the frame's "
-        f"{len(real_chunks)} launches' bounds summed)")
+    init = lambda: cm.init_count_multi_packed(BINS, h, w, device=dev)
+    cp = count_chunks(cm.count_multi_chunk_plain, init(), real_chunks, tvec)
+    for name, count in {"k2": cm.count_multi_chunk, **k2_compare}.items():
+        check_counts("count_frame_chunks" + ("" if name == "k2" else
+                                             f"_{name}"),
+                     count_chunks(count, init(), real_chunks, tvec), cp)
+    del cp
     log("frame_chunks", f"{len(real_chunks)} (C="
         f"{sorted({c[0].shape[0] for c in real_chunks})})")
+    res["count_frame"] = k2_frame(real_chunks, tvec, h, w, dev, k2_compare)
     return res
 
 
@@ -1731,73 +1862,177 @@ def seeded_sorted_stream(nk, h, w, dev, seed):
 
 
 def k4_bound(sc, iters):
-    """Bytes and operations the resegment of ``sc`` needs: every slot's
-    alpha (to find where the stream ends), colour and depth of the slots
-    up to one past the last non-empty one, the K_OUT output slots."""
+    """The bound of the resegment of ``sc`` from the bytes and operations
+    it needs: every slot's alpha (to know which are empty), the colour
+    and depth of the non-empty slots (an empty slot's never enter the
+    result), the K_OUT output slots. Returns ((ms, by), non-empty slots
+    a pixel, bytes)."""
+    nk, _, h, w = sc.shape
+    slots = float((~(sc[:, 3] < 1e-4)).sum())
+    nbytes = 4 * (nk * h * w + 5 * slots + 6 * K_OUT * h * w)
+    return (bound_ms(nbytes, slots * (iters * RESEG_COUNT_FLOPS
+                                      + RESEG_WRITE_FLOPS)),
+            slots / (h * w), nbytes)
+
+
+def log_k4_builds(prefix=""):
+    """Registers, local bytes, shared bytes a block, resident blocks an
+    SM, threads a block and the search list of K4's builds: the frame's
+    (the search, the list in registers), the one without the search,
+    and the one a K_out above 16 takes (the list in shared memory), from
+    ``cudaFuncGetAttributes`` and the occupancy calculator."""
+    from scenery_insitu_tpu_torch.ops import cuda_composite as cc
+
+    for nk, k_out, iters in ((RANKS * K, K_OUT, COMP_ITERS),
+                             (RANKS * K, K_OUT, 0),
+                             (RANKS * K, 24, COMP_ITERS)):
+        a = cc.attributes(nk, k_out, iters)
+        log(f"{prefix}resegment.build", f"nk={nk} k_out={k_out} iters="
+            f"{iters} " + " ".join(f"{n}={v}" for n, v in a.items()))
+
+
+def log_live_slots(prefix, sc):
+    """How the non-empty slots of a stream spread over its pixels and its
+    warps (32 neighbouring pixels, as K4 takes them): the share of empty
+    pixels, the mean over the others, and the fullest pixel of each warp
+    that has one (median and max)."""
+    n = (~(sc[:, 3] < 1e-4)).sum(0).flatten()
+    if not bool((n > 0).any()):
+        log(f"{prefix}.live_slots", "no non-empty slot")
+        return
+    warp_max = n[: n.numel() // 32 * 32].reshape(-1, 32).amax(1).float()
+    warp_max = warp_max[warp_max > 0]
+    log(f"{prefix}.live_slots",
+        f"empty pixels {float((n == 0).float().mean()):.3f}, non-empty "
+        f"slots a non-empty pixel {float(n[n > 0].float().mean()):.2f}, a "
+        f"warp's fullest pixel median {float(warp_max.median()):.0f} max "
+        f"{float(warp_max.max()):.0f}")
+
+
+def compare_resegments(specs):
+    """{name: resegment} for each ``NAME=PATH`` of ``--k4-compare``,
+    another design of ``csrc/resegment.cu``: resegment is
+    `cuda_composite.resegment_sorted` served by that source's build."""
+    from scenery_insitu_tpu_torch.ops import cuda_composite as cc
+
+    return {name: fn for name, (fn,) in compare_designs(
+        specs, "resegment", "resegment_attributes", log_k4_builds,
+        "k4_compare", cc.resegment_sorted).items()}
+
+
+def check_k4(name, fn, sc, sd, want):
+    """``fn`` (a build of K4) on the stream ``sc``, ``sd`` against the
+    plain version's (color, depth, threshold) ``want``: thresholds and
+    live slot counts exactly, colour and depth within 1e-6."""
     import torch
 
-    nk, _, h, w = sc.shape
-    nonempty = sc[:, 3] >= 1e-4
-    idx = torch.arange(1, nk + 1, device=sc.device).reshape(nk, 1, 1)
-    walked = torch.clamp((nonempty * idx).amax(0) + 1, max=nk)
-    slots = float(walked.sum())
-    nbytes = 4 * (nk * h * w + 5 * slots + 6 * K_OUT * h * w)
-    return bound_ms(nbytes, slots * (iters * RESEG_COUNT_FLOPS
-                                     + RESEG_WRITE_FLOPS)), slots / (h * w)
+    h, w = sc.shape[2:]
+    tk = torch.empty((h, w), device=sc.device)
+    ck = fn(sc, sd, None, K_OUT, adaptive_iters=COMP_ITERS, threshold_out=tk)
+    torch.cuda.synchronize()
+    thr_mism = int((tk != want[2]).sum())
+    slot_mism = int((torch.isfinite(ck[1][:, 0]).sum(0)
+                     != torch.isfinite(want[1][:, 0]).sum(0)).sum())
+    log(f"{name}.mismatches", f"thresholds {thr_mism}, live slot counts "
+        f"{slot_mism} (must be 0)")
+    if thr_mism or slot_mism:
+        raise AssertionError(f"{name}: K4 differs from its plain version "
+                             f"in thresholds or counts")
+    err = max(max_abs(ck[0], want[0]), max_abs(ck[1], want[1]))
+    check(name, err, 1e-6)
+    return err
 
 
-def check_resegment(dev, rc, rd):
+def check_resegment(dev, rc, rd, compare=None):
     """K4 against its plain version on the card at the distributed
     frame's per-rank shapes: a seeded stream and the frame's own
     exchanged column block with the most live slots. Thresholds and
-    live slots exact, colour and depth within 1e-6; times, bound."""
+    live slots exact, colour and depth within 1e-6; times with the
+    stream kept full behind a device sleep (`stream_ms`; the one launch
+    beside it), bound; a
+    frame's 8 launches, one a column block, back to back. Each
+    ``compare`` build (``--k4-compare``) is checked the same way and
+    timed in turns with K4 (K4, other, other, K4)."""
     import torch
 
     from scenery_insitu_tpu_torch.ops import cuda_composite as cc
     from scenery_insitu_tpu_torch.ops.composite import sort_stream
 
+    compare = compare or {}
+    log_k4_builds()
     _, n, k, _, h, w = rc.shape
+    blocks = [sort_stream(rc[i].reshape(n * k, 4, h, w),
+                          rd[i].reshape(n * k, 2, h, w))
+              for i in range(rc.shape[0])]
     j = int(torch.isfinite(rd[:, :, :, 0]).flatten(1).sum(1).argmax())
-    frame_block = sort_stream(rc[j].reshape(n * k, 4, h, w),
-                              rd[j].reshape(n * k, 2, h, w))
     seeded = seeded_sorted_stream(n * k, h, w, dev, SEED)
     res = {}
-    for name, (sc, sd) in (("seeded", seeded), ("frame_block", frame_block)):
-        tk = torch.empty((h, w), device=dev)
+    for name, (sc, sd) in (("seeded", seeded), ("frame_block", blocks[j])):
         tp = torch.empty((h, w), device=dev)
-        ck = cc.resegment_sorted(sc, sd, None, K_OUT,
-                                 adaptive_iters=COMP_ITERS, threshold_out=tk)
-        cp = cc.resegment_sorted_plain(sc, sd, None, K_OUT,
-                                       adaptive_iters=COMP_ITERS,
-                                       threshold_out=tp)
-        torch.cuda.synchronize()
-        thr_mism = int((tk != tp).sum())
-        slot_mism = int((torch.isfinite(ck[1][:, 0]).sum(0)
-                         != torch.isfinite(cp[1][:, 0]).sum(0)).sum())
-        log(f"resegment_{name}.mismatches", f"thresholds {thr_mism}, live "
-            f"slot counts {slot_mism} (must be 0)")
-        if thr_mism or slot_mism:
-            raise AssertionError(f"resegment_{name}: K4 differs from its "
-                                 f"plain version in thresholds or counts")
-        err = max(max_abs(ck[0], cp[0]), max_abs(ck[1], cp[1]))
-        check(f"resegment_{name}", err, 1e-6)
-        ms = median_ms(lambda _: cc.resegment_sorted(
-            sc, sd, None, K_OUT, adaptive_iters=COMP_ITERS), 20)
+        want = cc.resegment_sorted_plain(sc, sd, None, K_OUT,
+                                         adaptive_iters=COMP_ITERS,
+                                         threshold_out=tp) + (tp,)
+        err = check_k4(f"resegment_{name}", cc.resegment_sorted, sc, sd,
+                       want)
+        for other, fn in compare.items():
+            check_k4(f"resegment_{name}_{other}", fn, sc, sd, want)
+        del want
+        k4 = lambda fn=cc.resegment_sorted: fn(sc, sd, None, K_OUT,
+                                               adaptive_iters=COMP_ITERS)
+        ms = stream_ms(k4, behind_sleep=True)
+        one = median_ms(lambda _: k4(), 20)
         pms = median_ms(lambda _: cc.resegment_sorted_plain(
             sc, sd, None, K_OUT, adaptive_iters=COMP_ITERS), 3)
-        (b, by), walked = k4_bound(sc, COMP_ITERS)
+        log_live_slots(f"resegment_{name}", sc)
+        (b, by), live_slots, nbytes = k4_bound(sc, COMP_ITERS)
         log(f"resegment_{name}.ms", f"{ms:.4f} plain_ms={pms:.4f} "
-            f"bound_ms={b:.4f} ({by}) nk={n * k} hw={h}x{w} "
-            f"slots_walked_per_pixel={walked:.2f}")
+            f"bound_ms={b:.4f} ({by}) one_launch_ms={one:.4f} (the host's "
+            f"wrapper time included) nk={n * k} hw={h}x{w} "
+            f"non_empty_slots_per_pixel={live_slots:.2f}; stream kept full "
+            f"behind a device sleep")
+        log(f"resegment_{name}.achieved_gb_s", f"{nbytes / ms / 1e6:.1f} "
+            f"(the bound's bytes / ms; {HBM_BYTES_PER_S / 1e9:.0f} peak)")
+        compare_ms = {}
+        for other, fn in compare.items():
+            o = lambda: k4(fn)
+            turns = [stream_ms(f, behind_sleep=True)
+                     for f in (k4, o, o, k4)]
+            log(f"resegment_{name}.vs_{other}", in_turns(turns, nbytes,
+                                                         "k4"))
+            compare_ms[other] = (turns[1] + turns[2]) / 2
         res[name] = dict(err=err, ms=ms, plain_ms=pms, bound_ms=b,
-                         bound_by=by)
+                         bound_by=by, one_launch_ms=one,
+                         compare_ms=compare_ms)
     # a frame's K4 launches, one a column block: their bounds summed, to
     # set beside K4's device time a frame from the profile
-    fb = sum(k4_bound(sort_stream(rc[i].reshape(n * k, 4, h, w),
-                                  rd[i].reshape(n * k, 2, h, w))[0],
-                      COMP_ITERS)[0][0] for i in range(rc.shape[0]))
+    works = [k4_bound(sc, COMP_ITERS) for sc, _ in blocks]
+    fb = sum(wk[0][0] for wk in works)
     log("resegment_frame.bound_ms", f"{fb:.4f} (the {rc.shape[0]} column "
         f"blocks' bounds summed: one frame's K4 launches)")
+
+    def frame(fn):
+        def run(_):
+            for sc, sd in blocks:
+                fn(sc, sd, None, K_OUT, adaptive_iters=COMP_ITERS)
+        return run
+
+    def setup():
+        torch.cuda.synchronize()
+        lead()
+
+    k4f = frame(cc.resegment_sorted)
+    fms = median_ms(k4f, 5, setup)
+    fbytes = sum(wk[2] for wk in works)
+    log("resegment_frame.ms", f"{fms:.4f} bound_ms={fb:.4f} launches="
+        f"{len(blocks)}; the stream kept full; achieved_gb_s="
+        f"{fbytes / fms / 1e6:.1f}")
+    for other, fn in compare.items():
+        o = frame(fn)
+        turns = [median_ms(f, 5, setup) for f in (k4f, o, o, k4f)]
+        log(f"resegment_frame.vs_{other}", in_turns(turns, fbytes, "k4"))
+        res["frame_block"]["compare_ms"][f"{other}_frame"] = \
+            (turns[1] + turns[2]) / 2
+    res["frame"] = dict(ms=fms, bound_ms=fb)
     return res
 
 
@@ -2208,6 +2443,16 @@ def main(argv=None) -> int:
                     help="another design of csrc/fused_fold.cu (the same C "
                          "entries) to check and time in turns with B5 and "
                          "B6 in phase 2; repeatable")
+    ap.add_argument("--k4-compare", action="append", default=[],
+                    metavar="NAME=PATH",
+                    help="another design of csrc/resegment.cu (the same C "
+                         "entries) to check and time in turns with K4 in "
+                         "phase 4; repeatable")
+    ap.add_argument("--k2-compare", action="append", default=[],
+                    metavar="NAME=PATH",
+                    help="another design of csrc/count_multi.cu (the same "
+                         "C entries) to check and time in turns with K2 in "
+                         "phase 2; repeatable")
     args = ap.parse_args(argv)
 
     import torch
@@ -2237,11 +2482,13 @@ def main(argv=None) -> int:
 
     compare = compare_folds(args.k1_compare)
     fused_compare = compare_fused(args.fused_compare)
+    k4_compare = compare_resegments(args.k4_compare)
+    k2_compare = compare_counts(args.k2_compare)
     g = gs_init(dev)
     cap = capture_chunks(dev, g.u, g.v, (0.0, 0.6, 3.0))
     stencil = check_stencil(dev)
     fold = check_fold_and_count(dev, cap["chunks"], cap["thr"],
-                                cap["length"], compare)
+                                cap["length"], compare, k2_compare)
     new = check_new_folds(dev, cap, compare, fused_compare)
     del cap
     ranges = check_stencil_ranges(dev, g)
@@ -2258,7 +2505,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     phase_done("phase3b")
     dist_launches, rc, rd = run_dist_frame(dev, args.profile)
-    reseg = check_resegment(dev, rc, rd)
+    reseg = check_resegment(dev, rc, rd, k4_compare)
     del rc, rd
     torch.cuda.empty_cache()
     check_small_dist(dev)
@@ -2310,16 +2557,27 @@ def main(argv=None) -> int:
              ms=fold[16]["count"]["ms"],
              plain_ms=fold[16]["count"]["plain_ms"],
              bound_ms=fold[16]["count"]["bound_ms"],
-             bound_by=fold[16]["count"]["bound_by"], library_ms=None),
+             bound_by=fold[16]["count"]["bound_by"], library_ms=None,
+             one_launch_ms=fold[16]["count"]["one_launch_ms"],
+             frame_ms=fold["count_frame"]["ms"],
+             frame_bound_ms=fold["count_frame"]["bound_ms"],
+             compare_ms={**fold[16]["count"]["compare_ms"], **{
+                 f"{n}_frame": v for n, v in
+                 fold["count_frame"]["compare_ms"].items()}}),
         dict(name="resegment_sorted", route="cuda",
              source="scenery_insitu_tpu_torch/csrc/resegment.cu",
              replaces="scenery_insitu_tpu/ops/pallas_composite.py:172",
              launches=dist_launches["resegment_sorted"],
-             max_abs_err=max(r["err"] for r in reseg.values()),
+             max_abs_err=max(reseg[b]["err"] for b in ("seeded",
+                                                       "frame_block")),
              ms=reseg["frame_block"]["ms"],
              plain_ms=reseg["frame_block"]["plain_ms"],
              bound_ms=reseg["frame_block"]["bound_ms"],
-             bound_by=reseg["frame_block"]["bound_by"], library_ms=None),
+             bound_by=reseg["frame_block"]["bound_by"], library_ms=None,
+             one_launch_ms=reseg["frame_block"]["one_launch_ms"],
+             frame_ms=reseg["frame"]["ms"],
+             frame_bound_ms=reseg["frame"]["bound_ms"],
+             compare_ms=reseg["frame_block"]["compare_ms"]),
     ]
     # the kernels of this slice: B1b has no caller on a frame path; the
     # microbenchmark's pallas_seg and tf_pallas_seg variants run it, so

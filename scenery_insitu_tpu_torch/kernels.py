@@ -90,6 +90,14 @@ QUERIES = {
     # out int[6]: registers, local-memory bytes, shared bytes a block,
     # resident blocks an SM, threads a block, slices a stage holds
     "fused_fold_attributes": ("fused_fold", [_I, _P]),
+    # NK, K_out, iters, out int[7]: registers, local-memory bytes, shared
+    # bytes a block, resident blocks an SM, threads a block, the search
+    # list's entries, 1 where the list lives in registers
+    "resegment_attributes": ("resegment", [_I] * 3 + [_P]),
+    # C (16, 1, or any other for the generic build), B, out int[6]:
+    # registers, local-memory bytes, shared bytes a block, resident blocks
+    # an SM, threads a block, slices whose loads go out together
+    "count_multi_attributes": ("count_multi", [_I] * 2 + [_P]),
 }
 
 _LAUNCHES: collections.Counter = collections.Counter()

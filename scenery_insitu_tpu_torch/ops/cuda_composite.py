@@ -68,6 +68,22 @@ def resegment_sorted(sc: torch.Tensor, sd: torch.Tensor,
     return color, depth
 
 
+def attributes(nk: int, k_out: int, adaptive_iters: int) -> dict:
+    """The build of K4 that a call of (``nk``, ``k_out``,
+    ``adaptive_iters``) takes, on the current card: registers and
+    local-memory bytes a thread, shared bytes a block, resident blocks an
+    SM, threads a block, the search list's entries (0 without the
+    search) and whether the list lives in registers. Needs a card: it
+    loads the kernel library."""
+    if nk < 1 or k_out < 1:
+        raise ValueError("the stream and the output hold at least one slot")
+    out = kernels.query("resegment_attributes", nk, k_out, adaptive_iters,
+                        nout=7)
+    keys = ("registers", "local_bytes", "shared_bytes", "blocks_per_sm",
+            "threads", "list", "list_in_registers")
+    return dict(zip(keys, out))
+
+
 def resegment_sorted_plain(sc: torch.Tensor, sd: torch.Tensor,
                            threshold: Optional[torch.Tensor], k_out: int,
                            gap_eps: float = 1e-4, adaptive_iters: int = 0,

@@ -86,6 +86,21 @@ def count_multi_chunk(carry, rgba: torch.Tensor, tvec: torch.Tensor):
     return carry
 
 
+def count_attributes(c: int, bins: int) -> dict:
+    """The build of K2 that a chunk of ``c`` slices and ``bins``
+    thresholds takes, on the current card: registers and local-memory
+    bytes a thread, shared bytes a block, resident blocks an SM, threads
+    a block and the slices whose loads go out together. Needs a card: it
+    loads the kernel library."""
+    if c < 1 or not 1 <= bins <= MAX_BINS:
+        raise ValueError(f"c={c}, bins={bins}: the kernel takes c >= 1 "
+                         f"and 1..{MAX_BINS} thresholds")
+    out = kernels.query("count_multi_attributes", c, bins, nout=6)
+    keys = ("registers", "local_bytes", "shared_bytes", "blocks_per_sm",
+            "threads", "slices")
+    return dict(zip(keys, out))
+
+
 def count_multi_chunk_plain(carry, rgba: torch.Tensor, tvec: torch.Tensor):
     """Plain version of K2: sequential ``push_count`` over the slices
     with the candidate stack as the threshold, in place. Any device."""

@@ -28,7 +28,12 @@ depth within 1e-6 of their plain versions and of B7; B5 and B6 start
 counts exact, colour and depth within 1e-6, B6 equal to B5 chunk after
 chunk bit for bit (every build: C = 16 and C = 1 fixed, C = 5 and 33
 generic; values on the knots, dead chunks, saturated counts, threshold
-0 and +inf, knots that do not ascend)."""
+0 and +inf, knots that do not ascend). K4's design cases (its one-walk
+search at iters 0 to 10, ``thr_max`` 1.7, no gap test, empty slots
+between live ones, empty pixels, distances on the bisection's
+midpoints, ragged images, K_out above 16 with its list in shared
+memory) hold thresholds and live slots exactly; K2's builds (C = 16, 1,
+7, 33 by B = 16, 5, 32, candidates in either order) count exactly."""
 
 import numpy as np
 import pytest
@@ -88,6 +93,25 @@ def sorted_stream(nk, h, w, seed):
     depth = np.where(live[:, None], np.stack([start, end], axis=1), np.inf)
     thr = rng.uniform(0.0, 0.5, (h, w)).astype(np.float32)
     return color, depth.astype(np.float32), thr
+
+
+def midpoint_stream(nk, h, w):
+    """Live slots whose premultiplied rgb steps by exactly 0.5 or 1.0 (the
+    bisection's midpoints over [0, 2]), alpha 1, no depth gaps; the
+    number of live slots grows along x."""
+    f32 = np.float32
+    steps = np.array([0.0, 0.5, 1.0, 0.5, 0.0, 1.0, 0.5, 1.0], f32)
+    red = np.resize(steps, nk)[:, None, None] * np.ones((1, h, w), f32)
+    color = np.zeros((nk, 4, h, w), f32)
+    color[:, 0] = red
+    color[:, 3] = 1.0
+    start = np.arange(nk, dtype=f32)[:, None, None] * np.ones((1, h, w), f32)
+    depth = np.stack([start, start + 1.0], 1).astype(f32)
+    n_live = (np.arange(w) % (nk + 1))[None] * np.ones((h, 1), int)
+    live = np.arange(nk)[:, None, None] < n_live[None]
+    color = np.where(live[:, None], color, f32(0.0))
+    depth = np.where(live[:, None], depth, f32(np.inf))
+    return color.astype(f32), depth.astype(f32)
 
 
 def _err(a, b):
@@ -686,3 +710,113 @@ def test_fused_fold_attributes(dev):
         assert a["threads"] > 0 and a["slices"] == held
     with pytest.raises(ValueError):
         cf.attributes(0)
+
+
+# K4's redesign (one walk for the search, the list of the largest
+# distances): name -> (nk, k_out, (h, w), iters, thr_max, gap_eps, stream)
+K4_CASES = {
+    "frame_shape": (128, 16, (64, 80), 6, 2.0, 1e-4, "seeded"),
+    "iters0": (128, 16, (64, 80), 0, 2.0, 1e-4, "seeded"),
+    "iters8": (128, 16, (64, 80), 8, 2.0, 1e-4, "seeded"),
+    "iters10": (128, 16, (64, 80), 10, 2.0, 1e-4, "seeded"),
+    "thr_max_1.7": (128, 16, (64, 80), 6, 1.7, 1e-4, "seeded"),
+    "gap_off": (128, 16, (64, 80), 6, 2.0, -1.0, "seeded"),
+    "empties_between_live": (128, 16, (64, 80), 6, 2.0, 1e-4, "holes"),
+    "all_empty_pixels": (128, 16, (64, 80), 6, 2.0, 1e-4, "blank_rows"),
+    "midpoints": (16, 3, (8, 80), 6, 2.0, 1e-4, "midpoints"),
+    "midpoints_iters8": (16, 5, (8, 80), 8, 2.0, 1e-4, "midpoints"),
+    "ragged": (128, 16, (37, 91), 6, 2.0, 1e-4, "seeded"),
+    "k_out_24_shared_list": (128, 24, (37, 91), 6, 2.0, 1e-4, "seeded"),
+    "k_out_40_shared_list": (64, 40, (13, 37), 8, 1.7, 1e-4, "holes"),
+    "short_stream_k_out_20": (12, 20, (13, 37), 6, 2.0, 1e-4, "seeded"),
+}
+
+
+def _k4_stream(kind, nk, h, w, seed):
+    """The stream of a K4 case: ``sorted_stream``; "holes" with every
+    other live slot's alpha set to 5e-5 at its finite depth (empty slots
+    between live ones); "blank_rows" with every third row all empty;
+    "midpoints" the distances on the bisection's midpoints."""
+    if kind == "midpoints":
+        color, depth = midpoint_stream(nk, h, w)
+        return color, depth, np.full((h, w), 0.25, np.float32)
+    color, depth, thr = sorted_stream(nk, h, w, seed)
+    if kind == "holes":
+        hole = (np.arange(nk) % 2 == 1)[:, None, None] & \
+            np.isfinite(depth[:, 0])
+        color[:, 3] = np.where(hole, np.float32(5e-5), color[:, 3])
+        color[:, :3] = np.where(hole[:, None], color[:, :3] * 1e-3,
+                                color[:, :3])
+    if kind == "blank_rows":
+        color[:, :, ::3] = 0.0
+        depth[:, :, ::3] = np.inf
+    return color, depth, thr
+
+
+@pytest.mark.parametrize("case", list(K4_CASES))
+def test_resegment_design_cases(dev, case):
+    """K4 against its plain version: thresholds and live-slot counts
+    exact, colour and depth within 1e-6, one launch a call."""
+    nk, k_out, (h, w), iters, thr_max, gap_eps, kind = K4_CASES[case]
+    color, depth, thr = (torch.from_numpy(x).to(dev) for x in
+                         _k4_stream(kind, nk, h, w, seed=nk + iters))
+    tk = torch.empty((h, w), device=dev)
+    tp = torch.empty((h, w), device=dev)
+    args = dict(adaptive_iters=iters, thr_max=thr_max)
+    before = kernels.launches()["resegment_sorted"]
+    kern = cc.resegment_sorted(color, depth, thr, k_out, gap_eps,
+                               threshold_out=tk, **args)
+    assert kernels.launches()["resegment_sorted"] == before + 1
+    plain = cc.resegment_sorted_plain(color, depth, thr, k_out, gap_eps,
+                                      threshold_out=tp, **args)
+    torch.cuda.synchronize()
+    assert torch.equal(tk, tp)
+    live = lambda d: torch.isfinite(d[:, 0]).sum(0)
+    assert torch.equal(live(kern[1]), live(plain[1]))
+    for a, b in zip(kern, plain):
+        assert _err(a, b) <= 1e-6
+
+
+@pytest.mark.parametrize("bins", [16, 5, 32])
+@pytest.mark.parametrize("c", [16, 1, 7, 33])
+def test_count_multi_builds_match_plain(dev, c, bins):
+    """Every K2 build (C = 16 and C = 1 fixed, others generic; B = 16
+    exact, others on the padded 32-wide build) counts exactly as its
+    plain version: a chunk of ``c`` after a chunk of 16, then one more
+    with the candidates in descending order (the kernel must not rely on
+    their order)."""
+    h, w = 37, 90
+    tvec = ss.threshold_candidates(bins, device=dev)
+    kern = cm.init_count_multi_packed(bins, h, w, device=dev)
+    plain = cm.init_count_multi_packed(bins, h, w, device=dev)
+    for i, (n, t) in enumerate(((16, tvec), (c, tvec),
+                                (c, tvec.flip(0).contiguous()))):
+        rgba = _stream(n, h, w, dev, 60 + 3 * c + i)
+        before = kernels.launches()["count_multi"]
+        cm.count_multi_chunk(kern, rgba, t)
+        assert kernels.launches()["count_multi"] == before + 1
+        cm.count_multi_chunk_plain(plain, rgba, t)
+    torch.cuda.synchronize()
+    for a, b in zip(kern, plain):
+        assert torch.equal(a, b)
+
+
+def test_resegment_and_count_attributes(dev):
+    """K4's and K2's builds keep their state in registers (0 local
+    bytes) and fit at least one block an SM; K4's list lives in
+    registers up to K_out = 16."""
+    for nk, k_out, iters, regs in ((128, 16, 6, 1), (128, 16, 0, 0),
+                                   (8, 5, 6, 1), (128, 24, 6, 0),
+                                   (64, 40, 8, 0)):
+        a = cc.attributes(nk, k_out, iters)
+        assert a["local_bytes"] == 0, (nk, k_out, iters, a)
+        assert a["blocks_per_sm"] >= 1 and a["registers"] > 0
+        assert a["list_in_registers"] == regs
+        assert a["list"] == (0 if iters == 0 else min(k_out + 1, nk - 1))
+    for c in (16, 1, 7, 33):
+        for bins in (16, 5, 32):
+            a = cm.count_attributes(c, bins)
+            assert a["local_bytes"] == 0, (c, bins, a)
+            assert a["blocks_per_sm"] >= 1 and a["registers"] > 0
+    with pytest.raises(ValueError):
+        cm.count_attributes(1, 33)

@@ -6,7 +6,8 @@ microbenchmark.
     python3 chip_smoke.py               # the whole run (needs one card)
     python3 chip_smoke.py --profile     # + device time by kernel
     python3 chip_smoke.py --k4-compare old=OTHER/resegment.cu \
-        --k2-compare old=OTHER/count_multi.cu  # + designs in turns
+        --k2-compare old=OTHER/count_multi.cu \
+        --events-compare old=OTHER/fold_chunk.cu  # + designs in turns
 
 ``--profile`` adds to each frame of phases 3 to 5 two profiled frames:
 device time by kernel and by operator, each of the port's own kernels'
@@ -43,10 +44,9 @@ and prints no result):
    with its GB/s. Each prints its largest difference against the stated
    tolerance, its median time from CUDA events (K3's and B4b's of 10
    launches back to back, so the wrapper's host time hides behind the
-   previous launch; K1's, B1b's, K2's, B5's and B6's of 10 (B6 5)
+   previous launch; K1's, B1b's, K2's, B7's, B5's and B6's of 10 (B6 5)
    launches back to back behind a device sleep, each on a state cloned
-   before the window, with the one-launch time beside; the others' of
-   one launch),
+   before the window, with the one-launch time beside),
    the plain version's time, and its bound (the larger of bytes / 3.35
    TB/s and operations / 67 TFLOP/s, the H100 SXM's f32 rate outside the
    tensor cores). ``--k1-compare NAME=PATH`` serves the same wrapper
@@ -122,9 +122,20 @@ and prints no result):
    and against B7 on the frame's captured chunks and on seeded streams
    at 320 x 320 and 640 x 640 (C = 16, K = 16, and K = 4 filling the slot
    cap): slot counters exact, colour and depth within 1e-6, with whether
-   they equal B7 bit for bit; each timed at 640 x 640 for several (C, K)
-   beside B7 and its bound, with its registers, local-memory bytes and
-   block size; (b) the twin's sweep with ``--check`` over every variant
+   they equal B7 bit for bit; B7, B8 and B9 timed at 640 x 640 for
+   several (C, K) with the stream kept full (10 launches behind a device
+   sleep, each on a state cloned before the window; the one launch
+   beside), against their bound, with the registers, local bytes, shared
+   bytes, resident blocks an SM, threads and close events a thread of
+   each build; then a march: the microbenchmark's own stream at S = 512
+   on 640 x 640 generated once, B8 and B9 against their plain versions
+   and B7 over it, the closes a pixel a chunk, and B7, B8 and B9 each
+   folding its 32 chunks back to back from the initial state behind a
+   device sleep, against the march's bound (``*_march.ms``);
+   ``--events-compare NAME=PATH`` serves the B8 and B9 wrappers from
+   another ``csrc/fold_chunk.cu``, checks it at every gate above and
+   times it in turns (new, other, other, new) at C = 16, K = 16 and over
+   the march; (b) the twin's sweep with ``--check`` over every variant
    at S = 256 (320 x 320) and S = 512 (640 x 640), K = 16, C = 16, its
    JSON rows logged, the launch counts set to 0 before it and read after
    it (B8 and B9 each S/C launches a march; B1b, which the
@@ -199,6 +210,8 @@ SMALL_RANKS = 4
 # the fold microbenchmark (phase 6): the reference's default S = 256
 # (320 x 320) and the flagship's 512 (640 x 640), K = 16, C = 16
 MICRO_GRIDS = (256, 512)
+# phase 6 (a)'s march: the microbenchmark's stream at S = 512 (640 x 640)
+MARCH_S = 512
 # device sleep ahead of a timed window (~10 ms at the H100's clocks), so
 # the host's launches queue behind it
 LEAD_CYCLES = 20_000_000
@@ -814,12 +827,6 @@ def packed_equal(a, b):
     return all(bool((x == y).all()) for x, y in zip(a, b))
 
 
-def timed(fold_k, fold_p, base, reps=20):
-    """(kernel ms, plain ms): medians over fresh copies of ``base``."""
-    return (median_ms(fold_k, reps, lambda: clone(base)),
-            median_ms(fold_p, 3, lambda: clone(base)))
-
-
 def fused_work(raw, ratio, tf, rows):
     """Bytes and operations B5 or B6 need to fold the value chunks
     ``raw`` [(val, sk)] in order into one state (what these chunks'
@@ -965,17 +972,19 @@ def check_new_folds(dev, cap, compare=None, fused_compare=None):
         errs.append(packed_err(kern, plain))
         check(f"fold_chunk_count{int(with_count)}", errs[-1], 1e-6)
     cnt = torch.zeros((h, w), dtype=torch.int32, device=dev)
-    ms, pms = timed(lambda st: cm.fold_chunk(st, rgba, t0, t1, sthr,
-                                             max_k=K, count=cnt),
-                    lambda st: cm.fold_chunk_plain(st, rgba, t0, t1, sthr,
-                                                   max_k=K, count=cnt),
-                    mbase)
+    b7 = lambda st: cm.fold_chunk(st, rgba, t0, t1, sthr, max_k=K, count=cnt)
+    ms = fresh_ms(b7, mbase)
+    one = median_ms(b7, 20, lambda: clone(mbase))
+    pms = median_ms(lambda st: cm.fold_chunk_plain(
+        st, rgba, t0, t1, sthr, max_k=K, count=cnt), 3, lambda: clone(mbase))
     closes = float((kern[2][11] - mbase[2][11]).sum())
     b, by = bound_ms(4 * (CHUNK * 6 * hw + hw + 2 * 12 * hw + 2 * hw
                           + 6 * closes),
                      MACHINE_FLOPS_PER_PIXEL_SLICE * CHUNK * hw)
     log("fold_chunk.ms", f"{ms:.4f} plain_ms={pms:.4f} bound_ms={b:.4f} "
-        f"({by}) closes_per_pixel={closes / hw:.3f}")
+        f"({by}) one_launch_ms={one:.4f} (the host's wrapper time "
+        f"included) closes_per_pixel={closes / hw:.3f}; stream kept full on "
+        f"states cloned before the window")
     # the frame's chunks, with the temporal count
     packs = [cm.init_packed(K, h, w, device=dev) for _ in range(2)]
     cnts = [torch.zeros((h, w), dtype=torch.int32, device=dev)
@@ -1006,7 +1015,7 @@ def check_new_folds(dev, cap, compare=None, fused_compare=None):
         f"{len(cap['chunks'])} chunks, {closes / hw:.3f} slots closed a "
         f"pixel)")
     res["fold_chunk"] = dict(err=max(errs), ms=ms, plain_ms=pms, bound_ms=b,
-                             bound_by=by)
+                             bound_by=by, one_launch_ms=one)
     del packs, cnts, mbase
 
     res.update(check_fused_folds(dev, cap, fused_compare))
@@ -2243,13 +2252,14 @@ def run_bench_twin(dev):
 
 
 def event_bound(rgba, closes):
-    """B8's and B9's bound: B7's without the count (each input read
-    once, the state read and written once, the closing slots' rows
-    written)."""
+    """B8's and B9's (bound ms, what bounds it, bytes): B7's without the
+    count (each input read once, the state read and written once, the
+    closing slots' rows written)."""
     c, _, h, w = rgba.shape
     hw = h * w
-    return bound_ms(4 * (c * 6 * hw + hw + 2 * 12 * hw + 6 * closes),
-                    (MACHINE_FLOPS_PER_PIXEL_SLICE - 3) * c * hw)
+    nbytes = 4 * (c * 6 * hw + hw + 2 * 12 * hw + 6 * closes)
+    return (*bound_ms(nbytes, (MACHINE_FLOPS_PER_PIXEL_SLICE - 3) * c * hw),
+            nbytes)
 
 
 def fold_events(fold, state, chunks, thr, k):
@@ -2260,11 +2270,43 @@ def fold_events(fold, state, chunks, thr, k):
     return state
 
 
-def check_event_case(tag, chunks, thr, k, base=None):
-    """B8 and B9 over ``chunks`` from ``base`` (default: the initial
-    state) against their plain versions and B7: slot counters exact,
-    colour and depth within 1e-6. Returns (largest difference, whether
-    both equal B7 bit for bit)."""
+def event_designs(specs):
+    """{name: (B8, B9)}: this tree's wrappers under "" and, for each
+    ``NAME=PATH`` of ``--events-compare`` (another design of
+    ``csrc/fold_chunk.cu`` with the same C entries), the same wrappers
+    served by that source's build."""
+    from scenery_insitu_tpu_torch.benchmarks import fold_microbench as fm
+
+    return {"": (fm.events_fold_chunk, fm.scratch_fold_chunk),
+            **compare_designs(specs, "fold_chunk", "fold_chunk_occupancy",
+                              log_event_builds, "events_compare",
+                              fm.events_fold_chunk, fm.scratch_fold_chunk)}
+
+
+def log_event_builds(prefix=""):
+    """Registers, local bytes, shared bytes a block, resident blocks an
+    SM, threads a block and close events a thread holds of B7's build and
+    of B8's and B9's at every timed (C, K), from ``cudaFuncGetAttributes``
+    and the occupancy calculator."""
+    from scenery_insitu_tpu_torch.benchmarks import fold_microbench as fm
+
+    builds = [("fold_chunk", "pallas", CHUNK, K)] + [
+        (f"{name}_C{c}_K{k}", variant, c, k)
+        for c, k in EVENT_TIMED
+        for name, variant in (("events_fold_chunk", "events"),
+                              ("scratch_fold_chunk", "scratch"))]
+    for tag, variant, c, k in builds:
+        a = fm.attributes(variant, c, k)
+        log(f"{prefix}{tag}.build", " ".join(f"{n}={v}"
+                                             for n, v in a.items()))
+
+
+def check_event_case(tag, chunks, thr, k, base=None, designs=None):
+    """B8 and B9 of each of ``designs`` (default: this tree's) over
+    ``chunks`` from ``base`` (default: the initial state) against their
+    plain versions and B7: slot counters exact, colour and depth within
+    1e-6. Returns (largest difference, whether this tree's B8 and B9
+    equal B7 bit for bit)."""
     import torch
 
     from scenery_insitu_tpu_torch.benchmarks import fold_microbench as fm
@@ -2273,54 +2315,79 @@ def check_event_case(tag, chunks, thr, k, base=None):
     h, w = thr.shape
     if base is None:
         base = cm.init_packed(k, h, w, device=thr.device)
+    designs = designs or {"": (fm.events_fold_chunk, fm.scratch_fold_chunk)}
     flat = lambda st: (*st[0], st[1])
     state = lambda: ((base[0].clone(), base[1].clone()), base[2].clone())
     b7 = clone(base)
     for rgba, t0, t1 in chunks:
         cm.fold_chunk(b7, rgba, t0, t1, thr, max_k=k)
     err, bitwise = 0.0, True
-    for name, fold, plain in (
-            ("events_fold_chunk", fm.events_fold_chunk,
-             fm.events_fold_chunk_plain),
-            ("scratch_fold_chunk", fm.scratch_fold_chunk,
-             fm.scratch_fold_chunk_plain)):
-        got = flat(fold_events(fold, state(), chunks, thr, k))
+    for i, (name, plain) in enumerate((
+            ("events_fold_chunk", fm.events_fold_chunk_plain),
+            ("scratch_fold_chunk", fm.scratch_fold_chunk_plain))):
         want = flat(fold_events(plain, state(), chunks, thr, k))
-        torch.cuda.synchronize()
-        for other, what in ((want, "its plain version"), (b7, "B7")):
-            if not torch.equal(got[2][11], other[2][11]):
-                raise AssertionError(f"{name}_{tag}: slot counters differ "
-                                     f"from {what}")
-        e = max(packed_err(got, want), packed_err(got, b7))
-        check(f"{name}_{tag}", e, 1e-6)
-        err = max(err, e)
-        bitwise = bitwise and packed_equal(got, b7)
+        for design, folds in designs.items():
+            case = f"{name}_{tag}" + (f"_{design}" if design else "")
+            got = flat(fold_events(folds[i], state(), chunks, thr, k))
+            torch.cuda.synchronize()
+            for other, what in ((want, "its plain version"), (b7, "B7")):
+                if not torch.equal(got[2][11], other[2][11]):
+                    raise AssertionError(f"{case}: slot counters differ "
+                                         f"from {what}")
+            e = max(packed_err(got, want), packed_err(got, b7))
+            check(case, e, 1e-6)
+            if design:
+                log(f"{case}.bit_for_bit_with_b7", packed_equal(got, b7))
+            else:
+                err = max(err, e)
+                bitwise = bitwise and packed_equal(got, b7)
+            del got
+        del want
     log(f"events_{tag}.pixels_at_slot_cap",
         f"{float((b7[2][11] == k - 1).float().mean()):.4f}; B8 and B9 "
         f"{'equal' if bitwise else 'differ from'} B7 bit for bit")
     return err, bitwise
 
 
-def check_event_folds(dev):
-    """Phase 6 (a): B8 and B9 against their plain versions and B7 on the
-    frame's captured chunks (K = 16) and on seeded streams at 320 x 320
-    and 640 x 640 (C = 16, K = 16, after one folded chunk), and a K = 4
-    stream that fills the slot cap; then each kernel's time against its
-    bound and its plain version at 640 x 640, with B7's in the same run,
-    and the registers, local memory and block size of each timed build."""
+def event_folds(k, thr, rgba, t0, t1, designs):
+    """{name: fold(flat state)} of one chunk: B7 (``fold_chunk``), then
+    each design's B8 and B9 (``events_fold_chunk[_NAME]``, ...)."""
+    from scenery_insitu_tpu_torch.ops import cuda_march as cm
+
+    folds = {"fold_chunk": lambda s: cm.fold_chunk(s, rgba, t0, t1, thr,
+                                                   max_k=k)}
+    for design, pair in designs.items():
+        for name, fold in zip(EVENT_KERNELS.values(), pair):
+            folds[name + (f"_{design}" if design else "")] = \
+                (lambda f: lambda s: f((s[0], s[1]), s[2], rgba, t0, t1, thr,
+                                       max_k=k))(fold)
+    return folds
+
+
+def check_event_folds(dev, designs):
+    """Phase 6 (a): B8 and B9 of each of ``designs`` against their plain
+    versions and B7 on the frame's captured chunks (K = 16), on seeded
+    streams at 320 x 320 and 640 x 640 (C = 16, K = 16, after one folded
+    chunk), and a K = 4 stream that fills the slot cap; then B7, B8 and
+    B9 timed at 640 x 640 at each (C, K) of EVENT_TIMED with the stream
+    kept full (`fresh_ms`, the one launch beside it), against their bound
+    and (at the first) their plain versions, each ``--events-compare``
+    design in turns at the first; then a march (`event_march`). Logs
+    every timed build (`log_event_builds`)."""
     import torch
 
-    from scenery_insitu_tpu_torch import kernels
     from scenery_insitu_tpu_torch.benchmarks import fold_microbench as fm
     from scenery_insitu_tpu_torch.ops import cuda_march as cm
 
+    log_event_builds()
     g = gs_init(dev)
     cap = capture_chunks(dev, g.u, g.v, (0.0, 0.6, 3.0))
     del g
     length = cap["length"]
     frame = [(rgba, planes(sk0, length), planes(sk1, length))
              for rgba, sk0, sk1 in cap["chunks"]]
-    err, bitwise = check_event_case("frame_chunks", frame, cap["thr"], K)
+    err, bitwise = check_event_case("frame_chunks", frame, cap["thr"], K,
+                                    designs=designs)
     del cap, frame
     torch.cuda.empty_cache()
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
@@ -2337,11 +2404,9 @@ def check_event_folds(dev):
         chunks = [(seeded_stream(CHUNK, side, side, dev, SEED + 10 + i),
                    t(i + 1), t(i + 1) + 0.1) for i in range(n)]
         e, same = check_event_case(f"seeded_{side}_K{k}", chunks, thr, k,
-                                   base)
+                                   base, designs)
         err, bitwise = max(err, e), bitwise and same
         seeded[(side, k)] = (chunks, thr, base)
-    log("events.bit_for_bit_with_b7", bitwise)
-
     side = EVENT_SEEDED[-1][0]
     chunks, thr, base16 = seeded[(side, K)]
     res = {}
@@ -2349,40 +2414,121 @@ def check_event_folds(dev):
         rgba, t0, t1 = chunks[0]
         rgba, t0, t1 = (x[:c] if c <= CHUNK else torch.cat([x, x])[:c]
                         for x in (rgba, t0, t1))
-        t0, t1 = t0.contiguous(), t1.contiguous()
+        rgba, t0, t1 = rgba.contiguous(), t0.contiguous(), t1.contiguous()
         base = base16 if k == K else seeded[(side, 4)][2]
-        st = lambda: ((base[0].clone(), base[1].clone()), base[2].clone())
         b7 = cm.fold_chunk(clone(base), rgba, t0, t1, thr, max_k=k)
         closes = float((b7[2][11] - base[2][11]).sum())
-        b, by = event_bound(rgba, closes)
-        b7_ms = median_ms(lambda s: cm.fold_chunk(s, rgba, t0, t1, thr,
-                                                  max_k=k), 20,
-                          lambda: clone(base))
-        for name, fold, plain, which in (
-                ("events_fold_chunk", fm.events_fold_chunk,
-                 fm.events_fold_chunk_plain, 1),
-                ("scratch_fold_chunk", fm.scratch_fold_chunk,
-                 fm.scratch_fold_chunk_plain, 2)):
-            ms = median_ms(lambda s: fold(*s, rgba, t0, t1, thr, max_k=k),
-                           20, st)
-            first = (c, k) == EVENT_TIMED[0]
-            pms = median_ms(lambda s: plain(*s, rgba, t0, t1, thr, max_k=k),
-                            3, st) if first else None
-            regs, local, most = kernels.query("fold_chunk_attributes",
-                                              which, c, k, nout=3)
-            threads = fm.scratch_threads(c) if which == 2 else 256
-            log(f"{name}_C{c}_K{k}.ms", f"{ms:.4f} fold_chunk_ms="
-                f"{b7_ms:.4f} plain_ms={pms if pms is None else round(pms, 4)}"
-                f" bound_ms={b:.4f} ({by}) closes_per_pixel="
-                f"{closes / rgba[0, 0].numel():.3f} registers={regs} "
-                f"local_bytes={local} threads={threads} "
-                f"max_threads={most}")
-            if first:
-                res[name] = dict(err=err, ms=ms, plain_ms=pms, bound_ms=b,
-                                 bound_by=by, fold_chunk_ms=b7_ms)
-    regs, local, _ = kernels.query("fold_chunk_attributes", 0, CHUNK, K,
-                                   nout=3)
-    log("fold_chunk.attributes", f"registers={regs} local_bytes={local}")
+        del b7
+        b, by, nbytes = event_bound(rgba, closes)
+        first = (c, k) == EVENT_TIMED[0]
+        folds = event_folds(k, thr, rgba, t0, t1, designs if first else
+                            {"": designs[""]})
+        for name, plain in (("fold_chunk", None),
+                            ("events_fold_chunk", fm.events_fold_chunk_plain),
+                            ("scratch_fold_chunk",
+                             fm.scratch_fold_chunk_plain)):
+            fold = folds[name]
+            ms = fresh_ms(fold, base)
+            one = median_ms(fold, 20, lambda: clone(base))
+            pms = None
+            if first and plain is not None:
+                pms = median_ms(lambda s: plain((s[0], s[1]), s[2], rgba, t0,
+                                                t1, thr, max_k=k), 3,
+                                lambda: clone(base))
+            log(f"{name}_C{c}_K{k}.ms", f"{ms:.4f} plain_ms="
+                f"{pms if pms is None else round(pms, 4)} bound_ms={b:.4f} "
+                f"({by}) one_launch_ms={one:.4f} (the host's wrapper time "
+                f"included) closes_per_pixel="
+                f"{closes / rgba[0, 0].numel():.3f}; stream kept full on "
+                f"states cloned before the window")
+            if not first:
+                continue
+            compare_ms = {}
+            for design in designs:
+                if design and name != "fold_chunk":
+                    other = folds[f"{name}_{design}"]
+                    turns = [fresh_ms(f, base)
+                             for f in (fold, other, other, fold)]
+                    log(f"{name}_C{c}_K{k}.vs_{design}",
+                        in_turns(turns, nbytes, "new"))
+                    compare_ms[design] = (turns[1] + turns[2]) / 2
+            res[name] = dict(err=err, ms=ms, plain_ms=pms, bound_ms=b,
+                             bound_by=by, one_launch_ms=one,
+                             compare_ms=compare_ms)
+    log("events.bit_for_bit_with_b7", bitwise)
+    del seeded, chunks
+    torch.cuda.empty_cache()
+    for name, r in event_march(dev, designs).items():
+        res[name]["compare_ms"].update(r.pop("compare_ms"))
+        res[name].update(r, err=max(res[name]["err"], r["err"]))
+    return res
+
+
+def event_march(dev, designs):
+    """B7, B8 and B9 over the microbenchmark's own stream: S = MARCH_S
+    slices on its image (640 x 640), generated once (``stream_chunk``,
+    S / C chunks of C = 16), K = 16, threshold 0.35. B8 and B9 against
+    their plain versions and B7 over the march (`check_event_case`); the
+    closes a pixel a chunk; each kernel's S / C launches back to back from
+    the initial state behind `lead`, the median of 5; each
+    ``--events-compare`` design in turns. The bound counts the bytes the
+    march needs from HBM: every chunk's rgba, t0 and t1 read once, the
+    threshold and the 12-float state read once, the state written once,
+    and a 6-float row a close."""
+    import torch
+
+    from scenery_insitu_tpu_torch.benchmarks import fold_microbench as fm
+    from scenery_insitu_tpu_torch.ops import cuda_march as cm
+
+    side = fm.image_side(MARCH_S)
+    hw = side * side
+    chunks = [fm.stream_chunk(ci, CHUNK, side, side, dev)
+              for ci in range(MARCH_S // CHUNK)]
+    thr = torch.full((side, side), fm.THRESHOLD, device=dev)
+    err, _ = check_event_case("micro_march", chunks, thr, K,
+                              designs=designs)
+    st = cm.init_packed(K, side, side, device=dev)
+    for rgba, t0, t1 in chunks:
+        cm.fold_chunk(st, rgba, t0, t1, thr, max_k=K)
+    closes = float(st[2][11].sum())
+    del st
+    nbytes = 4 * (MARCH_S * 6 * hw + hw + 2 * 12 * hw + 6 * closes)
+    b, by = bound_ms(nbytes,
+                     (MACHINE_FLOPS_PER_PIXEL_SLICE - 3) * MARCH_S * hw)
+    log("events_march.closes", f"{closes / hw:.4f} a pixel, "
+        f"{closes / hw / len(chunks):.4f} a pixel a chunk")
+    log("events_march.bound_ms", f"{b:.4f} ({by}; {nbytes / hw:.1f} B a "
+        f"pixel over {len(chunks)} chunks of {CHUNK} on {side}x{side})")
+
+    def setup():
+        s = cm.init_packed(K, side, side, device=dev)
+        torch.cuda.synchronize()
+        lead()
+        return s
+
+    def run(name):
+        def march(s):
+            for rgba, t0, t1 in chunks:
+                event_folds(K, thr, rgba, t0, t1, designs)[name](s)
+        return march
+
+    res = {}
+    for name in ("fold_chunk", *EVENT_KERNELS.values()):
+        ms = median_ms(run(name), 5, setup)
+        log(f"{name}_march.ms", f"{ms:.4f} bound_ms={b:.4f} "
+            f"launches={len(chunks)}; the stream kept full, a fresh state "
+            f"each time; achieved_gb_s={nbytes / ms / 1e6:.1f}")
+        compare_ms = {}
+        for design in designs:
+            if design and name != "fold_chunk":
+                turns = [median_ms(run(n), 5, setup) for n in
+                         (name, f"{name}_{design}", f"{name}_{design}",
+                          name)]
+                log(f"{name}_march.vs_{design}", in_turns(turns, nbytes,
+                                                          "new"))
+                compare_ms[f"{design}_march"] = (turns[1] + turns[2]) / 2
+        res[name] = dict(march_ms=ms, march_bound_ms=b, err=err,
+                         compare_ms=compare_ms)
     return res
 
 
@@ -2453,6 +2599,11 @@ def main(argv=None) -> int:
                     help="another design of csrc/count_multi.cu (the same "
                          "C entries) to check and time in turns with K2 in "
                          "phase 2; repeatable")
+    ap.add_argument("--events-compare", action="append", default=[],
+                    metavar="NAME=PATH",
+                    help="another design of csrc/fold_chunk.cu (the same C "
+                         "entries) whose B8 and B9 to check and time in "
+                         "turns with this tree's in phase 6; repeatable")
     args = ap.parse_args(argv)
 
     import torch
@@ -2484,6 +2635,7 @@ def main(argv=None) -> int:
     fused_compare = compare_fused(args.fused_compare)
     k4_compare = compare_resegments(args.k4_compare)
     k2_compare = compare_counts(args.k2_compare)
+    designs = event_designs(args.events_compare)
     g = gs_init(dev)
     cap = capture_chunks(dev, g.u, g.v, (0.0, 0.6, 3.0))
     stencil = check_stencil(dev)
@@ -2519,7 +2671,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     run_bench_twin(dev)
     phase_done("phase5")
-    events = check_event_folds(dev)
+    events = check_event_folds(dev, designs)
     torch.cuda.empty_cache()
     phase_done("phase6.gates")
     t6 = time.perf_counter()
@@ -2599,6 +2751,13 @@ def main(argv=None) -> int:
             max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=None))
+        if name == "fold_chunk":
+            # B7: stream kept full on the seeded chunk (the one launch
+            # beside it), and its S / C launches over phase 6's march
+            table[-1].update(one_launch_ms=r["one_launch_ms"],
+                             march_ms=events["fold_chunk"]["march_ms"],
+                             march_bound_ms=events["fold_chunk"][
+                                 "march_bound_ms"])
         if name in ("fused_fold_chunk", "fused_stream_fold"):
             # B5: its 32 launches over a frame's feed; B6: its one launch
             # a march. compare_ms: each --fused-compare design's times in
@@ -2619,11 +2778,13 @@ def main(argv=None) -> int:
         max_abs_err=ranges[4]["err"], ms=ranges[4]["ms"],
         plain_ms=ranges[4]["plain_ms"], bound_ms=ranges[4]["bound_ms"],
         bound_by=ranges[4]["bound_by"], library_ms=None))
-    # the microbenchmark's deferred-event folds: launches from its sweep
+    # the microbenchmark's deferred-event folds: launches from its sweep;
+    # ms at (C, K) = (16, 16) with the stream kept full, march_ms over
+    # phase 6's march; compare_ms: each --events-compare design in turns
     for name, site in (("events_fold_chunk", "benchmarks/fold_microbench.py"
-                        ":237"),
+                        ":253"),
                        ("scratch_fold_chunk", "benchmarks/fold_microbench.py"
-                        ":346")):
+                        ":362")):
         r = events[name]
         table.append(dict(
             name=name, route="cuda",
@@ -2631,7 +2792,9 @@ def main(argv=None) -> int:
             replaces=site, launches=micro_launches[name],
             max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-            library_ms=None))
+            library_ms=None, one_launch_ms=r["one_launch_ms"],
+            march_ms=r["march_ms"], march_bound_ms=r["march_bound_ms"],
+            compare_ms=r["compare_ms"]))
     log("library_ms", "null for every kernel: no single PyTorch call "
         "computes the fused Gray-Scott steps, the segmented write fold, "
         "the multi-threshold count, the sort-and-resegment of a "

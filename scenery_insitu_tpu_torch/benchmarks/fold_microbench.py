@@ -16,10 +16,11 @@ C slices a chunk. Variants, each with the counterpart it runs here:
   pallas_seg    K1's planes form (B1b, ``cuda_seg.fold_chunk_packed``)
   pallas_seg_c  K1's compact form (t = sk * length in the kernel)
   pallas        B7 (``cuda_march.fold_chunk``)
-  events        B8: the two-phase machine, close events in registers,
-                phase 2 unrolled over K x C (`events_fold_chunk`)
-  scratch       B9: the same, close events in shared memory, phase 2
-                rolled over K (`scratch_fold_chunk`)
+  events        B8: the two-phase machine, a chunk's close events in
+                registers, phase 2 over the closed slots only
+                (`events_fold_chunk`)
+  scratch       B9: the same, the close events in shared memory
+                (`scratch_fold_chunk`)
   count         K2 with one candidate threshold (no K-slot writes)
   none          stream generation only (the harness floor)
   fused         B5: shade and fold the raw value chunks in one kernel
@@ -82,10 +83,15 @@ THRESHOLD = 0.35
 # with chunk skipping feeds
 EVENT_PAIRS = tuple((c, k) for c in (1, 8, 16, 32) for k in (4, 8, 16))
 SCRATCH_CHUNKS = (1, 8, 16, 32)
-EVENT_FLOATS = 7                 # slot, rgba, start, end
+# the reference's scratch entry a slice (slot, rgba, start, end); the
+# kernels hold 6 floats a close, the slot implicit
+EVENT_FLOATS = 7
 # shared memory a block may opt in to on Hopper (sm_90: 227 KB)
 SMEM_OPTIN_BYTES = 232448
 MAX_THREADS = 256
+# B9's block: more blocks an SM than the largest that fits (a block of 64
+# or 256 is slower on an H100)
+SCRATCH_BLOCK = 128
 # the reference's strip height; the CUDA kernels have none
 TILE_H = 8
 
@@ -188,6 +194,28 @@ def scratch_threads(c: int) -> int:
     return threads
 
 
+def scratch_block(c: int) -> int:
+    """The block B9 runs for chunks of ``c`` slices: at most
+    `SCRATCH_BLOCK` threads, and no more than `scratch_threads` allows.
+    Its scratch, 24 min(C, K - 1) bytes a thread, is at most the 28 C
+    that `scratch_threads` fits in a block."""
+    return min(SCRATCH_BLOCK, scratch_threads(c))
+
+
+def attributes(variant: str, c: int, k: int) -> dict:
+    """The launch of B7 (``pallas``), B8 (``events``) or B9 (``scratch``)
+    for chunks of ``c`` slices into ``k`` slots, on the current card:
+    registers and local-memory bytes a thread, shared bytes a block,
+    resident blocks an SM, threads a block and the close events a thread
+    holds. Needs a card: it loads the kernel library."""
+    which = {"pallas": 0, "events": 1, "scratch": 2}[variant]
+    out = kernels.query("fold_chunk_occupancy", which, c, k,
+                        scratch_block(c), nout=6)
+    keys = ("registers", "local_bytes", "shared_bytes", "blocks_per_sm",
+            "threads", "events")
+    return dict(zip(keys, out))
+
+
 def _check_chunk(big, small, rgba, t0, t1, threshold, max_k, tile_h):
     """The operands as the kernels take them; raises on anything else.
     Returns the threshold as a contiguous f32[H, W]."""
@@ -248,15 +276,14 @@ def scratch_fold_chunk(big, small, rgba: torch.Tensor, t0: torch.Tensor,
                        t1: torch.Tensor, threshold, *, max_k: int,
                        tile_h: int = TILE_H):
     """B9: as `events_fold_chunk`, with the close events kept in shared
-    memory and the slots folded by a loop over K. C must be one of
-    `SCRATCH_CHUNKS`; any K."""
+    memory. C must be one of `SCRATCH_CHUNKS`; any K."""
     threshold = _check_chunk(big, small, rgba, t0, t1, threshold, max_k,
                              tile_h)
     c = rgba.shape[0]
     if c not in SCRATCH_CHUNKS:
         raise ValueError(f"scratch_fold_chunk is built for C in "
                          f"{SCRATCH_CHUNKS}, got {c}")
-    threads = scratch_threads(c)
+    threads = scratch_block(c)
     if small.device.type == "cpu":
         return scratch_fold_chunk_plain(big, small, rgba, t0, t1, threshold,
                                         max_k=max_k)

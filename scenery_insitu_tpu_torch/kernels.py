@@ -78,6 +78,10 @@ QUERIES = {
     # which (0 B7, 1 B8, 2 B9), C, K, out int[3]: registers, local-memory
     # bytes, the largest block
     "fold_chunk_attributes": ("fold_chunk", [_I] * 3 + [_P]),
+    # which (0 B7, 1 B8, 2 B9), C, K, B9's threads a block, out int[6]:
+    # registers, local-memory bytes, shared bytes a block, resident blocks
+    # an SM, threads a block, close events a thread holds
+    "fold_chunk_occupancy": ("fold_chunk", [_I] * 4 + [_P]),
     # T, ranges (0 K3, 1 B4b), out int[8]: registers, local-memory bytes,
     # shared bytes a block, resident blocks an SM, threads a block, the
     # core's x and y extent, the z segment's planes

@@ -24,7 +24,10 @@ C = 1, 7 and 33 generic; saturated counts, empty chunks,
 threshold 0 and +inf); B7 counts exact, colour and depth within
 1e-6 (it repeats the machine's arithmetic); B8 and B9 (the reference
 microbenchmark's deferred-event folds) slot counters exact, colour and
-depth within 1e-6 of their plain versions and of B7; B5 and B6 start
+depth within 1e-6 of their plain versions and of B7, and equal to B7
+bit for bit on their design cases (every slice closing, a chunk entering
+at the slot cap, an empty chunk after a live one, a segment open across
+chunks, ragged images, C = 1 to 32); B5 and B6 start
 counts exact, colour and depth within 1e-6, B6 equal to B5 chunk after
 chunk bit for bit (every build: C = 16 and C = 1 fixed, C = 5 and 33
 generic; values on the knots, dead chunks, saturated counts, threshold
@@ -504,6 +507,129 @@ def test_event_folds_match_plain_and_b7(dev, c, k, n, hw):
         assert torch.equal(small[11], b7[2][11])
         for a, b in zip((*big, small), b7):
             assert _err(a, b) <= 1e-6
+
+
+def _event_chunks(case, c, k, hw, dev):
+    """(chunks [(rgba, t0, t1)], threshold) of one design case of B8 and
+    B9 (see `test_event_fold_design_cases`)."""
+    h, w = hw
+    f32 = torch.float32
+
+    def depths(i, n=c):
+        t0 = (0.1 * (i * n + 1 + torch.arange(n, device=dev, dtype=f32))
+              )[:, None, None].expand(n, h, w).contiguous()
+        return t0, (t0 + 0.1).contiguous()
+
+    def alternating(i):
+        # red and green by the slice's index in the march, alpha 0.5
+        s = i * c + torch.arange(c, device=dev)
+        rgba = torch.zeros((c, 4, h, w), device=dev)
+        rgba[:, 0] = 0.5 * (s % 2 == 0).to(f32)[:, None, None]
+        rgba[:, 1] = 0.5 * (s % 2 == 1).to(f32)[:, None, None]
+        rgba[:, 3] = 0.5
+        return rgba
+
+    def flat(i, color, a=0.3):
+        rgba = torch.zeros((c, 4, h, w), device=dev)
+        for j, x in enumerate(color):
+            rgba[:, j] = a * x
+        rgba[:, 3] = a
+        return rgba
+
+    if case == "all_close":
+        return [(alternating(i), *depths(i)) for i in range(3)], \
+            torch.zeros(hw, device=dev)
+    if case == "enter_at_cap":
+        n = -(-(k + 1) // c) + 1
+        return [(alternating(i), *depths(i)) for i in range(n)] + \
+            [(_stream(c, h, w, dev, 90), *depths(n))], \
+            torch.zeros(hw, device=dev)
+    if case == "empty_after_live":
+        return [(_stream(c, h, w, dev, 91), *depths(0)),
+                (torch.zeros((c, 4, h, w), device=dev), *depths(1)),
+                (_stream(c, h, w, dev, 92), *depths(2))], \
+            torch.full(hw, 0.2, device=dev)
+    if case == "open_across":
+        # one colour for three chunks, then a second colour from the last
+        # chunk's second half: the first close ends a segment that opened
+        # two chunks earlier
+        last = flat(3, (1.0, 0.2, 0.1))
+        last[c // 2:] = flat(3, (0.1, 0.2, 1.0))[c // 2:]
+        return [(flat(i, (1.0, 0.2, 0.1)), *depths(i)) for i in range(3)] + \
+            [(last, *depths(3))], torch.full(hw, 0.2, device=dev)
+    g = torch.Generator(device=dev).manual_seed(6)
+    return [(_stream(c, h, w, dev, 93 + i), *depths(i)) for i in range(3)], \
+        0.05 + 0.5 * torch.rand(hw, generator=g, device=dev)
+
+
+@pytest.mark.parametrize("k", [16, 4])
+@pytest.mark.parametrize("c", [1, 8, 16, 32])
+@pytest.mark.parametrize("case", ["all_close", "enter_at_cap",
+                                  "empty_after_live", "open_across",
+                                  "seeded_ragged"])
+def test_event_fold_design_cases(dev, case, c, k):
+    """B8 and B9 equal B7 bit for bit and their plain versions within
+    1e-6, slot counters exactly, chunk after chunk: every slice closing
+    (threshold 0, colours alternating, so a chunk closes min(C, K - 1 -
+    k) slots), a chunk entering at k = K - 1, an all-empty chunk after a
+    live one, a segment open across chunks, and a seeded stream on a
+    ragged image (every image here is ragged: H x W is no multiple of
+    the blocks)."""
+    from scenery_insitu_tpu_torch.benchmarks import fold_microbench as fm
+
+    hw = (37, 90) if case == "seeded_ragged" else (5, 37)
+    h, w = hw
+    chunks, thr = _event_chunks(case, c, k, hw, dev)
+    b7 = cm.init_packed(k, h, w, device=dev)
+    states = {f: fm.events_init(k, h, w, device=dev)
+              for f in (fm.events_fold_chunk, fm.events_fold_chunk_plain,
+                        fm.scratch_fold_chunk, fm.scratch_fold_chunk_plain)}
+    kernels_ = (fm.events_fold_chunk, fm.scratch_fold_chunk)
+    for i, (rgba, t0, t1) in enumerate(chunks):
+        k_in, open_in = b7[2][11].clone(), b7[2][9] > 0.5
+        cm.fold_chunk(b7, rgba, t0, t1, thr, max_k=k)
+        for fold, (big, small) in states.items():
+            fold(big, small, rgba, t0, t1, thr, max_k=k)
+        torch.cuda.synchronize()
+        closed = b7[2][11] - k_in
+        if case == "all_close":
+            want = torch.clamp(k - 1 - k_in, max=c - (i == 0))
+            assert torch.equal(closed, want)
+        if case == "enter_at_cap" and i == len(chunks) - 1:
+            assert bool((k_in == k - 1).all()) and not bool(closed.any())
+        if case == "empty_after_live" and i == 1:
+            # the first empty slice closes an open segment below the cap
+            assert torch.equal(closed, (open_in & (k_in < k - 1)).to(
+                closed.dtype))
+        if case == "open_across":
+            assert int(closed.max()) == (1 if i == 3 else 0)
+        for fold, (big, small) in states.items():
+            assert torch.equal(small[11], b7[2][11]), (fold.__name__, i)
+            for a, b in zip((*big, small), b7):
+                if fold in kernels_:
+                    assert torch.equal(a, b), (fold.__name__, i)
+                else:
+                    assert _err(a, b) <= 1e-6
+
+
+def test_event_fold_occupancy(dev):
+    """The occupancy query of every build: B8's events stay in registers
+    (0 local bytes) up to C = 16, each build fits a block an SM, and B9's
+    shared memory is 24 min(C, K - 1) bytes a thread of its
+    `scratch_block`."""
+    from scenery_insitu_tpu_torch.benchmarks import fold_microbench as fm
+
+    for c, k in fm.EVENT_PAIRS:
+        for variant in ("pallas", "events", "scratch"):
+            a = fm.attributes(variant, c, k)
+            assert a["registers"] > 0 and a["blocks_per_sm"] >= 1, a
+            held = 0 if variant == "pallas" else min(c, k - 1)
+            assert a["events"] == held, (variant, c, k, a)
+            if variant == "events" and c <= 16:
+                assert a["local_bytes"] == 0, (c, k, a)
+            if variant == "scratch":
+                assert a["threads"] == fm.scratch_block(c)
+                assert a["shared_bytes"] == 24 * held * a["threads"], a
 
 
 def test_event_fold_kernel_attributes(dev):

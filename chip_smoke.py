@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's in-situ frames on one CUDA card: the
-single-chip frame, the distributed sort-last frame and the fold
-microbenchmark.
+single-chip frame, the distributed sort-last frame, the fold
+microbenchmark and the in-situ session.
 
     python3 chip_smoke.py               # the whole run (needs one card)
     python3 chip_smoke.py --profile     # + device time by kernel
@@ -140,7 +140,28 @@ and prints no result):
    JSON rows logged, the launch counts set to 0 before it and read after
    it (B8 and B9 each S/C launches a march; B1b, which the
    ``pallas_seg`` and ``tf_pallas_seg`` variants run, must launch: the
-   kernel table's B1b count is this sweep's).
+   kernel table's B1b count is this sweep's);
+7. the in-situ session (``runtime/session.InSituSession``) on phase 3's
+   configuration, built through ``FrameworkConfig`` overrides on one
+   rank with ``orbit_rate`` 0.05: (a) one warm frame and 8 timed frames
+   with ``png_sink``, ``vdi_sink`` and ``checkpoint_sink`` every 4
+   frames into a temporary directory, the launch counts set to 0 before
+   the loop and read after it (K3, K2 and K1 must launch), the
+   session's ms a frame on the host clock and its timers' sim,
+   dispatch, fetch, sinks and frame stats over the timed frames, then 8
+   more frames without sinks, beside phase 3's ms a frame; (b) the
+   session's first 2 frames equal bit for bit to
+   ``distributed_vdi_step_mxu_temporal`` and its seed driven by hand
+   from the same state and camera; (c) a session checkpointed after 4
+   frames (``save_session``) and resumed in a fresh session gives
+   frames 4 to 7 of the uninterrupted run bit for bit, and so does the
+   sink's checkpoint after frame 5 for frames 6 to 8; (d)
+   ``pipeline_depth`` 2 gives frames 0 to 3 of depth 1 bit for bit; (e)
+   the ``.npz`` VDI the sink dumped at frame 4 loads back with
+   ``load_vdi`` equal to that frame's payload; (f) a 4-rank 32^3
+   session on the card against the same session with ``device="cpu"``
+   (3 frames, ``fold="pallas_seg"`` on both; largest and mean image
+   difference at most 1e-4), K4 launched once per rank and frame.
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -222,6 +243,14 @@ EVENT_KERNELS = {"events": "events_fold_chunk",
 # pairs at the largest side, the first the microbenchmark's
 EVENT_SEEDED = ((320, K, 1), (640, K, 1), (640, 4, 3))
 EVENT_TIMED = ((16, 16), (8, 16), (32, 16), (16, 4))
+# the session phase (7): warm and timed frames, the sinks' period and the
+# camera's orbit a frame (8 frames stay within the z march regime)
+SESSION_WARM = 1
+SESSION_TIMED = 8
+SESSION_EVERY = 4
+SESSION_ORBIT = 0.05
+# each timed path's median ms a frame (CUDA events, host clock), by prefix
+FRAME_MS = {}
 
 
 def log(key, value):
@@ -1413,6 +1442,7 @@ def run_frame(dev, profile=False, fold="auto", prefix="frame",
                      f"the single-chip frame (fold {step.spec.fold})")
     ev.sort()
     wall.sort()
+    FRAME_MS[prefix] = (ev[len(ev) // 2], wall[len(wall) // 2])
     log(f"{prefix}.ms_per_frame", f"{ev[len(ev) // 2]:.3f} (median of "
         f"{TIMED_FRAMES}, CUDA events; host clock {wall[len(wall) // 2]:.3f})")
 
@@ -2572,6 +2602,286 @@ def run_microbench(dev):
 
 # ---------------------------------------------------------------- main
 
+# ------------------------------------------------------------- phase 7
+
+
+def session_config(grid, ranks=0, depth=1, fold="auto"):
+    """Phase 3's frame as a session configuration."""
+    from scenery_insitu_tpu_torch.config import FrameworkConfig
+
+    return FrameworkConfig().with_overrides(
+        f"sim.grid=[{grid},{grid},{grid}]",
+        f"sim.steps_per_frame={SIM_STEPS}", "sim.fused_stencil=true",
+        f"vdi.max_supersegments={K}", "vdi.adaptive_iters=2",
+        "vdi.adaptive_mode=temporal", f"vdi.histogram_bins={BINS}",
+        f"composite.max_output_supersegments={K}",
+        "composite.adaptive_iters=2", "slicer.engine=mxu",
+        f"slicer.chunk={CHUNK}", "slicer.scale=1.25", f"slicer.fold={fold}",
+        f"mesh.num_devices={ranks}", f"runtime.pipeline_depth={depth}",
+        "runtime.dataset=gray_scott")
+
+
+def session(dev, cfg, sinks=()):
+    """A session on ``cfg`` with phase 3's camera, orbiting."""
+    from scenery_insitu_tpu_torch.core.camera import Camera
+    from scenery_insitu_tpu_torch.runtime.session import InSituSession
+
+    cam = Camera.create(BASE_EYE, fov_y_deg=50.0, near=0.5, far=20.0,
+                        device=dev)
+    sess = InSituSession(cfg, camera=cam, sinks=sinks, device=dev)
+    sess.orbit_rate = SESSION_ORBIT
+    return sess
+
+
+def capture_into(frames):
+    def sink(index, payload):
+        frames[index] = payload
+    return sink
+
+
+def check_frames_equal(name, got, want):
+    """Payloads bit for bit (+inf slots included), frame by frame."""
+    import numpy as np
+
+    for i in sorted(want):
+        for key in ("vdi_color", "vdi_depth"):
+            if not np.array_equal(got[i][key], want[i][key]):
+                n = int((got[i][key] != want[i][key]).sum())
+                raise AssertionError(f"{name}: frame {i} {key} differs "
+                                     f"at {n} values")
+    log(f"{name}.bit_exact", f"frames {sorted(want)}")
+
+
+def timed_sink(totals, name, sink):
+    """``sink`` with its seconds added to ``totals[name]``."""
+    def timed(index, payload):
+        t0 = time.perf_counter()
+        sink(index, payload)
+        totals[name] += time.perf_counter() - t0
+    return timed
+
+
+def phase_stats(timers):
+    return {k: (st.n, st.total) for k, st in timers.stats.items()}
+
+
+def log_phase_stats(prefix, timers, before):
+    """Mean ms of each timer phase over the frames since ``before``."""
+    after = phase_stats(timers)
+    for name in ("sim", "dispatch", "fetch", "sinks"):
+        n1, t1 = after.get(name, (0, 0.0))
+        n0, t0 = before.get(name, (0, 0.0))
+        if n1 > n0:
+            log(f"{prefix}.{name}_ms", f"{(t1 - t0) / (n1 - n0) * 1e3:.3f} "
+                f"(mean of {n1 - n0})")
+
+
+def timed_run(sess, frames):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last = sess.run(frames)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / frames, last
+
+
+def run_session(dev):
+    """Phase 7 (a)-(e) at the flagship size; returns the launch counts of
+    the loop's run."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from scenery_insitu_tpu_torch import kernels
+    from scenery_insitu_tpu_torch.core.camera import orbit
+    from scenery_insitu_tpu_torch.core.transfer import for_dataset
+    from scenery_insitu_tpu_torch.core.vdi import VDI
+    from scenery_insitu_tpu_torch.io.vdi_io import dump_path, load_vdi
+    from scenery_insitu_tpu_torch.ops import slicer
+    from scenery_insitu_tpu_torch.parallel import pipeline as dp
+    from scenery_insitu_tpu_torch.parallel.mesh import make_mesh, shard_volume
+    from scenery_insitu_tpu_torch.runtime.checkpoint import (
+        checkpoint_sink, load_session, save_session)
+    from scenery_insitu_tpu_torch.runtime.session import png_sink, vdi_sink
+    from scenery_insitu_tpu_torch.sim import grayscott as gs
+
+    out = tempfile.mkdtemp(prefix="chip_smoke_session_")
+    try:
+        # (a) the loop with its sinks, each sink's time kept apart
+        cfg = session_config(GRID)
+        frames, sink_s = {}, collections.Counter()
+        sess = session(dev, cfg)
+        sess.sinks += [
+            timed_sink(sink_s, "png", png_sink(out, every=SESSION_EVERY)),
+            timed_sink(sink_s, "vdi", vdi_sink(out, every=SESSION_EVERY,
+                                               workers=2)),
+            timed_sink(sink_s, "checkpoint", checkpoint_sink(
+                out, every=SESSION_EVERY).bind(sess)),
+            capture_into(frames)]
+        st0 = sess.sim.state
+        u0, v0, cam0 = st0.u.clone(), st0.v.clone(), sess.camera
+        log("session.config", f"grid={GRID}^3 ranks={sess._n_ranks} "
+            f"spec={slicer.make_spec(cam0, (GRID,) * 3, cfg.slicer)} "
+            f"orbit={SESSION_ORBIT} depth={cfg.runtime.pipeline_depth}")
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sess.run(SESSION_WARM)
+        torch.cuda.synchronize()
+        log("session.warm_s", f"{time.perf_counter() - t0:.3f}")
+        before = phase_stats(sess.timers)
+        sink_s.clear()
+        ms, _ = timed_run(sess, SESSION_TIMED)
+        launches = kernels.launches()
+        log("session.launches", json.dumps(launches))
+        require_launched(launches, FRAME_KERNELS, "the session loop")
+        p3_ev, p3_wall = FRAME_MS["frame"]
+        log("session.ms_per_frame", f"{ms:.3f} (host clock, mean of "
+            f"{SESSION_TIMED} frames with png, vdi and checkpoint sinks "
+            f"every {SESSION_EVERY}; phase 3's frame: {p3_wall:.3f} host "
+            f"clock, {p3_ev:.3f} CUDA events)")
+        log_phase_stats("session", sess.timers, before)
+        for name, sec in sorted(sink_s.items()):
+            n = SESSION_TIMED // SESSION_EVERY
+            log(f"session.sink_{name}_ms", f"{sec * 1e3 / n:.3f} (mean "
+                f"of the {n} timed frames it wrote)")
+        nj, ni = frames[0]["vdi_color"].shape[-2:]
+        check_vdi("session", VDI(
+            torch.from_numpy(frames[SESSION_TIMED]["vdi_color"]),
+            torch.from_numpy(frames[SESSION_TIMED]["vdi_depth"])),
+            (K, 4, nj, ni), (K, 2, nj, ni))
+        del sess
+
+        # the same frames without sinks: only each run's last is fetched
+        sess = session(dev, cfg)
+        sess.run(SESSION_WARM)
+        before = phase_stats(sess.timers)
+        ms, last = timed_run(sess, SESSION_TIMED)
+        log("session_nosinks.ms_per_frame", f"{ms:.3f} (host clock, mean "
+            f"of {SESSION_TIMED} frames after a warm one, no sinks: the "
+            f"last frame alone is copied to the host)")
+        log_phase_stats("session_nosinks", sess.timers, before)
+        check_frames_equal("session_nosinks", {last["frame"]: last},
+                           {SESSION_TIMED: frames[SESSION_TIMED]})
+        del sess, last
+
+        # (b) the same two frames driven by hand
+        mesh = make_mesh(1, device=dev)
+        spec = slicer.make_spec(cam0, (GRID,) * 3, cfg.slicer,
+                                axis_sign=slicer.choose_axis(cam0),
+                                multiple_of=1)
+        tf = for_dataset("gray_scott", device=dev)
+        seed = dp.distributed_initial_threshold_mxu(mesh, tf, spec, cfg.vdi)
+        step = dp.distributed_vdi_step_mxu_temporal(mesh, tf, spec, cfg.vdi,
+                                                    cfg.composite)
+        vox = 2.0 / GRID
+        origin = torch.full((3,), -GRID * vox / 2, dtype=torch.float32,
+                            device=dev)
+        spacing = torch.full((3,), vox, dtype=torch.float32, device=dev)
+        st = gs.GrayScott(u0, v0, st0.params)
+        cam, thr, hand = cam0, None, {}
+        for i in range(2):
+            st = gs.multi_step_fast(st, SIM_STEPS)
+            field = shard_volume(st.field, mesh)
+            if thr is None:
+                thr = seed(field, origin, spacing, cam)
+            (vdi, _), thr = step(field, origin, spacing, cam, thr)
+            hand[i] = {"vdi_color": vdi.color.cpu().numpy(),
+                       "vdi_depth": vdi.depth.cpu().numpy()}
+            cam = orbit(cam, np.float32(SESSION_ORBIT))
+        del st, thr, vdi, field
+        check_frames_equal("session_vs_hand", {i: frames[i] for i in hand},
+                           hand)
+
+        # (d) depth 2 against depth 1, then (c) its checkpoint resumed
+        frames2 = {}
+        sess = session(dev, session_config(GRID, depth=2),
+                       [capture_into(frames2)])
+        sess.run(4)
+        check_frames_equal("session_depth2", frames2,
+                           {i: frames[i] for i in range(4)})
+        path = os.path.join(out, "after4.npz")
+        save_session(sess, path)
+        del sess
+        frames3 = {}
+        sess = session(dev, cfg, [capture_into(frames3)])
+        sess.orbit_rate = 0.0          # the checkpoint restores it
+        load_session(sess, path)
+        if sess.frame_index != 4 or sess.orbit_rate != SESSION_ORBIT:
+            raise AssertionError("session_resume: checkpoint header not "
+                                 "restored")
+        sess.run(4)
+        check_frames_equal("session_resume", frames3,
+                           {i: frames[i] for i in range(4, 8)})
+        del sess
+        ckpts = sorted(f for f in os.listdir(out) if f.startswith("ckpt_"))
+        log("session.checkpoints", ckpts)
+        frames4 = {}
+        sess = session(dev, cfg, [capture_into(frames4)])
+        load_session(sess, os.path.join(out, "ckpt_00006.npz"))
+        sess.run(SESSION_WARM + SESSION_TIMED - 6)
+        check_frames_equal("session_resume_sink", frames4,
+                           {i: frames[i] for i in range(6, 9)})
+        del sess
+
+        # (e) the dumped artifacts
+        dumped, _ = load_vdi(dump_path(out, "session", SESSION_EVERY,
+                                       "vdi"))
+        check_frames_equal("session_vdi_artifact", {SESSION_EVERY: {
+            "vdi_color": dumped.color, "vdi_depth": dumped.depth}},
+            {SESSION_EVERY: frames[SESSION_EVERY]})
+        pngs = sorted(f for f in os.listdir(out) if f.endswith(".png"))
+        for f in pngs:
+            with open(os.path.join(out, f), "rb") as fh:
+                if fh.read(8) != b"\x89PNG\r\n\x1a\n":
+                    raise AssertionError(f"{f} is not a PNG")
+        log("session.artifacts", f"{pngs} and "
+            f"{sorted(f for f in os.listdir(out) if '_vdi_' in f)}")
+        if len(pngs) != 3:
+            raise AssertionError(f"expected 3 PNGs, got {pngs}")
+        return launches
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+
+def check_small_session(dev):
+    """Phase 7 (f): a 4-rank 32^3 session on the card against the same
+    session on the CPU; K4 once per rank and frame."""
+    import torch
+
+    from scenery_insitu_tpu_torch import kernels
+    from scenery_insitu_tpu_torch.core.vdi import VDI, render_vdi_same_view
+
+    n, frames = 32, 3
+    imgs = {}
+    for name, d in (("cuda", dev), ("cpu", "cpu")):
+        got = {}
+        sess = session(d, session_config(n, ranks=SMALL_RANKS,
+                                         fold="pallas_seg"),
+                       [capture_into(got)])
+        kernels.reset_launches()
+        sess.run(frames)
+        if name == "cuda":
+            launches = kernels.launches()
+            log("small_session.launches", json.dumps(launches))
+            if launches["resegment_sorted"] != SMALL_RANKS * frames:
+                raise AssertionError(
+                    f"K4 launched {launches['resegment_sorted']} times in "
+                    f"{frames} frames of {SMALL_RANKS} ranks")
+        imgs[name] = torch.stack([render_vdi_same_view(VDI(
+            torch.from_numpy(got[i]["vdi_color"]),
+            torch.from_numpy(got[i]["vdi_depth"]))) for i in range(frames)])
+    diff = (imgs["cuda"] - imgs["cpu"]).abs()
+    log("small_session.image_max_abs_diff", f"{float(diff.max()):.3e}")
+    log("small_session.image_mean_abs_diff", f"{float(diff.mean()):.3e}")
+    if not (float(diff.max()) <= 1e-4 and float(diff.mean()) <= 1e-4):
+        raise AssertionError("the card's 4-rank session differs from the "
+                             "CPU's")
+    return launches
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2679,6 +2989,12 @@ def main(argv=None) -> int:
     log("phase6.wall_s", f"{time.perf_counter() - t6:.1f} (the sweep)")
     torch.cuda.empty_cache()
     phase_done("phase6")
+    t7 = time.perf_counter()
+    session_launches = run_session(dev)
+    torch.cuda.empty_cache()
+    small_session_launches = check_small_session(dev)
+    log("phase7.wall_s", f"{time.perf_counter() - t7:.1f} (the session)")
+    phase_done("phase7")
 
     table = [
         dict(name="grayscott_fused", route="cuda",
@@ -2795,6 +3111,14 @@ def main(argv=None) -> int:
             library_ms=None, one_launch_ms=r["one_launch_ms"],
             march_ms=r["march_ms"], march_bound_ms=r["march_bound_ms"],
             compare_ms=r["compare_ms"]))
+    # the session's runs (phase 7): K3, K2 and K1 in the flagship loop,
+    # K4 in the 4-rank session
+    for row in table:
+        name = row["name"]
+        if name in FRAME_KERNELS:
+            row["session_launches"] = session_launches[name]
+        elif name == "resegment_sorted":
+            row["session_launches"] = small_session_launches[name]
     log("library_ms", "null for every kernel: no single PyTorch call "
         "computes the fused Gray-Scott steps, the segmented write fold, "
         "the multi-threshold count, the sort-and-resegment of a "

@@ -42,7 +42,8 @@ import torch
 # knob -> (the value that is ported, what is not, its ROADMAP row)
 _UNPORTED = {
     "ENGINE": ("mxu", "the gather engine", "queue A9"),
-    "SCAN_FRAMES": ("0", "the one-launch frame loop", "queue A7"),
+    "SCAN_FRAMES": ("0", "the one-launch frame loop",
+                    "queue A3/A7: a CUDA graph after A3"),
     "AUTOTUNE": ("0", "the fold race at warm-up", "queue A7"),
     "PROFILE": ("0", "the phase attribution", "queue A12"),
     "EXCHANGE": ("all_to_all", "the ring exchange", "queue A8b, item 1"),

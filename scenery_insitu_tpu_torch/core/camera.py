@@ -87,6 +87,14 @@ def frustum(l, r, b, t, n, f) -> torch.Tensor:
     return torch.stack([row0, row1, row2, row3])
 
 
+def view_matrix(cam: Camera) -> torch.Tensor:
+    return look_at(cam.eye, cam.target, cam.up)
+
+
+def projection_matrix(cam: Camera, width: int, height: int) -> torch.Tensor:
+    return perspective(cam.fov_y, width / height, cam.near, cam.far)
+
+
 def orbit(cam: Camera, yaw, pitch=0.0) -> Camera:
     """Rotate the eye around the target."""
     dev = cam.eye.device

@@ -7,6 +7,7 @@ from __future__ import annotations
 
 from typing import NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 
@@ -54,3 +55,13 @@ def render_vdi_same_view(vdi: VDI, background: Tuple[float, ...] = (0, 0, 0, 0)
                       device=acc.device).reshape(4, 1, 1)
     return acc + (1.0 - acc[3:4]) * bg
 
+
+def vdi_nbytes(k: int, height: int, width: int) -> int:
+    """Uncompressed payload size (color + depth) in bytes."""
+    return k * height * width * (4 + 2) * 4
+
+
+def to_numpy(vdi: VDI) -> Tuple[np.ndarray, np.ndarray]:
+    """The VDI's color and depth as host numpy arrays."""
+    return (vdi.color.detach().cpu().numpy(),
+            vdi.depth.detach().cpu().numpy())

@@ -28,14 +28,15 @@ class Mesh(NamedTuple):
     axis_names: Tuple[str, ...] = (DEFAULT_AXIS,)
 
 
-def make_mesh(n: int = 1, device=None) -> Mesh:
-    """1-D mesh of ``n`` ranks over the compositing axis. Its ranks run
-    in-process on ``device`` (None means CUDA and raises without a
-    card); the default of one rank is the reference's default mesh on a
-    one-card host."""
+def make_mesh(n: int = 1, device=None,
+              axis_name: str = DEFAULT_AXIS) -> Mesh:
+    """1-D mesh of ``n`` ranks over the compositing axis ``axis_name``.
+    Its ranks run in-process on ``device`` (None means CUDA and raises
+    without a card); the default of one rank is the reference's default
+    mesh on a one-card host."""
     if n < 1:
         raise ValueError(f"a mesh holds at least one rank, got n={n}")
-    return Mesh(int(n), resolve_device(device))
+    return Mesh(int(n), resolve_device(device), (axis_name,))
 
 
 def shard_volume(data: torch.Tensor, mesh: Mesh) -> torch.Tensor:

@@ -1,0 +1,613 @@
+"""The in-situ session loop: per-frame orchestration of sim advance, VDI
+generation, device-to-host delivery and sinks.
+
+The port of the reference's ``runtime/session.py`` on the slice-march
+(``mxu``) VDI frame. Each frame advances the sim, dispatches the
+distributed step of the camera's march regime over the session's
+in-process rank mesh (``parallel/pipeline.py``; one rank is the
+single-card frame), and hands the composited VDI to the sinks. The loop
+keeps ``runtime.pipeline_depth`` frames in flight: a frame's VDI is
+copied into pinned host buffers on a side stream as soon as it is
+dispatched, and the frame retires (fetch, sinks, device tensors dropped)
+once ``pipeline_depth`` newer frames are in flight. Per-phase spans
+(sim, dispatch, fetch, sinks) feed the recorder's timers and the SLO
+engine.
+
+Runs standalone with the built-in Gray-Scott sim, or with a caller's sim
+adapter (anything with ``kind``, ``advance(n)`` and ``.field``).
+
+The reference's other session features are later slices of the port and
+raise ``NotImplementedError`` naming their ROADMAP row: frame blocks in
+one launch (``runtime.scan_frames > 1``, A3/A7), the plain image modes
+(A4), the gather engine (A9), the other sims (A10), render rebalancing,
+bricks and LOD (A8b, item 4), the two-level topology (A8b, item 5),
+K budgets and fragment reuse (A8b, item 6), steering (A11), and the
+telemetry collector, device profiles and cost snapshots (A12).
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from collections import deque
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
+
+import numpy as np
+import torch
+
+from scenery_insitu_tpu_torch import obs as _obs
+from scenery_insitu_tpu_torch.config import FrameworkConfig
+from scenery_insitu_tpu_torch.core.camera import (Camera, orbit,
+                                                  projection_matrix,
+                                                  view_matrix)
+from scenery_insitu_tpu_torch.core.transfer import (TransferFunction,
+                                                    for_dataset)
+from scenery_insitu_tpu_torch.core.vdi import VDI, VDIMetadata, to_numpy
+from scenery_insitu_tpu_torch.device import resolve_device
+from scenery_insitu_tpu_torch.ops import slicer as _slicer
+from scenery_insitu_tpu_torch.parallel.mesh import Mesh, make_mesh, \
+    shard_volume
+from scenery_insitu_tpu_torch.parallel.topology import resolve_mesh_topology
+from scenery_insitu_tpu_torch.runtime.failsafe import SinkGuard
+from scenery_insitu_tpu_torch.sim import grayscott as gs
+
+Sink = Callable[[int, dict], None]
+
+# the reference's other built-in sims
+_OTHER_SIMS = ("vortex", "lennard_jones", "sho", "hybrid")
+
+
+def _unported(what: str, row: str):
+    raise NotImplementedError(f"{what} is not ported yet (ROADMAP {row})")
+
+
+def check_ported(cfg: FrameworkConfig) -> None:
+    """Raise for a configuration the port's session cannot run yet,
+    naming the ROADMAP row that ports it."""
+    if cfg.runtime.scan_frames > 1:
+        _unported(f"runtime.scan_frames={cfg.runtime.scan_frames} (frame "
+                  "blocks in one launch)", "A3/A7: a CUDA graph after A3")
+    if not cfg.runtime.generate_vdis:
+        _unported("runtime.generate_vdis=false (the plain image modes)",
+                  "A4")
+    if cfg.slicer.engine == "gather":
+        _unported("slicer.engine='gather'", "A9")
+    if cfg.slicer.engine not in ("auto", "mxu"):
+        raise ValueError(f"unknown render engine {cfg.slicer.engine!r} "
+                         "(expected 'auto', 'mxu' or 'gather')")
+    if cfg.sim.kind in _OTHER_SIMS:
+        _unported(f"sim.kind={cfg.sim.kind!r}", "A10")
+    cc = cfg.composite
+    if cc.rebalance != "even":
+        _unported(f"composite.rebalance={cc.rebalance!r}", "A8b, item 4")
+    if cfg.lod.enabled:
+        _unported("lod.enabled (LOD brick marching)", "A8b, item 4")
+    if cfg.topology.num_hosts > 1:
+        _unported(f"topology.num_hosts={cfg.topology.num_hosts} (the "
+                  "two-level composite)", "A8b, item 5")
+    if cc.k_budget != "static":
+        _unported(f"composite.k_budget={cc.k_budget!r}", "A8b, item 6")
+    if cc.temporal_reuse != "off":
+        _unported(f"composite.temporal_reuse={cc.temporal_reuse!r}",
+                  "A8b, item 6")
+    if cfg.obs.collector:
+        _unported("obs.collector (the fleet telemetry side-channel)",
+                  "A12")
+
+
+def regime_camera(cam0: Camera, regime) -> Camera:
+    """Synthetic camera that resolves to ``regime`` under choose_axis:
+    eye on the regime's axis at the original distance with a small
+    off-axis bias. Raises on invalid regimes."""
+    a, s = regime
+    if a not in (0, 1, 2) or s not in (1, -1):
+        raise ValueError(f"invalid march regime {regime!r} "
+                         "(expected (axis in 0..2, sign ±1))")
+    eye = cam0.eye.detach().cpu().numpy().astype(np.float64)
+    tgt = cam0.target.detach().cpu().numpy().astype(np.float64)
+    dist = float(np.linalg.norm(eye - tgt)) or 2.5
+    off = np.full(3, 0.2 * dist)
+    off[a] = 0.0
+    new_eye = tgt.copy() - off
+    new_eye[a] = tgt[a] - s * dist
+    cam = cam0._replace(eye=torch.as_tensor(new_eye.astype(np.float32),
+                                            device=cam0.eye.device))
+    if _slicer.choose_axis(cam) != (a, s):
+        raise RuntimeError(
+            f"regime_camera drifted from choose_axis for {regime!r}")
+    return cam
+
+
+def drop_on_regime_reentry(sess, store: dict, key) -> None:
+    """When the camera enters another regime key than the previous
+    frame's, drop that key's carried threshold state so it re-seeds: a
+    map frozen while the camera was elsewhere is stale. The tracker is
+    restored verbatim by a checkpoint, so a resumed run makes the same
+    decisions."""
+    if key != getattr(sess, "_last_regime_key", key):
+        store.pop(key, None)
+    sess._last_regime_key = key
+
+
+def advance_camera_and_index(sess) -> None:
+    """Orbit the camera by ``orbit_rate`` (rounded to f32, as the
+    reference's ``jnp.float32(rate)``) and bump the frame index."""
+    if sess.orbit_rate:
+        sess.camera = orbit(sess.camera, np.float32(sess.orbit_rate))
+    sess.frame_index += 1
+
+
+class VolumeSimAdapter:
+    """Facade over the built-in volume sim: ``kind``, ``state``,
+    ``advance(n)`` and ``field``. Gray-Scott advances through
+    ``gs.multi_step_fast`` (kernel K3 on a card) with
+    ``sim.fused_stencil``, else through the roll formulation."""
+
+    def __init__(self, cfg: FrameworkConfig, seed: int = 0, device=None):
+        kind = cfg.sim.kind
+        self.kind = kind
+        if kind == "gray_scott":
+            self.state = gs.GrayScott.from_config(cfg.sim, seed=seed,
+                                                  device=device)
+            self._advance = (gs.multi_step_fast if cfg.sim.fused_stencil
+                             else gs.multi_step)
+        elif kind in _OTHER_SIMS:
+            _unported(f"sim.kind={kind!r}", "A10")
+        else:
+            raise ValueError(f"unknown volume sim kind {cfg.sim.kind!r}")
+
+    def advance(self, n: int) -> None:
+        self.state = self._advance(self.state, n)
+
+    @property
+    def field(self) -> torch.Tensor:
+        return self.state.field
+
+
+class _HostCopy(NamedTuple):
+    """A frame's pinned host buffers and the event its copy recorded."""
+
+    bufs: Dict[str, torch.Tensor]
+    copied: torch.cuda.Event
+
+
+class InSituSession:
+    """The in-situ loop over one device: ``device=None`` means CUDA and
+    raises without a card, unless the caller passes ``device="cpu"``
+    (or a ``mesh`` on the CPU)."""
+
+    def __init__(self, cfg: Optional[FrameworkConfig] = None,
+                 mesh: Optional[Mesh] = None,
+                 camera: Optional[Camera] = None,
+                 tf: Optional[TransferFunction] = None,
+                 sim: Optional[VolumeSimAdapter] = None,
+                 sinks: Sequence[Sink] = (), log=None, device=None):
+        self.cfg = cfg or FrameworkConfig()
+        self.log = log or (lambda s: None)
+        check_ported(self.cfg)
+        if mesh is not None:
+            if device is not None and \
+                    resolve_device(device) != mesh.device:
+                raise ValueError(f"device {device!r} differs from the "
+                                 f"mesh's {mesh.device}")
+            self.mesh = mesh
+        else:
+            # mesh.num_devices ranks in-process on the one device; 0 is
+            # one rank
+            self.mesh = make_mesh(self.cfg.mesh.num_devices or 1,
+                                  device=device,
+                                  axis_name=self.cfg.mesh.axis_name)
+        self.device = self.mesh.device
+        self._flat_axis, self._n_ranks, self._topo = resolve_mesh_topology(
+            self.mesh, topology=self.cfg.topology)
+        # the recorder feeds the per-phase Timers; it takes over the
+        # process slot whether enabled or not, so a finished session's
+        # recorder stops absorbing this one's events
+        self.obs = _obs.Recorder.from_config(
+            self.cfg.obs, rank=0, log=self.log,
+            window=self.cfg.runtime.stats_window)
+        self.timers = self.obs.timers
+        _obs.set_recorder(self.obs)
+        from scenery_insitu_tpu_torch.obs.slo import SLOEngine
+        self.slo = SLOEngine(self.cfg.slo, recorder=self.obs)
+        self.sim = sim if sim is not None else VolumeSimAdapter(
+            self.cfg, device=self.device)
+        self.tf = tf or for_dataset(
+            self.cfg.sim.kind if self.cfg.runtime.dataset == "procedural"
+            else self.cfg.runtime.dataset, device=self.device)
+        self.camera = camera or Camera.create(
+            (0.0, 0.6, 3.0), fov_y_deg=50.0, near=0.3, far=20.0,
+            device=self.device)
+        self.sinks: List[Sink] = list(sinks)
+        # every frame sink and tile sink runs behind this guard: one
+        # failing fault.max_sink_failures consecutive times is
+        # quarantined instead of killing the run
+        self._sink_guard = SinkGuard(self.cfg.fault.max_sink_failures,
+                                     log=self.log)
+        # the frame schedule delivers no column-block tiles (tile waves
+        # are ROADMAP A8b, item 3); the list is kept for the executor
+        self.tile_sinks: List[Sink] = []
+        self._delivery = None
+        if self.cfg.delivery.enabled:
+            from scenery_insitu_tpu_torch.runtime.delivery import (
+                DeliveryExecutor)
+            self._delivery = DeliveryExecutor(
+                self.cfg.delivery, self._sink_guard, self.tile_sinks,
+                self.sinks, recorder=self.obs, slo=self.slo,
+                log=self.log)
+        self.frame_index = 0
+        self.orbit_rate = 0.0  # radians/frame camera sweep
+        self.steering = None   # steering endpoints are ROADMAP A11
+        self.on_steer: List[Callable[[dict], None]] = [
+            self._apply_tf_message]
+        self._pending_meta = {}  # frame index -> VDIMetadata at dispatch
+        self._slicer = _slicer
+        # the slice march, which "auto" resolves to on every device (the
+        # reference picks it on its accelerator)
+        self.engine = "mxu"
+        self._build_steps()
+
+        # world placement: sim grid centered, largest side = 2 world units
+        d, h, w = (tuple(self.cfg.sim.grid) if sim is None
+                   else tuple(int(x) for x in self.sim.field.shape))
+        vox = 2.0 / max(d, h, w)
+        self._vox = vox
+        self._origin = torch.tensor(
+            [-w * vox / 2, -h * vox / 2, -d * vox / 2],
+            dtype=torch.float32, device=self.device)
+        self._spacing = torch.full((3,), vox, dtype=torch.float32,
+                                   device=self.device)
+        # device -> host copies: a side stream and pinned host buffers,
+        # pipeline_depth + 1 sets reused (the frames in flight and the
+        # one being dispatched)
+        self._copy_stream = (torch.cuda.Stream(self.device)
+                             if self.device.type == "cuda" else None)
+        self._free_sets: List[Dict[str, torch.Tensor]] = []
+
+    def _build_steps(self) -> None:
+        """(Re)build the per-regime step caches for the current TF."""
+        self.obs.count("build_steps")
+        self._mxu_steps = {}   # regime key -> distributed step
+        self._mxu_thr = {}     # regime key -> temporal threshold state
+        self.mode = "vdi"
+        self._step = None
+        self._temporal = (self.cfg.vdi.adaptive
+                          and self.cfg.vdi.adaptive_mode == "temporal")
+
+    def _apply_tf_message(self, msg: dict) -> None:
+        """'tf' steering messages are ROADMAP A11."""
+        if msg.get("type") == "tf":
+            _unported("transfer-function steering messages", "A11")
+
+    # ------------------------------------------------------------- frames
+
+    def render_frame(self):
+        """Advance the sim and dispatch one frame's step; returns its
+        device VDI."""
+        if self.steering is not None:
+            _unported("steering endpoints", "A11")
+        with self.obs.span("sim", frame=self.frame_index,
+                           kind=self.sim.kind):
+            self.sim.advance(self.cfg.sim.steps_per_frame)
+        with self.obs.span("dispatch", frame=self.frame_index,
+                           mode=self.mode, engine=self.engine):
+            field = shard_volume(self.sim.field, self.mesh)
+            out, meta = self._mxu_step()(field, self._origin,
+                                         self._spacing, self.camera)
+            # a host scalar: no copy to the device on the dispatch path
+            meta = meta._replace(index=torch.tensor(self.frame_index,
+                                                    dtype=torch.int32))
+        # metadata snapshot BEFORE the camera advances
+        self._pending_meta[self.frame_index] = meta
+        for k in [k for k in self._pending_meta
+                  if k < self.frame_index
+                  - self.cfg.runtime.pipeline_depth]:
+            del self._pending_meta[k]
+        self.obs.count("frames_eager_dispatch")
+        advance_camera_and_index(self)
+        return out
+
+    def run(self, frames: int, fetch: bool = True,
+            profile_dir: Optional[str] = None) -> dict:
+        """Run ``frames`` frames with the depth-k device-to-host pipeline;
+        returns the last fetched payload (``vdi_color``, ``vdi_depth``:
+        host numpy arrays; ``frame``; ``meta``)."""
+        if profile_dir:
+            _unported("run(profile_dir=...) (device profiles)", "A12")
+        depth = self.cfg.runtime.pipeline_depth
+        try:
+            # the deque holds the in-flight frames, newest last; a frame
+            # retires (fetch + sinks, device refs dropped) once `depth`
+            # newer dispatches are in flight
+            pending = deque()
+            payload = {}
+            last = frames - 1
+            for i in range(frames):
+                t_f = time.perf_counter()
+                out = self.render_frame()
+                done = self._record_done()
+                host = None
+                consume = False
+                if fetch:
+                    # copy to the host only when somebody consumes the
+                    # frame (sinks, or the caller's final payload)
+                    consume = bool(self.sinks or self.tile_sinks) \
+                        or i == last
+                    if consume:
+                        host = self._start_host_copy(out, done)
+                pending.append((self.frame_index - 1, out, consume, done,
+                                host))
+                out = None      # the deque holds the only device ref
+                while len(pending) > depth:
+                    payload = self._retire(pending.popleft(), fetch,
+                                           payload)
+                self.timers.frame_done()
+                self.slo.observe("frame_ms",
+                                 (time.perf_counter() - t_f) * 1e3,
+                                 frame=self.frame_index - 1)
+            while pending:
+                payload = self._retire(pending.popleft(), fetch, payload)
+        except BaseException:
+            # drain the delivery queue (frames the device already paid
+            # for), dump the last obs window, keep raising
+            if self._delivery is not None:
+                self._delivery.drain()
+            _obs.flight_flush(self.obs, where="run")
+            raise
+        if self._delivery is not None:
+            self._delivery.drain()
+        self.timers.dump_totals()
+        self.obs.flush()
+        return payload
+
+    def _record_done(self) -> Optional[torch.cuda.Event]:
+        """An event on the compute stream after a frame's dispatch (None
+        on the CPU, where the dispatch ran to its end)."""
+        if self._copy_stream is None:
+            return None
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(self.device))
+        return done
+
+    def _take_set(self, leaves: Dict[str, torch.Tensor]
+                  ) -> Dict[str, torch.Tensor]:
+        """A free pinned set shaped like ``leaves``; sets of another shape
+        (another march regime) are dropped."""
+        shapes = {k: (tuple(v.shape), v.dtype) for k, v in leaves.items()}
+        while self._free_sets:
+            bufs = self._free_sets.pop()
+            if {k: (tuple(v.shape), v.dtype)
+                    for k, v in bufs.items()} == shapes:
+                return bufs
+        return {k: torch.empty(s, dtype=dt, pin_memory=True)
+                for k, (s, dt) in shapes.items()}
+
+    def _start_host_copy(self, out: VDI,
+                         done: Optional[torch.cuda.Event]
+                         ) -> Optional[_HostCopy]:
+        """Start the frame's device-to-host copy without blocking: the
+        side stream waits on ``done`` and copies the VDI into a pinned
+        set. The caller keeps ``out`` alive until the frame retires, so
+        the device buffers outlive the copy. None on the CPU (the VDI
+        already lies on the host)."""
+        if self._copy_stream is None:
+            return None
+        leaves = {"color": out.color, "depth": out.depth}
+        bufs = self._take_set(leaves)
+        with torch.cuda.stream(self._copy_stream):
+            self._copy_stream.wait_event(done)
+            for k, v in leaves.items():
+                bufs[k].copy_(v, non_blocking=True)
+            copied = torch.cuda.Event()
+            copied.record(self._copy_stream)
+        return _HostCopy(bufs, copied)
+
+    def _retire(self, entry, fetch: bool, payload: dict) -> dict:
+        """Retire one pipelined frame: fetch and deliver it when it has
+        consumers, else pace the loop on its completion. The caller has
+        dropped the deque's reference, so the frame's device tensors free
+        when this returns."""
+        index, out, consume, done, host = entry
+        if fetch and consume:
+            return self._fetch(index, out, host)
+        if fetch:
+            self._sync_nofetch(index, done)
+        return payload
+
+    def _sync_nofetch(self, index: int,
+                      done: Optional[torch.cuda.Event]) -> None:
+        """Retire a frame nobody consumes: drop its metadata and wait for
+        its dispatch to finish, without a host copy."""
+        self._pending_meta.pop(index, None)
+        with self.obs.span("fetch", frame=index, host_copy=False):
+            if done is not None:
+                done.synchronize()
+
+    def _fetch(self, index: int, out: VDI,
+               host: Optional[_HostCopy]) -> dict:
+        meta = self._pending_meta.pop(index, None)
+        if meta is None:
+            meta = self.frame_metadata(index)
+        with self.obs.span("fetch", frame=index):
+            if host is not None:
+                # wait on this frame's copy only, then take the bytes out
+                # of the pinned set (which the next frames reuse), so
+                # the payload owns its arrays as the reference's do
+                host.copied.synchronize()
+                color = host.bufs["color"].numpy().copy()
+                depth = host.bufs["depth"].numpy().copy()
+                self._free_sets.append(host.bufs)
+            else:
+                color, depth = to_numpy(out)
+            payload = {"vdi_color": color, "vdi_depth": depth,
+                       "frame": index, "meta": meta}
+        if self._delivery is not None:
+            self._delivery.submit(index, payload, ())
+        else:
+            with self.obs.span("sinks", frame=index):
+                self._sink_guard.run(self.sinks, index, payload)
+        return payload
+
+    def _enter_regime(self, key) -> None:
+        if key != getattr(self, "_last_regime_key", key):
+            self.obs.count("regime_switches")
+        drop_on_regime_reentry(self, self._mxu_thr, key)
+
+    def prewarm_regimes(self, regimes=None) -> dict:
+        """Build and run the step of each (axis, sign) march regime once,
+        before the camera path reaches it, on the current field and a
+        synthetic camera on that regime's axis. The camera, the carried
+        thresholds and the regime tracker are restored; the sim, frame
+        index and sinks are never touched. Returns {(axis, sign):
+        seconds}."""
+        if regimes is None:
+            regimes = [(a, s) for a in (0, 1, 2) for s in (1, -1)]
+        cam0 = self.camera
+        thr0 = dict(self._mxu_thr)
+        had_last = hasattr(self, "_last_regime_key")
+        last0 = getattr(self, "_last_regime_key", None)
+        times = {}
+        try:
+            for regime in regimes:
+                a, s = regime
+                cam = regime_camera(cam0, regime)
+                self.camera = cam
+                t0 = time.perf_counter()
+                with self.obs.span("prewarm", regime=str(regime)):
+                    field = shard_volume(self.sim.field, self.mesh)
+                    self._mxu_step()(field, self._origin, self._spacing,
+                                     cam)
+                    done = self._record_done()
+                    if done is not None:
+                        done.synchronize()
+                times[(a, s)] = round(time.perf_counter() - t0, 2)
+        finally:
+            self.camera = cam0
+            self._mxu_thr = thr0
+            if had_last:
+                self._last_regime_key = last0
+            elif hasattr(self, "_last_regime_key"):
+                del self._last_regime_key
+        return times
+
+    def _mxu_step(self):
+        """The distributed step of the camera's march regime, built once
+        per (axis, sign). In temporal mode the returned callable seeds and
+        carries the regime's threshold state itself, so callers see one
+        4-argument signature."""
+        from scenery_insitu_tpu_torch.parallel.pipeline import (
+            distributed_initial_threshold_mxu, distributed_vdi_step_mxu,
+            distributed_vdi_step_mxu_temporal)
+
+        regime = self._slicer.choose_axis(self.camera)
+        if self._temporal:
+            self._enter_regime(regime)
+        step = self._mxu_steps.get(regime)
+        if step is None:
+            self.obs.count("compile_step")
+            self.obs.event("compile", frame=self.frame_index,
+                           what="vdi_step", regime=str(regime))
+            n = self._n_ranks
+            spec = self._slicer.make_spec(self.camera, self.sim.field.shape,
+                                          self.cfg.slicer, axis_sign=regime,
+                                          multiple_of=n)
+            if self._temporal:
+                inner = distributed_vdi_step_mxu_temporal(
+                    self.mesh, self.tf, spec, self.cfg.vdi,
+                    self.cfg.composite, topology=self.cfg.topology)
+                seed = distributed_initial_threshold_mxu(
+                    self.mesh, self.tf, spec, self.cfg.vdi)
+
+                def step(field, origin, spacing, cam, _regime=regime,
+                         _inner=inner, _seed=seed):
+                    thr = self._mxu_thr.get(_regime)
+                    if thr is None:
+                        thr = _seed(field, origin, spacing, cam)
+                    out, self._mxu_thr[_regime] = _inner(
+                        field, origin, spacing, cam, thr)
+                    return out
+            else:
+                step = distributed_vdi_step_mxu(
+                    self.mesh, self.tf, spec, self.cfg.vdi,
+                    self.cfg.composite, topology=self.cfg.topology)
+            self._mxu_steps[regime] = step
+        return step
+
+    def frame_metadata(self, index: int,
+                       camera: Optional[Camera] = None) -> VDIMetadata:
+        """VDIMetadata for the current (or the given) camera and volume
+        placement; call before the camera advances."""
+        camera = camera if camera is not None else self.camera
+        r = self.cfg.render
+        shape = np.asarray(self.sim.field.shape)
+        return VDIMetadata.create(
+            projection=projection_matrix(camera, r.width, r.height),
+            view=view_matrix(camera),
+            volume_dims=np.asarray(shape[::-1], np.float32),   # (x, y, z)
+            window_dims=(r.width, r.height), nw=self._vox, index=index)
+
+    def device_snapshot(self) -> dict:
+        """The device-cost snapshot is ROADMAP A12."""
+        _unported("device_snapshot (the device-cost snapshot)", "A12")
+
+
+def _vdi_numpy(payload: dict) -> VDI:
+    return VDI(np.asarray(payload["vdi_color"]),
+               np.asarray(payload["vdi_depth"]))
+
+
+def vdi_sink(directory: str, dataset: str = "session", every: int = 1,
+             codec: str = "zstd", workers: int = 1) -> Sink:
+    """Dump composited VDIs as .npz artifacts (``io/vdi_io.py``).
+    ``workers`` threads the per-member compression (byte-identical
+    artifacts)."""
+    from scenery_insitu_tpu_torch.io.vdi_io import dump_path, save_vdi
+
+    def sink(index: int, payload: dict) -> None:
+        if index % every or "vdi_color" not in payload:
+            return
+        save_vdi(dump_path(directory, dataset, index, "vdi"),
+                 _vdi_numpy(payload), codec=codec, workers=workers)
+
+    return sink
+
+
+def vdi_tile_sink(directory: str, dataset: str = "session", every: int = 1,
+                  codec: str = "zstd", workers: int = 1) -> Sink:
+    """Tile-granular twin of `vdi_sink`: each column-block tile payload
+    (``tile``, ``tiles``, ``col0``) is dumped as its own .npz carrying
+    its placement (``io.vdi_io.load_vdi_tile`` reads it back)."""
+    from scenery_insitu_tpu_torch.io.vdi_io import dump_path, save_vdi
+
+    def sink(index: int, payload: dict) -> None:
+        if index % every or "vdi_color" not in payload \
+                or "tile" not in payload:
+            return
+        save_vdi(dump_path(directory, dataset, index,
+                           f"vditile{payload['tile']:02d}"),
+                 _vdi_numpy(payload), payload.get("meta"), codec=codec,
+                 tile=(payload["tile"], payload["tiles"],
+                       payload["col0"]), workers=workers)
+
+    return sink
+
+
+def png_sink(directory: str, gamma: float = 2.2, every: int = 1) -> Sink:
+    """Dump frames as PNGs: an image payload as it is, a VDI payload
+    decoded from its own view (`render_vdi_same_view`, on the host)."""
+    from scenery_insitu_tpu_torch.core.vdi import render_vdi_same_view
+    from scenery_insitu_tpu_torch.utils.image import save_png
+    os.makedirs(directory, exist_ok=True)
+
+    def sink(index: int, payload: dict) -> None:
+        if index % every:
+            return
+        if "image" in payload:
+            img = payload["image"]
+        else:
+            img = render_vdi_same_view(VDI(
+                torch.as_tensor(payload["vdi_color"]),
+                torch.as_tensor(payload["vdi_depth"]))).numpy()
+        save_png(os.path.join(directory, f"frame{index:05d}.png"), img, gamma)
+
+    return sink

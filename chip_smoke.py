@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's in-situ frames on one CUDA card: the
 single-chip frame, the distributed sort-last frame, the fold
-microbenchmark and the in-situ session.
+microbenchmark, the in-situ session and the sort-last exchange
+schedules.
 
     python3 chip_smoke.py               # the whole run (needs one card)
     python3 chip_smoke.py --profile     # + device time by kernel
@@ -9,7 +10,7 @@ microbenchmark and the in-situ session.
         --k2-compare old=OTHER/count_multi.cu \
         --events-compare old=OTHER/fold_chunk.cu  # + designs in turns
 
-``--profile`` adds to each frame of phases 3 to 5 two profiled frames:
+``--profile`` adds to each frame of phases 3 to 5 and 8 two profiled frames:
 device time by kernel and by operator, each of the port's own kernels'
 device ms and launches a frame by build (``<prefix>.port_kernel``),
 the busy share, the idle gaps, copies and synchronisations.
@@ -161,7 +162,36 @@ and prints no result):
    ``load_vdi`` equal to that frame's payload; (f) a 4-rank 32^3
    session on the card against the same session with ``device="cpu"``
    (3 frames, ``fold="pallas_seg"`` on both; largest and mean image
-   difference at most 1e-4), K4 launched once per rank and frame.
+   difference at most 1e-4), K4 launched once per rank and frame;
+8. the sort-last exchange schedules on phase 4's configuration: (a) eight
+   configurations of (exchange, wire, schedule), the ring lossless and
+   with ``ring_slots`` 32, the all_to_all on the bf16 and qpack8 wires,
+   the ring on qpack8, and tile waves (``wave_tiles`` 4, or the largest
+   of 2-4 that splits a rank's column block) under the all_to_all, the
+   ring and the ring on qpack8, each driven as phase 4 drives its frame
+   from the same seeded state, eye and seed threshold, with K4's
+   launches counted (8 a frame, 8·T in waves) and its modeled exchange
+   traffic logged (a model: the in-process ranks move no bytes across a
+   link); each configuration's parts timed apart on the final state
+   (encode, exchange, decode and composite; the ring's sort and encode,
+   decodes, merges and resegment; the waves' frame state, marches and
+   composites) and one frame's K4 launches on its own streams beside
+   their bound; K4 against its plain version on the capped ring's and
+   the waves' streams; the gates against configuration 0 (phase 4's last
+   frame): the lossless ring within 1e-6, the capped ring's image at
+   least 30 dB from the lossless ring's, each lossy wire's image at
+   least 40 dB from f32's and not equal to it with the threshold maps
+   within 1e-6, each f32 waves VDI at ``assert_vdi_close``'s bar of its
+   frame twin (the qpack8 waves' image at 40 dB: a wave's fragment has
+   its own depth scale) with its threshold maps within 1e-6 and equal
+   meta; (b) every configuration at 32^3 over 4 ranks against the CPU's
+   plain versions in both march regimes (phase 4's bar; the lossy wires'
+   images at 60 dB; threshold maps within 1e-6); (c) phase 7's session
+   over 8 ranks with the ring in tile waves and a tile sink (K3, K2, K1
+   and K4 launched; every frame's tiles in ascending column order
+   before its frame sinks, side by side the frame bit for bit), then
+   with ``delivery.enabled`` and a ``vdi_tile_sink`` (the same frames
+   bit for bit, the dumped tiles reassembling the frame).
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -1692,10 +1722,11 @@ def check_small_frame(dev, fold="pallas_seg", occupancy=None):
 BASE_EYE = (0.0, 0.6, 3.0)
 
 
-def dist_steps(dev, n, grid, base_eye, fold="auto"):
+def dist_steps(dev, n, grid, base_eye, fold="auto", **comp):
     """The distributed temporal step of an ``n``-rank mesh on ``dev``
-    for a ``grid``^3 volume, in the march regime of ``base_eye``: (mesh,
-    spec, tf, configs, seed, step, camera(i))."""
+    for a ``grid``^3 volume, in the march regime of ``base_eye``, with
+    the composite settings ``comp`` (exchange, wire, schedule, ...):
+    (mesh, spec, tf, configs, seed, step, camera(i))."""
     from scenery_insitu_tpu_torch.config import (CompositeConfig,
                                                  SliceMarchConfig, VDIConfig)
     from scenery_insitu_tpu_torch.core.camera import Camera, orbit
@@ -1709,12 +1740,14 @@ def dist_steps(dev, n, grid, base_eye, fold="auto"):
                          device=dev)
     vcfg = VDIConfig(max_supersegments=K, adaptive_mode="temporal",
                      histogram_bins=BINS)
-    ccfg = CompositeConfig(max_output_supersegments=K_OUT,
-                           adaptive_iters=COMP_ITERS)
     spec = slicer.make_spec(base, (grid,) * 3,
                             SliceMarchConfig(fold=fold, chunk=CHUNK),
                             axis_sign=slicer.choose_axis(base),
                             multiple_of=n)
+    if comp.get("schedule") == "waves":
+        comp.setdefault("wave_tiles", wave_tiles_for(spec.ni, n))
+    ccfg = CompositeConfig(max_output_supersegments=K_OUT,
+                           adaptive_iters=COMP_ITERS, **comp)
     tf = for_dataset("gray_scott", device=dev)
     seed = dp.distributed_initial_threshold_mxu(mesh, tf, spec, vcfg)
     step = dp.distributed_vdi_step_mxu_temporal(mesh, tf, spec, vcfg, ccfg)
@@ -1764,10 +1797,11 @@ def run_dist_frame(dev, profile=False):
     6 timed frames with the launch counts read from that run; then the
     frame's phases timed apart on its final state; then, as information,
     the PSNR of its image against the single-chip march at the same eye.
-    Returns the launch counts and the frame's exchanged column blocks."""
+    Returns the launch counts, the frame's exchanged column blocks and
+    the last frame (its VDI, metadata, thresholds and ms: phase 8's
+    configuration 0)."""
     import torch
 
-    from scenery_insitu_tpu_torch import kernels
     from scenery_insitu_tpu_torch.config import VDIConfig
     from scenery_insitu_tpu_torch.core.vdi import render_vdi_same_view
     from scenery_insitu_tpu_torch.core.volume import Volume
@@ -1786,40 +1820,15 @@ def run_dist_frame(dev, profile=False):
     box = Volume.centered(v, extent=2.0)
     origin, spacing = box.origin, box.spacing
 
-    def frame(u, v, thr, i):
-        state = gs.multi_step_fast(gs.GrayScott(u, v, st.params), SIM_STEPS)
-        (vdi, _), thr = step(shard_volume(state.field, mesh), origin,
-                             spacing, camera(i), thr)
-        return vdi, state.u, state.v, thr
-
-    kernels.reset_launches()
-    thr = seed(shard_volume(v, mesh), origin, spacing, camera(-1))
-    for i in range(WARMUP_FRAMES):
-        vdi, u, v, thr = frame(u, v, thr, i)
-    torch.cuda.synchronize()
-    ev, wall = [], []
-    for i in range(WARMUP_FRAMES, WARMUP_FRAMES + TIMED_FRAMES):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        h0 = time.perf_counter()
-        a.record()
-        vdi, u, v, thr = frame(u, v, thr, i)
-        b.record()
-        b.synchronize()
-        wall.append((time.perf_counter() - h0) * 1e3)
-        ev.append(a.elapsed_time(b))
-    launches = kernels.launches()
-    log("dist.launches", json.dumps(launches))
-    require_launched(launches, DIST_KERNELS, "the distributed frame")
+    run = drive_dist_frames("dist", step, seed, mesh, camera, st, origin,
+                            spacing)
+    vdi, meta, thr, u, v, launches = (run[k] for k in (
+        "vdi", "meta", "thr", "u", "v", "launches"))
     frames = WARMUP_FRAMES + TIMED_FRAMES
+    require_launched(launches, DIST_KERNELS, "the distributed frame")
     if launches["resegment_sorted"] != RANKS * frames:
         raise AssertionError(f"K4 launched {launches['resegment_sorted']} "
                              f"times in {frames} frames of {RANKS} ranks")
-    ev.sort()
-    wall.sort()
-    log("dist.ms_per_frame", f"{ev[len(ev) // 2]:.3f} (median of "
-        f"{TIMED_FRAMES}, CUDA events; host clock "
-        f"{wall[len(wall) // 2]:.3f})")
     check_vdi("dist", vdi, (K_OUT, 4, spec.nj, spec.ni),
               (K_OUT, 2, spec.nj, spec.ni))
     if not bool(torch.isfinite(thr.thr).all()):
@@ -1833,10 +1842,8 @@ def run_dist_frame(dev, profile=False):
     cam = camera(WARMUP_FRAMES + TIMED_FRAMES)
 
     def march(_):
-        return [dp._mxu_rank_generate(slabs, halo, r, origin, spacing, cam,
-                                      spec, tf, vcfg,
-                                      dp._rank_thr(thr, r, spec.nj))[0]
-                for r in range(RANKS)]
+        return rank_fragments(dp, slabs, halo, origin, spacing, cam, spec,
+                              tf, vcfg, thr)
 
     march_ms = median_ms(march, 3)
     frags = march(None)
@@ -1858,7 +1865,7 @@ def run_dist_frame(dev, profile=False):
         state = [u, v, thr]
 
         def one(i):
-            _, state[0], state[1], state[2] = frame(*state, i)
+            _, _, state[0], state[1], state[2] = run["frame"](*state, i)
 
         profile_frames("dist.profile", one)
 
@@ -1873,7 +1880,64 @@ def run_dist_frame(dev, profile=False):
     psnr = image_psnr(render_vdi_same_view(dvdi), render_vdi_same_view(svdi))
     log("dist.psnr_vs_single_chip_db", f"{psnr:.2f} (information; "
         f"histogram thresholds, same state and eye)")
-    return launches, rc, rd
+    return launches, rc, rd, run
+
+
+def rank_fragments(dp, slabs, halo, origin, spacing, cam, spec, tf, vcfg,
+                   thr):
+    """Every rank's VDI fragment of the frame schedule's march."""
+    return [dp._mxu_rank_generate(slabs, halo, r, origin, spacing, cam,
+                                  spec, tf, vcfg,
+                                  dp._rank_thr(thr, r, spec.nj))[0]
+            for r in range(RANKS)]
+
+
+def drive_dist_frames(prefix, step, seed, mesh, camera, st, origin,
+                      spacing):
+    """The distributed temporal frame as phase 4 drives it, from the
+    seeded state ``st``: the launch counts set to 0, the seed, 2 warm-up
+    and 6 timed frames (CUDA events and the host clock), the counts read
+    after. Returns the last frame's VDI, meta and thresholds, the final
+    u and v, the launch counts and the median ms."""
+    import torch
+
+    from scenery_insitu_tpu_torch import kernels
+    from scenery_insitu_tpu_torch.parallel.mesh import shard_volume
+    from scenery_insitu_tpu_torch.sim import grayscott as gs
+
+    u, v = st.u, st.v
+
+    def frame(u, v, thr, i):
+        state = gs.multi_step_fast(gs.GrayScott(u, v, st.params), SIM_STEPS)
+        (vdi, meta), thr = step(shard_volume(state.field, mesh), origin,
+                                spacing, camera(i), thr)
+        return vdi, meta, state.u, state.v, thr
+
+    kernels.reset_launches()
+    thr = seed(shard_volume(v, mesh), origin, spacing, camera(-1))
+    for i in range(WARMUP_FRAMES):
+        vdi, meta, u, v, thr = frame(u, v, thr, i)
+    torch.cuda.synchronize()
+    ev, wall = [], []
+    for i in range(WARMUP_FRAMES, WARMUP_FRAMES + TIMED_FRAMES):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        h0 = time.perf_counter()
+        a.record()
+        vdi, meta, u, v, thr = frame(u, v, thr, i)
+        b.record()
+        b.synchronize()
+        wall.append((time.perf_counter() - h0) * 1e3)
+        ev.append(a.elapsed_time(b))
+    launches = kernels.launches()
+    log(f"{prefix}.launches", json.dumps(launches))
+    ev.sort()
+    wall.sort()
+    ms, wall_ms = ev[len(ev) // 2], wall[len(wall) // 2]
+    log(f"{prefix}.ms_per_frame", f"{ms:.3f} (median of {TIMED_FRAMES}, "
+        f"CUDA events; host clock {wall_ms:.3f})")
+    return dict(vdi=vdi, meta=meta, thr=thr, u=u, v=v, launches=launches,
+                ms=ms, wall_ms=wall_ms, frame=frame)
 
 
 def seeded_sorted_stream(nk, h, w, dev, seed):
@@ -2115,6 +2179,603 @@ def check_small_dist(dev):
             raise AssertionError(f"the card's distributed frame ({regime} "
                                  f"march) differs from the CPU's plain "
                                  f"versions")
+
+
+# ------------------------------------------------------------- phase 8
+
+
+# phase 8's configurations on phase 4's (name, exchange, wire, schedule,
+# ring_slots); configuration 0 is phase 4's all_to_all f32 frame
+EXCHANGE_CONFIGS = (
+    ("c1_ring", "ring", "f32", "frame", 0),
+    ("c2_ring_cap", "ring", "f32", "frame", 2 * K),
+    ("c3_a2a_bf16", "all_to_all", "bf16", "frame", 0),
+    ("c4_a2a_qpack8", "all_to_all", "qpack8", "frame", 0),
+    ("c5_ring_qpack8", "ring", "qpack8", "frame", 0),
+    ("c6_a2a_waves", "all_to_all", "f32", "waves", 0),
+    ("c7_ring_waves", "ring", "f32", "waves", 0),
+    ("c8_ring_qpack8_waves", "ring", "qpack8", "waves", 0),
+)
+C0 = "c0_a2a"
+# each waves configuration's frame-schedule twin
+WAVE_TWINS = {"c6_a2a_waves": C0, "c7_ring_waves": "c1_ring",
+              "c8_ring_qpack8_waves": "c5_ring_qpack8"}
+WAVE_TILES = 4
+CAP_PSNR_DB, WIRE_PSNR_DB, SMALL_WIRE_PSNR_DB = 30.0, 40.0, 60.0
+# the session's tile waves (phase 7 (g)): timed frames and the dumps'
+# period
+WAVE_SESSION_FRAMES = 4
+WAVE_SESSION_EVERY = 2
+
+
+def wave_tiles_for(ni, n):
+    """WAVE_TILES, or the largest T of 2 to 4 whose tiles split every
+    rank's column block of the width ``ni``."""
+    for t in range(WAVE_TILES, 1, -1):
+        if ni % (n * t) == 0:
+            return t
+    raise AssertionError(f"no wave tiling of 2 to {WAVE_TILES} splits "
+                         f"{ni} columns over {n} ranks")
+
+
+def exchange_comp(ex, wire, sched, slots):
+    return dict(exchange=ex, wire=wire, schedule=sched, ring_slots=slots)
+
+
+def vdi_gap(a, b):
+    """(largest colour difference, largest live-depth difference, same
+    live slots, share of pixels whose live slot count differs, bit for
+    bit) of two VDIs."""
+    import torch
+
+    la, lb = torch.isfinite(a.depth), torch.isfinite(b.depth)
+    both = la & lb
+    dc = float((a.color - b.color).abs().max())
+    dd = float((a.depth[both] - b.depth[both]).abs().max()) \
+        if bool(both.any()) else 0.0
+    ca, cb = la[:, 0].sum(0), lb[:, 0].sum(0)
+    share = float((ca != cb).float().mean())
+    exact = torch.equal(a.color, b.color) and torch.equal(a.depth, b.depth)
+    return dc, dd, torch.equal(la, lb), share, exact
+
+
+def vdi_close(a, b, rtol, atol) -> bool:
+    """``tests/test_torch_pipeline.assert_vdi_close``'s bar: colours
+    close, the same slots live, live depths close."""
+    import torch
+
+    live = torch.isfinite(b.depth)
+    return (torch.allclose(a.color, b.color, rtol=rtol, atol=atol)
+            and torch.equal(torch.isfinite(a.depth), live)
+            and torch.allclose(a.depth[live], b.depth[live], rtol=rtol,
+                               atol=atol))
+
+
+def thr_gap(a, b) -> float:
+    return max(float((x - y).abs().max()) for x, y in zip(a, b))
+
+
+def k4_streams_ms(prefix, streams):
+    """One frame's K4 launches on the streams it resegments, back to
+    back behind a device sleep (the stream kept full), beside their
+    bounds summed. Returns (ms, bound_ms, bound_by)."""
+    import torch
+
+    from scenery_insitu_tpu_torch.ops import cuda_composite as cc
+
+    def run(_):
+        for sc, sd in streams:
+            cc.resegment_sorted(sc, sd, None, K_OUT,
+                                adaptive_iters=COMP_ITERS)
+
+    def setup():
+        torch.cuda.synchronize()
+        lead()
+
+    ms = median_ms(run, 5, setup)
+    works = [k4_bound(sc, COMP_ITERS) for sc, _ in streams]
+    b = sum(w[0][0] for w in works)
+    by = "bytes" if sum(w[0][1] == "bytes" for w in works) * 2 >= \
+        len(works) else "operations"
+    nbytes = sum(w[2] for w in works)
+    nk, _, h, w = streams[0][0].shape
+    log(f"{prefix}.k4_frame_ms", f"{ms:.4f} bound_ms={b:.4f} ({by}) "
+        f"launches={len(streams)} stream={nk}x{h}x{w} achieved_gb_s="
+        f"{nbytes / ms / 1e6:.1f}; a frame's K4 launches on their own "
+        f"streams, the stream kept full")
+    return ms, b, by
+
+
+def check_k4_on(prefix, streams):
+    """K4 against its plain version on the fullest of ``streams``
+    (thresholds and live slots exact, colour and depth within 1e-6)."""
+    import torch
+
+    from scenery_insitu_tpu_torch.ops import cuda_composite as cc
+
+    j = max(range(len(streams)), key=lambda i: int(
+        torch.isfinite(streams[i][1][:, 0]).sum()))
+    sc, sd = streams[j]
+    h, w = sc.shape[2:]
+    tp = torch.empty((h, w), device=sc.device)
+    want = cc.resegment_sorted_plain(sc, sd, None, K_OUT,
+                                     adaptive_iters=COMP_ITERS,
+                                     threshold_out=tp) + (tp,)
+    log_live_slots(prefix, sc)
+    return check_k4(prefix, cc.resegment_sorted, sc, sd, want)
+
+
+def exchange_parts(prefix, dp, colors, depths, ccfg):
+    """The exchange and composite of the frame's fragments under
+    ``ccfg``, each part timed apart (median ms): the all_to_all's
+    encode, exchange, decode and composite (sort + K4); the ring's sort
+    and encode, the decodes alone, the merges (decodes included) and the
+    resegment (K4). Returns (parts, the streams K4 resegments)."""
+    from scenery_insitu_tpu_torch.ops import wire as wire_mod
+    from scenery_insitu_tpu_torch.ops.composite import (composite_vdis,
+                                                        resegment_stream,
+                                                        sort_stream)
+
+    n, wire = RANKS, ccfg.wire
+    parts = {}
+    if ccfg.exchange == "ring":
+        cap = dp._ring_cap(ccfg, K)
+        parts["sort_encode_ms"] = median_ms(
+            lambda _: dp._ring_blocks(colors, depths, n, wire), 3)
+        blocks = dp._ring_blocks(colors, depths, n, wire)
+        parts["decode_ms"] = median_ms(lambda _: [
+            wire_mod.decode_fragment(bc[r], bd[r], sc, wire)
+            for bc, bd, sc in blocks for r in range(n)], 3)
+        parts["merge_ms"] = median_ms(lambda _: [
+            dp._ring_accumulate(blocks, r, wire, cap) for r in range(n)], 3)
+        streams = [dp._ring_accumulate(blocks, r, wire, cap)
+                   for r in range(n)]
+        del blocks
+        parts["resegment_ms"] = median_ms(lambda _: [
+            resegment_stream(sc, sd, ccfg) for sc, sd in streams], 3)
+    else:
+        ec, ed, scales = colors, depths, None
+        if wire != "f32":
+            parts["encode_ms"] = median_ms(
+                lambda _: dp._encode_ranks(colors, depths, wire), 5)
+            ec, ed, scales = dp._encode_ranks(colors, depths, wire)
+        parts["exchange_ms"] = median_ms(lambda _: (
+            dp._exchange_columns(ec, n), dp._exchange_columns(ed, n)), 5)
+        rc, rd = dp._exchange_columns(ec, n), dp._exchange_columns(ed, n)
+        del ec, ed
+        if wire != "f32":
+            parts["decode_ms"] = median_ms(lambda _: wire_mod.decode_fragment(
+                rc, rd, scales[None] if scales is not None else None,
+                wire), 5)
+            rc, rd = wire_mod.decode_fragment(
+                rc, rd, scales[None] if scales is not None else None, wire)
+        parts["composite_ms"] = median_ms(lambda _: [
+            composite_vdis(rc[j], rd[j], ccfg) for j in range(n)], 3)
+        _, _, k, _, h, w = rc.shape
+        streams = [sort_stream(rc[j].reshape(n * k, 4, h, w),
+                               rd[j].reshape(n * k, 2, h, w))
+                   for j in range(n)]
+        del rc, rd
+    log(f"{prefix}.parts_ms", " ".join(f"{k}={v:.3f}"
+                                       for k, v in parts.items()))
+    return parts, streams
+
+
+def wave_parts(prefix, dp, slabs, halo, origin, spacing, cam, spec, tf,
+               vcfg, ccfg, thr):
+    """The wave schedule's frame on the final state, its parts timed
+    apart: the frame state (each rank's camera, permuted copy and
+    occupancy gate), the T waves' marches, and the T waves' exchange
+    and composite. Returns (parts, the streams of the frame's K4
+    launches)."""
+    from scenery_insitu_tpu_torch.ops.composite import sort_stream
+
+    n, t = RANKS, ccfg.wave_tiles
+    parts = {}
+    parts["frame_state_ms"] = median_ms(lambda _: [
+        dp._RankFrame(slabs, halo, r, origin, spacing, cam, spec, tf)
+        for r in range(n)], 3)
+    frames = [dp._RankFrame(slabs, halo, r, origin, spacing, cam, spec, tf)
+              for r in range(n)]
+    thr_full = [dp._rank_thr(thr, r, spec.nj) for r in range(n)]
+
+    def march(_):
+        return [dp._march_wave(frames, w, n, t, cam, spec, tf, vcfg,
+                               list(thr_full)) for w in range(t)]
+
+    parts["march_ms"] = median_ms(march, 3)
+    frags = march(None)
+    parts["compose_ms"] = median_ms(lambda _: [
+        dp._composite_exchanged(c, d, n, ccfg) for c, d in frags], 3)
+    streams = []
+    for c, d in frags:
+        if ccfg.exchange == "ring":
+            blocks = dp._ring_blocks(c, d, n, ccfg.wire)
+            streams += [dp._ring_accumulate(blocks, r, ccfg.wire,
+                                            dp._ring_cap(ccfg, K))
+                        for r in range(n)]
+        else:
+            rc, rd = dp._exchange_vdi_columns(c, d, n, ccfg.wire)
+            _, _, k, _, h, w = rc.shape
+            streams += [sort_stream(rc[j].reshape(n * k, 4, h, w),
+                                    rd[j].reshape(n * k, 2, h, w))
+                        for j in range(n)]
+    log(f"{prefix}.parts_ms", " ".join(f"{k}={v:.3f}"
+                                       for k, v in parts.items()) +
+        f" (every rank, all {t} waves)")
+    return parts, streams
+
+
+def run_exchange_frames(dev, ref0, profile=False):
+    """Phase 8 (a): each exchange configuration driven as phase 4 drives
+    its frame, from the same seeded state, eye and seed threshold, with
+    K4's launches counted; its parts timed apart on the final state; K4
+    on the ring's and the waves' streams; the gates against
+    configuration 0 (``ref0``, phase 4's last frame)."""
+    import torch
+
+    from scenery_insitu_tpu_torch.core.vdi import render_vdi_same_view
+    from scenery_insitu_tpu_torch.core.volume import Volume
+    from scenery_insitu_tpu_torch.ops import cuda_composite as cc
+    from scenery_insitu_tpu_torch.ops.composite import (
+        modeled_exchange_traffic)
+    from scenery_insitu_tpu_torch.parallel import pipeline as dp
+    from scenery_insitu_tpu_torch.parallel.mesh import shard_volume
+    from scenery_insitu_tpu_torch.sim import grayscott as gs
+
+    frames = WARMUP_FRAMES + TIMED_FRAMES
+    a = cc.attributes(2 * K, K_OUT, COMP_ITERS)
+    log("exchange.resegment.build", f"nk={2 * K} k_out={K_OUT} iters="
+        f"{COMP_ITERS} " + " ".join(f"{n}={v}" for n, v in a.items()) +
+        " (the capped ring's stream)")
+    runs, images, res = {C0: ref0}, {}, {}
+    images[C0] = render_vdi_same_view(ref0["vdi"])
+    for name, ex, wire, sched, slots in EXCHANGE_CONFIGS:
+        comp = exchange_comp(ex, wire, sched, slots)
+        mesh, spec, tf, (vcfg, ccfg), seed, step, camera = dist_steps(
+            dev, RANKS, GRID, BASE_EYE, **comp)
+        t = ccfg.wave_tiles if sched == "waves" else 1
+        prefix = f"exchange_{name}"
+        log(f"{prefix}.config", f"exchange={ex} wire={wire} schedule="
+            f"{sched} ring_slots={slots} wave_tiles={t} ni={spec.ni} "
+            f"nj={spec.nj} ranks={RANKS} column_block={spec.ni // RANKS} "
+            f"wave_block={spec.ni // (RANKS * t)}")
+        traffic = modeled_exchange_traffic(
+            RANKS, K, spec.nj, spec.ni, k_out=K_OUT, mode=ex,
+            ring_slots=slots, wire=wire, schedule=sched, wave_tiles=t)
+        log(f"{prefix}.modeled_traffic", json.dumps(traffic) + " (a model: "
+            "the in-process ranks move no bytes across a link)")
+        st = gs.GrayScott.init((GRID,) * 3, seed=SEED, device=dev)
+        box = Volume.centered(st.v, extent=2.0)
+        run = drive_dist_frames(prefix, step, seed, mesh, camera, st,
+                                box.origin, box.spacing)
+        require_launched(run["launches"], DIST_KERNELS, prefix)
+        k4 = run["launches"]["resegment_sorted"]
+        if k4 != RANKS * t * frames:
+            raise AssertionError(f"{prefix}: K4 launched {k4} times in "
+                                 f"{frames} frames; expected "
+                                 f"{RANKS * t * frames}")
+        check_vdi(prefix, run["vdi"], (K_OUT, 4, spec.nj, spec.ni),
+                  (K_OUT, 2, spec.nj, spec.ni))
+        if profile:
+            state = [run["u"], run["v"], run["thr"]]
+
+            def one(i, frame=run["frame"], state=state):
+                _, _, state[0], state[1], state[2] = frame(*state, i)
+
+            profile_frames(f"{prefix}.profile", one)
+        runs[name] = run
+        images[name] = render_vdi_same_view(run["vdi"])
+        res[name] = dict(ms=run["ms"], wall_ms=run["wall_ms"], k4=k4,
+                         k4_per_frame=RANKS * t, wave_tiles=t,
+                         traffic=traffic)
+        del step, seed
+        torch.cuda.empty_cache()
+
+    # the gates, each against configuration 0 at the same frame
+    r0 = runs[C0]
+    for name, ex, wire, sched, slots in EXCHANGE_CONFIGS:
+        run, prefix = runs[name], f"exchange_{name}"
+        dc, dd, same, share, exact = vdi_gap(run["vdi"], r0["vdi"])
+        log(f"{prefix}.vs_c0", f"colour_max_diff={dc:.3e} depth_max_diff="
+            f"{dd:.3e} same_live_slots={same} pixels_live_count_differs="
+            f"{share:.6f} bit_exact={exact} threshold_max_diff="
+            f"{thr_gap(run['thr'], r0['thr']):.3e} psnr_db="
+            f"{image_psnr(images[name], images[C0]):.2f}")
+        if name == "c1_ring":
+            err = max(max_abs(run["vdi"].color, r0["vdi"].color),
+                      max_abs(run["vdi"].depth, r0["vdi"].depth))
+            check(f"{prefix}.lossless_vs_c0", err, 1e-6)
+        if name == "c2_ring_cap":
+            q = image_psnr(images[name], images["c1_ring"])
+            log(f"{prefix}.psnr_vs_lossless_ring_db", f"{q:.2f} (gate "
+                f"{CAP_PSNR_DB})")
+            if not q >= CAP_PSNR_DB:
+                raise AssertionError(f"{prefix}: {q:.2f} dB from the "
+                                     f"lossless ring")
+        if wire != "f32" and sched == "frame":
+            q = image_psnr(images[name], images[C0])
+            log(f"{prefix}.psnr_vs_f32_db", f"{q:.2f} (gate "
+                f"{WIRE_PSNR_DB}; bitwise f32: "
+                f"{torch.equal(images[name], images[C0])})")
+            if not q >= WIRE_PSNR_DB or torch.equal(images[name],
+                                                    images[C0]):
+                raise AssertionError(f"{prefix}: the lossy wire is "
+                                     f"{q:.2f} dB from f32 or equals it")
+            check(f"{prefix}.threshold_vs_f32",
+                  thr_gap(run["thr"], r0["thr"]), 1e-6)
+        if sched == "waves":
+            twin = runs[WAVE_TWINS[name]]
+            dc, dd, same, share, exact = vdi_gap(run["vdi"], twin["vdi"])
+            log(f"{prefix}.vs_frame_twin", f"twin={WAVE_TWINS[name]} "
+                f"colour_max_diff={dc:.3e} depth_max_diff={dd:.3e} "
+                f"same_live_slots={same} pixels_live_count_differs="
+                f"{share:.6f} bit_exact={exact}")
+            if wire == "f32":
+                if not vdi_close(run["vdi"], twin["vdi"], 1e-4, 1e-5):
+                    raise AssertionError(f"{prefix}: the waves' VDI "
+                                         f"differs from its frame twin")
+            else:
+                # qpack8 scales each fragment by its own [near, far]: a
+                # wave's fragment holds a quarter of the columns, so its
+                # codes are not the frame's; the image is held instead
+                q = image_psnr(images[name], images[WAVE_TWINS[name]])
+                log(f"{prefix}.psnr_vs_frame_twin_db", f"{q:.2f} (gate "
+                    f"{WIRE_PSNR_DB}: the wave's own depth scale)")
+                if not q >= WIRE_PSNR_DB:
+                    raise AssertionError(f"{prefix}: {q:.2f} dB from its "
+                                         f"frame twin")
+            check(f"{prefix}.threshold_vs_frame_twin",
+                  thr_gap(run["thr"], twin["thr"]), 1e-6)
+            for f, x, y in zip(run["meta"]._fields, run["meta"],
+                               twin["meta"]):
+                if not torch.equal(torch.as_tensor(x), torch.as_tensor(y)):
+                    raise AssertionError(f"{prefix}: meta {f} differs from "
+                                         f"its frame twin's")
+
+    # the parts, timed apart on configuration 0's final state and eye
+    mesh, spec, tf, (vcfg, _), _, _, camera = dist_steps(
+        dev, RANKS, GRID, BASE_EYE)
+    box = Volume.centered(r0["v"], extent=2.0)
+    origin, spacing = box.origin, box.spacing
+    slabs = shard_volume(r0["v"], mesh)
+    halo = dp._halo_for(slabs, spec)
+    cam = camera(frames)
+    frags = rank_fragments(dp, slabs, halo, origin, spacing, cam, spec, tf,
+                           vcfg, r0["thr"])
+    colors = torch.stack([f.color for f in frags])
+    depths = torch.stack([f.depth for f in frags])
+    del frags
+    for name, ex, wire, sched, slots in ((C0, "all_to_all", "f32", "frame",
+                                          0),) + EXCHANGE_CONFIGS:
+        prefix = f"exchange_{name}"
+        _, _, _, (_, ccfg), _, _, _ = dist_steps(
+            dev, RANKS, GRID, BASE_EYE, **exchange_comp(ex, wire, sched,
+                                                         slots))
+        if sched == "waves":
+            parts, streams = wave_parts(prefix, dp, slabs, halo, origin,
+                                        spacing, cam, spec, tf, vcfg, ccfg,
+                                        r0["thr"])
+        else:
+            parts, streams = exchange_parts(prefix, dp, colors, depths,
+                                            ccfg)
+        ms, b, by = k4_streams_ms(prefix, streams)
+        res.setdefault(name, dict(ms=r0["ms"], wall_ms=r0["wall_ms"]))
+        res[name].update(parts=parts, k4_frame_ms=ms, k4_frame_bound_ms=b,
+                         k4_frame_bound_by=by,
+                         k4_stream=list(streams[0][0].shape))
+        if name in ("c2_ring_cap", "c7_ring_waves"):
+            res[name]["k4_err"] = check_k4_on(f"{prefix}.resegment",
+                                              streams)
+        if name == "c6_a2a_waves":
+            nk, _, h, w = streams[0][0].shape
+            threads = cc.attributes(nk, K_OUT, COMP_ITERS)["threads"]
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            log(f"{prefix}.k4_launch", f"{h}x{w} pixels a wave block: "
+                f"{-(-h * w // threads)} blocks of {threads} threads on "
+                f"{sms} SMs")
+        del streams
+        torch.cuda.empty_cache()
+    del colors, depths
+    for name in [C0] + [c[0] for c in EXCHANGE_CONFIGS]:
+        r = res[name]
+        log(f"exchange_{name}.summary", f"ms_per_frame={r['ms']:.3f} "
+            f"(phase 4: {r0['ms']:.3f}) k4_frame_ms={r['k4_frame_ms']:.4f} "
+            f"k4_frame_bound_ms={r['k4_frame_bound_ms']:.4f}")
+    return res
+
+
+def check_small_exchange(dev):
+    """Phase 8 (b): every exchange configuration on the card against the
+    CPU's plain versions on a 32^3 Gray-Scott volume over 4 ranks, in
+    both march regimes, seed + 3 temporal frames from the same inputs:
+    the lossless ones at phase 4's bar, the lossy wires' images at
+    60 dB, every threshold map within 1e-6."""
+    from scenery_insitu_tpu_torch.core.vdi import render_vdi_same_view
+    from scenery_insitu_tpu_torch.core.volume import Volume
+    from scenery_insitu_tpu_torch.parallel.mesh import shard_volume
+    from scenery_insitu_tpu_torch.sim import grayscott as gs
+
+    n = 32
+    v0 = gs.multi_step(gs.GrayScott.init((n,) * 3, seed=SEED, device="cpu"),
+                       2 * SIM_STEPS).v
+    box = Volume.centered(v0, extent=2.0)
+    for regime, eye in (("z", BASE_EYE), ("x", (3.0, 0.6, 0.4))):
+        for name, ex, wire, sched, slots in EXCHANGE_CONFIGS:
+            outs = {}
+            for dname, d in (("cuda", dev), ("cpu", "cpu")):
+                mesh, spec, _, (_, ccfg), seed, step, camera = dist_steps(
+                    d, SMALL_RANKS, n, eye, fold="pallas_seg",
+                    **exchange_comp(ex, wire, sched, slots))
+                data = shard_volume(v0.to(d), mesh)
+                origin, spacing = box.origin.to(d), box.spacing.to(d)
+                thr = seed(data, origin, spacing, camera(-1))
+                imgs = []
+                for i in range(3):
+                    (vdi, _), thr = step(data, origin, spacing, camera(i),
+                                         thr)
+                    imgs.append(render_vdi_same_view(vdi).cpu())
+                outs[dname] = (imgs, [x.cpu() for x in thr])
+            prefix = f"small_exchange_{regime}_{name}"
+            diff = max(float((a - b).abs().max()) for a, b in
+                       zip(*(outs[k][0] for k in ("cuda", "cpu"))))
+            mean = max(float((a - b).abs().mean()) for a, b in
+                       zip(*(outs[k][0] for k in ("cuda", "cpu"))))
+            psnr = min(image_psnr(a, b) for a, b in
+                       zip(*(outs[k][0] for k in ("cuda", "cpu"))))
+            tdiff = thr_gap(outs["cuda"][1], outs["cpu"][1])
+            log(prefix, f"wave_tiles={ccfg.wave_tiles if sched == 'waves' else 1}"
+                f" image_max_abs_diff={diff:.3e} image_mean_abs_diff="
+                f"{mean:.3e} psnr_db={psnr:.2f} threshold_max_abs_diff="
+                f"{tdiff:.3e}")
+            if wire == "f32":
+                ok = diff <= 1e-4 and mean <= 1e-4
+            else:
+                ok = psnr >= SMALL_WIRE_PSNR_DB
+            if not (ok and tdiff <= 1e-6):
+                raise AssertionError(f"{prefix}: the card's frame differs "
+                                     f"from the CPU's plain versions")
+
+
+def tile_order_sink(events):
+    """A tile sink that logs each tile's (frame, tile, col0, tiles) and
+    keeps the payload's views."""
+    def sink(index, payload):
+        events.append(("tile", index, payload["tile"], payload["col0"],
+                       payload["tiles"], payload["vdi_color"],
+                       payload["vdi_depth"]))
+    return sink
+
+
+def check_tiles(prefix, events, frames, tiles_total):
+    """Every frame's tiles in ascending column order, each before the
+    frame's sinks, side by side the frame's payload bit for bit."""
+    import numpy as np
+
+    for f in sorted(frames):
+        tiles = [e for e in events if e[0] == "tile" and e[1] == f]
+        wb = frames[f]["vdi_color"].shape[-1] // tiles_total
+        if [t[2] for t in tiles] != list(range(tiles_total)) or \
+                [t[3] for t in tiles] != [i * wb for i in range(tiles_total)] \
+                or any(t[4] != tiles_total for t in tiles):
+            raise AssertionError(f"{prefix}: frame {f}'s tiles arrived as "
+                                 f"{[t[2:5] for t in tiles]}")
+        fi = events.index(("frame", f))
+        if not all(events.index(t) < fi for t in tiles):
+            raise AssertionError(f"{prefix}: a tile of frame {f} came after "
+                                 f"the frame's sinks")
+        for k, key in ((5, "vdi_color"), (6, "vdi_depth")):
+            if not np.array_equal(np.concatenate([t[k] for t in tiles], -1),
+                                  frames[f][key]):
+                raise AssertionError(f"{prefix}: frame {f}'s tiles side by "
+                                     f"side differ from its {key}")
+    log(f"{prefix}.tiles", f"frames {sorted(frames)}: {tiles_total} tiles "
+        f"each in ascending column order before the frame's sinks, side "
+        f"by side the frame bit for bit")
+
+
+def run_session_waves(dev, ring_waves_ms):
+    """Phase 8 (c), phase 7's session extended: the 512^3 session over 8
+    ranks with the ring exchange in tile waves. (1) A warm frame and
+    WAVE_SESSION_FRAMES timed frames with a tile sink, the launch counts
+    set to 0 before and read after (K3, K2, K1 and K4 must launch, K4
+    8·T a frame), every frame's tiles checked; (2) the same session with
+    ``delivery.enabled`` and a ``vdi_tile_sink`` every
+    WAVE_SESSION_EVERY frames: the tiles checked, the frames equal to
+    (1)'s bit for bit, and the dumped tiles side by side equal to the
+    frame. Returns the launch counts of (1)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from scenery_insitu_tpu_torch import kernels
+    from scenery_insitu_tpu_torch.core.camera import Camera
+    from scenery_insitu_tpu_torch.io.vdi_io import dump_path, load_vdi_tile
+    from scenery_insitu_tpu_torch.ops import slicer
+    from scenery_insitu_tpu_torch.runtime.session import vdi_tile_sink
+
+    base = session_config(GRID, ranks=RANKS)
+    cam0 = Camera.create(BASE_EYE, fov_y_deg=50.0, near=0.5, far=20.0,
+                         device=dev)
+    spec = slicer.make_spec(cam0, (GRID,) * 3, base.slicer,
+                            multiple_of=RANKS)
+    t = wave_tiles_for(spec.ni, RANKS)
+    cfg = base.with_overrides("composite.exchange=ring",
+                              "composite.schedule=waves",
+                              f"composite.wave_tiles={t}")
+    tiles_total = RANKS * t
+    log("session_waves.config", f"grid={GRID}^3 ranks={RANKS} ni={spec.ni} "
+        f"wave_tiles={t} tiles={tiles_total} tile_cols="
+        f"{spec.ni // tiles_total} exchange=ring")
+    out = tempfile.mkdtemp(prefix="chip_smoke_waves_")
+    try:
+        events, frames = [], {}
+        sess = session(dev, cfg, [lambda i, p: events.append(("frame", i)),
+                                  capture_into(frames)])
+        sess.tile_sinks.append(tile_order_sink(events))
+        kernels.reset_launches()
+        sess.run(SESSION_WARM)
+        before = phase_stats(sess.timers)
+        ms, _ = timed_run(sess, WAVE_SESSION_FRAMES)
+        launches = kernels.launches()
+        log("session_waves.launches", json.dumps(launches))
+        require_launched(launches, DIST_KERNELS, "the tile-wave session")
+        n_frames = SESSION_WARM + WAVE_SESSION_FRAMES
+        if launches["resegment_sorted"] != tiles_total * n_frames:
+            raise AssertionError(
+                f"session_waves: K4 launched {launches['resegment_sorted']}"
+                f" times in {n_frames} frames of {tiles_total} tiles")
+        p3_ev, _ = FRAME_MS["frame"]
+        log("session_waves.ms_per_frame", f"{ms:.3f} (host clock, mean of "
+            f"{WAVE_SESSION_FRAMES} frames with a tile sink; phase 8 (a)'s "
+            f"configuration 7, the ring in waves without the session: "
+            f"{ring_waves_ms:.3f} CUDA events, with {COMP_ITERS} composite "
+            f"search steps against the session's 2; phase 3's one-card "
+            f"frame {p3_ev:.3f})")
+        log_phase_stats("session_waves", sess.timers, before)
+        check_tiles("session_waves", events, frames, tiles_total)
+        if sess.obs.counters.get("tiles_delivered", 0) != \
+                tiles_total * n_frames:
+            raise AssertionError("session_waves: tiles_delivered "
+                                 f"{sess.obs.counters.get('tiles_delivered')}")
+        del sess
+
+        events2, frames2 = [], {}
+        sess = session(dev, cfg.with_overrides("delivery.enabled=true"),
+                       [lambda i, p: events2.append(("frame", i)),
+                        capture_into(frames2)])
+        sess.tile_sinks += [tile_order_sink(events2),
+                            vdi_tile_sink(out, every=WAVE_SESSION_EVERY)]
+        sess.run(3)
+        del sess
+        check_tiles("session_waves_delivery", events2, frames2, tiles_total)
+        check_frames_equal("session_waves_delivery", frames2,
+                           {i: frames[i] for i in frames2})
+        for f in range(0, 3, WAVE_SESSION_EVERY):
+            parts = []
+            for k in range(tiles_total):
+                vdi, _, place = load_vdi_tile(dump_path(
+                    out, "session", f, f"vditile{k:02d}"))
+                parts.append((place, vdi))
+            if [p[0][:2] for p in parts] != [(k, tiles_total)
+                                             for k in range(tiles_total)]:
+                raise AssertionError(f"session_waves: tile placements "
+                                     f"{[p[0] for p in parts]}")
+            for key, attr in (("vdi_color", "color"), ("vdi_depth",
+                                                       "depth")):
+                whole = np.concatenate([getattr(p[1], attr) for p in parts],
+                                       -1)
+                if not np.array_equal(whole, frames[f][key]):
+                    raise AssertionError(f"session_waves: frame {f}'s "
+                                         f"dumped tiles differ from {key}")
+        log("session_waves.tile_dumps", f"frames "
+            f"{list(range(0, 3, WAVE_SESSION_EVERY))}: {tiles_total} "
+            f"vdi_tile_sink artifacts each, side by side the frame bit "
+            f"for bit")
+        return launches
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
 
 
 # ------------------------------------------------------------- phase 5
@@ -2966,7 +3627,7 @@ def main(argv=None) -> int:
         check_small_frame(dev, f)
     torch.cuda.empty_cache()
     phase_done("phase3b")
-    dist_launches, rc, rd = run_dist_frame(dev, args.profile)
+    dist_launches, rc, rd, dist_ref = run_dist_frame(dev, args.profile)
     reseg = check_resegment(dev, rc, rd, k4_compare)
     del rc, rd
     torch.cuda.empty_cache()
@@ -2995,6 +3656,19 @@ def main(argv=None) -> int:
     small_session_launches = check_small_session(dev)
     log("phase7.wall_s", f"{time.perf_counter() - t7:.1f} (the session)")
     phase_done("phase7")
+    t8 = time.perf_counter()
+    exch = run_exchange_frames(dev, dist_ref, args.profile)
+    del dist_ref
+    torch.cuda.empty_cache()
+    phase_done("phase8.frames")
+    check_small_exchange(dev)
+    phase_done("phase8.small")
+    waves_session_launches = run_session_waves(
+        dev, exch["c7_ring_waves"]["ms"])
+    torch.cuda.empty_cache()
+    log("phase8.wall_s", f"{time.perf_counter() - t8:.1f} (the exchange "
+        f"schedules)")
+    phase_done("phase8")
 
     table = [
         dict(name="grayscott_fused", route="cuda",
@@ -3036,8 +3710,10 @@ def main(argv=None) -> int:
              source="scenery_insitu_tpu_torch/csrc/resegment.cu",
              replaces="scenery_insitu_tpu/ops/pallas_composite.py:172",
              launches=dist_launches["resegment_sorted"],
-             max_abs_err=max(reseg[b]["err"] for b in ("seeded",
-                                                       "frame_block")),
+             max_abs_err=max([reseg[b]["err"] for b in ("seeded",
+                                                        "frame_block")]
+                             + [exch[c]["k4_err"] for c in
+                                ("c2_ring_cap", "c7_ring_waves")]),
              ms=reseg["frame_block"]["ms"],
              plain_ms=reseg["frame_block"]["plain_ms"],
              bound_ms=reseg["frame_block"]["bound_ms"],
@@ -3045,7 +3721,19 @@ def main(argv=None) -> int:
              one_launch_ms=reseg["frame_block"]["one_launch_ms"],
              frame_ms=reseg["frame"]["ms"],
              frame_bound_ms=reseg["frame"]["bound_ms"],
-             compare_ms=reseg["frame_block"]["compare_ms"]),
+             compare_ms=reseg["frame_block"]["compare_ms"],
+             # phase 8: K4's launches in each exchange configuration's run
+             # (8 frames) and one frame's K4 launches timed on that
+             # configuration's own streams, beside their bound
+             exchange_launches={c: exch[c]["k4"] for c in exch
+                                if "k4" in exch[c]},
+             exchange_frame_ms={c: exch[c]["k4_frame_ms"] for c in exch},
+             exchange_frame_bound_ms={c: exch[c]["k4_frame_bound_ms"]
+                                      for c in exch},
+             ring_cap_frame_ms=exch["c2_ring_cap"]["k4_frame_ms"],
+             wave_frame_ms=exch["c6_a2a_waves"]["k4_frame_ms"],
+             session_waves_launches=waves_session_launches[
+                 "resegment_sorted"]),
     ]
     # the kernels of this slice: B1b has no caller on a frame path; the
     # microbenchmark's pallas_seg and tf_pallas_seg variants run it, so

@@ -17,12 +17,19 @@ Knobs (environment, the reference's names and defaults; the grid and
 frame count default to 512 and 25 on a card, 128 and 5 on the CPU):
 ``SITPU_BENCH_GRID``, ``K``, ``FRAMES``, ``SIM_STEPS``,
 ``ADAPTIVE_ITERS``, ``ADAPTIVE_MODE``, ``FOLD``, ``CHUNK``, ``VTILES``,
-``SKIP`` (off|chunk|pyramid|sim), ``SIM_FUSED`` and ``RENDER_DTYPE``
+``SKIP`` (off|chunk|pyramid|sim), ``SIM_FUSED``, ``RENDER_DTYPE``
 (f32|bf16, the march's copy of the field; bf16 from a grid of 1024 up,
-as the reference defaults it), each prefixed
-``SITPU_BENCH_``. The knobs of parts this package does not have yet
-raise, naming their ROADMAP row. There is no platform fallback: without
-a card it raises unless ``--device cpu`` is given.
+as the reference defaults it), ``EXCHANGE`` (all_to_all|ring), ``WIRE``
+(f32|bf16|qpack8), ``SCHEDULE`` (frame|waves), ``WAVE_TILES``,
+``WIDTH`` and ``HEIGHT``, each prefixed ``SITPU_BENCH_``. The frame is
+one card's, which has no exchange: as in the reference, the exchange,
+wire and schedule knobs leave it unchanged and go into the JSON's
+``config`` block with ``modeled_exchange_8rank``, the modeled per-rank
+exchange bytes of the reference's 8-rank shape at ``WIDTH`` x ``HEIGHT``
+(``ops/composite.modeled_exchange_traffic``; a model, not a
+measurement). The knobs of parts this package does not have yet raise,
+naming their ROADMAP row. There is no platform fallback: without a card
+it raises unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -46,9 +53,6 @@ _UNPORTED = {
                     "queue A3/A7: a CUDA graph after A3"),
     "AUTOTUNE": ("0", "the fold race at warm-up", "queue A7"),
     "PROFILE": ("0", "the phase attribution", "queue A12"),
-    "EXCHANGE": ("all_to_all", "the ring exchange", "queue A8b, item 1"),
-    "WIRE": ("f32", "the bf16/qpack8 wire", "queue A8b, item 2"),
-    "SCHEDULE": ("frame", "tile waves", "queue A8b, item 3"),
     "REBALANCE": ("even", "occupancy rebalance plans",
                   "queue A8b, item 4"),
 }
@@ -80,7 +84,17 @@ def bench_config(env: Mapping[str, str], on_card: bool) -> dict:
     if skip not in (None, "off", "chunk", "pyramid", "sim"):
         raise ValueError(f"SITPU_BENCH_SKIP must be off|chunk|pyramid|sim,"
                          f" got {skip!r}")
+    from scenery_insitu_tpu_torch.config import CompositeConfig
+
+    # the sort-last settings, validated as CompositeConfig validates them
+    exchange = CompositeConfig(
+        exchange=get("EXCHANGE", "all_to_all"), wire=get("WIRE", "f32"),
+        schedule=get("SCHEDULE", "frame"),
+        wave_tiles=int(get("WAVE_TILES", 4)))
     return dict(
+        exchange=exchange.exchange, wire=exchange.wire,
+        schedule=exchange.schedule, wave_tiles=exchange.wave_tiles,
+        width=int(get("WIDTH", 1280)), height=int(get("HEIGHT", 720)),
         grid=grid,
         render_dtype=render_dtype,
         k=int(get("K", 16)),
@@ -115,6 +129,8 @@ def run(device=None, env: Optional[Mapping[str, str]] = None) -> dict:
         grayscott_vdi_frame_step, resolve_occupancy_cfg)
     from scenery_insitu_tpu_torch.ops import occupancy as occ
     from scenery_insitu_tpu_torch.ops import slicer
+    from scenery_insitu_tpu_torch.ops.composite import (
+        modeled_exchange_traffic)
     from scenery_insitu_tpu_torch.sim import grayscott as gs
 
     dev = resolve_device(device)
@@ -133,7 +149,10 @@ def run(device=None, env: Optional[Mapping[str, str]] = None) -> dict:
                           adaptive_iters=cfg["adaptive_iters"],
                           adaptive_mode=cfg["adaptive_mode"]),
         comp_cfg=CompositeConfig(max_output_supersegments=k,
-                                 adaptive_iters=cfg["adaptive_iters"]),
+                                 adaptive_iters=cfg["adaptive_iters"],
+                                 exchange=cfg["exchange"], wire=cfg["wire"],
+                                 schedule=cfg["schedule"],
+                                 wave_tiles=cfg["wave_tiles"]),
         engine="mxu", grid_shape=(grid,) * 3,
         axis_sign=slicer.choose_axis(base), slicer_cfg=march_cfg,
         render_dtype=cfg["render_dtype"], sim_fused=cfg["sim_fused"],
@@ -183,13 +202,21 @@ def run(device=None, env: Optional[Mapping[str, str]] = None) -> dict:
         "value": round(1.0 / dt, 3),
         "unit": "frames/s",
         "ms_per_frame": round(dt * 1e3, 2),
+        # what the wire would ship per rank at the reference's 8-rank
+        # shape of this configuration: a model (one card has no exchange)
+        "modeled_exchange_8rank": modeled_exchange_traffic(
+            8, k, cfg["height"], cfg["width"], k_out=k,
+            mode=cfg["exchange"], wire=cfg["wire"],
+            schedule=cfg["schedule"], wave_tiles=cfg["wave_tiles"]),
         "occupancy": occupancy,
         "config": {
             "grid": grid, "image": [spec.ni, spec.nj], "steps": grid,
             "fold": spec.fold, "render_dtype": spec.render_dtype,
             "vtiles": spec.vtiles, "skip_empty": spec.skip_empty,
             "k": k, "frames": frames, "sim_steps": cfg["sim_steps"],
-            "sim_fused": cfg["sim_fused"], "skip": cfg["skip"],
+            "sim_fused": cfg["sim_fused"], "exchange": cfg["exchange"],
+            "wire": cfg["wire"], "schedule": cfg["schedule"],
+            "wave_tiles": cfg["wave_tiles"], "skip": cfg["skip"],
             "adaptive_iters": cfg["adaptive_iters"],
             "adaptive_mode": cfg["adaptive_mode"], "chunk": cfg["chunk"],
             "warmup_s": round(warmup_s, 1), "platform": platform,

@@ -4,10 +4,7 @@ environment variables, a JSON file or ``section.key=value`` strings.
 The port's own copy of the reference's ``config.py``: the same sections,
 field names, defaults, validation messages and parser, so one JSON file
 configures either package. A value the port cannot run yet still parses
-and raises where it is used, naming its ROADMAP row, with one exception:
-`CompositeConfig` rejects at construction the sort-last exchange settings
-other than the ``all_to_all`` exchange, the ``f32`` wire and the
-``frame`` schedule (ROADMAP queue A8b).
+and raises where it is used, naming its ROADMAP row.
 """
 
 from __future__ import annotations
@@ -130,13 +127,22 @@ class CompositeConfig:
     # its plain version on a CPU tensor) or "auto" (K4 on a CUDA tensor,
     # "xla" on the CPU)
     backend: str = "auto"
-    # sort-last exchange: "all_to_all" (ported) or "ring" (A8b)
+    # sort-last exchange: "all_to_all" (every rank receives its column
+    # block of every fragment, then sorts N·K slots) or "ring" (n-1 hops,
+    # each arriving fragment merged into a sorted accumulator); one rank
+    # takes the all_to_all path
     exchange: str = "all_to_all"
-    # ring accumulator cap, slots per pixel (0 = lossless)
+    # ring accumulator cap, slots per pixel (0 = lossless; > 0 drops the
+    # farthest segments of overfull pixels at every merge)
     ring_slots: int = 0
-    # supersegment wire format: "f32" (ported), "bf16" or "qpack8" (A8b)
+    # supersegment wire format of the exchange (ops/wire.py): "f32"
+    # (24 B a slot, exact), "bf16" (12 B) or "qpack8" (6 B); the merge
+    # and resegment run in f32
     wire: str = "f32"
-    # frame schedule: "frame" (ported) or "waves" (A8b)
+    # frame schedule: "frame" (one march, one exchange, one composite) or
+    # "waves" (each rank marches one column-block wave at a time and
+    # every wave is exchanged and composited; one rank degrades to
+    # "frame" on the ledger)
     schedule: str = "frame"
     wave_tiles: int = 4            # column-block waves per rank
     # per-rank supersegment budget: "static" or "occupancy" (A8b)
@@ -203,14 +209,6 @@ class CompositeConfig:
         if self.backend not in ("auto", "xla", "pallas"):
             raise ValueError(f"backend must be 'auto', 'xla' or 'pallas', "
                              f"got {self.backend!r}")
-        ported = (("exchange", "all_to_all"), ("wire", "f32"),
-                  ("schedule", "frame"))
-        for name, value in ported:
-            if getattr(self, name) != value:
-                raise ValueError(
-                    f"{name}={getattr(self, name)!r} is a distributed "
-                    f"composite setting this port does not run yet "
-                    f"(ROADMAP queue A8b); the ported value is {value!r}")
 
 
 @dataclass(frozen=True)

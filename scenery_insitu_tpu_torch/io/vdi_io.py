@@ -13,9 +13,11 @@ its own, with the byte counts ("limits") carried alongside
 
 Codecs: ``none``, ``zlib``, ``lzma`` and ``zstd``; ``zstd`` degrades to
 ``zlib`` (ledgered ``io.vdi_codec``) where the ``zstandard`` package is
-missing. The LZ4 block codec is ROADMAP A11, the quantized ``qpack8``
-artifacts ROADMAP A8b (wire formats) and the temporal-delta records
-ROADMAP A8b item 6; each raises here.
+missing. ``precision="qpack8"`` quantizes the buffers with the sort-last
+wire's quantizer (``ops/wire.qpack8_quantize_np``) before the codec and
+``load_vdi`` dequantizes them back to f32. The LZ4 block codec is
+ROADMAP A11 and the temporal-delta records ROADMAP A8b item 6; each
+raises here.
 """
 
 from __future__ import annotations
@@ -115,12 +117,6 @@ def decompress(data: bytes, codec: str = "zstd") -> bytes:
     return dec(data)
 
 
-def _qpack8():
-    raise NotImplementedError(
-        "precision='qpack8' artifacts need the sort-last wire quantizer, "
-        "which is not ported yet (ROADMAP A8b, wire formats)")
-
-
 # ----------------------------------------------------------- file artifacts
 
 def save_vdi(path: str, vdi: VDI, meta: Optional[VDIMetadata] = None,
@@ -135,20 +131,37 @@ def save_vdi(path: str, vdi: VDI, meta: Optional[VDIMetadata] = None,
     ``tile=(index, total, col0)`` marks a partial-frame column-block
     artifact: this VDI holds columns [col0, col0 + width) of tile
     ``index`` of ``total`` (read back with `load_vdi_tile`).
+
+    ``precision="qpack8"`` stores the wire's qpack8 codes (u32 colour,
+    u16 depth pair) with their ``[near, far]`` scale, a quarter of the
+    bytes before the codec, and tags the artifact and the metadata's
+    ``precision``; lossy by the wire's contract.
     """
     if precision not in ("f32", "qpack8"):
         raise ValueError(f"precision must be 'f32' or 'qpack8', "
                          f"got {precision!r}")
-    if precision == "qpack8":
-        _qpack8()
     codec = resolve_codec(codec)
-    members = {"color": _np(vdi.color), "depth": _np(vdi.depth),
-               "__codec__": np.frombuffer(codec.encode(), np.uint8)}
+    if precision == "qpack8":
+        from scenery_insitu_tpu_torch.ops.wire import (WIRE_CODES,
+                                                       qpack8_quantize_np)
+
+        qc, qd, near, far = qpack8_quantize_np(_np(vdi.color),
+                                               _np(vdi.depth))
+        members = {"color": qc, "depth": qd,
+                   "__precision__": np.frombuffer(precision.encode(),
+                                                  np.uint8),
+                   "__qscale__": np.asarray([near, far], np.float32),
+                   "__codec__": np.frombuffer(codec.encode(), np.uint8)}
+        stamp = WIRE_CODES[precision]
+    else:
+        members = {"color": _np(vdi.color), "depth": _np(vdi.depth),
+                   "__codec__": np.frombuffer(codec.encode(), np.uint8)}
+        stamp = 0
     if tile is not None:
         members["__tile__"] = np.asarray(tile, np.int64)    # (idx, total, col0)
     if meta is not None:
-        # stamp what this artifact holds: f32 buffers
-        meta = meta._replace(precision=np.int32(0))
+        # stamp what this artifact holds: f32 or qpack8 buffers
+        meta = meta._replace(precision=np.int32(stamp))
         for f in _META_FIELDS:
             members[f"meta_{f}"] = _np(getattr(meta, f))
     buf = io.BytesIO()
@@ -180,14 +193,12 @@ def save_vdi(path: str, vdi: VDI, meta: Optional[VDIMetadata] = None,
 
 def load_vdi(path: str) -> Tuple[VDI, Optional[VDIMetadata]]:
     """Inverse of `save_vdi`: host numpy arrays (VDI and metadata), as the
-    reference returns them. Artifacts from before the precision tag load
-    with the f32 default."""
+    reference returns them; a ``qpack8`` artifact is dequantized to f32.
+    Artifacts from before the precision tag load with the f32 default."""
     with np.load(path) as z:
         codec = bytes(z["__codec__"]).decode() if "__codec__" in z else "none"
         precision = (bytes(z["__precision__"]).decode()
                      if "__precision__" in z else "f32")
-        if precision == "qpack8":
-            _qpack8()
 
         def member(k):
             if f"__shape__{k}" in z:
@@ -196,7 +207,14 @@ def load_vdi(path: str) -> Tuple[VDI, Optional[VDIMetadata]]:
                 return np.frombuffer(raw, dtype).reshape(z[f"__shape__{k}"])
             return z[k]
 
-        vdi = VDI(member("color"), member("depth"))
+        color, depth = member("color"), member("depth")
+        if precision == "qpack8":
+            from scenery_insitu_tpu_torch.ops.wire import (
+                qpack8_dequantize_np)
+
+            near, far = (float(x) for x in z["__qscale__"])
+            color, depth = qpack8_dequantize_np(color, depth, near, far)
+        vdi = VDI(color, depth)
         if "meta_projection" in z:
             meta = VDIMetadata(*[member(f"meta_{f}") if f"meta_{f}" in z
                                  else np.int32(0)

@@ -74,6 +74,8 @@ def degrade(component: str, from_: str, to: str, reason: str,
 # The component catalog of every degrade() site in this package: keys
 # are components, values say what degrading means there.
 _LEDGER_REGISTRY: Dict[str, str] = {
+    "composite.schedule": "tile waves requested on a single-rank mesh; "
+                          "frame schedule runs (nothing to overlap)",
     "config.removed_key": "a removed config key was set and ignored "
                           "(deprecation note in the reason)",
     "delivery.drain": "teardown drain of the async delivery queue timed "
@@ -126,11 +128,18 @@ _COUNTER_REGISTRY: Dict[str, str] = {
                              "dispatch path",
     "regime_switches": "the camera entered another march regime than "
                        "the previous frame's",
+    "ring_exchange_builds": "a ring all-to-all exchange program was "
+                            "built",
+    "ring_steps_built": "one hop of a ring exchange was built",
     "sink_failures": "a frame/tile sink or steering callback raised",
     "sinks_quarantined": "a sink was disabled after repeated "
                          "consecutive failures",
     "slo_breaches": "the live SLO engine recorded one budget breach",
-    "tiles_delivered": "the delivery worker delivered one tile payload",
+    "tiles_delivered": "one column-block tile payload went to the tile "
+                       "sinks (from the session or the delivery worker)",
+    "wave_schedule_builds": "a tile-wave overlap schedule was built",
+    "wave_steps_built": "a tile-wave render step was compiled",
+    "wire_encode_builds": "a wire encode executable was built",
 }
 
 

@@ -32,6 +32,13 @@ on CUDA and to ``xla`` on the CPU, as the reference resolves it on and
 off the TPU. The chunk loop is a Python loop; chunk occupancy is copied
 to the host once per march, and the kernel folds update their packed
 state in place.
+
+Tile waves (``CompositeConfig.schedule="waves"``): every virtual-camera
+column is its own ray fan, so a march of a subset of columns is the
+column slice of the full march. `wave_camera` slices the camera's u grid
+to one wave's columns, and the generators take the frame's shared
+``axcam``, ``volp`` (the permuted copy) and occupancy gate, so T waves
+cost one permuted copy and one gate a frame, not T.
 """
 
 from __future__ import annotations
@@ -255,6 +262,68 @@ def make_axis_camera(vol: Volume, cam: Camera, spec: AxisSpec,
     return AxisCamera(eye_uvw=torch.stack([eu, ev, ew]), view=view,
                       proj=proj, u_grid=u_grid, v_grid=v_grid, zp=zp,
                       w0=w0, dwm=dwm, far=far)
+
+
+# ------------------------------------------------------------- tile waves
+
+
+def wave_block(ni: int, n_ranks: int, wave_tiles: int) -> int:
+    """Column width of one tile wave's per-rank block: the intermediate
+    width splits into ``n_ranks`` rank-owned blocks, each into
+    ``wave_tiles`` tiles. Raises when the geometry does not divide."""
+    if ni % (n_ranks * wave_tiles):
+        raise ValueError(
+            f"intermediate width {ni} not divisible by ranks*wave_tiles "
+            f"= {n_ranks}*{wave_tiles} (pick wave_tiles so every rank's "
+            f"{ni // n_ranks if n_ranks and ni % n_ranks == 0 else ni}"
+            f"-column block splits evenly)")
+    return ni // (n_ranks * wave_tiles)
+
+
+def wave_cols(x: torch.Tensor, n_ranks: int, wave_tiles: int,
+              w: int) -> torch.Tensor:
+    """Tile wave ``w``'s columns of ``x [..., Ni]``: the w-th of
+    ``wave_tiles`` sub-tiles of each of the ``n_ranks`` rank-owned
+    blocks -> ``[..., n_ranks * wb]``."""
+    ni = x.shape[-1]
+    wb = wave_block(ni, n_ranks, wave_tiles)
+    g = x.reshape(x.shape[:-1] + (n_ranks, wave_tiles, wb))
+    return g[..., w, :].reshape(x.shape[:-1] + (n_ranks * wb,))
+
+
+def wave_update_cols(x: torch.Tensor, xw: torch.Tensor, n_ranks: int,
+                     wave_tiles: int, w: int) -> torch.Tensor:
+    """Inverse of `wave_cols`: ``x`` with wave ``w``'s columns replaced
+    by ``xw [..., n_ranks * wb]`` (a new tensor)."""
+    ni = x.shape[-1]
+    wb = wave_block(ni, n_ranks, wave_tiles)
+    out = x.clone(memory_format=torch.contiguous_format)
+    out.view(x.shape[:-1] + (n_ranks, wave_tiles, wb))[..., w, :] = \
+        xw.reshape(xw.shape[:-1] + (n_ranks, wb))
+    return out
+
+
+def wave_camera(axcam: AxisCamera, spec: AxisSpec, n_ranks: int,
+                wave_tiles: int, w: int) -> Tuple[AxisCamera, AxisSpec]:
+    """The (AxisCamera, AxisSpec) of tile wave ``w``: the camera carries
+    the wave's ``n_ranks * wb`` u-grid entries (one ``wb``-wide tile a
+    rank-owned block, so the wave still splits into n rank blocks for
+    the exchange) and the spec's ``ni`` shrinks to match. The march
+    axis, chunking, fold and occupancy gating are u-independent and
+    reused."""
+    ug = wave_cols(axcam.u_grid, n_ranks, wave_tiles, w)
+    return (axcam._replace(u_grid=ug),
+            dataclasses.replace(spec, ni=ug.shape[-1]))
+
+
+def slice_march_wave(vol: Volume, tf: TransferFunction, axcam: AxisCamera,
+                     spec: AxisSpec, consume: Callable, carry0,
+                     n_ranks: int, wave_tiles: int, w: int, **kwargs):
+    """`slice_march` of tile wave ``w``'s columns only. Takes every
+    `slice_march` keyword: pass the frame's shared ``volp`` and
+    ``occupancy`` gate."""
+    axcam_w, spec_w = wave_camera(axcam, spec, n_ranks, wave_tiles, w)
+    return slice_march(vol, tf, axcam_w, spec_w, consume, carry0, **kwargs)
 
 
 def _axis_params(vol: Volume, spec: AxisSpec):
@@ -549,9 +618,24 @@ def _histogram_threshold(march, cfg: VDIConfig, k, nj: int, ni: int,
     return ss.pick_threshold(counts, tvec, k)
 
 
+def _resolve_occupancy(vol: Volume, tf: TransferFunction, spec: AxisSpec,
+                       occupancy, volp: torch.Tensor):
+    """The gate a march consumes: built here from the permuted copy when
+    ``occupancy`` is None, gated from a caller's
+    ``ops/occupancy.OccupancyPyramid``, else a caller's gate as it is."""
+    if occupancy is None:
+        return occupancy_for(vol, tf, spec, volp=volp)
+    from scenery_insitu_tpu_torch.ops import occupancy as _occ
+
+    if isinstance(occupancy, _occ.OccupancyPyramid):
+        return occupancy.gate(spec)
+    return occupancy
+
+
 def _frame_march(vol: Volume, tf: TransferFunction, cam: Camera,
                  spec: AxisSpec, box_min=None, box_max=None, v_bounds=None,
-                 occupancy=None):
+                 occupancy=None, axcam: Optional[AxisCamera] = None,
+                 volp: Optional[torch.Tensor] = None):
     """The frame's virtual camera and its march over one permuted copy
     and one occupancy gate: returns (axcam, march) with ``march(consume,
     carry0, **options)`` a `slice_march` of this frame (options:
@@ -560,13 +644,15 @@ def _frame_march(vol: Volume, tf: TransferFunction, cam: Camera,
     `slice_march`. ``occupancy``: a caller's
     ``ops/occupancy.OccupancyPyramid`` for this volume and spec (built
     once a frame, for example from the sim's field ranges), whose gate
-    replaces the pyramid built here from the permuted copy."""
-    axcam = make_axis_camera(vol, cam, spec, box_min, box_max)
-    volp = permute_volume(vol, spec)
-    if occupancy is None:
-        occ = occupancy_for(vol, tf, spec, volp=volp)
-    else:
-        occ = occupancy.gate(spec)
+    replaces the pyramid built here from the permuted copy, or a gate
+    it already took (`occupancy_for`). ``axcam`` and ``volp``: a
+    caller's virtual camera (a tile wave's, `wave_camera`) and permuted
+    copy, shared by the waves of a frame."""
+    if axcam is None:
+        axcam = make_axis_camera(vol, cam, spec, box_min, box_max)
+    if volp is None:
+        volp = permute_volume(vol, spec)
+    occ = _resolve_occupancy(vol, tf, spec, occupancy, volp)
 
     def march(consume, carry0, **options):
         return slice_march(vol, tf, axcam, spec, consume, carry0,
@@ -675,14 +761,17 @@ def generate_vdi_mxu(vol: Volume, tf: TransferFunction, cam: Camera,
                      spec: AxisSpec, cfg: Optional[VDIConfig] = None,
                      box_min: Optional[torch.Tensor] = None,
                      box_max: Optional[torch.Tensor] = None, v_bounds=None,
-                     occupancy=None) -> Tuple[VDI, VDIMetadata, AxisCamera]:
+                     occupancy=None, axcam: Optional[AxisCamera] = None,
+                     volp: Optional[torch.Tensor] = None
+                     ) -> Tuple[VDI, VDIMetadata, AxisCamera]:
     """VDI generation on the slice march, with the threshold of
     ``cfg.adaptive_mode`` "histogram" (one counting march over all
     candidates), "search" (``adaptive_iters`` counting marches) or fixed
     (``adaptive=False``). ``adaptive_mode="temporal"`` carries state:
     use `generate_vdi_mxu_temporal`. ``box_min``/``box_max``/``v_bounds``
     are a distributed rank's: see `make_axis_camera` and
-    `slice_march`; ``occupancy``: see `_frame_march`."""
+    `slice_march`; ``occupancy``, ``axcam`` and ``volp``: see
+    `_frame_march` (a caller's ``axcam`` replaces the box)."""
     cfg = cfg or VDIConfig()
     k = cfg.max_supersegments
     nj, ni = spec.nj, spec.ni
@@ -693,7 +782,7 @@ def generate_vdi_mxu(vol: Volume, tf: TransferFunction, cam: Camera,
             "call generate_vdi_mxu_temporal(..., threshold=...) instead "
             "(seed the state with initial_threshold())")
     axcam, march = _frame_march(vol, tf, cam, spec, box_min, box_max,
-                                v_bounds, occupancy)
+                                v_bounds, occupancy, axcam, volp)
     if cfg.adaptive and cfg.adaptive_mode == "histogram":
         threshold = _histogram_threshold(march, cfg, k, nj, ni, spec.fold,
                                          dev)
@@ -736,6 +825,8 @@ def generate_vdi_mxu_temporal(vol: Volume, tf: TransferFunction,
                               box_min: Optional[torch.Tensor] = None,
                               box_max: Optional[torch.Tensor] = None,
                               v_bounds=None, occupancy=None,
+                              axcam: Optional[AxisCamera] = None,
+                              volp: Optional[torch.Tensor] = None,
                               ) -> Tuple[VDI, VDIMetadata, AxisCamera,
                                          ss.ThresholdState]:
     """VDI generation with ONE march per frame (adaptive_mode
@@ -743,12 +834,12 @@ def generate_vdi_mxu_temporal(vol: Volume, tf: TransferFunction,
     with `initial_threshold`); the write march yields the true per-pixel
     segment count, and ``update_threshold`` bisects the map toward the
     target band for the next frame. Returns (vdi, meta, axcam,
-    next_threshold). ``box_min``/``box_max``/``v_bounds``/``occupancy``:
-    see `generate_vdi_mxu`."""
+    next_threshold). ``box_min``/``box_max``/``v_bounds``/``occupancy``/
+    ``axcam``/``volp``: see `generate_vdi_mxu`."""
     cfg = cfg or VDIConfig()
     k = cfg.max_supersegments
     axcam, march = _frame_march(vol, tf, cam, spec, box_min, box_max,
-                                v_bounds, occupancy)
+                                v_bounds, occupancy, axcam, volp)
     color, depth, count = _write_march(march, vol, tf, axcam, spec,
                                        threshold.thr, k, count=True)
     next_thr = ss.update_threshold(threshold, count, k,

@@ -6,7 +6,7 @@ device, the twin of the virtual CPU mesh the reference's tests use: a
 "sharded" volume is a rank-stacked tensor ``f32[n, D/n, H, W]`` (rank r
 holds z-slab r), a collective is a tensor operation across the rank
 axis, and every rank's work runs in turn on the mesh's device. A mesh
-spread over several cards is ROADMAP A8b.
+spread over several cards, one process a card, is ROADMAP A8b item 9.
 """
 
 from __future__ import annotations

@@ -23,6 +23,13 @@ one launch (``runtime.scan_frames > 1``, A3/A7), the plain image modes
 bricks and LOD (A8b, item 4), the two-level topology (A8b, item 5),
 K budgets and fragment reuse (A8b, item 6), steering (A11), and the
 telemetry collector, device profiles and cost snapshots (A12).
+
+The composite's exchange, wire and schedule come from
+``cfg.composite`` (``parallel/pipeline.py``). With
+``composite.schedule="waves"`` every fetched VDI frame is also cut into
+its ``n_ranks * wave_tiles`` column-block tiles, and each tile payload
+goes to ``tile_sinks`` in ascending column order before the frame's own
+sinks run (through the delivery worker when ``delivery.enabled``).
 """
 
 from __future__ import annotations
@@ -224,8 +231,11 @@ class InSituSession:
         # quarantined instead of killing the run
         self._sink_guard = SinkGuard(self.cfg.fault.max_sink_failures,
                                      log=self.log)
-        # the frame schedule delivers no column-block tiles (tile waves
-        # are ROADMAP A8b, item 3); the list is kept for the executor
+        # tile-granular delivery: with composite.schedule == "waves"
+        # every VDI frame is also cut into its n_ranks * wave_tiles
+        # column-block tiles, and each tile payload ({vdi_color,
+        # vdi_depth, tile, tiles, col0, frame, meta}) goes to these sinks
+        # in column order before the frame sinks see the whole frame
         self.tile_sinks: List[Sink] = []
         self._delivery = None
         if self.cfg.delivery.enabled:
@@ -428,6 +438,9 @@ class InSituSession:
         meta = self._pending_meta.pop(index, None)
         if meta is None:
             meta = self.frame_metadata(index)
+        tiles = ()
+        tiled = bool(self.tile_sinks) \
+            and self.cfg.composite.schedule == "waves"
         with self.obs.span("fetch", frame=index):
             if host is not None:
                 # wait on this frame's copy only, then take the bytes out
@@ -439,14 +452,52 @@ class InSituSession:
                 self._free_sets.append(host.bufs)
             else:
                 color, depth = to_numpy(out)
+            if tiled:
+                if self._delivery is not None:
+                    # the worker delivers these views in the same order
+                    tiles = self._tile_payloads(index, meta, color, depth)
+                else:
+                    # every tile goes out before the frame's sinks run
+                    self._deliver_tiles(index, meta, color, depth)
             payload = {"vdi_color": color, "vdi_depth": depth,
                        "frame": index, "meta": meta}
         if self._delivery is not None:
-            self._delivery.submit(index, payload, ())
+            self._delivery.submit(index, payload, tiles)
         else:
             with self.obs.span("sinks", frame=index):
                 self._sink_guard.run(self.sinks, index, payload)
         return payload
+
+    def _tile_payloads(self, index: int, meta, color: np.ndarray,
+                       depth: np.ndarray) -> list:
+        """One composited VDI frame cut into its column-block tile
+        payloads, ascending global column order (tile t covers columns
+        [t*wb, (t+1)*wb)). The tiles are the wave schedule's unit,
+        n_ranks * wave_tiles blocks; a width the tiling does not divide
+        falls back to per-rank blocks. The slices are views."""
+        n = self._n_ranks
+        tiles = n * self.cfg.composite.wave_tiles
+        w_total = color.shape[-1]
+        if w_total % tiles:
+            tiles = n                       # waves degraded to frame
+        wb = w_total // tiles
+        return [{
+            "vdi_color": color[..., t * wb:(t + 1) * wb],
+            "vdi_depth": depth[..., t * wb:(t + 1) * wb],
+            "frame": index, "tile": t, "tiles": tiles,
+            "col0": t * wb, "meta": meta,
+        } for t in range(tiles)]
+
+    def _deliver_tiles(self, index: int, meta, color: np.ndarray,
+                       depth: np.ndarray) -> None:
+        """Hand every column-block tile of one frame to the tile sinks in
+        ascending column order: tile t arrives before tile t+1 and
+        before the frame's own sinks."""
+        for payload in self._tile_payloads(index, meta, color, depth):
+            with self.obs.span("tile", frame=index, tile=payload["tile"]):
+                self.obs.count("tiles_delivered")
+                self._sink_guard.run(self.tile_sinks, index, payload,
+                                     kind="tile sink")
 
     def _enter_regime(self, key) -> None:
         if key != getattr(self, "_last_regime_key", key):

@@ -35,7 +35,9 @@ def test_bench_prints_one_json_line(monkeypatch, capsys):
 
 
 # knobs that raised once and are ported now: value -> resolved setting
-PORTED_KNOBS = {"RENDER_DTYPE": {"bf16": "bf16"}}
+PORTED_KNOBS = {"RENDER_DTYPE": {"bf16": "bf16"},
+                "EXCHANGE": {"ring": "ring"}, "WIRE": {"qpack8": "qpack8"},
+                "SCHEDULE": {"waves": "waves"}}
 
 
 @pytest.mark.parametrize("knob,value", [
@@ -44,8 +46,8 @@ PORTED_KNOBS = {"RENDER_DTYPE": {"bf16": "bf16"}}
     ("WIRE", "qpack8"), ("SCHEDULE", "waves"), ("REBALANCE", "occupancy")])
 def test_bench_unported_knobs_raise(knob, value):
     """Each knob of a part not yet ported raises, naming its ROADMAP row;
-    a knob ported since (the render dtype, the bf16 march copy) takes the
-    value instead."""
+    a knob ported since (the render dtype, the bf16 march copy; the
+    exchange, the wire and the schedule) takes the value instead."""
     env = {f"SITPU_BENCH_{knob}": value}
     if knob in PORTED_KNOBS:
         cfg = bench.bench_config(env, on_card=False)
@@ -120,3 +122,39 @@ def test_entry_on_cpu():
     assert bool(torch.isfinite(color).all())
     assert bool(torch.isfinite(depth[:, 0]).any())
     assert not torch.equal(v2, v)
+
+
+def test_bench_exchange_knobs_report_the_model(monkeypatch, capsys):
+    """The exchange, wire and schedule knobs resolve as the reference's
+    bench resolves them, go into the config block, and the JSON carries
+    the reference's modeled 8-rank exchange traffic; the one-card frame
+    runs unchanged."""
+    from scenery_insitu_tpu.ops.composite import modeled_exchange_traffic
+
+    for name, value in (("GRID", "16"), ("FRAMES", "1"), ("K", "4"),
+                        ("EXCHANGE", "ring"), ("WIRE", "qpack8"),
+                        ("SCHEDULE", "waves"), ("WAVE_TILES", "2")):
+        monkeypatch.setenv(f"SITPU_BENCH_{name}", value)
+    assert bench.main(["--device", "cpu"]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    cfg = out["config"]
+    assert (cfg["exchange"], cfg["wire"], cfg["schedule"],
+            cfg["wave_tiles"]) == ("ring", "qpack8", "waves", 2)
+    assert out["modeled_exchange_8rank"] == modeled_exchange_traffic(
+        8, 4, 720, 1280, k_out=4, mode="ring", wire="qpack8",
+        schedule="waves", wave_tiles=2)
+    assert out["value"] > 0
+    defaults = bench.bench_config({}, on_card=False)
+    assert (defaults["exchange"], defaults["wire"], defaults["schedule"],
+            defaults["wave_tiles"], defaults["width"],
+            defaults["height"]) == ("all_to_all", "f32", "frame", 4, 1280,
+                                    720)
+
+
+@pytest.mark.parametrize("knob,value", [("EXCHANGE", "mesh"),
+                                        ("WIRE", "f16"),
+                                        ("SCHEDULE", "tiles"),
+                                        ("WAVE_TILES", "0")])
+def test_bench_exchange_knobs_bad_values_raise(knob, value):
+    with pytest.raises(ValueError, match=knob.lower()):
+        bench.bench_config({f"SITPU_BENCH_{knob}": value}, on_card=False)

@@ -95,11 +95,15 @@ def test_with_overrides_match(over):
                                   ("composite.schedule=waves",)],
                          ids=lambda o: o[0])
 def test_port_rejects_unported_composite(over):
-    """The settings the port's CompositeConfig rejects at construction:
-    the reference accepts them, the port raises naming A8b."""
-    jcfg.FrameworkConfig().with_overrides(*over)
-    with pytest.raises(ValueError, match="A8b"):
-        tcfg.FrameworkConfig().with_overrides(*over)
+    """The sort-last settings the port's CompositeConfig once rejected at
+    construction (ROADMAP A8b items 1-3): the port now gives the
+    reference's outcome, the same composite section, JSON included."""
+    want = jcfg.FrameworkConfig().with_overrides(*over)
+    got = tcfg.FrameworkConfig().with_overrides(*over)
+    assert dataclasses.asdict(got.composite) == \
+        dataclasses.asdict(want.composite)
+    assert json.loads(got.to_json())["composite"] == \
+        json.loads(want.to_json())["composite"]
 
 
 ENVS = [

@@ -143,23 +143,64 @@ def test_codecs_and_paths_match(tmp_path):
         jio.dump_path(str(tmp_path), "gs", 12, "vdi")
 
 
+def _qpack8_saves(path):
+    """A qpack8 artifact written by the port, with its metadata: the same
+    bytes as the reference's, and each package loads the other's equal
+    to its own load, dequantized, tagged qpack8."""
+    color, depth = _vdi()
+    m = _meta()
+    tmeta = tvdi.VDIMetadata.create(
+        projection=torch.from_numpy(m["projection"]),
+        **{k: v for k, v in m.items() if k != "projection"})
+    jpath = path + ".ref.npz"
+    tn = tio.save_vdi(path, tvdi.VDI(torch.from_numpy(color),
+                                     torch.from_numpy(depth)), tmeta,
+                      precision="qpack8", codec="zlib")
+    jn = jio.save_vdi(jpath, jvdi.VDI(color, depth),
+                      jvdi.VDIMetadata.create(**m), precision="qpack8",
+                      codec="zlib")
+    assert tn == jn
+    with open(path, "rb") as a, open(jpath, "rb") as b:
+        assert a.read() == b.read()
+    (jc, jd), jm = jio.load_vdi(path)
+    (tc, td), tm = tio.load_vdi(jpath)
+    np.testing.assert_array_equal(np.asarray(jc), tc)
+    np.testing.assert_array_equal(np.asarray(jd), td)
+    assert int(jm.precision) == int(tm.precision) == 1
+
+
 @pytest.mark.parametrize("call", [
     lambda p: tio.compress(b"x", "lz4"),
     lambda p: tio.decompress(b"x", "lz4"),
-    lambda p: tio.save_vdi(p, tvdi.VDI(*_vdi()), precision="qpack8"),
+    _qpack8_saves,
     lambda p: tio.pack_delta_blobs(None),
     lambda p: tio.unpack_delta_payload({}, b"", b"", (), ()),
 ], ids=["lz4_enc", "lz4_dec", "qpack8", "delta_pack", "delta_unpack"])
 def test_unported_formats_raise(call, tmp_path):
+    """The formats still to port raise naming their ROADMAP row; qpack8
+    artifacts (ROADMAP A8b item 2) are ported and now save."""
+    if call is _qpack8_saves:
+        call(str(tmp_path / "x.npz"))
+        return
     with pytest.raises(NotImplementedError, match=r"ROADMAP A(11|8b)"):
         call(str(tmp_path / "x.npz"))
 
 
 def test_qpack8_artifact_raises_on_load(tmp_path):
+    """A reference qpack8 artifact (once refused) loads in the port equal
+    to the reference's own ``load_vdi``, metadata included."""
     path = str(tmp_path / "q.npz")
-    jio.save_vdi(path, jvdi.VDI(*_vdi()), precision="qpack8", codec="zlib")
-    with pytest.raises(NotImplementedError, match="A8b"):
-        tio.load_vdi(path)
+    jio.save_vdi(path, jvdi.VDI(*_vdi()), jvdi.VDIMetadata.create(**_meta()),
+                 precision="qpack8", codec="zlib")
+    (tc, td), tmeta = tio.load_vdi(path)
+    (jc, jd), jmeta = jio.load_vdi(path)
+    np.testing.assert_array_equal(tc, np.asarray(jc))
+    np.testing.assert_array_equal(td, np.asarray(jd))
+    assert np.isinf(td).any() and np.isfinite(td).any()
+    for f in jmeta._fields:
+        np.testing.assert_array_equal(np.asarray(getattr(tmeta, f)),
+                                      np.asarray(getattr(jmeta, f)),
+                                      err_msg=f)
 
 
 @pytest.mark.parametrize("gamma", [2.2, 1.0])

@@ -855,6 +855,14 @@ K4_CASES = {
     "k_out_24_shared_list": (128, 24, (37, 91), 6, 2.0, 1e-4, "seeded"),
     "k_out_40_shared_list": (64, 40, (13, 37), 8, 1.7, 1e-4, "holes"),
     "short_stream_k_out_20": (12, 20, (13, 37), 6, 2.0, 1e-4, "seeded"),
+    # the exchange schedules' shapes: the capped ring's accumulator
+    # (ring_slots = 2K = 32) on a rank's column block, and one rank's
+    # block of a tile wave (T = 4 of the 8-rank frame's 80 columns, and
+    # a 16-column block)
+    "ring_slots_32": (32, 16, (640, 80), 6, 2.0, 1e-4, "seeded"),
+    "ring_slots_32_holes": (32, 16, (640, 80), 6, 2.0, 1e-4, "holes"),
+    "wave_block_20": (128, 16, (640, 20), 6, 2.0, 1e-4, "seeded"),
+    "wave_block_16": (128, 16, (512, 16), 6, 2.0, 1e-4, "blank_rows"),
 }
 
 

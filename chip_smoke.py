@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's in-situ frames on one CUDA card: the
 single-chip frame, the distributed sort-last frame, the fold
-microbenchmark, the in-situ session and the sort-last exchange
-schedules.
+microbenchmark, the in-situ session, the sort-last exchange schedules
+and the render decomposition.
 
     python3 chip_smoke.py               # the whole run (needs one card)
     python3 chip_smoke.py --profile     # + device time by kernel
@@ -10,8 +10,8 @@ schedules.
         --k2-compare old=OTHER/count_multi.cu \
         --events-compare old=OTHER/fold_chunk.cu  # + designs in turns
 
-``--profile`` adds to each frame of phases 3 to 5 and 8 two profiled frames:
-device time by kernel and by operator, each of the port's own kernels'
+``--profile`` adds to each frame of phases 3 to 5, 8 and 9 (a) two
+profiled frames: device time by kernel and by operator, each of the port's own kernels'
 device ms and launches a frame by build (``<prefix>.port_kernel``),
 the busy share, the idle gaps, copies and synchronisations.
 
@@ -192,6 +192,36 @@ and prints no result):
    before its frame sinks, side by side the frame bit for bit), then
    with ``delivery.enabled`` and a ``vdi_tile_sink`` (the same frames
    bit for bit, the dumped tiles reassembling the frame).
+9. the render decomposition on phase 4's configuration: (a) nine
+   configurations, each driven as phase 4 drives its frame from the same
+   seeded state, eye and frames with the launch counts read from its run
+   (K1, K2 and K4 must launch; K4 8 a frame, 8·T in waves) and its build
+   counters: p1 the plan ``slice_plan`` gives for the start state's
+   ``z_live_profile`` (min depth 4, quantum 4), p2 the fixed plan (128,
+   64, 64, 64, 64, 32, 32, 64), b1 the steal from the contiguous map of
+   32 bricks (2 moves), b2 32 bricks to rank 3b mod 8, b3 32 bricks with
+   rank 7 owning none (5 slots a rank: K4 on 640 sorted slots), l1 b2
+   with level 2 on an empty brick, l2 b2 at level 1, x1 and x2 p2 and b3
+   under the ring in tile waves; each one's parts timed apart on the
+   final state (the reslab, each rank's march alone, the column
+   exchange, the sort of each block's stream, K4 on those streams), the
+   measured straggler factor (max/mean of the ranks' march ms) beside
+   the modeled one and phase 4's even ones, and the gates against phase
+   4's frame: the image at least 60 dB (l2: information), the VDI's
+   differences and whether it is within 1e-5 with the same live slots
+   logged (a decomposition cuts supersegments where the even split does
+   not, so on Gray-Scott it is not), the metadata's global dims; (b) p2,
+   b2, b3, l1, l2, x1 and x2 scaled to 32^3 over 4 ranks (8 bricks)
+   against the CPU's plain versions in both march regimes (phase 4's
+   bar, threshold maps within 1e-6); (c) K4 against its plain version on
+   b3's fullest column block (M = 640; thresholds and live slots exact,
+   colour and depth within 1e-6), timed with the stream kept full beside
+   its one launch and bound; (d) phase 7's session over 8 ranks with
+   ``composite.rebalance=occupancy`` and then ``bricks`` with
+   ``lod.enabled``, a replan every 4 of 12 frames: every replan logged,
+   the steps rebuilt on a replan only, each replan's first frame equal
+   to the hand-driven step with the same plan or map bit for bit, ms a
+   frame beside phase 7's.
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -281,6 +311,8 @@ SESSION_EVERY = 4
 SESSION_ORBIT = 0.05
 # each timed path's median ms a frame (CUDA events, host clock), by prefix
 FRAME_MS = {}
+# the session's ms a frame (host clock), by prefix
+SESSION_MS = {}
 
 
 def log(key, value):
@@ -1722,10 +1754,12 @@ def check_small_frame(dev, fold="pallas_seg", occupancy=None):
 BASE_EYE = (0.0, 0.6, 3.0)
 
 
-def dist_steps(dev, n, grid, base_eye, fold="auto", **comp):
+def dist_steps(dev, n, grid, base_eye, fold="auto", plan=None, bricks=None,
+               **comp):
     """The distributed temporal step of an ``n``-rank mesh on ``dev``
     for a ``grid``^3 volume, in the march regime of ``base_eye``, with
-    the composite settings ``comp`` (exchange, wire, schedule, ...):
+    the composite settings ``comp`` (exchange, wire, schedule,
+    rebalance, ...) and the render decomposition ``plan`` or ``bricks``:
     (mesh, spec, tf, configs, seed, step, camera(i))."""
     from scenery_insitu_tpu_torch.config import (CompositeConfig,
                                                  SliceMarchConfig, VDIConfig)
@@ -1749,8 +1783,10 @@ def dist_steps(dev, n, grid, base_eye, fold="auto", **comp):
     ccfg = CompositeConfig(max_output_supersegments=K_OUT,
                            adaptive_iters=COMP_ITERS, **comp)
     tf = for_dataset("gray_scott", device=dev)
-    seed = dp.distributed_initial_threshold_mxu(mesh, tf, spec, vcfg)
-    step = dp.distributed_vdi_step_mxu_temporal(mesh, tf, spec, vcfg, ccfg)
+    seed = dp.distributed_initial_threshold_mxu(mesh, tf, spec, vcfg,
+                                                plan=plan, bricks=bricks)
+    step = dp.distributed_vdi_step_mxu_temporal(mesh, tf, spec, vcfg, ccfg,
+                                                plan=plan, bricks=bricks)
 
     def camera(i):
         return Camera.create(orbit(base, yaw_of(i)).eye, fov_y_deg=50.0,
@@ -2933,9 +2969,11 @@ def run_bench_twin(dev):
 
     res = bench.run(dev, env={"SITPU_BENCH_GRID": str(GRID),
                          "SITPU_BENCH_SKIP": "sim",
-                         "SITPU_BENCH_FRAMES": str(BENCH_FRAMES)})
+                         "SITPU_BENCH_FRAMES": str(BENCH_FRAMES),
+                         "SITPU_BENCH_REBALANCE": "occupancy"})
     log("bench_twin", json.dumps(res))
-    if not (res["value"] > 0 and res["occupancy"]["mode"] == "sim"):
+    if not (res["value"] > 0 and res["occupancy"]["mode"] == "sim"
+            and sum(res["rebalance"]["plan"]) == GRID):
         raise AssertionError(f"bench twin: {res}")
 
 
@@ -3400,6 +3438,7 @@ def run_session(dev):
         log("session.launches", json.dumps(launches))
         require_launched(launches, FRAME_KERNELS, "the session loop")
         p3_ev, p3_wall = FRAME_MS["frame"]
+        SESSION_MS["session"] = ms
         log("session.ms_per_frame", f"{ms:.3f} (host clock, mean of "
             f"{SESSION_TIMED} frames with png, vdi and checkpoint sinks "
             f"every {SESSION_EVERY}; phase 3's frame: {p3_wall:.3f} host "
@@ -3421,6 +3460,7 @@ def run_session(dev):
         sess.run(SESSION_WARM)
         before = phase_stats(sess.timers)
         ms, last = timed_run(sess, SESSION_TIMED)
+        SESSION_MS["session_nosinks"] = ms
         log("session_nosinks.ms_per_frame", f"{ms:.3f} (host clock, mean "
             f"of {SESSION_TIMED} frames after a warm one, no sinks: the "
             f"last frame alone is copied to the host)")
@@ -3544,6 +3584,492 @@ def check_small_session(dev):
     return launches
 
 
+# ------------------------------------------------------------- phase 9
+
+
+# phase 9's configurations on phase 4's frame, in this order
+DECOMP_NAMES = ("p1", "p2", "b1", "b2", "b3", "l1", "l2", "x1", "x2")
+DECOMP_BRICKS = 32
+FIXED_PLAN = (128, 64, 64, 64, 64, 32, 32, 64)   # the reference's PLAN x 16
+DECOMP_PSNR_DB = 60.0
+DECOMP_VDI_GATE = 1e-5
+# phase 9 (b): 4 ranks at 32^3, 8 bricks (the level-2 brick needs 4
+# slices), the fixed plan halved to 4 ranks
+SMALL_BRICKS = 8
+SMALL_PLAN = (12, 8, 4, 8)
+# phase 9 (d): the 8-rank 512^3 session's frames and replan period
+DECOMP_SESSION_FRAMES = 12
+DECOMP_SESSION_PERIOD = 4
+
+
+def interleaved_owner(nb, n):
+    """Brick b to rank 3b mod n (4 slots a rank at 32 bricks, 8 ranks)."""
+    return tuple(b * 3 % n for b in range(nb))
+
+
+def empty_rank_owner(nb, n):
+    """Runs of nb/n bricks to ranks 0 to n-2 in order, the last nb/n
+    bricks to ranks 0, 1, ...: the last rank owns none (at 32 bricks on
+    8 ranks, 5 slots a rank, a column block of 8 · 5 · K slots)."""
+    per = nb // n
+    return tuple(b // per if b < nb - per else b - (nb - per)
+                 for b in range(nb))
+
+
+def decomp_configs(profile, d, n, nb, fixed_plan, wave_tiles, log_prefix):
+    """Phase 9's render decompositions of a ``d``-deep volume over ``n``
+    ranks, from the z live ``profile`` of the state the frames start
+    from: {name: (rebalance, plan, bricks, composite settings)}. p1 is
+    the plan ``slice_plan`` gives (min depth 4, quantum 4), b1 the steal
+    from the contiguous map of ``nb`` bricks (2 moves); b2 interleaves
+    the bricks, b3 leaves the last rank none; l1 is b2 with level 2 on
+    an empty brick (the lowest live fraction when none is empty), l2 b2
+    with every brick at level 1; x1 and x2 are the fixed plan and b3
+    under the ring in ``wave_tiles`` waves."""
+    import numpy as np
+
+    from scenery_insitu_tpu_torch.ops import occupancy as occ
+    from scenery_insitu_tpu_torch.parallel import bricks as bk
+    from scenery_insitu_tpu_torch.parallel import lod
+
+    plan = occ.slice_plan(profile, d, n, min_depth=4, quantum=4)
+    even = occ.even_plan(d, n)
+    log(f"{log_prefix}.p1_plan", f"{list(plan)} histogram "
+        f"{dict(collections.Counter(plan))} modeled_straggler even="
+        f"{occ.straggler_factor(profile, d, even):.4f} planned="
+        f"{occ.straggler_factor(profile, d, plan):.4f}" +
+        (" (the even plan: the step takes the slab path)"
+         if plan == even else ""))
+    work = bk.brick_work(profile, d, nb)
+    seed_map = bk.BrickMap.contiguous(d, n, nb)
+    stolen = bk.steal_plan(seed_map, work, max_moves=2)
+    log(f"{log_prefix}.b1_owners", f"{list(stolen.owner)} modeled_straggler "
+        f"contiguous={bk.straggler_factor(seed_map, work):.4f} stolen="
+        f"{bk.straggler_factor(stolen, work):.4f}" +
+        (" (even-convex: the step takes the slab path)"
+         if stolen.is_even_convex() else ""))
+    inter = bk.BrickMap(d, n, interleaved_owner(nb, n))
+    islands = bk.BrickMap(d, n, empty_rank_owner(nb, n))
+    live = lod.per_brick(profile, nb, red="mean")
+    empty = int(np.argmin(live))
+    log(f"{log_prefix}.l1_brick", f"brick {empty} live_fraction "
+        f"{live[empty]:.4f}" + ("" if live[empty] == 0 else
+                                " (no brick is empty: l1's gate is "
+                                "information)"))
+    levels = [0] * nb
+    levels[empty] = 2
+    ring_waves = dict(exchange="ring", schedule="waves",
+                      wave_tiles=wave_tiles)
+    return {
+        "p1": ("occupancy", plan, None, {}),
+        "p2": ("occupancy", fixed_plan, None, {}),
+        "b1": ("bricks", None, stolen, {}),
+        "b2": ("bricks", None, inter, {}),
+        "b3": ("bricks", None, islands, {}),
+        "l1": ("bricks", None, inter.with_levels(levels), {}),
+        "l2": ("bricks", None, inter.with_levels((1,) * nb), {}),
+        "x1": ("occupancy", fixed_plan, None, ring_waves),
+        "x2": ("bricks", None, islands, ring_waves),
+    }, float(live[empty])
+
+
+def decomp_modeled(profile, d, n, plan, bricks, ni, nj):
+    """The modeled straggler factor (max/mean per-rank march work) of a
+    decomposition, levels counted in their work units."""
+    from scenery_insitu_tpu_torch.ops import occupancy as occ
+    from scenery_insitu_tpu_torch.parallel import bricks as bk
+    from scenery_insitu_tpu_torch.parallel import lod
+
+    if bricks is None:
+        return occ.straggler_factor(profile, d, plan or occ.even_plan(d, n))
+    work = bk.brick_work(profile, d, bricks.nbricks)
+    if bricks.max_level:
+        work = work * lod.level_work_scale(bricks.level, (d, d, d), ni, nj)
+    return bk.straggler_factor(bricks, work)
+
+
+def decomp_parts(prefix, dp, slabs, origin, spacing, cam, spec, tf, vcfg,
+                 ccfg, thr, plan, bricks):
+    """A decomposition's frame parts on the final state, timed apart
+    (median ms): the reslab (`_frame_rows`), each rank's march (the
+    ranks run in turn on the card, so each is timed alone), the column
+    exchange, the sort of each column block's M-slot stream, and K4 on
+    the sorted streams (the stream kept full). Returns (parts, per-rank
+    ms, the sorted streams)."""
+    import torch
+
+    from scenery_insitu_tpu_torch.ops.composite import sort_stream
+
+    n = RANKS
+    rows_a_rank = spec.nj * (bricks.total_slots if bricks else 1)
+    parts = {"reslab_ms": median_ms(
+        lambda _: dp._frame_rows(slabs, spec, plan, bricks), 5)}
+    rows = dp._frame_rows(slabs, spec, plan, bricks)
+
+    def march(r):
+        return dp._mxu_rank_generate(
+            slabs, rows, r, origin, spacing, cam, spec, tf, vcfg,
+            dp._rank_thr(thr, r, rows_a_rank), plan, bricks)[0]
+
+    rank_ms = [median_ms(lambda _, r=r: march(r), 3) for r in range(n)]
+    frags = [march(r) for r in range(n)]
+    del rows
+    colors = torch.stack([f.color for f in frags])
+    depths = torch.stack([f.depth for f in frags])
+    del frags
+    parts["exchange_ms"] = median_ms(lambda _: dp._exchange_vdi_columns(
+        colors, depths, n, ccfg.wire), 5)
+    rc, rd = dp._exchange_vdi_columns(colors, depths, n, ccfg.wire)
+    del colors, depths
+    _, _, k, _, h, w = rc.shape
+
+    def sort_all(_):
+        return [sort_stream(rc[j].reshape(n * k, 4, h, w),
+                            rd[j].reshape(n * k, 2, h, w))
+                for j in range(n)]
+
+    parts["sort_ms"] = median_ms(sort_all, 3)
+    streams = sort_all(None)
+    del rc, rd
+    ms, b, by = k4_streams_ms(prefix, streams)
+    parts.update(k4_ms=ms, k4_bound_ms=b)
+    parts["march_sum_ms"] = sum(rank_ms)
+    log(f"{prefix}.parts_ms", " ".join(f"{key}={v:.3f}"
+                                       for key, v in parts.items()) +
+        f" stream_slots={n * k} stream_bytes_a_block="
+        f"{n * k * 6 * h * w * 4}")
+    log(f"{prefix}.rank_march_ms", " ".join(f"{m:.3f}" for m in rank_ms))
+    return parts, rank_ms, streams
+
+
+def run_decomp_frames(dev, ref0, profile=False):
+    """Phase 9 (a) and (c): every render decomposition driven as phase 4
+    drives its frame, from the same seeded state, eye and frames, with
+    K1's, K2's and K4's launches counted and the build counters read;
+    its parts timed apart on the final state (reslab, each rank's march,
+    sort, K4), the measured straggler factor (max/mean of the ranks'
+    march ms) beside the modeled one and phase 4's even ones; the gates
+    against phase 4's frame ``ref0``. Then K4 alone on b3's fullest
+    column block (M = 640) against its plain version. Returns the
+    results by configuration."""
+    import torch
+
+    from scenery_insitu_tpu_torch import obs as tobs
+    from scenery_insitu_tpu_torch.core.transfer import for_dataset
+    from scenery_insitu_tpu_torch.core.vdi import render_vdi_same_view
+    from scenery_insitu_tpu_torch.core.volume import Volume
+    from scenery_insitu_tpu_torch.ops import cuda_composite as cc
+    from scenery_insitu_tpu_torch.ops import occupancy as occ
+    from scenery_insitu_tpu_torch.parallel import pipeline as dp
+    from scenery_insitu_tpu_torch.parallel.mesh import shard_volume
+    from scenery_insitu_tpu_torch.sim import grayscott as gs
+
+    frames = WARMUP_FRAMES + TIMED_FRAMES
+    tf = for_dataset("gray_scott", device=dev)
+    st0 = gs.GrayScott.init((GRID,) * 3, seed=SEED, device=dev)
+    prof0 = occ.z_live_profile(st0.v, tf).cpu().numpy()
+    prof_final = occ.z_live_profile(ref0["v"], tf).cpu().numpy()
+    _, spec0, _, _, _, _, _ = dist_steps(dev, RANKS, GRID, BASE_EYE)
+    t = wave_tiles_for(spec0.ni, RANKS)
+    configs, _ = decomp_configs(prof0, GRID, RANKS, DECOMP_BRICKS,
+                                FIXED_PLAN, t, "decomp")
+    a = cc.attributes(RANKS * 5 * K, K_OUT, COMP_ITERS)
+    log("decomp.resegment.build", f"nk={RANKS * 5 * K} k_out={K_OUT} iters="
+        f"{COMP_ITERS} " + " ".join(f"{k}={v}" for k, v in a.items()) +
+        " (b3's brick stream)")
+    img0 = render_vdi_same_view(ref0["vdi"])
+    res = {}
+    for name in DECOMP_NAMES:
+        rebalance, plan, bricks, comp = configs[name]
+        prefix = f"decomp_{name}"
+        rec = tobs.Recorder(enabled=True)
+        prev = tobs.set_recorder(rec)
+        try:
+            mesh, spec, tf, (vcfg, ccfg), seed, step, camera = dist_steps(
+                dev, RANKS, GRID, BASE_EYE, plan=plan, bricks=bricks,
+                rebalance=rebalance, **comp)
+        finally:
+            tobs.set_recorder(prev)
+        built = {key: rec.counters.get(key, 0) for key in (
+            "rebalance_steps_built", "bricks_steps_built",
+            "wave_steps_built", "ring_exchange_builds")}
+        slots = bricks.total_slots if bricks else 1
+        waves = comp.get("schedule") == "waves"
+        log(f"{prefix}.config", f"rebalance={rebalance} plan="
+            f"{list(plan) if plan else None} owners="
+            f"{list(bricks.owner) if bricks else None} levels="
+            f"{list(bricks.level) if bricks else None} slots={slots} "
+            f"composite={comp or 'all_to_all frame'} builds={built}")
+        st = gs.GrayScott.init((GRID,) * 3, seed=SEED, device=dev)
+        box = Volume.centered(st.v, extent=2.0)
+        run = drive_dist_frames(prefix, step, seed, mesh, camera, st,
+                                box.origin, box.spacing)
+        launches = run["launches"]
+        require_launched(launches, DIST_KERNELS, prefix)
+        k4 = launches["resegment_sorted"]
+        want_k4 = RANKS * (t if waves else 1) * frames
+        if k4 != want_k4:
+            raise AssertionError(f"{prefix}: K4 launched {k4} times in "
+                                 f"{frames} frames; expected {want_k4}")
+        check_vdi(prefix, run["vdi"], (K_OUT, 4, spec.nj, spec.ni),
+                  (K_OUT, 2, spec.nj, spec.ni))
+        dims = [float(x) for x in run["meta"].volume_dims]
+        if dims != [float(GRID)] * 3:
+            raise AssertionError(f"{prefix}: meta volume_dims {dims}")
+        if profile:
+            state = [run["u"], run["v"], run["thr"]]
+
+            def one(i, frame=run["frame"], state=state):
+                _, _, state[0], state[1], state[2] = frame(*state, i)
+
+            profile_frames(f"{prefix}.profile", one)
+        # the gates against phase 4's frame at the same state, eye, frame
+        dc, dd, same, share, exact = vdi_gap(run["vdi"], ref0["vdi"])
+        img = render_vdi_same_view(run["vdi"])
+        psnr = image_psnr(img, img0)
+        thr_d = thr_gap(run["thr"], ref0["thr"]) if bricks is None else None
+        log(f"{prefix}.vs_phase4", f"colour_max_diff={dc:.3e} "
+            f"depth_max_diff={dd:.3e} same_live_slots={same} "
+            f"pixels_live_count_differs={share:.6f} bit_exact={exact} "
+            f"within_{DECOMP_VDI_GATE:.0e}="
+            f"{same and dc <= DECOMP_VDI_GATE and dd <= DECOMP_VDI_GATE} "
+            f"threshold_max_diff={thr_d} psnr_db={psnr:.2f}")
+        if name != "l2" and not psnr >= DECOMP_PSNR_DB:
+            raise AssertionError(f"{prefix}: the image is {psnr:.2f} dB from "
+                                 f"phase 4's even frame")
+        # the parts, timed apart on the final state and eye
+        slabs = shard_volume(run["v"], mesh)
+        cam = camera(frames)
+        parts, rank_ms, streams = decomp_parts(
+            prefix, dp, slabs, box.origin, box.spacing, cam, spec, tf,
+            vcfg, ccfg, run["thr"], dp._resolve_plan("occupancy", RANKS, plan),
+            dp._resolve_bricks("bricks", RANKS, bricks))
+        measured = max(rank_ms) / (sum(rank_ms) / RANKS)
+        modeled = decomp_modeled(prof_final, GRID, RANKS, plan, bricks,
+                                 spec.ni, spec.nj)
+        res[name] = dict(
+            ms=run["ms"], wall_ms=run["wall_ms"], k4=k4,
+            k1=launches["seg_fold_compact"], k2=launches["count_multi"],
+            psnr_db=psnr, colour_max_diff=dc, depth_max_diff=dd,
+            same_live_slots=same, bit_exact=exact, parts=parts,
+            rank_ms=rank_ms, measured_straggler=measured,
+            modeled_straggler=modeled, builds=built, slots=slots,
+            stream=list(streams[0][0].shape))
+        if name == "b3":
+            res["brick_stream"] = check_brick_stream(streams)
+        del streams, run, step, seed
+        torch.cuda.empty_cache()
+    # phase 4's even decomposition timed the same way, on the same state
+    mesh, spec, tf, (vcfg, ccfg), _, _, camera = dist_steps(
+        dev, RANKS, GRID, BASE_EYE)
+    box = Volume.centered(ref0["v"], extent=2.0)
+    _, even_ms, _ = decomp_parts(
+        "decomp_even", dp, shard_volume(ref0["v"], mesh), box.origin,
+        box.spacing, camera(frames), spec, tf, vcfg, ccfg, ref0["thr"],
+        None, None)
+    even_measured = max(even_ms) / (sum(even_ms) / RANKS)
+    even_modeled = decomp_modeled(prof_final, GRID, RANKS, None, None,
+                                  spec.ni, spec.nj)
+    res["even"] = dict(ms=ref0["ms"], measured_straggler=even_measured,
+                       modeled_straggler=even_modeled)
+    for name in DECOMP_NAMES:
+        r = res[name]
+        log(f"decomp_{name}.summary", f"ms_per_frame={r['ms']:.3f} (phase 4: "
+            f"{ref0['ms']:.3f}) straggler measured="
+            f"{r['measured_straggler']:.4f} modeled="
+            f"{r['modeled_straggler']:.4f} (phase 4's even: measured "
+            f"{even_measured:.4f} modeled {even_modeled:.4f}) launches a "
+            f"frame K1={r['k1'] / frames:.1f} K4={r['k4'] / frames:.1f} "
+            f"K2 a seed={r['k2']} k4_frame_ms={r['parts']['k4_ms']:.4f} "
+            f"psnr_db={r['psnr_db']:.2f}")
+    return res
+
+
+def check_brick_stream(streams):
+    """Phase 9 (c): K4 against its plain version on b3's fullest column
+    block (M = 640 sorted slots): thresholds and live slots exact, colour
+    and depth within 1e-6; timed with the stream kept full behind a
+    device sleep, the one launch beside, and its bound."""
+    import torch
+
+    from scenery_insitu_tpu_torch.ops import cuda_composite as cc
+
+    err = check_k4_on("decomp_b3.resegment", streams)
+    j = max(range(len(streams)), key=lambda i: int(
+        torch.isfinite(streams[i][1][:, 0]).sum()))
+    sc, sd = streams[j]
+    k4 = lambda: cc.resegment_sorted(sc, sd, None, K_OUT,
+                                     adaptive_iters=COMP_ITERS)
+    ms = stream_ms(k4, behind_sleep=True)
+    one = median_ms(lambda _: k4(), 20)
+    pms = median_ms(lambda _: cc.resegment_sorted_plain(
+        sc, sd, None, K_OUT, adaptive_iters=COMP_ITERS), 3)
+    (b, by), live, nbytes = k4_bound(sc, COMP_ITERS)
+    nk, _, h, w = sc.shape
+    log("decomp_b3.resegment.ms", f"{ms:.4f} plain_ms={pms:.4f} bound_ms="
+        f"{b:.4f} ({by}) one_launch_ms={one:.4f} nk={nk} hw={h}x{w} "
+        f"non_empty_slots_per_pixel={live:.2f} achieved_gb_s="
+        f"{nbytes / ms / 1e6:.1f}; the stream kept full behind a device "
+        f"sleep")
+    return dict(err=err, ms=ms, one_launch_ms=one, plain_ms=pms,
+                bound_ms=b, bound_by=by, nk=nk)
+
+
+def check_small_decomp(dev):
+    """Phase 9 (b): p2, b2, b3, l1, l2, x1 and x2 scaled to 32^3 over 4
+    ranks (8 bricks, the plan halved), on the card against the CPU's
+    plain versions in both march regimes: seed + 3 temporal frames from
+    the same inputs, phase 4's bar (largest and mean image difference
+    at most 1e-4), threshold maps within 1e-6."""
+    from scenery_insitu_tpu_torch.core.transfer import for_dataset
+    from scenery_insitu_tpu_torch.core.vdi import render_vdi_same_view
+    from scenery_insitu_tpu_torch.core.volume import Volume
+    from scenery_insitu_tpu_torch.ops import occupancy as occ
+    from scenery_insitu_tpu_torch.parallel.mesh import shard_volume
+    from scenery_insitu_tpu_torch.sim import grayscott as gs
+
+    n = 32
+    v0 = gs.multi_step(gs.GrayScott.init((n,) * 3, seed=SEED, device="cpu"),
+                       2 * SIM_STEPS).v
+    box = Volume.centered(v0, extent=2.0)
+    prof = occ.z_live_profile(v0, for_dataset("gray_scott",
+                                              device="cpu")).numpy()
+    for regime, eye in (("z", BASE_EYE), ("x", (3.0, 0.6, 0.4))):
+        _, spec, _, _, _, _, _ = dist_steps("cpu", SMALL_RANKS, n, eye)
+        configs, _ = decomp_configs(prof, n, SMALL_RANKS, SMALL_BRICKS,
+                                    SMALL_PLAN, wave_tiles_for(
+                                        spec.ni, SMALL_RANKS),
+                                    f"small_decomp_{regime}")
+        for name in ("p2", "b2", "b3", "l1", "l2", "x1", "x2"):
+            rebalance, plan, bricks, comp = configs[name]
+            outs = {}
+            for dname, d in (("cuda", dev), ("cpu", "cpu")):
+                mesh, spec, _, _, seed, step, camera = dist_steps(
+                    d, SMALL_RANKS, n, eye, fold="pallas_seg", plan=plan,
+                    bricks=bricks, rebalance=rebalance, **comp)
+                data = shard_volume(v0.to(d), mesh)
+                origin, spacing = box.origin.to(d), box.spacing.to(d)
+                thr = seed(data, origin, spacing, camera(-1))
+                imgs = []
+                for i in range(3):
+                    (vdi, _), thr = step(data, origin, spacing, camera(i),
+                                         thr)
+                    imgs.append(render_vdi_same_view(vdi).cpu())
+                outs[dname] = (imgs, [x.cpu() for x in thr])
+            prefix = f"small_decomp_{regime}_{name}"
+            pairs = list(zip(*(outs[k][0] for k in ("cuda", "cpu"))))
+            diff = max(float((a - b).abs().max()) for a, b in pairs)
+            mean = max(float((a - b).abs().mean()) for a, b in pairs)
+            tdiff = thr_gap(outs["cuda"][1], outs["cpu"][1])
+            log(prefix, f"image_max_abs_diff={diff:.3e} image_mean_abs_diff="
+                f"{mean:.3e} threshold_max_abs_diff={tdiff:.3e}")
+            if not (diff <= 1e-4 and mean <= 1e-4 and tdiff <= 1e-6):
+                raise AssertionError(f"{prefix}: the card's frame differs "
+                                     f"from the CPU's plain versions")
+
+
+def run_decomp_sessions(dev):
+    """Phase 9 (d), phase 7's session extended: the 512^3 session over 8
+    ranks with ``composite.rebalance=occupancy`` and then ``bricks``
+    with ``lod.enabled``, a replan every DECOMP_SESSION_PERIOD frames,
+    DECOMP_SESSION_FRAMES frames each, driven a frame at a time. Every
+    replan is logged (frame, plan or owners and levels, modeled
+    factors); the steps are rebuilt on a replan only (``build_steps`` =
+    1 + ``rebalance_replans``); the frame after each replan equals a
+    hand-driven `distributed_vdi_step_mxu_temporal` and its seed with
+    the same plan or map, from the same state and camera, bit for bit;
+    K3, K2, K1 and K4 must launch. Returns {mode: (launches, ms)}."""
+    import torch
+
+    from scenery_insitu_tpu_torch import kernels
+    from scenery_insitu_tpu_torch.core.vdi import VDI
+    from scenery_insitu_tpu_torch.ops import slicer
+    from scenery_insitu_tpu_torch.parallel import pipeline as dp
+    from scenery_insitu_tpu_torch.parallel.mesh import shard_volume
+    from scenery_insitu_tpu_torch.sim import grayscott as gs
+
+    out = {}
+    for mode, extra in (
+            ("rebalance", ("composite.rebalance=occupancy",)),
+            ("bricks_lod", ("composite.rebalance=bricks",
+                            "lod.enabled=true"))):
+        cfg = session_config(GRID, ranks=RANKS).with_overrides(
+            *extra, f"composite.rebalance_period={DECOMP_SESSION_PERIOD}",
+            "obs.enabled=true")
+        prefix = f"session_{mode}"
+        frames = {}
+        sess = session(dev, cfg, [capture_into(frames)])
+        kernels.reset_launches()
+        replans, wall = 0, []
+        for i in range(DECOMP_SESSION_FRAMES):
+            st = sess.sim.state
+            u0, v0, cam = st.u.clone(), st.v.clone(), sess.camera
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sess.run(1)
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t0) * 1e3)
+            n_replans = sess.obs.counters.get("rebalance_replans", 0)
+            if n_replans == replans:
+                continue
+            replans = n_replans
+            ev = [e["attrs"] for e in sess.obs.events
+                  if e.get("name") == "rebalance_plan"][-1]
+            log(f"{prefix}.replan", json.dumps(ev))
+            # the same frame driven by hand with the adopted plan or map
+            spec = slicer.make_spec(cam, (GRID,) * 3, cfg.slicer,
+                                    axis_sign=slicer.choose_axis(cam),
+                                    multiple_of=RANKS)
+            dec = dict(plan=sess._plan, bricks=sess._bricks)
+            seed = dp.distributed_initial_threshold_mxu(
+                sess.mesh, sess.tf, spec, cfg.vdi, **dec)
+            step = dp.distributed_vdi_step_mxu_temporal(
+                sess.mesh, sess.tf, spec, cfg.vdi, cfg.composite, **dec)
+            g = gs.multi_step_fast(gs.GrayScott(u0, v0, st.params),
+                                   SIM_STEPS)
+            field = shard_volume(g.field, sess.mesh)
+            thr = seed(field, sess._origin, sess._spacing, cam)
+            (vdi, _), _ = step(field, sess._origin, sess._spacing, cam, thr)
+            check_frames_equal(f"{prefix}.frame{i}_vs_hand", {i: frames[i]},
+                               {i: {"vdi_color": vdi.color.cpu().numpy(),
+                                    "vdi_depth": vdi.depth.cpu().numpy()}})
+            del g, field, thr, vdi, step, seed
+        launches = kernels.launches()
+        log(f"{prefix}.launches", json.dumps(launches))
+        require_launched(launches, DIST_KERNELS, prefix)
+        counters = sess.obs.counters
+        log(f"{prefix}.counters", json.dumps({k: counters.get(k, 0) for k in (
+            "rebalance_replans", "build_steps", "rebalance_steps_built",
+            "bricks_steps_built", "compile_step")}))
+        if counters.get("build_steps", 0) != 1 + replans:
+            raise AssertionError(f"{prefix}: {counters.get('build_steps')} "
+                                 f"step builds for {replans} replans")
+        evs = [e["attrs"] for e in sess.obs.events
+               if e.get("name") == "rebalance_plan"]
+        keys = [(tuple(e.get("plan", ())), tuple(e.get("owner", ())),
+                 tuple(e.get("level", ()))) for e in evs]
+        if any(a == b for a, b in zip(keys, keys[1:])):
+            raise AssertionError(f"{prefix}: a replan rebuilt without a "
+                                 f"change: {keys}")
+        wall.sort()
+        ms = wall[len(wall) // 2]
+        log(f"{prefix}.ms_per_frame", f"{ms:.3f} (host clock, median of "
+            f"{DECOMP_SESSION_FRAMES} frames each fetched, replans "
+            f"included; phase 7's one-rank session: "
+            f"{SESSION_MS['session_nosinks']:.3f} without sinks, "
+            f"{SESSION_MS['session']:.3f} with its sinks every "
+            f"{SESSION_EVERY})")
+        last = max(frames)
+        nj, ni = frames[last]["vdi_color"].shape[-2:]
+        check_vdi(prefix, VDI(torch.from_numpy(frames[last]["vdi_color"]),
+                              torch.from_numpy(frames[last]["vdi_depth"])),
+                  (K, 4, nj, ni), (K, 2, nj, ni))
+        out[mode] = (launches, ms, replans)
+        del sess, frames
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -3658,7 +4184,6 @@ def main(argv=None) -> int:
     phase_done("phase7")
     t8 = time.perf_counter()
     exch = run_exchange_frames(dev, dist_ref, args.profile)
-    del dist_ref
     torch.cuda.empty_cache()
     phase_done("phase8.frames")
     check_small_exchange(dev)
@@ -3669,6 +4194,17 @@ def main(argv=None) -> int:
     log("phase8.wall_s", f"{time.perf_counter() - t8:.1f} (the exchange "
         f"schedules)")
     phase_done("phase8")
+    t9 = time.perf_counter()
+    decomp = run_decomp_frames(dev, dist_ref, args.profile)
+    del dist_ref
+    torch.cuda.empty_cache()
+    phase_done("phase9.frames")
+    check_small_decomp(dev)
+    phase_done("phase9.small")
+    decomp_sessions = run_decomp_sessions(dev)
+    log("phase9.wall_s", f"{time.perf_counter() - t9:.1f} (the render "
+        f"decomposition)")
+    phase_done("phase9")
 
     table = [
         dict(name="grayscott_fused", route="cuda",
@@ -3690,7 +4226,11 @@ def main(argv=None) -> int:
              bound_ms=fold[16]["seg"]["bound_ms"],
              bound_by=fold[16]["seg"]["bound_by"], library_ms=None,
              frame_ms=fold["frame"]["ms"],
-             frame_bound_ms=fold["frame"]["bound_ms"]),
+             frame_bound_ms=fold["frame"]["bound_ms"],
+             # phase 9: K1's launches a frame under each decomposition
+             decomp_launches_per_frame={
+                 c: decomp[c]["k1"] / (WARMUP_FRAMES + TIMED_FRAMES)
+                 for c in DECOMP_NAMES}),
         dict(name="count_multi", route="cuda",
              source="scenery_insitu_tpu_torch/csrc/count_multi.cu",
              replaces="scenery_insitu_tpu/ops/pallas_march.py:426",
@@ -3705,7 +4245,10 @@ def main(argv=None) -> int:
              frame_bound_ms=fold["count_frame"]["bound_ms"],
              compare_ms={**fold[16]["count"]["compare_ms"], **{
                  f"{n}_frame": v for n, v in
-                 fold["count_frame"]["compare_ms"].items()}}),
+                 fold["count_frame"]["compare_ms"].items()}},
+             # phase 9: K2's launches a seed under each decomposition
+             decomp_launches_per_seed={c: decomp[c]["k2"]
+                                       for c in DECOMP_NAMES}),
         dict(name="resegment_sorted", route="cuda",
              source="scenery_insitu_tpu_torch/csrc/resegment.cu",
              replaces="scenery_insitu_tpu/ops/pallas_composite.py:172",
@@ -3713,7 +4256,8 @@ def main(argv=None) -> int:
              max_abs_err=max([reseg[b]["err"] for b in ("seeded",
                                                         "frame_block")]
                              + [exch[c]["k4_err"] for c in
-                                ("c2_ring_cap", "c7_ring_waves")]),
+                                ("c2_ring_cap", "c7_ring_waves")]
+                             + [decomp["brick_stream"]["err"]]),
              ms=reseg["frame_block"]["ms"],
              plain_ms=reseg["frame_block"]["plain_ms"],
              bound_ms=reseg["frame_block"]["bound_ms"],
@@ -3733,7 +4277,25 @@ def main(argv=None) -> int:
              ring_cap_frame_ms=exch["c2_ring_cap"]["k4_frame_ms"],
              wave_frame_ms=exch["c6_a2a_waves"]["k4_frame_ms"],
              session_waves_launches=waves_session_launches[
-                 "resegment_sorted"]),
+                 "resegment_sorted"],
+             # phase 9: K4's launches in each decomposition's run (8
+             # frames), a frame's K4 launches on its own streams, K4 on
+             # b3's 640-slot brick stream (the stream kept full, the one
+             # launch beside), and the decomposition sessions' launches
+             decomp_launches={c: decomp[c]["k4"] for c in DECOMP_NAMES},
+             decomp_frame_ms={c: decomp[c]["parts"]["k4_ms"]
+                              for c in DECOMP_NAMES},
+             decomp_frame_bound_ms={c: decomp[c]["parts"]["k4_bound_ms"]
+                                    for c in DECOMP_NAMES},
+             brick_stream_ms=decomp["brick_stream"]["ms"],
+             brick_stream_one_launch_ms=decomp["brick_stream"][
+                 "one_launch_ms"],
+             brick_stream_plain_ms=decomp["brick_stream"]["plain_ms"],
+             brick_stream_bound_ms=decomp["brick_stream"]["bound_ms"],
+             brick_stream_slots=decomp["brick_stream"]["nk"],
+             decomp_session_launches={
+                 m: v[0]["resegment_sorted"]
+                 for m, v in decomp_sessions.items()}),
     ]
     # the kernels of this slice: B1b has no caller on a frame path; the
     # microbenchmark's pallas_seg and tf_pallas_seg variants run it, so

@@ -21,13 +21,17 @@ frame count default to 512 and 25 on a card, 128 and 5 on the CPU):
 (f32|bf16, the march's copy of the field; bf16 from a grid of 1024 up,
 as the reference defaults it), ``EXCHANGE`` (all_to_all|ring), ``WIRE``
 (f32|bf16|qpack8), ``SCHEDULE`` (frame|waves), ``WAVE_TILES``,
-``WIDTH`` and ``HEIGHT``, each prefixed ``SITPU_BENCH_``. The frame is
-one card's, which has no exchange: as in the reference, the exchange,
-wire and schedule knobs leave it unchanged and go into the JSON's
-``config`` block with ``modeled_exchange_8rank``, the modeled per-rank
-exchange bytes of the reference's 8-rank shape at ``WIDTH`` x ``HEIGHT``
+``REBALANCE`` (even|occupancy), ``WIDTH`` and ``HEIGHT``, each prefixed
+``SITPU_BENCH_``. The frame is one card's, which has no exchange and
+one z band: as in the reference, the exchange, wire, schedule and
+rebalance knobs leave it unchanged and go into the JSON's ``config``
+block with ``modeled_exchange_8rank``, the modeled per-rank exchange
+bytes of the reference's 8-rank shape at ``WIDTH`` x ``HEIGHT``
 (``ops/composite.modeled_exchange_traffic``; a model, not a
-measurement). The knobs of parts this package does not have yet raise,
+measurement), and ``rebalance``: the final field's z live profile at
+the modeled 8 ranks, the plan ``slice_plan`` would adopt (min depth 4,
+quantum 4), its histogram and the even and planned modeled straggler
+factors. The knobs of parts this package does not have yet raise,
 naming their ROADMAP row. There is no platform fallback: without a card
 it raises unless ``--device cpu`` is given.
 """
@@ -53,8 +57,6 @@ _UNPORTED = {
                     "queue A3/A7: a CUDA graph after A3"),
     "AUTOTUNE": ("0", "the fold race at warm-up", "queue A7"),
     "PROFILE": ("0", "the phase attribution", "queue A12"),
-    "REBALANCE": ("even", "occupancy rebalance plans",
-                  "queue A8b, item 4"),
 }
 BASE_EYE = (0.0, 0.6, 3.0)
 
@@ -80,6 +82,10 @@ def bench_config(env: Mapping[str, str], on_card: bool) -> dict:
     if render_dtype not in ("f32", "bf16"):
         raise ValueError(f"SITPU_BENCH_RENDER_DTYPE must be f32|bf16 "
                          f"(or float32|bfloat16), got {render_dtype!r}")
+    rebalance = get("REBALANCE", "even")
+    if rebalance not in ("even", "occupancy"):
+        raise ValueError(f"SITPU_BENCH_REBALANCE must be even|occupancy, "
+                         f"got {rebalance!r}")
     skip = get("SKIP", "") or None
     if skip not in (None, "off", "chunk", "pyramid", "sim"):
         raise ValueError(f"SITPU_BENCH_SKIP must be off|chunk|pyramid|sim,"
@@ -94,7 +100,7 @@ def bench_config(env: Mapping[str, str], on_card: bool) -> dict:
     return dict(
         exchange=exchange.exchange, wire=exchange.wire,
         schedule=exchange.schedule, wave_tiles=exchange.wave_tiles,
-        width=int(get("WIDTH", 1280)), height=int(get("HEIGHT", 720)),
+        rebalance=rebalance, width=int(get("WIDTH", 1280)), height=int(get("HEIGHT", 720)),
         grid=grid,
         render_dtype=render_dtype,
         k=int(get("K", 16)),
@@ -115,6 +121,32 @@ def card_power_limit() -> str:
         ["nvidia-smi", "--query-gpu=power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout
     return out.strip().splitlines()[0]
+
+
+def rebalance_block(field: torch.Tensor, grid: int, mode: str,
+                    dev) -> dict:
+    """The render-rebalance block of the result: the z live profile of
+    the final field at the reference's modeled 8 ranks, the plan
+    ``slice_plan`` would adopt, its histogram and the modeled straggler
+    factors of the even and the planned split (max/mean per-rank march
+    work). One card marches one band whatever the plan."""
+    from scenery_insitu_tpu_torch.core.transfer import for_dataset
+    from scenery_insitu_tpu_torch.ops import occupancy as occ
+
+    n_model = 8
+    prof = occ.z_live_profile(field, for_dataset("gray_scott", device=dev)
+                              ).cpu().numpy()
+    even8 = occ.even_plan(grid, n_model)
+    plan8 = occ.slice_plan(prof, grid, n_model, min_depth=4, quantum=4)
+    return {
+        "mode": mode,
+        "modeled_ranks": n_model,
+        "plan": list(plan8),
+        "plan_histogram": {str(d): sum(1 for p in plan8 if p == d)
+                           for d in sorted(set(plan8))},
+        "straggler_even": round(occ.straggler_factor(prof, grid, even8), 3),
+        "straggler_planned": round(occ.straggler_factor(prof, grid, plan8),
+                                   3)}
 
 
 def run(device=None, env: Optional[Mapping[str, str]] = None) -> dict:
@@ -152,7 +184,8 @@ def run(device=None, env: Optional[Mapping[str, str]] = None) -> dict:
                                  adaptive_iters=cfg["adaptive_iters"],
                                  exchange=cfg["exchange"], wire=cfg["wire"],
                                  schedule=cfg["schedule"],
-                                 wave_tiles=cfg["wave_tiles"]),
+                                 wave_tiles=cfg["wave_tiles"],
+                                 rebalance=cfg["rebalance"]),
         engine="mxu", grid_shape=(grid,) * 3,
         axis_sign=slicer.choose_axis(base), slicer_cfg=march_cfg,
         render_dtype=cfg["render_dtype"], sim_fused=cfg["sim_fused"],
@@ -209,6 +242,7 @@ def run(device=None, env: Optional[Mapping[str, str]] = None) -> dict:
             mode=cfg["exchange"], wire=cfg["wire"],
             schedule=cfg["schedule"], wave_tiles=cfg["wave_tiles"]),
         "occupancy": occupancy,
+        "rebalance": rebalance_block(v, grid, cfg["rebalance"], dev),
         "config": {
             "grid": grid, "image": [spec.ni, spec.nj], "steps": grid,
             "fold": spec.fold, "render_dtype": spec.render_dtype,
@@ -217,6 +251,7 @@ def run(device=None, env: Optional[Mapping[str, str]] = None) -> dict:
             "sim_fused": cfg["sim_fused"], "exchange": cfg["exchange"],
             "wire": cfg["wire"], "schedule": cfg["schedule"],
             "wave_tiles": cfg["wave_tiles"], "skip": cfg["skip"],
+            "rebalance": cfg["rebalance"],
             "adaptive_iters": cfg["adaptive_iters"],
             "adaptive_mode": cfg["adaptive_mode"], "chunk": cfg["chunk"],
             "warmup_s": round(warmup_s, 1), "platform": platform,

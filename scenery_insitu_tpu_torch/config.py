@@ -149,7 +149,8 @@ class CompositeConfig:
     k_budget: str = "static"
     k_budget_min: int = 4
     # render decomposition: "even" z-slabs, or "occupancy" bands and
-    # "bricks" maps re-planned between frames (A8b)
+    # "bricks" maps re-planned every rebalance_period frames from the
+    # field's live profile (parallel/pipeline.py, the session's replan)
     rebalance: str = "even"
     # temporal fragment reuse: "off" or "ranges" (A8b)
     temporal_reuse: str = "off"
@@ -213,8 +214,10 @@ class CompositeConfig:
 
 @dataclass(frozen=True)
 class LODConfig:
-    """Multi-resolution brick marching on the brick render decomposition
-    (ROADMAP A8b item 4; the session raises when it is enabled)."""
+    """Multi-resolution brick marching on the brick render decomposition:
+    the session's brick replan also picks a level a brick
+    (``parallel/lod.select_levels``); without ``composite.rebalance =
+    "bricks"`` it is inert, on the ledger."""
 
     enabled: bool = False
     max_level: int = 2
@@ -625,3 +628,15 @@ def _merge_into(cfg: Any, d: dict) -> Any:
         else:
             updates[k] = v
     return dataclasses.replace(cfg, **updates)
+
+
+def check_brick_count(cc: CompositeConfig, depth: int) -> None:
+    """Reject at session build a ``composite.rebalance_bricks`` that does
+    not divide the volume depth: impossible geometry fails here, not at
+    the first replan, and the message names the knob."""
+    if cc.rebalance == "bricks" and cc.rebalance_bricks \
+            and int(depth) % cc.rebalance_bricks:
+        raise ValueError(
+            f"composite.rebalance_bricks={cc.rebalance_bricks} does not "
+            f"divide the volume depth {int(depth)} (use 0 for auto, or a "
+            f"divisor)")

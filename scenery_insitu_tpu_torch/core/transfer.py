@@ -131,6 +131,20 @@ class TransferFunction(NamedTuple):
         return torch.maximum(torch.amax(ends, dim=-1), interior)
 
 
+def opacity_edges(tf: TransferFunction, eps: float = 1e-4) -> np.ndarray:
+    """Sorted f32[M] positions of the TF's active opacity knots — where
+    the alpha polyline changes slope — on the host. The edge set of the
+    LOD planner's TF-straddle gate (`parallel.lod.select_levels`):
+    pooling a brick whose value range crosses one of these positions
+    averages across an opacity feature, so such bricks stay level 0.
+    Padding knots (x = 2, zero slope) and knots whose |slope delta| <=
+    ``eps`` carry no feature and are dropped."""
+    x = tf.alpha_x.detach().cpu().numpy().astype(np.float32)
+    m = tf.alpha_m.detach().cpu().numpy().astype(np.float32)
+    keep = (x <= 1.0) & (np.abs(m) > eps)
+    return np.sort(x[keep])
+
+
 def colormap_polyline(name: str) -> Tuple[np.ndarray, np.ndarray]:
     """Built-in colormaps as exact piecewise-linear polylines
     (xs f32[K], rgb f32[K, 3])."""

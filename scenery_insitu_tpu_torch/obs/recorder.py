@@ -86,10 +86,19 @@ _LEDGER_REGISTRY: Dict[str, str] = {
                      "frame was shed latest-wins",
     "io.vdi_codec": "zstd codec unavailable; VDI IO degrades to stdlib "
                     "zlib",
+    "lod.inert": "lod.enabled is set but the session has no brick map "
+                 "(composite.rebalance != bricks), so no per-brick "
+                 "levels exist to plan; the replan is a no-op",
     "obs.flight_recorder": "an unhandled exception tore down a frame "
                            "loop; the last unflushed obs window was "
                            "dumped best-effort to the configured "
                            "trace/metrics paths",
+    "occupancy.rebalance": "render rebalancing requested where there is "
+                           "nothing to rebalance (single rank / no volume "
+                           "field); even z-slabs render",
+    "occupancy.replan": "the render z-plan changed from fetched live "
+                        "fractions; the affected steps recompile on the "
+                        "new band split",
     "session.sink": "a frame/tile sink or on_steer callback failed "
                     "max_sink_failures consecutive times and is "
                     "quarantined (disabled) for the rest of the run",
@@ -110,6 +119,8 @@ def ledger_registry() -> Dict[str, str]:
 # The counter catalog of every ``Recorder.count`` site in this package:
 # keys are counter names, values say what one increment means.
 _COUNTER_REGISTRY: Dict[str, str] = {
+    "bricks_steps_built": "a brick-partitioned render step was built for "
+                          "a brick map",
     "build_steps": "the session (re)built its render step set",
     "compile_step": "one render step was built for a march regime",
     "delivery_frames_delivered": "the async delivery worker finished "
@@ -126,6 +137,10 @@ _COUNTER_REGISTRY: Dict[str, str] = {
                     "after an unhandled frame-loop exception",
     "frames_eager_dispatch": "a frame went through the eager per-frame "
                              "dispatch path",
+    "rebalance_replans": "a rebalance replan (slab or brick-steal) was "
+                         "executed",
+    "rebalance_steps_built": "a render step was built for a rebalanced "
+                             "partition",
     "regime_switches": "the camera entered another march regime than "
                        "the previous frame's",
     "ring_exchange_builds": "a ring all-to-all exchange program was "

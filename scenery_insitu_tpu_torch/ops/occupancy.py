@@ -13,6 +13,11 @@ carries a one-row apron into its neighbours so every adjacent-row pair
 lies inside one band), and ``max_alpha_in`` bounds any transfer function
 over the whole interval. The march consumes the chunk level (and the
 tile level when the spec tiles in-plane).
+
+The plan side of the render decomposition lives here too: the per-z
+live and range profiles of a field (`z_live_profile`,
+`z_range_profile`) and the host-side planners of contiguous render
+bands (`slice_plan`, `even_plan`, `plan_work`, `straggler_factor`).
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from scenery_insitu_tpu_torch.config import OCCUPANCY_VTILES_DEFAULT
@@ -257,3 +263,131 @@ def pyramid_from_ranges(ranges: FieldRanges, vol, tf, spec,
 def _data_dim(axis_xyz: int) -> int:
     """xyz axis index -> the Volume.data dim, counted from the end."""
     return {0: -1, 1: -2, 2: -3}[axis_xyz]
+
+
+# -------------------------------------------- uneven z-slab render plans
+
+
+# Work model of one z slice: a live slice costs 1 + base, an empty one
+# only base — skipping makes air cheap, not free (the chunk scan still
+# iterates, the gate still evaluates, padded fold chunks still close
+# segments). The modeled straggler factors derive from it.
+PLAN_BASE_COST = 0.05
+
+
+def z_live_profile(field: torch.Tensor, tf, nzb: int = 0, nyb: int = 0,
+                   alpha_eps: float = 1e-5) -> torch.Tensor:
+    """f32[nzb] per-z-brick live fraction of a scalar field ``[D, H, W]``
+    — the replan signal of ``CompositeConfig.rebalance``. One
+    `field_ranges` sweep in data layout (no permute) gated through the
+    TF's conservative alpha bound, reduced over the in-plane bricks:
+    entry i is the fraction of (y-brick) cells in z band ``[i*D/nzb,
+    (i+1)*D/nzb)`` that can contribute opacity. ``nzb``/``nyb`` default
+    to `default_bricks`. The session profiles every rank's even slab
+    and concatenates the profiles into the global z profile
+    `slice_plan` consumes."""
+    d_nzb, d_nyb = default_bricks(tuple(field.shape))
+    nzb = nzb or d_nzb
+    nyb = nyb or d_nyb
+    fr = field_ranges(field, nzb, nyb)
+    cl = lambda x: torch.clamp(x, 0.0, 1.0)
+    live = tf.max_alpha_in(cl(fr.lo), cl(fr.hi)) > alpha_eps
+    return torch.mean(live.to(torch.float32), dim=1)
+
+
+def z_range_profile(field: torch.Tensor, nzb: int = 0):
+    """(lo f32[nzb], hi f32[nzb]) per-z-brick value range of a scalar
+    field ``[D, H, W]``, clipped to the TF's [0, 1] domain — the input of
+    the LOD planner's TF-straddle gate (`parallel.lod.select_levels`).
+    One `field_ranges` sweep with a single in-plane brick; the session
+    profiles every rank's even slab and concatenates the ranges."""
+    nzb = nzb or default_bricks(tuple(field.shape))[0]
+    fr = field_ranges(field, nzb, 1)
+    return (torch.clamp(fr.lo[:, 0], 0.0, 1.0),
+            torch.clamp(fr.hi[:, 0], 0.0, 1.0))
+
+
+def _slice_work(live_profile, d: int, base_cost: float) -> np.ndarray:
+    """f64[d] per-slice march work from a per-z-bin live profile
+    (``len(live_profile)`` must divide ``d``)."""
+    prof = np.asarray(live_profile, np.float64).clip(0.0, None)
+    nb = prof.shape[0]
+    if nb == 0 or d % nb:
+        raise ValueError(f"live profile has {nb} bins which do not "
+                         f"divide depth {d}")
+    return np.repeat(prof, d // nb) + base_cost
+
+
+def slice_plan(live_profile, d: int, n: int, min_depth: int = 1,
+               quantum: int = 1, prev=None, hysteresis: float = 0.0,
+               base_cost: float = PLAN_BASE_COST,
+               max_depth: int = 0):
+    """Per-rank contiguous z-slice counts equalizing live march work —
+    host-side numpy.
+
+    ``live_profile`` (f32[nb], nb | d) is the global per-z-bin live
+    fraction (`z_live_profile`). Greedy prefix-sum equalization places
+    band boundary r at the slice where cumulative work first reaches r/n
+    of the total, snapped to the nearest ``quantum`` multiple and
+    clamped so every band keeps ``min_depth`` slices; the boundaries are
+    a monotone ladder from 0 to d, so ``sum(plan) == d`` always.
+
+    ``max_depth`` caps any band's depth (0 = ``2 * ceil(d / n)``): every
+    rank's band pads to ``max(plan)``, so an unbounded plan would make
+    every rank scan (and skip) that many chunks.
+
+    ``prev``/``hysteresis``: when every boundary of the fresh plan is
+    within ``hysteresis * (d / n)`` slices of ``prev``'s, ``prev`` is
+    returned unchanged (object-equal), so the caller can key rebuilds on
+    plan identity. Returns a tuple of n ints."""
+    if n < 1:
+        raise ValueError(f"need >= 1 rank, got {n}")
+    min_depth = max(1, min(int(min_depth), d // n))
+    quantum = max(1, int(quantum))
+    max_depth = int(max_depth) or 2 * (-(-d // n))
+    max_depth = max(max_depth, -(-d // n))          # keep n bands feasible
+    w = _slice_work(live_profile, d, base_cost)
+    cw = np.cumsum(w)
+    total = float(cw[-1])
+    bounds = [0]
+    for r in range(1, n):
+        target = total * r / n
+        z = int(np.searchsorted(cw, target, side="left")) + 1
+        z = int(round(z / quantum)) * quantum
+        lo = max(bounds[-1] + min_depth, d - (n - r) * max_depth)
+        hi = min(d - (n - r) * min_depth, bounds[-1] + max_depth)
+        bounds.append(int(min(max(z, lo), hi)))
+    bounds.append(d)
+    plan = tuple(int(b1 - b0) for b0, b1 in zip(bounds, bounds[1:]))
+    if prev is not None and len(prev) == n and hysteresis > 0.0:
+        pb = np.concatenate([[0], np.cumsum(np.asarray(prev, np.int64))])
+        if pb[-1] == d and np.max(np.abs(np.asarray(bounds) - pb)) \
+                <= hysteresis * d / n:
+            return tuple(int(p) for p in prev)
+    return plan
+
+
+def even_plan(d: int, n: int):
+    """The identity render plan: the even z-slab split itself."""
+    if d % n:
+        raise ValueError(f"depth {d} not divisible by {n} ranks")
+    return (d // n,) * n
+
+
+def plan_work(live_profile, d: int, plan,
+              base_cost: float = PLAN_BASE_COST):
+    """Per-rank modeled march work of a render plan under the slice work
+    model — the numerator of the straggler factor."""
+    w = _slice_work(live_profile, d, base_cost)
+    if sum(plan) != d:
+        raise ValueError(f"plan {plan} does not cover depth {d}")
+    bounds = np.concatenate([[0], np.cumsum(np.asarray(plan, np.int64))])
+    return [float(w[b0:b1].sum()) for b0, b1 in zip(bounds, bounds[1:])]
+
+
+def straggler_factor(live_profile, d: int, plan,
+                     base_cost: float = PLAN_BASE_COST) -> float:
+    """max/mean per-rank modeled march work — the frame-barrier term the
+    rebalance attacks (1.0 = no straggler)."""
+    work = plan_work(live_profile, d, plan, base_cost)
+    return float(np.max(work) / max(np.mean(work), 1e-12))

@@ -418,7 +418,8 @@ def slice_march(vol: Volume, tf: TransferFunction, axcam: AxisCamera,
                 spec: AxisSpec, consume: Callable, carry0, occupancy=None,
                 shaded_compact: bool = False,
                 volp: Optional[torch.Tensor] = None, v_bounds=None,
-                raw: bool = False, raw_full_skip: bool = False):
+                raw: bool = False, raw_full_skip: bool = False,
+                w_bounds=None, step_scale: float = 1.0):
     """The chunked slice march. Calls ``consume(carry, rgba [C,4,Nj,Ni],
     t0 [C,Nj,Ni], t1 [C,Nj,Ni]) -> carry`` for each chunk of slices,
     front to back, and returns the final carry. rgba is premultiplied,
@@ -455,7 +456,18 @@ def slice_march(vol: Volume, tf: TransferFunction, axcam: AxisCamera,
     ``v_bounds`` (lo, hi): the half-open world interval of the in-plane
     v axis this volume owns; samples outside it are transparent. A rank
     of the distributed step whose slab is cut across v owns its rows
-    only, so every sample belongs to exactly one rank."""
+    only, so every sample belongs to exactly one rank.
+
+    ``w_bounds`` (lo, hi): the open world interval of the march axis
+    this volume owns; slices whose plane lies outside it are dead. A
+    planned band or a brick padded past its own slices marches only
+    those, as ``v_bounds`` owns in-plane rows (slice centres sit half a
+    voxel inside a slice-aligned boundary, so the open test is exact).
+
+    ``step_scale`` rescales the opacity correction's reference step
+    (``nominal_step(vol, step_scale)``): a volume pooled 2^l-fold
+    marches with ``step_scale = 2^-l`` so a coarse slice takes the
+    opacity of the fine slices it replaces."""
     occ_tiles = None
     if isinstance(occupancy, tuple):
         occupancy, occ_tiles = occupancy
@@ -475,7 +487,7 @@ def slice_march(vol: Volume, tf: TransferFunction, axcam: AxisCamera,
 
     length = axcam.ray_lengths()                           # [Nj, Ni]
     ds = torch.abs(axcam.dwm) / axcam.zp                   # depth-ratio step
-    ratio = ds * length / nominal_step(vol)                # [Nj, Ni]
+    ratio = ds * length / nominal_step(vol, step_scale)    # [Nj, Ni]
 
     a = spec.axis
     now_ = vol.data.shape[_DATA_DIM[a]]
@@ -517,6 +529,8 @@ def slice_march(vol: Volume, tf: TransferFunction, axcam: AxisCamera,
         wk = local_w0 + ks * axcam.dwm
         sk = float(spec.sign) * (wk - ew) / axcam.zp       # depth ratios
         live = (sk > spec.s_floor) & (ks < s_total)
+        if w_bounds is not None:
+            live &= (wk > w_bounds[0]) & (wk < w_bounds[1])
         slices = volp[ci * c:(ci + 1) * c].to(torch.float32)
 
         pos_u = eu + (axcam.u_grid[None, :] - eu) * sk[:, None]   # [C, Ni]
@@ -582,7 +596,7 @@ def slice_march(vol: Volume, tf: TransferFunction, axcam: AxisCamera,
 
 
 def _vdi_meta(vol: Volume, axcam: AxisCamera, ni: int,
-              nj: int) -> VDIMetadata:
+              nj: int, step_scale: float = 1.0) -> VDIMetadata:
     """The VDI's metadata; ``volume_dims`` are ``vol``'s own (the
     distributed step puts the global volume's in their place)."""
     dev = vol.origin.device
@@ -592,7 +606,7 @@ def _vdi_meta(vol: Volume, axcam: AxisCamera, ni: int,
     return VDIMetadata.create(projection=axcam.proj, view=axcam.view,
                               model=model, volume_dims=dims,
                               window_dims=(ni, nj),
-                              nw=nominal_step(vol), index=0)
+                              nw=nominal_step(vol, step_scale), index=0)
 
 
 def _histogram_threshold(march, cfg: VDIConfig, k, nj: int, ni: int,
@@ -635,7 +649,8 @@ def _resolve_occupancy(vol: Volume, tf: TransferFunction, spec: AxisSpec,
 def _frame_march(vol: Volume, tf: TransferFunction, cam: Camera,
                  spec: AxisSpec, box_min=None, box_max=None, v_bounds=None,
                  occupancy=None, axcam: Optional[AxisCamera] = None,
-                 volp: Optional[torch.Tensor] = None):
+                 volp: Optional[torch.Tensor] = None, w_bounds=None,
+                 step_scale: float = 1.0):
     """The frame's virtual camera and its march over one permuted copy
     and one occupancy gate: returns (axcam, march) with ``march(consume,
     carry0, **options)`` a `slice_march` of this frame (options:
@@ -647,7 +662,8 @@ def _frame_march(vol: Volume, tf: TransferFunction, cam: Camera,
     replaces the pyramid built here from the permuted copy, or a gate
     it already took (`occupancy_for`). ``axcam`` and ``volp``: a
     caller's virtual camera (a tile wave's, `wave_camera`) and permuted
-    copy, shared by the waves of a frame."""
+    copy, shared by the waves of a frame. ``w_bounds`` and
+    ``step_scale``: see `slice_march`."""
     if axcam is None:
         axcam = make_axis_camera(vol, cam, spec, box_min, box_max)
     if volp is None:
@@ -657,12 +673,14 @@ def _frame_march(vol: Volume, tf: TransferFunction, cam: Camera,
     def march(consume, carry0, **options):
         return slice_march(vol, tf, axcam, spec, consume, carry0,
                            occupancy=occ, volp=volp, v_bounds=v_bounds,
+                           w_bounds=w_bounds, step_scale=step_scale,
                            **options)
 
     return axcam, march
 
 
-def _fused_march(march, vol, tf, axcam, spec, threshold, k):
+def _fused_march(march, vol, tf, axcam, spec, threshold, k,
+                 step_scale: float = 1.0):
     """The write march of the fused folds: the raw value planes, shaded
     and folded by kernel B5 chunk by chunk (``pallas_fused``), or
     gathered into one ``f32[S_pad, Nj, Ni]`` buffer, skipped chunks as
@@ -673,7 +691,7 @@ def _fused_march(march, vol, tf, axcam, spec, threshold, k):
     dev = vol.data.device
     length = axcam.ray_lengths()
     ds = torch.abs(axcam.dwm) / axcam.zp
-    ratio = ds * length / nominal_step(vol)
+    ratio = ds * length / nominal_step(vol, step_scale)
     packed = cs.init_seg_packed(k, nj, ni, device=dev)
     knots = cf.tf_knots(tf)             # once a march, not once a launch
     if spec.fold == "pallas_fused":
@@ -700,14 +718,17 @@ def _fused_march(march, vol, tf, axcam, spec, threshold, k):
     return cs.unpack_seg_state(packed)
 
 
-def _write_march(march, vol, tf, axcam, spec, threshold, k, count: bool):
+def _write_march(march, vol, tf, axcam, spec, threshold, k, count: bool,
+                 step_scale: float = 1.0):
     """The write march of ``spec.fold``. Returns (color, depth, count)
     where count is the true per-pixel start count (``count=True``) or
-    None."""
+    None. ``step_scale``: the march's (see `slice_march`), which the
+    fused folds' own opacity correction takes too."""
     nj, ni = spec.nj, spec.ni
     device = vol.data.device
     if spec.fold in ("pallas_fused", "fused_stream"):
-        state = _fused_march(march, vol, tf, axcam, spec, threshold, k)
+        state = _fused_march(march, vol, tf, axcam, spec, threshold, k,
+                             step_scale)
         color, depth = sf.seg_finalize(state)
         return color, depth, state.cnt
     if spec.fold == "pallas_seg":
@@ -762,7 +783,8 @@ def generate_vdi_mxu(vol: Volume, tf: TransferFunction, cam: Camera,
                      box_min: Optional[torch.Tensor] = None,
                      box_max: Optional[torch.Tensor] = None, v_bounds=None,
                      occupancy=None, axcam: Optional[AxisCamera] = None,
-                     volp: Optional[torch.Tensor] = None
+                     volp: Optional[torch.Tensor] = None, w_bounds=None,
+                     step_scale: float = 1.0
                      ) -> Tuple[VDI, VDIMetadata, AxisCamera]:
     """VDI generation on the slice march, with the threshold of
     ``cfg.adaptive_mode`` "histogram" (one counting march over all
@@ -771,7 +793,10 @@ def generate_vdi_mxu(vol: Volume, tf: TransferFunction, cam: Camera,
     use `generate_vdi_mxu_temporal`. ``box_min``/``box_max``/``v_bounds``
     are a distributed rank's: see `make_axis_camera` and
     `slice_march`; ``occupancy``, ``axcam`` and ``volp``: see
-    `_frame_march` (a caller's ``axcam`` replaces the box)."""
+    `_frame_march` (a caller's ``axcam`` replaces the box); ``w_bounds``
+    and ``step_scale`` (a brick pooled 2^l-fold marches with
+    ``step_scale = 2^-l`` on the fine camera with ``dwm * 2^l``): see
+    `slice_march`."""
     cfg = cfg or VDIConfig()
     k = cfg.max_supersegments
     nj, ni = spec.nj, spec.ni
@@ -782,7 +807,8 @@ def generate_vdi_mxu(vol: Volume, tf: TransferFunction, cam: Camera,
             "call generate_vdi_mxu_temporal(..., threshold=...) instead "
             "(seed the state with initial_threshold())")
     axcam, march = _frame_march(vol, tf, cam, spec, box_min, box_max,
-                                v_bounds, occupancy, axcam, volp)
+                                v_bounds, occupancy, axcam, volp, w_bounds,
+                                step_scale)
     if cfg.adaptive and cfg.adaptive_mode == "histogram":
         threshold = _histogram_threshold(march, cfg, k, nj, ni, spec.fold,
                                          dev)
@@ -799,20 +825,24 @@ def generate_vdi_mxu(vol: Volume, tf: TransferFunction, cam: Camera,
         threshold = torch.full((nj, ni), cfg.threshold, device=dev)
 
     color, depth, _ = _write_march(march, vol, tf, axcam, spec, threshold,
-                                   k, count=False)
-    return VDI(color, depth), _vdi_meta(vol, axcam, ni, nj), axcam
+                                   k, count=False, step_scale=step_scale)
+    return (VDI(color, depth), _vdi_meta(vol, axcam, ni, nj, step_scale),
+            axcam)
 
 
 def initial_threshold(vol: Volume, tf: TransferFunction, cam: Camera,
                       spec: AxisSpec, cfg: Optional[VDIConfig] = None,
                       box_min: Optional[torch.Tensor] = None,
-                      box_max: Optional[torch.Tensor] = None, v_bounds=None
-                      ) -> ss.ThresholdState:
+                      box_max: Optional[torch.Tensor] = None, v_bounds=None,
+                      occupancy=None, axcam: Optional[AxisCamera] = None,
+                      volp: Optional[torch.Tensor] = None, w_bounds=None,
+                      step_scale: float = 1.0) -> ss.ThresholdState:
     """Seed state of the temporal threshold controller ([nj, ni] maps):
-    one histogram counting march on the current scene.
-    ``box_min``/``box_max``/``v_bounds``: see `generate_vdi_mxu`."""
+    one histogram counting march on the current scene. The other
+    arguments: see `generate_vdi_mxu`."""
     cfg = cfg or VDIConfig()
-    _, march = _frame_march(vol, tf, cam, spec, box_min, box_max, v_bounds)
+    _, march = _frame_march(vol, tf, cam, spec, box_min, box_max, v_bounds,
+                            occupancy, axcam, volp, w_bounds, step_scale)
     thr = _histogram_threshold(march, cfg, cfg.max_supersegments, spec.nj,
                                spec.ni, spec.fold, vol.data.device)
     return ss.init_threshold_state(thr, cfg.thr_min, cfg.thr_max)
@@ -827,6 +857,7 @@ def generate_vdi_mxu_temporal(vol: Volume, tf: TransferFunction,
                               v_bounds=None, occupancy=None,
                               axcam: Optional[AxisCamera] = None,
                               volp: Optional[torch.Tensor] = None,
+                              w_bounds=None, step_scale: float = 1.0,
                               ) -> Tuple[VDI, VDIMetadata, AxisCamera,
                                          ss.ThresholdState]:
     """VDI generation with ONE march per frame (adaptive_mode
@@ -835,15 +866,19 @@ def generate_vdi_mxu_temporal(vol: Volume, tf: TransferFunction,
     segment count, and ``update_threshold`` bisects the map toward the
     target band for the next frame. Returns (vdi, meta, axcam,
     next_threshold). ``box_min``/``box_max``/``v_bounds``/``occupancy``/
-    ``axcam``/``volp``: see `generate_vdi_mxu`."""
+    ``axcam``/``volp``/``w_bounds``/``step_scale``: see
+    `generate_vdi_mxu`."""
     cfg = cfg or VDIConfig()
     k = cfg.max_supersegments
     axcam, march = _frame_march(vol, tf, cam, spec, box_min, box_max,
-                                v_bounds, occupancy, axcam, volp)
+                                v_bounds, occupancy, axcam, volp, w_bounds,
+                                step_scale)
     color, depth, count = _write_march(march, vol, tf, axcam, spec,
-                                       threshold.thr, k, count=True)
+                                       threshold.thr, k, count=True,
+                                       step_scale=step_scale)
     next_thr = ss.update_threshold(threshold, count, k,
                                    cfg.adaptive_delta, cfg.thr_min,
                                    cfg.thr_max, cfg.temporal_track)
-    return (VDI(color, depth), _vdi_meta(vol, axcam, spec.ni, spec.nj),
-            axcam, next_thr)
+    return (VDI(color, depth),
+            _vdi_meta(vol, axcam, spec.ni, spec.nj, step_scale), axcam,
+            next_thr)

@@ -3,7 +3,7 @@
 Each rank of a mesh (``parallel/mesh.py``) holds one even z-slab of the
 volume. A frame runs the reference's chain:
 
-    generate    every rank marches its own slab onto the global
+    generate    every rank marches its render decomposition onto the global
                 intermediate grid (one slice ladder and one virtual
                 camera for all ranks; halo rows and half-open ownership
                 make the march seam-exact when z is an in-plane axis)
@@ -44,14 +44,38 @@ all_to_all is one block transpose of the rank-stacked fragments, the
 ring's hops run one after another with each rank merging in the
 reference's order, and the waves run in turn in the order of the
 reference's pipelined scan (march wave 0; then composite wave w-1 and
-march wave w; then composite the last wave), without its overlap. The
-render rebalancing, bricks and LOD (A8b item 4), the two-level topology
-(item 5) and K budgets and fragment reuse (item 6) are still to come.
+march wave w; then composite the last wave), without its overlap.
+
+The render decomposition need not be the sim's even slab
+(``CompositeConfig.rebalance``; the step builders take ``plan=`` or
+``bricks=``):
+
+``"occupancy"``  a render plan (one band depth a rank,
+                 ``ops/occupancy.slice_plan``): rank r marches the
+                 contiguous band ``mesh.reslab_z`` assembles, padded to
+                 ``max(plan)`` and owned through ``w_bounds`` (z march)
+                 or ``v_bounds`` (x/y march).
+``"bricks"``     a ``parallel/bricks.BrickMap``: rank r marches each of
+                 its brick slots (``mesh.reslab_bricks``) as a unit of
+                 its own and concatenates the K-slot fragments into one
+                 ``[slots*K]`` stream before the exchange; absent slots
+                 own an empty interval and come out all ``+inf``. With
+                 levels (the LOD march), a level-l unit is the brick
+                 pooled 2^l-fold (``mesh.reslab_bricks_lod``), marched
+                 on the shared fine camera with ``dwm * 2^l`` and
+                 ``step_scale = 2^-l``.
+
+An even plan, an even-convex map, and one rank with an all-fine map take
+the slab path unchanged. The temporal threshold maps of a brick step
+stack a rank's slots by rows (``[slots*nj, ni]``) and the ranks on top.
+The two-level topology (A8b item 5) and K budgets and fragment reuse
+(item 6) are still to come.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+import math
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -67,7 +91,11 @@ from scenery_insitu_tpu_torch.ops import wire as _wire
 from scenery_insitu_tpu_torch.ops.composite import (
     composite_vdis, merge_vdis_pairwise, modeled_exchange_traffic,
     resegment_stream, sort_stream)
-from scenery_insitu_tpu_torch.parallel.mesh import Mesh, halo_exchange_z
+from scenery_insitu_tpu_torch.parallel.bricks import BrickMap
+from scenery_insitu_tpu_torch.parallel.mesh import (Mesh, halo_exchange_z,
+                                                    reslab_bricks,
+                                                    reslab_bricks_lod,
+                                                    reslab_z, validate_plan)
 from scenery_insitu_tpu_torch.parallel.topology import resolve_mesh_topology
 
 
@@ -80,32 +108,147 @@ def _check_sharded(data: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     return data
 
 
-def _rank_slab(slabs: torch.Tensor, halo: Optional[torch.Tensor], r: int,
-               origin: torch.Tensor, spacing: torch.Tensor,
-               spec: slicer.AxisSpec):
-    """Rank r's march volume, the global box's max corner, its ownership
-    bounds on the in-plane v axis and the global dims (x, y, z).
+class _Unit(NamedTuple):
+    """One march unit of a rank: a volume, its ownership bounds on the
+    in-plane v axis (x/y march) and on the march axis (planned bands and
+    bricks of a z march), and its downsample factor (2^level)."""
 
-    A z march (``spec.axis == 2``) marches the rank's own slices: no
-    halo, no bounds. An x or y march has z as its v axis: the slab with
-    its halo rows (``halo``, from `halo_exchange_z`) for seam-exact
-    bilinear, and half-open ownership so every sample belongs to exactly
-    one rank; the last rank's bound reaches one slice past the global
-    top, which the volume-extent mask still caps."""
+    vol: Volume
+    v_bounds: Optional[tuple]
+    w_bounds: Optional[tuple]
+    f: int = 1
+
+
+class _Decomp(NamedTuple):
+    """Rank r's render decomposition of a frame: its march units, the
+    fine-pitch volume the shared camera and the metadata are built on,
+    the global box's max corner and the global dims (x, y, z)."""
+
+    units: List[_Unit]
+    ref: Volume
+    gmax: torch.Tensor
+    dims: Tuple[int, int, int]
+
+
+def _shifted(origin: torch.Tensor, dz_offset) -> torch.Tensor:
+    """``origin`` with ``dz_offset`` added to its z component."""
+    shift = torch.zeros(3, dtype=torch.float32, device=origin.device)
+    shift[2] = dz_offset
+    return origin + shift
+
+
+def _frame_rows(slabs: torch.Tensor, spec: slicer.AxisSpec, plan=None,
+                bricks: Optional[BrickMap] = None):
+    """The rows a frame's ranks march, assembled once a frame from the
+    even slabs ``[n, Dn, H, W]``: None (an even z march marches its own
+    slab), the halo-padded slabs (an even x/y march), the planned bands
+    (`reslab_z`), or the brick sets by level ``{level: [n, slots, rows,
+    H, W]}`` (`reslab_bricks`, `reslab_bricks_lod`). A z march needs no
+    halo rows. A brick set of a bf16 march is gathered from the bf16
+    copy of the slabs, so pooled levels pool the values the march
+    reads."""
+    h = 0 if spec.axis == 2 else 1
+    if bricks is not None:
+        if spec.render_dtype == "bf16" and slabs.dtype == torch.float32:
+            slabs = slabs.to(torch.bfloat16)
+        if bricks.max_level == 0:
+            return {0: reslab_bricks(slabs, bricks, h=h)}
+        return reslab_bricks_lod(slabs, bricks, h=h)
+    if plan is not None:
+        return reslab_z(slabs, plan, h=h)
+    return _halo_for(slabs, spec)
+
+
+def _rank_units(slabs: torch.Tensor, rows, r: int, origin: torch.Tensor,
+                spacing: torch.Tensor, spec: slicer.AxisSpec, plan=None,
+                bricks: Optional[BrickMap] = None) -> _Decomp:
+    """Rank r's march units of the frame whose rows `_frame_rows`
+    assembled.
+
+    Even slab: a z march (``spec.axis == 2``) marches the rank's own
+    slices, no bounds; an x or y march has z as its v axis: the slab
+    with its halo rows for seam-exact bilinear, and half-open ownership
+    so every sample belongs to exactly one rank; the last rank's bound
+    reaches one slice past the global top, which the volume-extent mask
+    still caps. A planned band is owned the same way, through
+    ``w_bounds`` on a z march (its pad slices shade nothing). Bricks:
+    one unit a slot, each owning its brick's world interval (the brick
+    at the global top keeps the +dz slack on an x/y march, scaled by the
+    level's pitch); absent slots own an empty interval."""
     n, dn, h, w = slabs.shape
     dz = spacing[2]
-    dims = (w, h, dn * n)
+    d = dn * n
+    dims = (w, h, d)
     gmax = origin + torch.tensor(dims, dtype=torch.float32,
                                  device=origin.device) * spacing
-    shift = torch.zeros(3, dtype=torch.float32, device=origin.device)
-    if spec.axis == 2:
-        shift[2] = r * dn * dz
-        return Volume(slabs[r], origin + shift, spacing), gmax, None, dims
-    shift[2] = (r * dn - 1) * dz
-    vol = Volume(halo[r], origin + shift, spacing)
-    z_lo = origin[2] + r * dn * dz
-    z_hi = origin[2] + (r + 1) * dn * dz
-    return vol, gmax, (z_lo, z_hi + dz if r == n - 1 else z_hi), dims
+    z_march = spec.axis == 2
+    if bricks is not None:
+        return _brick_units(rows, r, origin, spacing, z_march, bricks,
+                            gmax, dims)
+    if plan is not None:
+        g0, p_r = sum(plan[:r]), plan[r]
+        z_lo = origin[2] + float(g0) * dz
+        z_hi = origin[2] + float(g0 + p_r) * dz
+        if z_march:
+            vol = Volume(rows[r], _shifted(origin, float(g0) * dz), spacing)
+            unit = _Unit(vol, None, (z_lo, z_hi))
+        else:
+            vol = Volume(rows[r], _shifted(origin, float(g0 - 1) * dz),
+                         spacing)
+            unit = _Unit(vol, (z_lo, z_hi + dz if r == n - 1 else z_hi),
+                         None)
+        return _Decomp([unit], unit.vol, gmax, dims)
+    if z_march:
+        vol = Volume(slabs[r], _shifted(origin, r * dn * dz), spacing)
+        unit = _Unit(vol, None, None)
+    else:
+        vol = Volume(rows[r], _shifted(origin, (r * dn - 1) * dz), spacing)
+        z_lo = origin[2] + r * dn * dz
+        z_hi = origin[2] + (r + 1) * dn * dz
+        unit = _Unit(vol, (z_lo, z_hi + dz if r == n - 1 else z_hi), None)
+    return _Decomp([unit], vol, gmax, dims)
+
+
+def _brick_units(rows: dict, r: int, origin: torch.Tensor,
+                 spacing: torch.Tensor, z_march: bool, bmap: BrickMap,
+                 gmax: torch.Tensor, dims) -> _Decomp:
+    """Rank r's brick units, grouped by level in ascending order (level
+    0 alone on a map without levels). A level-l unit is the pooled brick
+    at ``spacing * 2^l`` with the same corner origin; its bounds stay
+    the fine brick's world interval. ``ref``: the first unit's volume
+    on a map without levels, else a ``(1, 1, 1)`` zero volume at the
+    global origin and pitch."""
+    dz = spacing[2]
+    d = dims[2]
+    bz = bmap.brick_depth
+    halo = 0 if z_march else 1
+    levels = bmap.levels_present() if bmap.max_level else (0,)
+    units = []
+    for lvl in levels:
+        f = 1 << lvl
+        table = bmap.start_table_at(lvl)
+        arr = rows[lvl][r]
+        for s in range(table.shape[1]):
+            start = int(table[r, s])                       # -1 = absent
+            present = start >= 0
+            z_lo = origin[2] + float(start) * dz
+            z_hi = origin[2] + float(start + bz) * dz
+            vol = Volume(arr[s], _shifted(origin, float(start - halo * f)
+                                          * dz), spacing * float(f)
+                         if f > 1 else spacing)
+            if z_march:
+                wb = (z_lo, z_hi) if present else (math.inf, -math.inf)
+                units.append(_Unit(vol, None, wb, f))
+            else:
+                hi = z_hi + float(f) * dz if start + bz == d else z_hi
+                vb = (z_lo, hi) if present else (math.inf, -math.inf)
+                units.append(_Unit(vol, vb, None, f))
+    if bmap.max_level == 0:
+        ref = units[0].vol
+    else:
+        ref = Volume(torch.zeros((1, 1, 1), dtype=rows[levels[0]].dtype,
+                                 device=origin.device), origin, spacing)
+    return _Decomp(units, ref, gmax, dims)
 
 
 # -------------------------------------------------------------- exchange
@@ -285,32 +428,155 @@ def _resolve_waves(cfg: CompositeConfig, n: int, width: int) -> bool:
     return True
 
 
+def _rebalance_build_marker(plan, n: int) -> None:
+    """One rebalanced step built: counts the build and records the
+    plan's shape, with the pad overhead every rank pays for one band
+    shape (max(plan)/mean(plan) - 1)."""
+    rec = _obs.get_recorder()
+    rec.count("rebalance_steps_built")
+    rec.event("rebalance_build", ranks=n, plan=list(plan),
+              max_depth=int(max(plan)), min_depth=int(min(plan)),
+              pad_overhead=round(
+                  int(max(plan)) * n / float(sum(plan)) - 1.0, 4))
+
+
+def _rebalance_mode(comp_cfg) -> str:
+    if comp_cfg is None:
+        return "even"
+    return comp_cfg if isinstance(comp_cfg, str) else comp_cfg.rebalance
+
+
+def _resolve_plan(comp_cfg, n: int, plan, min_halo: int = 1):
+    """Build-time resolution of a render z-plan. Returns the validated
+    plan tuple, or None for the even slab path: ``plan=None``, one rank,
+    or an even plan. A plan without ``rebalance="occupancy"`` raises."""
+    if plan is None:
+        return None
+    rebalance = _rebalance_mode(comp_cfg)
+    if rebalance != "occupancy":
+        raise ValueError(
+            f"a render plan was passed but rebalance={rebalance!r} — "
+            f"plans are the mechanism of rebalance='occupancy'")
+    plan = validate_plan(plan, n, h=min_halo)
+    if n == 1 or all(p == plan[0] for p in plan):
+        return None
+    _rebalance_build_marker(plan, n)
+    return plan
+
+
+def _bricks_build_marker(bmap: BrickMap, n: int) -> None:
+    """One brick-partitioned step built: the brick grid, the padded slot
+    count every rank marches and the ownership histogram."""
+    counts = [len(bmap.rank_bricks(r)) for r in range(n)]
+    rec = _obs.get_recorder()
+    rec.count("bricks_steps_built")
+    rec.event("bricks_build", ranks=n, nbricks=bmap.nbricks,
+              brick_depth=bmap.brick_depth, slots=bmap.slots,
+              owner=list(bmap.owner), bricks_per_rank=counts,
+              level=list(bmap.level), max_level=bmap.max_level,
+              total_slots=bmap.total_slots)
+
+
+def _resolve_bricks(comp_cfg, n: int, bricks):
+    """Build-time resolution of a brick-to-rank render partition.
+    Returns the `BrickMap`, or None for the slab path: no map, one rank
+    with every brick at level 0, or the even-convex map (bit for bit the
+    slab step). A map without ``rebalance="bricks"``, or one built for
+    another rank count, raises."""
+    if bricks is None:
+        return None
+    if not isinstance(bricks, BrickMap):
+        raise TypeError(f"bricks= takes a parallel.bricks.BrickMap, got "
+                        f"{type(bricks).__name__}")
+    rebalance = _rebalance_mode(comp_cfg)
+    if rebalance != "bricks":
+        raise ValueError(
+            f"a brick map was passed but rebalance={rebalance!r} — brick "
+            f"partitions are the mechanism of rebalance='bricks'")
+    if bricks.n_ranks != n:
+        raise ValueError(f"brick map built for {bricks.n_ranks} ranks on "
+                         f"a {n}-rank mesh")
+    # one rank short-circuits only when every brick is level 0: a coarse
+    # level still changes what is marched
+    if (n == 1 and bricks.max_level == 0) or bricks.is_even_convex():
+        return None
+    _bricks_build_marker(bricks, n)
+    return bricks
+
+
 # ------------------------------------------------------------ generation
 
 
 def _rank_thr(thr: ss.ThresholdState, r: int, nj: int) -> ss.ThresholdState:
+    """Rank r's maps of the rank-stacked state; ``nj`` is a rank's row
+    count (``slots * nj`` under a brick map)."""
     return ss.ThresholdState(*(x[r * nj:(r + 1) * nj] for x in thr))
 
 
+def _thr_slot(thr: ss.ThresholdState, s: int, nj: int) -> ss.ThresholdState:
+    """Slot ``s``'s ``[nj, ni]`` maps of a rank's row-stacked state."""
+    return ss.ThresholdState(*(x[s * nj:(s + 1) * nj] for x in thr))
+
+
+def _stack_thr(states) -> ss.ThresholdState:
+    """Row-stack threshold states (slots of a rank, or ranks)."""
+    if len(states) == 1:
+        return states[0]
+    return ss.ThresholdState(*(torch.cat(parts) for parts in zip(*states)))
+
+
+def _cat_slots(xs: List[torch.Tensor]) -> torch.Tensor:
+    """A rank's slot fragments as one ``[slots*K, ...]`` stream."""
+    return xs[0] if len(xs) == 1 else torch.cat(xs, dim=0)
+
+
+def _unit_camera(axcam: slicer.AxisCamera, f: int) -> slicer.AxisCamera:
+    """The shared fine camera, stepping 2^level fine slices a slice."""
+    return axcam if f == 1 else axcam._replace(dwm=axcam.dwm * f)
+
+
+def _generate_rank(dec: _Decomp, origin, cam, spec, tf, vdi_cfg,
+                   threshold=None):
+    """A rank's slice-march VDI of its decomposition: every unit marched
+    on the shared camera, the slot fragments concatenated into one
+    ``[slots*K]`` stream (the exchange and composite sort every pixel's
+    stream, so interleaved depth ranges need no merge here). Returns
+    (vdi, meta, next_threshold); the last is None unless a threshold
+    state was passed (temporal mode: one ``[nj, ni]`` map set a slot,
+    row-stacked). The metadata describes the global volume."""
+    axcam = slicer.make_axis_camera(dec.ref, cam, spec, box_min=origin,
+                                    box_max=dec.gmax)
+    colors, depths, thr2s = [], [], []
+    for s, u in enumerate(dec.units):
+        kw = dict(v_bounds=u.v_bounds, w_bounds=u.w_bounds,
+                  axcam=_unit_camera(axcam, u.f), step_scale=1.0 / u.f)
+        if threshold is None:
+            vdi, _, _ = slicer.generate_vdi_mxu(u.vol, tf, cam, spec,
+                                                vdi_cfg, **kw)
+        else:
+            vdi, _, _, t2 = slicer.generate_vdi_mxu_temporal(
+                u.vol, tf, cam, spec, _thr_slot(threshold, s, spec.nj),
+                vdi_cfg, **kw)
+            thr2s.append(t2)
+        colors.append(vdi.color)
+        depths.append(vdi.depth)
+    meta = _global_meta(dec, axcam, spec, origin)
+    thr2 = _stack_thr(thr2s) if thr2s else None
+    return VDI(_cat_slots(colors), _cat_slots(depths)), meta, thr2
+
+
+def _global_meta(dec: _Decomp, axcam, spec, origin):
+    return slicer._vdi_meta(dec.ref, axcam, spec.ni, spec.nj)._replace(
+        volume_dims=torch.tensor(dec.dims, dtype=torch.float32,
+                                 device=origin.device))
+
+
 def _mxu_rank_generate(slabs, halo, r, origin, spacing, cam, spec, tf,
-                       vdi_cfg, threshold=None):
-    """Rank r's slice-march VDI of its slab. Returns (vdi, meta,
-    next_threshold); the last is None unless a threshold state was
-    passed (temporal mode). The metadata describes the global volume."""
-    vol, gmax, v_bounds, dims = _rank_slab(slabs, halo, r, origin, spacing,
-                                           spec)
-    if threshold is None:
-        vdi, meta, _ = slicer.generate_vdi_mxu(
-            vol, tf, cam, spec, vdi_cfg, box_min=origin, box_max=gmax,
-            v_bounds=v_bounds)
-        thr2 = None
-    else:
-        vdi, meta, _, thr2 = slicer.generate_vdi_mxu_temporal(
-            vol, tf, cam, spec, threshold, vdi_cfg, box_min=origin,
-            box_max=gmax, v_bounds=v_bounds)
-    meta = meta._replace(volume_dims=torch.tensor(
-        dims, dtype=torch.float32, device=origin.device))
-    return vdi, meta, thr2
+                       vdi_cfg, threshold=None, plan=None, bricks=None):
+    """Rank r's VDI of the frame whose rows `_frame_rows` assembled
+    (``halo``). Returns (vdi, meta, next_threshold)."""
+    dec = _rank_units(slabs, halo, r, origin, spacing, spec, plan, bricks)
+    return _generate_rank(dec, origin, cam, spec, tf, vdi_cfg, threshold)
 
 
 def _halo_for(slabs: torch.Tensor, spec: slicer.AxisSpec):
@@ -320,59 +586,74 @@ def _halo_for(slabs: torch.Tensor, spec: slicer.AxisSpec):
 
 
 class _RankFrame:
-    """Rank r's per-frame state shared by its tile waves: its volume,
-    ownership bounds, the virtual camera, the one permuted copy and the
-    one occupancy gate."""
+    """Rank r's per-frame state shared by its tile waves: its march
+    units, the virtual camera, and a unit's one permuted copy and one
+    occupancy gate."""
 
-    def __init__(self, slabs, halo, r, origin, spacing, cam, spec, tf):
-        self.vol, gmax, self.v_bounds, self.dims = _rank_slab(
-            slabs, halo, r, origin, spacing, spec)
-        self.axcam = slicer.make_axis_camera(self.vol, cam, spec,
-                                             box_min=origin, box_max=gmax)
-        self.volp = slicer.permute_volume(self.vol, spec)
-        self.occ = slicer.occupancy_for(self.vol, tf, spec, volp=self.volp)
+    def __init__(self, slabs, halo, r, origin, spacing, cam, spec, tf,
+                 plan=None, bricks=None):
+        self.dec = _rank_units(slabs, halo, r, origin, spacing, spec, plan,
+                               bricks)
+        self.axcam = slicer.make_axis_camera(self.dec.ref, cam, spec,
+                                             box_min=origin,
+                                             box_max=self.dec.gmax)
+        self.volps = [slicer.permute_volume(u.vol, spec)
+                      for u in self.dec.units]
+        self.occs = [slicer.occupancy_for(u.vol, tf, spec, volp=vp)
+                     for u, vp in zip(self.dec.units, self.volps)]
 
 
 def _march_wave(frames, w: int, n: int, t: int, cam, spec, tf, vdi_cfg,
                 thr_full):
-    """Every rank's march of tile wave ``w`` on its shared frame state.
-    ``thr_full`` (temporal mode; else None) holds each rank's full-frame
-    threshold maps: the wave's columns are sliced out and the
-    controller's update scattered back in place of the list entry.
-    Returns the rank-stacked wave fragments (color, depth)."""
+    """Every rank's march of tile wave ``w`` on its shared frame state,
+    every slot of a rank concatenated into one stream. ``thr_full``
+    (temporal mode; else None) holds each rank's full-frame threshold
+    maps: each slot's wave columns are sliced out and the controller's
+    update scattered back in place of the list entry. Returns the
+    rank-stacked wave fragments (color, depth)."""
+    nj = spec.nj
     colors, depths = [], []
     for r, fr in enumerate(frames):
         axcam_w, spec_w = slicer.wave_camera(fr.axcam, spec, n, t, w)
-        kw = dict(v_bounds=fr.v_bounds, occupancy=fr.occ, axcam=axcam_w,
-                  volp=fr.volp)
-        if thr_full is None:
-            vdi, _, _ = slicer.generate_vdi_mxu(fr.vol, tf, cam, spec_w,
-                                                vdi_cfg, **kw)
-        else:
-            thr_w = ss.ThresholdState(*(slicer.wave_cols(m, n, t, w)
-                                        for m in thr_full[r]))
-            vdi, _, _, thr2w = slicer.generate_vdi_mxu_temporal(
-                fr.vol, tf, cam, spec_w, thr_w, vdi_cfg, **kw)
-            thr_full[r] = ss.ThresholdState(*(
-                slicer.wave_update_cols(m, mw, n, t, w)
-                for m, mw in zip(thr_full[r], thr2w)))
-        colors.append(vdi.color)
-        depths.append(vdi.depth)
+        cs, ds, parts = [], [], []
+        for s, u in enumerate(fr.dec.units):
+            kw = dict(v_bounds=u.v_bounds, w_bounds=u.w_bounds,
+                      occupancy=fr.occs[s], axcam=_unit_camera(axcam_w, u.f),
+                      volp=fr.volps[s], step_scale=1.0 / u.f)
+            if thr_full is None:
+                vdi, _, _ = slicer.generate_vdi_mxu(u.vol, tf, cam, spec_w,
+                                                    vdi_cfg, **kw)
+            else:
+                thr_s = _thr_slot(thr_full[r], s, nj)
+                thr_w = ss.ThresholdState(*(slicer.wave_cols(m, n, t, w)
+                                            for m in thr_s))
+                vdi, _, _, thr2w = slicer.generate_vdi_mxu_temporal(
+                    u.vol, tf, cam, spec_w, thr_w, vdi_cfg, **kw)
+                parts.append(ss.ThresholdState(*(
+                    slicer.wave_update_cols(m, mw, n, t, w)
+                    for m, mw in zip(thr_s, thr2w))))
+            cs.append(vdi.color)
+            ds.append(vdi.depth)
+        if thr_full is not None:
+            thr_full[r] = _stack_thr(parts)
+        colors.append(_cat_slots(cs))
+        depths.append(_cat_slots(ds))
     return torch.stack(colors), torch.stack(depths)
 
 
 def _waves_frame(slabs, halo, origin, spacing, cam, spec, tf, vdi_cfg,
-                 comp_cfg, n, thr):
+                 comp_cfg, n, thr, plan=None, bricks=None):
     """The tile-wave frame: per rank one shared frame state, then the
     reference's pipeline order (march wave 0; composite wave w-1, march
     wave w; composite the last wave), each wave's fragments exchanged
     and composited by `_composite_exchanged`. Returns (VDI, meta,
     thr')."""
     t = comp_cfg.wave_tiles
-    frames = [_RankFrame(slabs, halo, r, origin, spacing, cam, spec, tf)
-              for r in range(n)]
+    frames = [_RankFrame(slabs, halo, r, origin, spacing, cam, spec, tf,
+                         plan, bricks) for r in range(n)]
+    rows = spec.nj * len(frames[0].dec.units)
     thr_full = None if thr is None else \
-        [_rank_thr(thr, r, spec.nj) for r in range(n)]
+        [_rank_thr(thr, r, rows) for r in range(n)]
     outs = []                       # per wave: every rank's block
     frag = _march_wave(frames, 0, n, t, cam, spec, tf, vdi_cfg, thr_full)
     for w in range(1, t):
@@ -385,11 +666,8 @@ def _waves_frame(slabs, halo, origin, spacing, cam, spec, tf, vdi_cfg,
     color = torch.cat([o[j].color for j in range(n) for o in outs], dim=-1)
     depth = torch.cat([o[j].depth for j in range(n) for o in outs], dim=-1)
     fr0 = frames[0]
-    meta = slicer._vdi_meta(fr0.vol, fr0.axcam, spec.ni, spec.nj)._replace(
-        volume_dims=torch.tensor(fr0.dims, dtype=torch.float32,
-                                 device=origin.device))
-    thr2 = None if thr is None else ss.ThresholdState(
-        *(torch.cat(parts) for parts in zip(*thr_full)))
+    meta = _global_meta(fr0.dec, fr0.axcam, spec, origin)
+    thr2 = None if thr is None else _stack_thr(thr_full)
     return VDI(color, depth), meta, thr2
 
 
@@ -397,7 +675,7 @@ def distributed_vdi_step_mxu(mesh: Mesh, tf: TransferFunction,
                              spec: slicer.AxisSpec,
                              vdi_cfg: Optional[VDIConfig] = None,
                              comp_cfg: Optional[CompositeConfig] = None,
-                             topology=None):
+                             topology=None, plan=None, bricks=None):
     """Distributed sort-last VDI step on the slice march. Returns
     ``f(vol_data, origin, spacing, cam) -> (VDI, meta)``.
 
@@ -406,9 +684,13 @@ def distributed_vdi_step_mxu(mesh: Mesh, tf: TransferFunction,
     multiple_of=n)``). The VDI is the global ``[K_out, 4|2, nj, ni]``
     on the virtual axis camera's grid; ``meta`` is rank 0's metadata
     with the global volume dims. ``comp_cfg`` picks the exchange, the
-    wire and the schedule (see the module docstring)."""
+    wire, the schedule and the render decomposition; ``plan`` (a tuple
+    of band depths, ``rebalance="occupancy"``) or ``bricks`` (a
+    `parallel.bricks.BrickMap`, ``rebalance="bricks"``) is the
+    decomposition itself (see the module docstring)."""
     return _build_mxu_step(mesh, tf, spec, vdi_cfg, comp_cfg,
-                           temporal=False, topology=topology)
+                           temporal=False, topology=topology, plan=plan,
+                           bricks=bricks)
 
 
 def distributed_vdi_step_mxu_temporal(mesh: Mesh, tf: TransferFunction,
@@ -416,24 +698,27 @@ def distributed_vdi_step_mxu_temporal(mesh: Mesh, tf: TransferFunction,
                                       vdi_cfg: Optional[VDIConfig] = None,
                                       comp_cfg: Optional[CompositeConfig]
                                       = None,
-                                      topology=None):
+                                      topology=None, plan=None,
+                                      bricks=None):
     """`distributed_vdi_step_mxu` with the carried per-rank temporal
     threshold state (``adaptive_mode="temporal"``: one march per rank
     per frame). Returns ``f(vol_data, origin, spacing, cam, thr) ->
     ((VDI, meta), thr')`` where ``thr`` is the rank-stacked
-    ``ThresholdState`` (``[n*nj, ni]`` maps) of
-    `distributed_initial_threshold_mxu`."""
+    ``ThresholdState`` of `distributed_initial_threshold_mxu` with the
+    same ``plan`` or ``bricks`` (``[n*nj, ni]`` maps; ``[n*slots*nj,
+    ni]`` under a brick map)."""
     return _build_mxu_step(mesh, tf, spec, vdi_cfg, comp_cfg,
-                           temporal=True, topology=topology)
+                           temporal=True, topology=topology, plan=plan,
+                           bricks=bricks)
 
 
 def _build_mxu_step(mesh, tf, spec, vdi_cfg, comp_cfg, temporal: bool,
-                    topology=None):
+                    topology=None, plan=None, bricks=None):
     """The step both entries build: generate on every rank, exchange and
     composite under ``comp_cfg``, with or without the temporal threshold
     state carried through. The build's counters and events (ring, wire,
-    waves) are recorded here, once a step as the reference records them
-    once a compile."""
+    waves, plans, bricks) are recorded here, once a step as the
+    reference records them once a compile."""
     vdi_cfg = vdi_cfg or VDIConfig()
     comp_cfg = comp_cfg or CompositeConfig()
     _, n, _ = resolve_mesh_topology(mesh, topology)
@@ -441,7 +726,10 @@ def _build_mxu_step(mesh, tf, spec, vdi_cfg, comp_cfg, temporal: bool,
         raise ValueError(f"intermediate width {spec.ni} not divisible by "
                          f"mesh size {n}")
     waves = _resolve_waves(comp_cfg, n, spec.ni)
-    k = vdi_cfg.max_supersegments
+    plan = _resolve_plan(comp_cfg, n, plan)
+    bricks = _resolve_bricks(comp_cfg, n, bricks)
+    # a rank's fragment: K slots, or K a brick slot
+    k = vdi_cfg.max_supersegments * (bricks.total_slots if bricks else 1)
     if waves:
         _wave_build_marker(n, comp_cfg.wave_tiles, k, spec.nj, spec.ni,
                            comp_cfg)
@@ -451,22 +739,23 @@ def _build_mxu_step(mesh, tf, spec, vdi_cfg, comp_cfg, temporal: bool,
                            comp_cfg)
     if comp_cfg.wire != "f32":
         _wire_build_marker(comp_cfg.wire)
+    rows_a_rank = spec.nj * (bricks.total_slots if bricks else 1)
 
     def body(data, origin, spacing, cam, thr):
         slabs = _check_sharded(data, mesh)
-        halo = _halo_for(slabs, spec)
+        rows = _frame_rows(slabs, spec, plan, bricks)
         if waves:
-            return _waves_frame(slabs, halo, origin, spacing, cam, spec, tf,
-                                vdi_cfg, comp_cfg, n, thr)
+            return _waves_frame(slabs, rows, origin, spacing, cam, spec, tf,
+                                vdi_cfg, comp_cfg, n, thr, plan, bricks)
         ranks = [_mxu_rank_generate(
-            slabs, halo, r, origin, spacing, cam, spec, tf, vdi_cfg,
-            None if thr is None else _rank_thr(thr, r, spec.nj))
-            for r in range(n)]
+            slabs, rows, r, origin, spacing, cam, spec, tf, vdi_cfg,
+            None if thr is None else _rank_thr(thr, r, rows_a_rank),
+            plan, bricks) for r in range(n)]
+        del rows
         color = torch.stack([vdi.color for vdi, _, _ in ranks])
         depth = torch.stack([vdi.depth for vdi, _, _ in ranks])
         meta = ranks[0][1]
-        thr2 = None if thr is None else ss.ThresholdState(
-            *(torch.cat(parts) for parts in zip(*(t for _, _, t in ranks))))
+        thr2 = None if thr is None else _stack_thr([t for _, _, t in ranks])
         del ranks
         blocks = _composite_exchanged(color, depth, n, comp_cfg)
         del color, depth
@@ -487,24 +776,34 @@ def _build_mxu_step(mesh, tf, spec, vdi_cfg, comp_cfg, temporal: bool,
 
 def distributed_initial_threshold_mxu(mesh: Mesh, tf: TransferFunction,
                                       spec: slicer.AxisSpec,
-                                      vdi_cfg: Optional[VDIConfig] = None):
+                                      vdi_cfg: Optional[VDIConfig] = None,
+                                      plan=None, bricks=None):
     """Seeder of `distributed_vdi_step_mxu_temporal`: one histogram
-    counting march per rank on its own slab (the whole frame, whatever
-    the schedule). Returns ``f(vol_data, origin, spacing, cam) ->
-    ThresholdState`` with rank-stacked ``[n*nj, ni]`` maps."""
+    counting march per march unit of every rank (the whole frame,
+    whatever the schedule), on the decomposition its step marches
+    (``plan`` or ``bricks``; the mode is implied by which is given).
+    Returns ``f(vol_data, origin, spacing, cam) -> ThresholdState`` with
+    rank-stacked ``[n*nj, ni]`` maps (``[n*slots*nj, ni]`` under a brick
+    map: one map set a slot, row-stacked)."""
     vdi_cfg = vdi_cfg or VDIConfig()
     _, n, _ = resolve_mesh_topology(mesh)
+    plan = _resolve_plan("occupancy", n, plan)
+    bricks = _resolve_bricks("bricks", n, bricks)
 
     def seed(vol_data, origin, spacing, cam: Camera) -> ss.ThresholdState:
         slabs = _check_sharded(vol_data, mesh)
-        halo = _halo_for(slabs, spec)
+        rows = _frame_rows(slabs, spec, plan, bricks)
         states = []
         for r in range(n):
-            vol, gmax, v_bounds, _ = _rank_slab(slabs, halo, r, origin,
-                                                spacing, spec)
-            states.append(slicer.initial_threshold(
-                vol, tf, cam, spec, vdi_cfg, box_min=origin, box_max=gmax,
-                v_bounds=v_bounds))
+            dec = _rank_units(slabs, rows, r, origin, spacing, spec, plan,
+                              bricks)
+            axcam = slicer.make_axis_camera(dec.ref, cam, spec,
+                                            box_min=origin,
+                                            box_max=dec.gmax)
+            states += [slicer.initial_threshold(
+                u.vol, tf, cam, spec, vdi_cfg, v_bounds=u.v_bounds,
+                w_bounds=u.w_bounds, axcam=_unit_camera(axcam, u.f),
+                step_scale=1.0 / u.f) for u in dec.units]
         return ss.ThresholdState(*(torch.cat(parts)
                                    for parts in zip(*states)))
 

@@ -19,10 +19,20 @@ adapter (anything with ``kind``, ``advance(n)`` and ``.field``).
 The reference's other session features are later slices of the port and
 raise ``NotImplementedError`` naming their ROADMAP row: frame blocks in
 one launch (``runtime.scan_frames > 1``, A3/A7), the plain image modes
-(A4), the gather engine (A9), the other sims (A10), render rebalancing,
-bricks and LOD (A8b, item 4), the two-level topology (A8b, item 5),
-K budgets and fragment reuse (A8b, item 6), steering (A11), and the
-telemetry collector, device profiles and cost snapshots (A12).
+(A4), the gather engine (A9), the other sims (A10), the two-level
+topology (A8b, item 5), K budgets and fragment reuse (A8b, item 6),
+steering (A11), and the telemetry collector, device profiles and cost
+snapshots (A12).
+
+With ``composite.rebalance`` ``"occupancy"`` or ``"bricks"`` the session
+re-plans the render decomposition every ``rebalance_period`` frames,
+before the frame's sim advance, from the live profile of every rank's
+even slab: a band plan (``ops/occupancy.slice_plan``) or a brick map
+stolen toward balance (``parallel/bricks.steal_plan``), with
+``lod.enabled`` also a level a brick (``parallel/lod.select_levels``).
+A plan, owners or levels that change rebuild the steps (and re-seed the
+thresholds), and nothing else does; one rank (without LOD) ledgers the
+knob inert, as ``lod.enabled`` does without bricks.
 
 The composite's exchange, wire and schedule come from
 ``cfg.composite`` (``parallel/pipeline.py``). With
@@ -43,7 +53,8 @@ import numpy as np
 import torch
 
 from scenery_insitu_tpu_torch import obs as _obs
-from scenery_insitu_tpu_torch.config import FrameworkConfig
+from scenery_insitu_tpu_torch.config import (FrameworkConfig,
+                                             check_brick_count)
 from scenery_insitu_tpu_torch.core.camera import (Camera, orbit,
                                                   projection_matrix,
                                                   view_matrix)
@@ -85,10 +96,6 @@ def check_ported(cfg: FrameworkConfig) -> None:
     if cfg.sim.kind in _OTHER_SIMS:
         _unported(f"sim.kind={cfg.sim.kind!r}", "A10")
     cc = cfg.composite
-    if cc.rebalance != "even":
-        _unported(f"composite.rebalance={cc.rebalance!r}", "A8b, item 4")
-    if cfg.lod.enabled:
-        _unported("lod.enabled (LOD brick marching)", "A8b, item 4")
     if cfg.topology.num_hosts > 1:
         _unported(f"topology.num_hosts={cfg.topology.num_hosts} (the "
                   "two-level composite)", "A8b, item 5")
@@ -252,6 +259,12 @@ class InSituSession:
             self._apply_tf_message]
         self._pending_meta = {}  # frame index -> VDIMetadata at dispatch
         self._slicer = _slicer
+        # the render decomposition: the planned band depths (None = the
+        # even split) or the brick map (None = slabs), and the frame of
+        # the last replan (_maybe_replan)
+        self._plan = None
+        self._bricks = None
+        self._plan_frame = None
         # the slice march, which "auto" resolves to on every device (the
         # reference picks it on its accelerator)
         self.engine = "mxu"
@@ -260,6 +273,7 @@ class InSituSession:
         # world placement: sim grid centered, largest side = 2 world units
         d, h, w = (tuple(self.cfg.sim.grid) if sim is None
                    else tuple(int(x) for x in self.sim.field.shape))
+        check_brick_count(self.cfg.composite, d)
         vox = 2.0 / max(d, h, w)
         self._vox = vox
         self._origin = torch.tensor(
@@ -296,6 +310,7 @@ class InSituSession:
         device VDI."""
         if self.steering is not None:
             _unported("steering endpoints", "A11")
+        self._maybe_replan()
         with self.obs.span("sim", frame=self.frame_index,
                            kind=self.sim.kind):
             self.sim.advance(self.cfg.sim.steps_per_frame)
@@ -557,17 +572,20 @@ class InSituSession:
         if step is None:
             self.obs.count("compile_step")
             self.obs.event("compile", frame=self.frame_index,
-                           what="vdi_step", regime=str(regime))
+                           what="vdi_step", regime=str(regime),
+                           decomp=str(self._decomp_key()))
             n = self._n_ranks
             spec = self._slicer.make_spec(self.camera, self.sim.field.shape,
                                           self.cfg.slicer, axis_sign=regime,
                                           multiple_of=n)
+            decomp = dict(plan=self._plan, bricks=self._bricks)
             if self._temporal:
                 inner = distributed_vdi_step_mxu_temporal(
                     self.mesh, self.tf, spec, self.cfg.vdi,
-                    self.cfg.composite, topology=self.cfg.topology)
+                    self.cfg.composite, topology=self.cfg.topology,
+                    **decomp)
                 seed = distributed_initial_threshold_mxu(
-                    self.mesh, self.tf, spec, self.cfg.vdi)
+                    self.mesh, self.tf, spec, self.cfg.vdi, **decomp)
 
                 def step(field, origin, spacing, cam, _regime=regime,
                          _inner=inner, _seed=seed):
@@ -580,9 +598,181 @@ class InSituSession:
             else:
                 step = distributed_vdi_step_mxu(
                     self.mesh, self.tf, spec, self.cfg.vdi,
-                    self.cfg.composite, topology=self.cfg.topology)
+                    self.cfg.composite, topology=self.cfg.topology,
+                    **decomp)
             self._mxu_steps[regime] = step
         return step
+
+    # ------------------------------------------------ render rebalancing
+
+    def _decomp_key(self):
+        """The render decomposition the cached steps were built for: the
+        plan, or the brick owners and levels (a level change pools other
+        volumes, so it rebuilds like an ownership change)."""
+        return (self._plan,
+                None if self._bricks is None
+                else (self._bricks.owner, self._bricks.level))
+
+    def _even_slabs(self) -> torch.Tensor:
+        return shard_volume(self.sim.field, self.mesh)
+
+    def _replan_profile(self) -> np.ndarray:
+        """The global per-z-bin live profile of the current field (host
+        numpy): `ops/occupancy.z_live_profile` of every rank's even slab,
+        the profiles concatenated in rank order."""
+        from scenery_insitu_tpu_torch.ops import occupancy as _occ
+
+        slabs = self._even_slabs()
+        nzb = _occ._cap_divisor(slabs.shape[1], 32)
+        return torch.cat([_occ.z_live_profile(x, self.tf, nzb=nzb)
+                          for x in slabs]).cpu().numpy()
+
+    def _replan_ranges(self):
+        """The global per-z-bin value range of the current field (host
+        numpy): `ops/occupancy.z_range_profile` of every rank's even
+        slab, concatenated in rank order — the LOD planner's TF-straddle
+        input."""
+        from scenery_insitu_tpu_torch.ops import occupancy as _occ
+
+        slabs = self._even_slabs()
+        nzb = _occ._cap_divisor(slabs.shape[1], 32)
+        parts = [_occ.z_range_profile(x, nzb=nzb) for x in slabs]
+        return (torch.cat([lo for lo, _ in parts]).cpu().numpy(),
+                torch.cat([hi for _, hi in parts]).cpu().numpy())
+
+    def _maybe_replan(self) -> None:
+        """Re-plan the render decomposition every ``rebalance_period``
+        frames (``composite.rebalance`` "occupancy" or "bricks"): fetch
+        the live profile, run ``ops/occupancy.slice_plan`` (quantum and
+        hysteresis keep the plan stable), and when the plan changes,
+        rebuild the steps on the new band split — one rebuild an adopted
+        plan, on the ledger (``occupancy.replan``) with a
+        ``rebalance_plan`` event carrying the modeled straggler
+        factors."""
+        cc = self.cfg.composite
+        if self.cfg.lod.enabled and cc.rebalance != "bricks":
+            # levels live on the brick map: without it there is nothing
+            # to carry them
+            _obs.degrade(
+                "lod.inert", "lod", "off",
+                f"lod.enabled needs composite.rebalance='bricks' to "
+                f"carry levels (got {cc.rebalance!r}); every march "
+                "samples at level 0", warn=False)
+        if cc.rebalance not in ("occupancy", "bricks"):
+            return
+        n = self._n_ranks
+        # an LOD session replans on one rank too: a level changes what
+        # that rank marches
+        lod_on = self.cfg.lod.enabled and cc.rebalance == "bricks"
+        if n == 1 and not lod_on:
+            _obs.degrade("occupancy.rebalance", "occupancy", "even",
+                         "single-rank mesh has one band", warn=False)
+            return
+        if self._plan_frame is not None and \
+                self.frame_index - self._plan_frame < cc.rebalance_period:
+            return
+        if cc.rebalance == "bricks":
+            self._replan_bricks(cc, n)
+            return
+        from scenery_insitu_tpu_torch.ops import occupancy as _occ
+
+        d = int(self.sim.field.shape[0])
+        with self.obs.span("replan", frame=self.frame_index):
+            profile = self._replan_profile()
+            even = _occ.even_plan(d, n)
+            prev = self._plan if self._plan is not None else even
+            plan = _occ.slice_plan(
+                profile, d, n, min_depth=cc.rebalance_min_depth,
+                quantum=cc.rebalance_quantum, prev=prev,
+                hysteresis=cc.rebalance_hysteresis)
+        self._plan_frame = self.frame_index
+        if plan == prev:
+            return                      # stable: nothing rebuilds
+        self.obs.count("rebalance_replans")
+        self.obs.event(
+            "rebalance_plan", frame=self.frame_index, plan=list(plan),
+            straggler_even=round(_occ.straggler_factor(profile, d, even),
+                                 3),
+            straggler_planned=round(_occ.straggler_factor(profile, d,
+                                                          plan), 3))
+        _obs.degrade("occupancy.replan", f"plan{tuple(prev)}",
+                     f"plan{tuple(plan)}",
+                     "render bands re-planned from fetched live "
+                     "fractions; affected steps recompile", warn=False)
+        self._plan = plan if plan != even else None
+        self._build_steps()
+
+    def _replan_bricks(self, cc, n: int) -> None:
+        """Brick-stealing replan: bin the live profile into per-brick
+        work and move at most ``rebalance_max_moves`` bricks from the
+        most- to the least-loaded rank (``parallel/bricks.steal_plan``,
+        hysteresis-stable). With ``lod.enabled`` also select a level a
+        brick (``parallel/lod.select_levels``) and scale the work into
+        level units (``level_work_scale``) before stealing. A change of
+        owners or levels rebuilds the steps; a map that converges back
+        to the even-convex one restores the slab path."""
+        from scenery_insitu_tpu_torch.parallel import bricks as _bk
+
+        lod = self.cfg.lod
+        d = int(self.sim.field.shape[0])
+        with self.obs.span("replan", frame=self.frame_index):
+            profile = self._replan_profile()
+            nb = cc.rebalance_bricks or _bk.auto_nbricks(d, n)
+            work = _bk.brick_work(profile, d, nb)
+            seed = _bk.BrickMap.contiguous(d, n, nb)
+            prev = (self._bricks if self._bricks is not None
+                    and self._bricks.nbricks == nb else seed)
+            if lod.enabled:
+                from scenery_insitu_tpu_torch.core.transfer import (
+                    opacity_edges)
+                from scenery_insitu_tpu_torch.parallel import lod as _lod
+
+                lo, hi = self._replan_ranges()
+                shp = self.sim.field.shape                  # (D, H, W)
+                dims = (int(shp[2]), int(shp[1]), int(shp[0]))
+                cam = self.camera
+                levels = _lod.select_levels(
+                    _lod.per_brick(profile, nb, red="mean"),
+                    _lod.per_brick(lo, nb, red="min"),
+                    _lod.per_brick(hi, nb, red="max"),
+                    opacity_edges(self.tf, lod.tf_edge_eps),
+                    dims=dims, origin=self._origin.cpu().numpy(),
+                    spacing=self._spacing.cpu().numpy(),
+                    eye=cam.eye.detach().cpu().numpy(),
+                    fov_y=float(cam.fov_y),
+                    height_px=self.cfg.render.height, cfg=lod,
+                    prev=(self._bricks.level
+                          if self._bricks is not None
+                          and self._bricks.nbricks == nb else None))
+                prev = prev.with_levels(levels)
+                work = work * _lod.level_work_scale(
+                    levels, dims, self.cfg.render.width,
+                    self.cfg.render.height)
+            bm = _bk.steal_plan(prev, work,
+                                max_moves=cc.rebalance_max_moves,
+                                hysteresis=cc.rebalance_hysteresis)
+        self._plan_frame = self.frame_index
+        new = None if bm.is_even_convex() else bm
+        cur = self._bricks
+        if (new is None) == (cur is None) and \
+                (new is None or (new.owner == cur.owner
+                                 and new.level == cur.level)):
+            return                      # stable: nothing rebuilds
+        self.obs.count("rebalance_replans")
+        levels_now = list(bm.level)
+        self.obs.event(
+            "rebalance_plan", frame=self.frame_index, kind="bricks",
+            nbricks=nb, owner=list(bm.owner), level=levels_now,
+            max_level=int(max(levels_now)) if levels_now else 0,
+            straggler_even=round(_bk.straggler_factor(seed, work), 3),
+            straggler_planned=round(_bk.straggler_factor(bm, work), 3))
+        _obs.degrade("occupancy.replan",
+                     f"bricks{tuple(prev.owner)}",
+                     f"bricks{tuple(bm.owner)}",
+                     "brick ownership re-planned from fetched live "
+                     "fractions; affected steps recompile", warn=False)
+        self._bricks = new
+        self._build_steps()
 
     def frame_metadata(self, index: int,
                        camera: Optional[Camera] = None) -> VDIMetadata:

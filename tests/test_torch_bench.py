@@ -32,12 +32,19 @@ def test_bench_prints_one_json_line(monkeypatch, capsys):
     assert (cfg["grid"], cfg["k"], cfg["frames"], cfg["skip"]) == \
         (16, 6, 2, "sim")
     assert cfg["platform"] == "cpu" and cfg["power_limit"] is None
+    # the modeled 8-rank render plan of the final field (one card marches
+    # one band whatever the plan)
+    assert cfg["rebalance"] == "even"
+    reb = out["rebalance"]
+    assert reb["mode"] == "even" and reb["modeled_ranks"] == 8
+    assert sum(reb["plan"]) == 16 and reb["straggler_planned"] > 0
 
 
 # knobs that raised once and are ported now: value -> resolved setting
 PORTED_KNOBS = {"RENDER_DTYPE": {"bf16": "bf16"},
                 "EXCHANGE": {"ring": "ring"}, "WIRE": {"qpack8": "qpack8"},
-                "SCHEDULE": {"waves": "waves"}}
+                "SCHEDULE": {"waves": "waves"},
+                "REBALANCE": {"occupancy": "occupancy"}}
 
 
 @pytest.mark.parametrize("knob,value", [
@@ -47,7 +54,8 @@ PORTED_KNOBS = {"RENDER_DTYPE": {"bf16": "bf16"},
 def test_bench_unported_knobs_raise(knob, value):
     """Each knob of a part not yet ported raises, naming its ROADMAP row;
     a knob ported since (the render dtype, the bf16 march copy; the
-    exchange, the wire and the schedule) takes the value instead."""
+    exchange, the wire, the schedule and the rebalance plans) takes the
+    value instead."""
     env = {f"SITPU_BENCH_{knob}": value}
     if knob in PORTED_KNOBS:
         cfg = bench.bench_config(env, on_card=False)

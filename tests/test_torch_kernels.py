@@ -35,8 +35,11 @@ generic; values on the knots, dead chunks, saturated counts, threshold
 search at iters 0 to 10, ``thr_max`` 1.7, no gap test, empty slots
 between live ones, empty pixels, distances on the bisection's
 midpoints, ragged images, K_out above 16 with its list in shared
-memory) hold thresholds and live slots exactly; K2's builds (C = 16, 1,
-7, 33 by B = 16, 5, 32, candidates in either order) count exactly."""
+memory) hold thresholds and live slots exactly, so do its cases at a
+brick map's 640-slot column block; K2's builds (C = 16, 1, 7, 33 by
+B = 16, 5, 32, candidates in either order) count exactly; K1 on a
+brick pooled to level 1 (``test_seg_fold_on_pooled_brick``) equals the
+same march's plain version within 1e-5."""
 
 import numpy as np
 import pytest
@@ -425,6 +428,55 @@ def test_seg_fold_edge_states(dev, case, c):
     out = _k1_both_forms(k, hw, dev, chunks, thr, seed=70 + c)
     if case == "saturated":
         assert float(out[2][0].min()) > k
+
+
+def test_seg_fold_on_pooled_brick(dev):
+    """K1 on a level-1 brick (pooled 2x by ``reslab_bricks_lod``, marched
+    on the fine camera with ``dwm * 2`` and ``step_scale = 1/2``) equals
+    the same march's plain version on the CPU within 1e-5, and
+    launches."""
+    from scenery_insitu_tpu_torch.config import SliceMarchConfig, VDIConfig
+    from scenery_insitu_tpu_torch.core.camera import Camera
+    from scenery_insitu_tpu_torch.core.transfer import for_dataset
+    from scenery_insitu_tpu_torch.core.volume import Volume
+    from scenery_insitu_tpu_torch.ops import slicer
+    from scenery_insitu_tpu_torch.parallel.bricks import BrickMap
+    from scenery_insitu_tpu_torch.parallel.mesh import (make_mesh,
+                                                        reslab_bricks_lod,
+                                                        shard_volume)
+
+    n, g = 4, 64
+    field = gs.multi_step(gs.GrayScott.init((g,) * 3, seed=0, device="cpu"),
+                          20).v
+    bm = BrickMap(g, n, (0, 1, 2, 3, 0, 1, 2, 3), (1,) * 8)
+    pooled = reslab_bricks_lod(shard_volume(field, make_mesh(n, device="cpu")),
+                               bm, h=0)[1][1, 0]          # rank 1, slot 0
+    start = int(bm.start_table_at(1)[1, 0])
+    outs = {}
+    for d in (dev, "cpu"):
+        box = Volume.centered(field.to(d), extent=2.0)
+        spacing = box.spacing
+        vol = Volume(pooled.to(d), box.origin + torch.tensor(
+            [0.0, 0.0, start * float(spacing[2])], device=d), spacing * 2.0)
+        cam = Camera.create((0.0, 0.6, 3.0), device=d)
+        spec = slicer.make_spec(cam, (g,) * 3, SliceMarchConfig(
+            fold="pallas_seg", chunk=4), axis_sign=slicer.choose_axis(cam))
+        axcam = slicer.make_axis_camera(
+            box, cam, spec, box_min=box.origin, box_max=box.world_max)
+        before = kernels.launches()["seg_fold_compact"]
+        vdi, _, _ = slicer.generate_vdi_mxu(
+            vol, for_dataset("gray_scott", device=d), cam, spec,
+            VDIConfig(max_supersegments=8, adaptive_mode="histogram"),
+            axcam=axcam._replace(dwm=axcam.dwm * 2), step_scale=0.5)
+        if str(d) != "cpu":
+            assert kernels.launches()["seg_fold_compact"] > before
+        outs[str(d)] = [x.cpu() for x in vdi]
+    (kc, kd), (pc, pd) = outs[str(dev)], outs["cpu"]
+    live = torch.isfinite(pd)
+    assert torch.equal(torch.isfinite(kd), live)
+    assert _err(kc, pc) <= 1e-5
+    assert float((kd[live] - pd[live]).abs().max()) <= 1e-5
+    assert bool(live[:, 0].any())
 
 
 def test_seg_fold_attributes(dev):
@@ -863,6 +915,10 @@ K4_CASES = {
     "ring_slots_32_holes": (32, 16, (640, 80), 6, 2.0, 1e-4, "holes"),
     "wave_block_20": (128, 16, (640, 20), 6, 2.0, 1e-4, "seeded"),
     "wave_block_16": (128, 16, (512, 16), 6, 2.0, 1e-4, "blank_rows"),
+    # a brick map's column block: 8 ranks x 5 slots x K = 16 sorted slots
+    # (32 bricks, one rank owning none), 640 rows of an 80-column block
+    "brick_stream_640": (640, 16, (640, 80), 6, 2.0, 1e-4, "seeded"),
+    "brick_stream_640_holes": (640, 16, (640, 80), 6, 2.0, 1e-4, "holes"),
 }
 
 

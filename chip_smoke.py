@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's in-situ frames on one CUDA card: the
 single-chip frame, the distributed sort-last frame, the fold
-microbenchmark, the in-situ session, the sort-last exchange schedules
-and the render decomposition.
+microbenchmark, the in-situ session, the sort-last exchange schedules,
+the render decomposition and the two-level composite.
 
     python3 chip_smoke.py               # the whole run (needs one card)
     python3 chip_smoke.py --profile     # + device time by kernel
@@ -10,7 +10,7 @@ and the render decomposition.
         --k2-compare old=OTHER/count_multi.cu \
         --events-compare old=OTHER/fold_chunk.cu  # + designs in turns
 
-``--profile`` adds to each frame of phases 3 to 5, 8 and 9 (a) two
+``--profile`` adds to each frame of phases 3 to 5 and 8 to 10 (a) two
 profiled frames: device time by kernel and by operator, each of the port's own kernels'
 device ms and launches a frame by build (``<prefix>.port_kernel``),
 the busy share, the idle gaps, copies and synchronisations.
@@ -222,6 +222,29 @@ and prints no result):
    the steps rebuilt on a replan only, each replan's first frame equal
    to the hand-driven step with the same plan or map bit for bit, ms a
    frame beside phase 7's.
+10. the two-level ``(hosts, ranks)`` composite on phase 4's
+   configuration: (a) seven topologies, each driven as phase 4 drives
+   its frame from the same seeded state, eye and frames: h1 2 x 4 and
+   h2 4 x 2 on the all_to_all, h3 2 x 4 on the ring, h4 and h5 2 x 4 on
+   the bf16 and qpack8 DCN wires, h6 2 x 4 in phase 8's ring tile waves,
+   h7 2 x 4 under phase 9's plan p1; each with its K1, K2 and K4
+   launches read from the run (K4 8 a frame at the top, 8·T in waves),
+   its build counters and modelled DCN bytes a host (a model: no byte
+   crosses a link on one card), its parts timed apart on the final state
+   (the level-1 exchange, the level-1 sort or ring merges, the level-2
+   DCN merges, K4), a frame's K4 launches on their own N·K-slot streams
+   beside their bound, and K4 against its plain version on h1's and
+   h6's streams; the gates: the lossless h1, h2, h3 and h6 within 1e-6
+   of phase 4's frame with the same live slots (h7 of phase 9's p1
+   frame), bit for bit logged, threshold maps within 1e-6, h4's and
+   h5's images at least 30 dB from phase 4's and not equal to it;
+   (b) h1, h3, h5 and h6 at 32^3 over 4 ranks (2 x 2) against the CPU's
+   plain versions in both march regimes (phase 4's bar, the lossy
+   wire's images at 60 dB, threshold maps within 1e-6); (c) phase 7's
+   session on a 2 x 4 topology over 8 ranks: a warm and 8 timed frames
+   (K4 8 a frame), its first two frames equal to the hand-driven
+   hierarchical step bit for bit, a checkpoint after 4 frames resumed
+   bit for bit, ms a frame beside phase 7's.
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -1755,21 +1778,24 @@ BASE_EYE = (0.0, 0.6, 3.0)
 
 
 def dist_steps(dev, n, grid, base_eye, fold="auto", plan=None, bricks=None,
-               **comp):
+               topology=None, **comp):
     """The distributed temporal step of an ``n``-rank mesh on ``dev``
     for a ``grid``^3 volume, in the march regime of ``base_eye``, with
     the composite settings ``comp`` (exchange, wire, schedule,
-    rebalance, ...) and the render decomposition ``plan`` or ``bricks``:
-    (mesh, spec, tf, configs, seed, step, camera(i))."""
+    rebalance, ...), the render decomposition ``plan`` or ``bricks``,
+    and a ``TopologyConfig`` (None: the flat mesh): (mesh, spec, tf,
+    configs, seed, step, camera(i))."""
     from scenery_insitu_tpu_torch.config import (CompositeConfig,
+                                                 MeshConfig,
                                                  SliceMarchConfig, VDIConfig)
     from scenery_insitu_tpu_torch.core.camera import Camera, orbit
     from scenery_insitu_tpu_torch.core.transfer import for_dataset
     from scenery_insitu_tpu_torch.ops import slicer
     from scenery_insitu_tpu_torch.parallel import pipeline as dp
-    from scenery_insitu_tpu_torch.parallel.mesh import make_mesh
+    from scenery_insitu_tpu_torch.parallel.topology import make_topology_mesh
 
-    mesh = make_mesh(n, device=dev)
+    mesh, _ = make_topology_mesh(topology, MeshConfig(num_devices=n),
+                                 device=dev)
     base = Camera.create(base_eye, fov_y_deg=50.0, near=0.5, far=20.0,
                          device=dev)
     vcfg = VDIConfig(max_supersegments=K, adaptive_mode="temporal",
@@ -1786,7 +1812,8 @@ def dist_steps(dev, n, grid, base_eye, fold="auto", plan=None, bricks=None,
     seed = dp.distributed_initial_threshold_mxu(mesh, tf, spec, vcfg,
                                                 plan=plan, bricks=bricks)
     step = dp.distributed_vdi_step_mxu_temporal(mesh, tf, spec, vcfg, ccfg,
-                                                plan=plan, bricks=bricks)
+                                                topology=topology, plan=plan,
+                                                bricks=bricks)
 
     def camera(i):
         return Camera.create(orbit(base, yaw_of(i)).eye, fov_y_deg=50.0,
@@ -3857,6 +3884,10 @@ def run_decomp_frames(dev, ref0, profile=False):
             stream=list(streams[0][0].shape))
         if name == "b3":
             res["brick_stream"] = check_brick_stream(streams)
+        if name == "p1":
+            # phase 10's h7 is p1 on a two-level mesh, gated against this
+            res["p1_frame"] = dict(vdi=run["vdi"], thr=run["thr"],
+                                   ms=run["ms"], plan=plan)
         del streams, run, step, seed
         torch.cuda.empty_cache()
     # phase 4's even decomposition timed the same way, on the same state
@@ -4070,6 +4101,412 @@ def run_decomp_sessions(dev):
     return out
 
 
+# ------------------------------------------------------------ phase 10
+
+
+# phase 10's two-level configurations on phase 4's (name, hosts,
+# exchange, dcn_wire, schedule, plan): the plan one is phase 9's p1
+HIER_CONFIGS = (
+    ("h1", 2, "all_to_all", "f32", "frame", False),
+    ("h2", 4, "all_to_all", "f32", "frame", False),
+    ("h3", 2, "ring", "f32", "frame", False),
+    ("h4", 2, "all_to_all", "bf16", "frame", False),
+    ("h5", 2, "all_to_all", "qpack8", "frame", False),
+    ("h6", 2, "ring", "f32", "waves", False),
+    ("h7", 2, "all_to_all", "f32", "frame", True),
+)
+HIER_LOSSLESS = ("h1", "h2", "h3", "h6", "h7")
+HIER_GATE = 1e-6
+HIER_DCN_PSNR_DB = 30.0
+SMALL_HIER = ("h1", "h3", "h5", "h6")
+HIER_SESSION_FRAMES = 8
+HIER_SESSION_RESUME = 4
+
+
+def hier_topology(hosts, dcn):
+    from scenery_insitu_tpu_torch.config import TopologyConfig
+
+    return TopologyConfig(num_hosts=hosts, dcn_wire=dcn)
+
+
+def hier_comp(ex, sched, plan):
+    comp = dict(exchange=ex, schedule=sched)
+    if plan is not None:
+        comp["rebalance"] = "occupancy"
+    return comp
+
+
+def hier_parts(prefix, colors, depths, topo, ccfg):
+    """The two-level composite of one frame's fragments ``[N, K, ...]``
+    (every wave's, for a list of them), its parts timed apart (median
+    ms): the level-1 exchange (the all_to_all's block transpose, or the
+    ring's sort, encode and split), the level-1 sort or ring merges, the
+    level-2 DCN merges (encode, decode, merge) and K4. Returns (parts,
+    the streams K4 resegments)."""
+    from scenery_insitu_tpu_torch.ops.composite import (resegment_stream,
+                                                        sort_stream)
+    from scenery_insitu_tpu_torch.parallel import hier
+    from scenery_insitu_tpu_torch.parallel import pipeline as dp
+
+    frags = colors if isinstance(colors, list) else [(colors, depths)]
+    d, wire = topo.domain_size, ccfg.wire
+    ring = ccfg.exchange == "ring" and d > 1
+    domains = [slice(h * d, (h + 1) * d) for h in range(topo.num_hosts)]
+
+    def exchange(_):
+        return [[dp._ring_blocks(c[sl], dd[sl], d, wire) if ring else
+                 dp._exchange_vdi_columns(c[sl], dd[sl], d, wire)
+                 for sl in domains] for c, dd in frags]
+
+    parts = {"l1_exchange_ms": median_ms(exchange, 3)}
+    sent = exchange(None)
+    k = frags[0][0].shape[1]
+
+    def level1(_):
+        if ring:
+            cap = dp._ring_cap(ccfg, k)
+            return [[[dp._ring_accumulate(b, j, wire, cap) for j in range(d)]
+                     for b in wave] for wave in sent]
+        out = []
+        for wave in sent:
+            accs = []
+            for rc, rd in wave:
+                _, _, _, _, hh, w = rc.shape
+                accs.append([sort_stream(rc[j].reshape(d * k, 4, hh, w),
+                                         rd[j].reshape(d * k, 2, hh, w))
+                             for j in range(d)])
+            out.append(accs)
+        return out
+
+    parts["l1_ring_merge_ms" if ring else "l1_sort_ms"] = median_ms(level1, 3)
+    accs = level1(None)
+    del sent
+    parts["l2_dcn_ms"] = median_ms(lambda _: [
+        hier.dcn_accumulate(a, topo) for a in accs], 3)
+    streams = [s for a in accs for s in hier.dcn_accumulate(a, topo)]
+    del accs
+    parts["k4_ms"] = median_ms(lambda _: [
+        resegment_stream(sc, sd, ccfg) for sc, sd in streams], 3)
+    log(f"{prefix}.parts_ms", " ".join(f"{n}={v:.3f}"
+                                       for n, v in parts.items()) +
+        f" ({len(frags)} composite(s) a frame, every rank)")
+    return parts, streams
+
+
+def run_hier_frames(dev, ref0, p1, profile=False):
+    """Phase 10 (a): each two-level configuration driven as phase 4
+    drives its frame, from the same seeded state, eye and seed
+    threshold, with K1's, K2's and K4's launches counted and its build
+    counters and modelled DCN traffic read; its parts timed apart on the
+    final state; the gates against phase 4's frame ``ref0`` (h7 against
+    phase 9's p1 frame ``p1``)."""
+    import torch
+
+    from scenery_insitu_tpu_torch import obs as tobs
+    from scenery_insitu_tpu_torch.core.vdi import render_vdi_same_view
+    from scenery_insitu_tpu_torch.core.volume import Volume
+    from scenery_insitu_tpu_torch.parallel import pipeline as dp
+    from scenery_insitu_tpu_torch.parallel.mesh import shard_volume
+    from scenery_insitu_tpu_torch.parallel.topology import (
+        resolve_mesh_topology)
+    from scenery_insitu_tpu_torch.sim import grayscott as gs
+
+    frames = WARMUP_FRAMES + TIMED_FRAMES
+    img0 = render_vdi_same_view(ref0["vdi"])
+    res = {}
+    for name, hosts, ex, dcn, sched, planned in HIER_CONFIGS:
+        plan = p1["plan"] if planned else None
+        want = p1 if planned else ref0
+        prefix = f"hier_{name}"
+        rec = tobs.Recorder(enabled=True)
+        prev = tobs.set_recorder(rec)
+        try:
+            mesh, spec, tf, (vcfg, ccfg), seed, step, camera = dist_steps(
+                dev, RANKS, GRID, BASE_EYE, plan=plan,
+                topology=hier_topology(hosts, dcn),
+                **hier_comp(ex, sched, plan))
+        finally:
+            tobs.set_recorder(prev)
+        _, _, topo = resolve_mesh_topology(mesh, hier_topology(hosts, dcn))
+        t = ccfg.wave_tiles if sched == "waves" else 1
+        built = {key: rec.counters.get(key, 0) for key in (
+            "hier_composite_builds", "dcn_hops_built", "ring_steps_built",
+            "wave_steps_built", "wire_encode_builds",
+            "rebalance_steps_built")}
+        ev = [e["attrs"] for e in rec.events
+              if e.get("name") == "hier_composite_build"]
+        if built["hier_composite_builds"] != 1 or \
+                built["dcn_hops_built"] != hosts - 1:
+            raise AssertionError(f"{prefix}: build counters {built}")
+        log(f"{prefix}.config", f"hosts={hosts} domain_size="
+            f"{RANKS // hosts} exchange={ex} dcn_wire={dcn} schedule="
+            f"{sched} wave_tiles={t} plan={list(plan) if plan else None} "
+            f"ni={spec.ni} nj={spec.nj} builds={json.dumps(built)}")
+        dcn_host = ev[0]["dcn"]["dcn_bytes_sent_per_host"]
+        log(f"{prefix}.modelled_traffic", json.dumps(
+            {"ici": ev[0]["ici"], "dcn": ev[0]["dcn"]}) + " (modelled: the "
+            "in-process ranks move no byte across a link; "
+            f"dcn_bytes_sent_per_host={dcn_host} a composite, x{t} a "
+            f"frame)")
+        st = gs.GrayScott.init((GRID,) * 3, seed=SEED, device=dev)
+        box = Volume.centered(st.v, extent=2.0)
+        run = drive_dist_frames(prefix, step, seed, mesh, camera, st,
+                                box.origin, box.spacing)
+        launches = run["launches"]
+        require_launched(launches, DIST_KERNELS, prefix)
+        k4 = launches["resegment_sorted"]
+        if k4 != RANKS * t * frames:
+            raise AssertionError(f"{prefix}: K4 launched {k4} times in "
+                                 f"{frames} frames; expected "
+                                 f"{RANKS * t * frames}")
+        check_vdi(prefix, run["vdi"], (K_OUT, 4, spec.nj, spec.ni),
+                  (K_OUT, 2, spec.nj, spec.ni))
+        if profile:
+            state = [run["u"], run["v"], run["thr"]]
+
+            def one(i, frame=run["frame"], state=state):
+                _, _, state[0], state[1], state[2] = frame(*state, i)
+
+            profile_frames(f"{prefix}.profile", one)
+        # the gates at the same state, eye and frame
+        dc, dd, same, share, exact = vdi_gap(run["vdi"], want["vdi"])
+        img = render_vdi_same_view(run["vdi"])
+        psnr = image_psnr(img, img0 if not planned
+                          else render_vdi_same_view(want["vdi"]))
+        tdiff = thr_gap(run["thr"], want["thr"])
+        base = "phase 9's p1" if planned else "phase 4"
+        log(f"{prefix}.vs_{'p1' if planned else 'phase4'}",
+            f"colour_max_diff={dc:.3e} depth_max_diff={dd:.3e} "
+            f"same_live_slots={same} pixels_live_count_differs={share:.6f} "
+            f"bit_exact={exact} threshold_max_diff={tdiff:.3e} "
+            f"psnr_db={psnr:.2f} (against {base}'s frame)")
+        if name in HIER_LOSSLESS:
+            if not (same and dc <= HIER_GATE and dd <= HIER_GATE):
+                raise AssertionError(f"{prefix}: the frame differs from "
+                                     f"{base}'s beyond {HIER_GATE}")
+        elif not psnr >= HIER_DCN_PSNR_DB or torch.equal(img, img0):
+            raise AssertionError(f"{prefix}: the lossy DCN wire is "
+                                 f"{psnr:.2f} dB from phase 4's frame or "
+                                 f"equals it")
+        check(f"{prefix}.threshold_vs_{'p1' if planned else 'phase4'}",
+              tdiff, HIER_GATE)
+        # the parts, timed apart on the final state and eye
+        slabs = shard_volume(run["v"], mesh)
+        cam = camera(frames)
+        rplan = dp._resolve_plan("occupancy", RANKS, plan)
+        rows = dp._frame_rows(slabs, spec, rplan)
+        if sched == "waves":
+            fr = [dp._RankFrame(slabs, rows, r, box.origin, box.spacing, cam,
+                                spec, tf, rplan) for r in range(RANKS)]
+            thr_full = [dp._rank_thr(run["thr"], r, spec.nj)
+                        for r in range(RANKS)]
+            frags = [dp._march_wave(fr, w, RANKS, t, cam, spec, tf, vcfg,
+                                    list(thr_full)) for w in range(t)]
+            del fr
+            parts, streams = hier_parts(prefix, frags, None, topo, ccfg)
+        else:
+            fs = [dp._mxu_rank_generate(
+                slabs, rows, r, box.origin, box.spacing, cam, spec, tf,
+                vcfg, dp._rank_thr(run["thr"], r, spec.nj), rplan)[0]
+                for r in range(RANKS)]
+            colors = torch.stack([f.color for f in fs])
+            depths = torch.stack([f.depth for f in fs])
+            del fs
+            parts, streams = hier_parts(prefix, colors, depths, topo, ccfg)
+            del colors, depths
+        del rows
+        if any(sc.shape[0] != RANKS * K for sc, _ in streams):
+            raise AssertionError(f"{prefix}: K4's streams are "
+                                 f"{streams[0][0].shape[0]} slots, not "
+                                 f"{RANKS * K}")
+        ms, b, by = k4_streams_ms(prefix, streams)
+        err = check_k4_on(f"{prefix}.resegment", streams) \
+            if name in ("h1", "h6") else None
+        res[name] = dict(ms=run["ms"], wall_ms=run["wall_ms"], k4=k4,
+                         k1=launches["seg_fold_compact"],
+                         k2=launches["count_multi"], wave_tiles=t,
+                         parts=parts, k4_frame_ms=ms, k4_frame_bound_ms=b,
+                         k4_frame_bound_by=by, k4_err=err, psnr_db=psnr,
+                         bit_exact=exact, colour_max_diff=dc,
+                         depth_max_diff=dd, builds=built,
+                         dcn_bytes_per_host=dcn_host * t)
+        del streams, run, step, seed
+        torch.cuda.empty_cache()
+    for name, *_ in HIER_CONFIGS:
+        r = res[name]
+        base = p1["ms"] if name == "h7" else ref0["ms"]
+        log(f"hier_{name}.summary", f"ms_per_frame={r['ms']:.3f} "
+            f"({'phase 9 p1' if name == 'h7' else 'phase 4'}: {base:.3f}) "
+            f"launches a frame K1={r['k1'] / frames:.1f} "
+            f"K4={r['k4'] / frames:.1f} K2 a seed={r['k2']} "
+            f"k4_frame_ms={r['k4_frame_ms']:.4f} k4_frame_bound_ms="
+            f"{r['k4_frame_bound_ms']:.4f} modelled_dcn_bytes_per_host="
+            f"{r['dcn_bytes_per_host']} bit_exact={r['bit_exact']}")
+    return res
+
+
+def check_small_hier(dev):
+    """Phase 10 (b): h1, h3, h5 and h6 at 32^3 over 4 ranks (2 x 2) on
+    the card against the CPU's plain versions in both march regimes,
+    seed + 3 temporal frames from the same inputs: phase 4's bar (1e-4),
+    the lossy wire's images at 60 dB, threshold maps within 1e-6."""
+    from scenery_insitu_tpu_torch.core.vdi import render_vdi_same_view
+    from scenery_insitu_tpu_torch.core.volume import Volume
+    from scenery_insitu_tpu_torch.parallel.mesh import shard_volume
+    from scenery_insitu_tpu_torch.sim import grayscott as gs
+
+    n = 32
+    v0 = gs.multi_step(gs.GrayScott.init((n,) * 3, seed=SEED, device="cpu"),
+                       2 * SIM_STEPS).v
+    box = Volume.centered(v0, extent=2.0)
+    configs = {c[0]: c for c in HIER_CONFIGS}
+    for regime, eye in (("z", BASE_EYE), ("x", (3.0, 0.6, 0.4))):
+        for name in SMALL_HIER:
+            _, _, ex, dcn, sched, _ = configs[name]
+            outs = {}
+            for dname, d in (("cuda", dev), ("cpu", "cpu")):
+                mesh, _, _, _, seed, step, camera = dist_steps(
+                    d, SMALL_RANKS, n, eye, fold="pallas_seg",
+                    topology=hier_topology(2, dcn),
+                    **hier_comp(ex, sched, None))
+                data = shard_volume(v0.to(d), mesh)
+                origin, spacing = box.origin.to(d), box.spacing.to(d)
+                thr = seed(data, origin, spacing, camera(-1))
+                imgs = []
+                for i in range(3):
+                    (vdi, _), thr = step(data, origin, spacing, camera(i),
+                                         thr)
+                    imgs.append(render_vdi_same_view(vdi).cpu())
+                outs[dname] = (imgs, [x.cpu() for x in thr])
+            prefix = f"small_hier_{regime}_{name}"
+            pairs = list(zip(*(outs[k][0] for k in ("cuda", "cpu"))))
+            diff = max(float((a - b).abs().max()) for a, b in pairs)
+            mean = max(float((a - b).abs().mean()) for a, b in pairs)
+            psnr = min(image_psnr(a, b) for a, b in pairs)
+            tdiff = thr_gap(outs["cuda"][1], outs["cpu"][1])
+            log(prefix, f"hosts=2 domain_size=2 image_max_abs_diff="
+                f"{diff:.3e} image_mean_abs_diff={mean:.3e} psnr_db="
+                f"{psnr:.2f} threshold_max_abs_diff={tdiff:.3e}")
+            ok = (diff <= 1e-4 and mean <= 1e-4) if dcn == "f32" else \
+                psnr >= SMALL_WIRE_PSNR_DB
+            if not (ok and tdiff <= 1e-6):
+                raise AssertionError(f"{prefix}: the card's frame differs "
+                                     f"from the CPU's plain versions")
+
+
+def run_hier_session(dev):
+    """Phase 10 (c), phase 7's session on a 2 x 4 topology at 512^3: a
+    warm frame and HIER_SESSION_FRAMES timed frames (the launch counts
+    read from them; K3, K2, K1 and K4 must launch, K4 8 a frame), its
+    first two frames equal to the hand-driven hierarchical step and
+    seed bit for bit, a checkpoint after HIER_SESSION_RESUME frames
+    resumed bit for bit, ms a frame beside phase 7's. Returns (launches,
+    ms)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from scenery_insitu_tpu_torch import kernels
+    from scenery_insitu_tpu_torch.core.camera import orbit
+    from scenery_insitu_tpu_torch.core.transfer import for_dataset
+    from scenery_insitu_tpu_torch.ops import slicer
+    from scenery_insitu_tpu_torch.parallel import pipeline as dp
+    from scenery_insitu_tpu_torch.parallel.mesh import shard_volume
+    from scenery_insitu_tpu_torch.runtime.checkpoint import (load_session,
+                                                             save_session)
+    from scenery_insitu_tpu_torch.sim import grayscott as gs
+
+    cfg = session_config(GRID, ranks=RANKS).with_overrides(
+        "topology.num_hosts=2", "obs.enabled=true")
+    out = tempfile.mkdtemp(prefix="chip_smoke_hier_")
+    try:
+        frames = {}
+        sess = session(dev, cfg, [capture_into(frames)])
+        st0 = sess.sim.state
+        u0, v0, cam0 = st0.u.clone(), st0.v.clone(), sess.camera
+        origin, spacing = sess._origin, sess._spacing
+        if sess.mesh.axis_names != ("hosts", "ranks") or \
+                sess._n_ranks != RANKS:
+            raise AssertionError(f"session_hier: mesh {sess.mesh}")
+        kernels.reset_launches()
+        sess.run(SESSION_WARM)
+        before = phase_stats(sess.timers)
+        ms, _ = timed_run(sess, HIER_SESSION_FRAMES)
+        launches = kernels.launches()
+        log("session_hier.launches", json.dumps(launches))
+        require_launched(launches, DIST_KERNELS, "the hierarchical session")
+        n_frames = SESSION_WARM + HIER_SESSION_FRAMES
+        if launches["resegment_sorted"] != RANKS * n_frames:
+            raise AssertionError(
+                f"session_hier: K4 launched {launches['resegment_sorted']} "
+                f"times in {n_frames} frames of {RANKS} ranks")
+        counters = sess.obs.counters
+        log("session_hier.counters", json.dumps({k: counters.get(k, 0) for k
+                                                 in ("hier_composite_builds",
+                                                     "dcn_hops_built",
+                                                     "compile_step")}))
+        if counters.get("hier_composite_builds", 0) < 1:
+            raise AssertionError("session_hier: no two-level build")
+        log("session_hier.ms_per_frame", f"{ms:.3f} (host clock, mean of "
+            f"{HIER_SESSION_FRAMES} frames after a warm one, every frame "
+            f"fetched; phase 7's one-rank session: "
+            f"{SESSION_MS['session_nosinks']:.3f} without sinks, "
+            f"{SESSION_MS['session']:.3f} with its sinks every "
+            f"{SESSION_EVERY})")
+        log_phase_stats("session_hier", sess.timers, before)
+        mesh = sess.mesh
+        del sess
+
+        # the first two frames driven by hand on the same two-level mesh
+        spec = slicer.make_spec(cam0, (GRID,) * 3, cfg.slicer,
+                                axis_sign=slicer.choose_axis(cam0),
+                                multiple_of=RANKS)
+        tf = for_dataset("gray_scott", device=dev)
+        seed = dp.distributed_initial_threshold_mxu(mesh, tf, spec, cfg.vdi)
+        step = dp.distributed_vdi_step_mxu_temporal(
+            mesh, tf, spec, cfg.vdi, cfg.composite, topology=cfg.topology)
+        st = gs.GrayScott(u0, v0, st0.params)
+        cam, thr, hand = cam0, None, {}
+        for i in range(2):
+            st = gs.multi_step_fast(st, SIM_STEPS)
+            field = shard_volume(st.field, mesh)
+            if thr is None:
+                thr = seed(field, origin, spacing, cam)
+            (vdi, _), thr = step(field, origin, spacing, cam, thr)
+            hand[i] = {"vdi_color": vdi.color.cpu().numpy(),
+                       "vdi_depth": vdi.depth.cpu().numpy()}
+            cam = orbit(cam, np.float32(SESSION_ORBIT))
+        del st, thr, vdi, field, step, seed
+        check_frames_equal("session_hier_vs_hand",
+                           {i: frames[i] for i in hand}, hand)
+
+        # a checkpoint after HIER_SESSION_RESUME frames, resumed
+        sess = session(dev, cfg)
+        sess.run(HIER_SESSION_RESUME)
+        path = os.path.join(out, "hier.npz")
+        save_session(sess, path)
+        del sess
+        with np.load(path) as z:
+            header = json.loads(bytes(z["__header__"]).decode())
+        if header["mesh_devices"] != RANKS:
+            raise AssertionError(f"session_hier: checkpoint header "
+                                 f"mesh_devices={header['mesh_devices']}")
+        resumed = {}
+        sess = session(dev, cfg, [capture_into(resumed)])
+        load_session(sess, path)
+        sess.run(HIER_SESSION_RESUME)
+        del sess
+        check_frames_equal("session_hier_resume", resumed, {
+            i: frames[i] for i in range(HIER_SESSION_RESUME,
+                                        2 * HIER_SESSION_RESUME)})
+        torch.cuda.empty_cache()
+        return launches, ms
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -4196,7 +4633,6 @@ def main(argv=None) -> int:
     phase_done("phase8")
     t9 = time.perf_counter()
     decomp = run_decomp_frames(dev, dist_ref, args.profile)
-    del dist_ref
     torch.cuda.empty_cache()
     phase_done("phase9.frames")
     check_small_decomp(dev)
@@ -4205,6 +4641,19 @@ def main(argv=None) -> int:
     log("phase9.wall_s", f"{time.perf_counter() - t9:.1f} (the render "
         f"decomposition)")
     phase_done("phase9")
+    t10 = time.perf_counter()
+    hier = run_hier_frames(dev, dist_ref, decomp.pop("p1_frame"),
+                           args.profile)
+    del dist_ref
+    torch.cuda.empty_cache()
+    phase_done("phase10.frames")
+    check_small_hier(dev)
+    phase_done("phase10.small")
+    hier_session_launches, _ = run_hier_session(dev)
+    log("phase10.wall_s", f"{time.perf_counter() - t10:.1f} (the two-level "
+        f"composite)")
+    phase_done("phase10")
+    n_frames = WARMUP_FRAMES + TIMED_FRAMES
 
     table = [
         dict(name="grayscott_fused", route="cuda",
@@ -4230,7 +4679,10 @@ def main(argv=None) -> int:
              # phase 9: K1's launches a frame under each decomposition
              decomp_launches_per_frame={
                  c: decomp[c]["k1"] / (WARMUP_FRAMES + TIMED_FRAMES)
-                 for c in DECOMP_NAMES}),
+                 for c in DECOMP_NAMES},
+             # phase 10: K1's launches a frame on each two-level mesh
+             hier_launches_per_frame={c: hier[c]["k1"] / n_frames
+                                      for c in hier}),
         dict(name="count_multi", route="cuda",
              source="scenery_insitu_tpu_torch/csrc/count_multi.cu",
              replaces="scenery_insitu_tpu/ops/pallas_march.py:426",
@@ -4248,7 +4700,8 @@ def main(argv=None) -> int:
                  fold["count_frame"]["compare_ms"].items()}},
              # phase 9: K2's launches a seed under each decomposition
              decomp_launches_per_seed={c: decomp[c]["k2"]
-                                       for c in DECOMP_NAMES}),
+                                       for c in DECOMP_NAMES},
+             hier_launches_per_seed={c: hier[c]["k2"] for c in hier}),
         dict(name="resegment_sorted", route="cuda",
              source="scenery_insitu_tpu_torch/csrc/resegment.cu",
              replaces="scenery_insitu_tpu/ops/pallas_composite.py:172",
@@ -4257,7 +4710,8 @@ def main(argv=None) -> int:
                                                         "frame_block")]
                              + [exch[c]["k4_err"] for c in
                                 ("c2_ring_cap", "c7_ring_waves")]
-                             + [decomp["brick_stream"]["err"]]),
+                             + [decomp["brick_stream"]["err"]]
+                             + [hier[c]["k4_err"] for c in ("h1", "h6")]),
              ms=reseg["frame_block"]["ms"],
              plain_ms=reseg["frame_block"]["plain_ms"],
              bound_ms=reseg["frame_block"]["bound_ms"],
@@ -4295,7 +4749,16 @@ def main(argv=None) -> int:
              brick_stream_slots=decomp["brick_stream"]["nk"],
              decomp_session_launches={
                  m: v[0]["resegment_sorted"]
-                 for m, v in decomp_sessions.items()}),
+                 for m, v in decomp_sessions.items()},
+             # phase 10: K4's launches in each two-level run (8 frames),
+             # a frame's K4 launches at the top on their own N·K-slot
+             # streams beside their bound, and the two-level session's
+             hier_launches={c: hier[c]["k4"] for c in hier},
+             hier_frame_ms={c: hier[c]["k4_frame_ms"] for c in hier},
+             hier_frame_bound_ms={c: hier[c]["k4_frame_bound_ms"]
+                                  for c in hier},
+             hier_session_launches=hier_session_launches[
+                 "resegment_sorted"]),
     ]
     # the kernels of this slice: B1b has no caller on a frame path; the
     # microbenchmark's pallas_seg and tf_pallas_seg variants run it, so
@@ -4367,6 +4830,7 @@ def main(argv=None) -> int:
         name = row["name"]
         if name in FRAME_KERNELS:
             row["session_launches"] = session_launches[name]
+            row["hier_session_launches"] = hier_session_launches[name]
         elif name == "resegment_sorted":
             row["session_launches"] = small_session_launches[name]
     log("library_ms", "null for every kernel: no single PyTorch call "

@@ -247,8 +247,10 @@ class LODConfig:
 
 @dataclass(frozen=True)
 class TopologyConfig:
-    """Mesh topology. ``num_hosts == 1`` is the flat mesh the port runs;
-    the two-level composite across hosts is ROADMAP A8b item 5."""
+    """Mesh topology. ``num_hosts == 1`` is the flat mesh; more hosts
+    build the two-level ``(hosts, ranks)`` mesh of ``num_hosts`` domains
+    of ``domain_size`` ranks (``parallel/topology.py``), whose composite
+    crosses domains on the ``dcn_wire`` codec (``parallel/hier.py``)."""
 
     domain_size: int = 0           # devices per domain; 0 = auto
     num_hosts: int = 1

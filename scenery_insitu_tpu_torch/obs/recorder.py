@@ -106,6 +106,10 @@ _LEDGER_REGISTRY: Dict[str, str] = {
                   "cross its configured budget (metric and quantile in "
                   "the reason); the run keeps going, the breach is the "
                   "signal",
+    "topology.hier": "a hierarchical topology knob is inert on this "
+                     "configuration (one host, or a mode with no "
+                     "two-level composite); the flat single-level "
+                     "path runs",
 }
 
 
@@ -123,6 +127,8 @@ _COUNTER_REGISTRY: Dict[str, str] = {
                           "a brick map",
     "build_steps": "the session (re)built its render step set",
     "compile_step": "one render step was built for a march regime",
+    "dcn_hops_built": "one DCN ring hop of the hierarchical exchange "
+                      "was built",
     "delivery_frames_delivered": "the async delivery worker finished "
                                  "one frame's sinks (tiles in column "
                                  "order, then the frame sinks)",
@@ -137,6 +143,8 @@ _COUNTER_REGISTRY: Dict[str, str] = {
                     "after an unhandled frame-loop exception",
     "frames_eager_dispatch": "a frame went through the eager per-frame "
                              "dispatch path",
+    "hier_composite_builds": "a two-level hierarchical composite "
+                             "schedule was built",
     "rebalance_replans": "a rebalance replan (slab or brick-steal) was "
                          "executed",
     "rebalance_steps_built": "a render step was built for a rebalanced "

@@ -8,6 +8,15 @@ holds z-slab r), a collective is a tensor operation across the rank
 axis, and every rank's work runs in turn on the mesh's device. A mesh
 spread over several cards, one process a card, is ROADMAP A8b item 9.
 
+A mesh is flat (one ``ranks`` axis) or two-level, ``(hosts, ranks)``:
+``num_hosts`` domains of ``domain_size`` ranks each
+(``parallel/topology.make_topology_mesh``), the emulated hierarchy of
+the reference's 2-D mesh. ``n`` is the total rank count either way, and
+flat rank ``h * domain_size + d`` (host h, domain position d) holds
+z-slab ``h * domain_size + d``, so every volume layout stays
+``[n, D/n, H, W]``; only the sort-last composite reads the split
+(``parallel/hier.py``).
+
 The render decomposition may differ from the sim's even slabs: a
 planned contiguous band a rank (`reslab_z`), a set of equal bricks a
 rank (`reslab_bricks`), or the same bricks pooled 2^level-fold
@@ -19,7 +28,7 @@ several cards would send the rows point to point.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,11 +39,29 @@ DEFAULT_AXIS = "ranks"
 
 
 class Mesh(NamedTuple):
-    """An in-process mesh of ``n`` ranks on one device."""
+    """An in-process mesh of ``n`` ranks on one device: flat (one axis
+    name), or ``num_hosts`` domains of ``n / num_hosts`` ranks with the
+    axis names ``(hosts, ranks)``."""
 
     n: int
     device: torch.device
     axis_names: Tuple[str, ...] = (DEFAULT_AXIS,)
+    num_hosts: int = 1
+
+    @property
+    def hosts_axis(self) -> Optional[str]:
+        """The inter-domain axis of a two-level mesh; None when flat."""
+        return self.axis_names[0] if len(self.axis_names) == 2 else None
+
+    @property
+    def ranks_axis(self) -> str:
+        """The intra-domain (flat: the only) axis."""
+        return self.axis_names[-1]
+
+    @property
+    def domain_size(self) -> int:
+        """Ranks a domain (the whole mesh when flat)."""
+        return self.n // self.num_hosts
 
 
 def make_mesh(n: int = 1, device=None,

@@ -68,8 +68,13 @@ The render decomposition need not be the sim's even slab
 An even plan, an even-convex map, and one rank with an all-fine map take
 the slab path unchanged. The temporal threshold maps of a brick step
 stack a rank's slots by rows (``[slots*nj, ni]``) and the ranks on top.
-The two-level topology (A8b item 5) and K budgets and fragment reuse
-(item 6) are still to come.
+On a two-level ``(hosts, ranks)`` mesh (``parallel/topology.py``) the
+march is the flat mesh's, rank by flat rank, and the exchange and
+composite split into a level inside each domain and a level across
+domains, resegmented once at the top (``parallel/hier.py``); the blocks
+come back in the ranks-major order ``Topology.out_axis``, which is the
+frame's natural column order. K budgets and fragment reuse (A8b item 6)
+are still to come.
 """
 
 from __future__ import annotations
@@ -330,7 +335,10 @@ def _ring_accumulate(blocks, r: int, wire: str, cap: Optional[int]):
     s = 1..n-1 the block of rank (r+s) mod n decoded and merged into the
     sorted accumulator (arrival order r, r+1, ... with wrap-around; ties
     go to the accumulator). Returns the accumulator (color [M, 4, H,
-    W/n], depth [M, 2, H, W/n]), not yet resegmented."""
+    W/n], depth [M, 2, H, W/n]), not yet resegmented. The same core
+    serves the single-level ring and both rings of the two-level
+    composite (``parallel/hier.py``); the build markers count its hops
+    (`ring_hop_markers`) under each ring's names."""
     n = len(blocks)
     bc, bd, scale = blocks[r]
     acc_c, acc_d = _wire.decode_fragment(bc[r], bd[r], scale, wire)
@@ -356,10 +364,16 @@ def _ring_exchange_composite(color: torch.Tensor, depth: torch.Tensor,
 
 
 def _composite_exchanged(color: torch.Tensor, depth: torch.Tensor, n: int,
-                         cfg: CompositeConfig) -> List[VDI]:
+                         cfg: CompositeConfig, topo=None) -> List[VDI]:
     """Exchange and composite of the rank-stacked fragments under
     ``cfg.exchange`` and ``cfg.wire``: every rank's composited column
-    block, in rank order. One rank takes the all_to_all path."""
+    block, in column order. One rank takes the all_to_all path. A
+    ``topo`` (a two-level `parallel.topology.Topology`) runs the
+    two-level composite (``parallel/hier.py``)."""
+    if topo is not None:
+        from scenery_insitu_tpu_torch.parallel.hier import hier_composite_vdi
+
+        return hier_composite_vdi(color, depth, topo, cfg)
     if cfg.exchange == "ring" and n > 1:
         return _ring_exchange_composite(color, depth, n, cfg)
     rc, rd = _exchange_vdi_columns(color, depth, n, cfg.wire)
@@ -382,12 +396,27 @@ def _ring_build_marker(n: int, k: int, h: int, w: int,
               traffic=modeled_exchange_traffic(
                   n, k, h, w, k_out=cfg.max_output_supersegments,
                   mode="ring", ring_slots=cfg.ring_slots, wire=cfg.wire))
-    cb, db = _wire.wire_slot_bytes(cfg.wire)
-    frag_bytes = k * h * (w // n) * (cb + db)
+    ring_hop_markers(n, k, h, w // n, cfg.wire)
+
+
+def ring_hop_markers(n: int, k: int, h: int, wb: int, wire: str,
+                     dcn: bool = False) -> None:
+    """The n - 1 hops of one ring built, each a counter and an event
+    with the bytes of the ``[K, ., h, wb]`` block it ships on ``wire``:
+    ``ring_steps_built``/``ring_step``, or ``dcn_hops_built``/``dcn_hop``
+    for the two-level composite's DCN ring (``dcn``), the reference's
+    hop names."""
+    rec = _obs.get_recorder()
+    cb, db = _wire.wire_slot_bytes(wire)
+    frag_bytes = k * h * wb * (cb + db)
     for s in range(1, n):
-        rec.count("ring_steps_built")
-        rec.event("ring_step", step=s, hops=s, frag_bytes=frag_bytes,
-                  wire=cfg.wire)
+        attrs = dict(step=s, hops=s, frag_bytes=frag_bytes, wire=wire)
+        if dcn:
+            rec.count("dcn_hops_built")
+            rec.event("dcn_hop", **attrs)
+        else:
+            rec.count("ring_steps_built")
+            rec.event("ring_step", **attrs)
 
 
 def _wire_build_marker(wire: str) -> None:
@@ -642,12 +671,12 @@ def _march_wave(frames, w: int, n: int, t: int, cam, spec, tf, vdi_cfg,
 
 
 def _waves_frame(slabs, halo, origin, spacing, cam, spec, tf, vdi_cfg,
-                 comp_cfg, n, thr, plan=None, bricks=None):
+                 comp_cfg, n, thr, plan=None, bricks=None, topo=None):
     """The tile-wave frame: per rank one shared frame state, then the
     reference's pipeline order (march wave 0; composite wave w-1, march
     wave w; composite the last wave), each wave's fragments exchanged
-    and composited by `_composite_exchanged`. Returns (VDI, meta,
-    thr')."""
+    and composited by `_composite_exchanged` (two-level under ``topo``).
+    Returns (VDI, meta, thr')."""
     t = comp_cfg.wave_tiles
     frames = [_RankFrame(slabs, halo, r, origin, spacing, cam, spec, tf,
                          plan, bricks) for r in range(n)]
@@ -657,12 +686,12 @@ def _waves_frame(slabs, halo, origin, spacing, cam, spec, tf, vdi_cfg,
     outs = []                       # per wave: every rank's block
     frag = _march_wave(frames, 0, n, t, cam, spec, tf, vdi_cfg, thr_full)
     for w in range(1, t):
-        outs.append(_composite_exchanged(*frag, n, comp_cfg))
+        outs.append(_composite_exchanged(*frag, n, comp_cfg, topo))
         frag = _march_wave(frames, w, n, t, cam, spec, tf, vdi_cfg,
                            thr_full)
-    outs.append(_composite_exchanged(*frag, n, comp_cfg))
+    outs.append(_composite_exchanged(*frag, n, comp_cfg, topo))
     del frag
-    # rank j's contiguous block is its wave tiles side by side
+    # column block j is its wave tiles side by side
     color = torch.cat([o[j].color for j in range(n) for o in outs], dim=-1)
     depth = torch.cat([o[j].depth for j in range(n) for o in outs], dim=-1)
     fr0 = frames[0]
@@ -687,7 +716,10 @@ def distributed_vdi_step_mxu(mesh: Mesh, tf: TransferFunction,
     wire, the schedule and the render decomposition; ``plan`` (a tuple
     of band depths, ``rebalance="occupancy"``) or ``bricks`` (a
     `parallel.bricks.BrickMap`, ``rebalance="bricks"``) is the
-    decomposition itself (see the module docstring)."""
+    decomposition itself (see the module docstring). On a two-level
+    mesh (``topology.make_topology_mesh``) the composite runs in two
+    levels; ``topology``, a ``TopologyConfig``, is checked against the
+    mesh and brings the DCN wire."""
     return _build_mxu_step(mesh, tf, spec, vdi_cfg, comp_cfg,
                            temporal=False, topology=topology, plan=plan,
                            bricks=bricks)
@@ -717,11 +749,11 @@ def _build_mxu_step(mesh, tf, spec, vdi_cfg, comp_cfg, temporal: bool,
     """The step both entries build: generate on every rank, exchange and
     composite under ``comp_cfg``, with or without the temporal threshold
     state carried through. The build's counters and events (ring, wire,
-    waves, plans, bricks) are recorded here, once a step as the
-    reference records them once a compile."""
+    waves, plans, bricks, the two-level composite) are recorded here,
+    once a step as the reference records them once a compile."""
     vdi_cfg = vdi_cfg or VDIConfig()
     comp_cfg = comp_cfg or CompositeConfig()
-    _, n, _ = resolve_mesh_topology(mesh, topology)
+    _, n, topo = resolve_mesh_topology(mesh, topology)
     if spec.ni % n:
         raise ValueError(f"intermediate width {spec.ni} not divisible by "
                          f"mesh size {n}")
@@ -733,10 +765,15 @@ def _build_mxu_step(mesh, tf, spec, vdi_cfg, comp_cfg, temporal: bool,
     if waves:
         _wave_build_marker(n, comp_cfg.wave_tiles, k, spec.nj, spec.ni,
                            comp_cfg)
-    if comp_cfg.exchange == "ring" and n > 1:
-        _ring_build_marker(n, k, spec.nj,
-                           spec.ni // (comp_cfg.wave_tiles if waves else 1),
-                           comp_cfg)
+    w_step = spec.ni // (comp_cfg.wave_tiles if waves else 1)
+    if topo is not None:
+        from scenery_insitu_tpu_torch.parallel.hier import _hier_build_marker
+
+        _hier_build_marker(topo, k, spec.nj, w_step, comp_cfg)
+        if topo.dcn_wire != "f32":
+            _wire_build_marker(topo.dcn_wire)
+    elif comp_cfg.exchange == "ring" and n > 1:
+        _ring_build_marker(n, k, spec.nj, w_step, comp_cfg)
     if comp_cfg.wire != "f32":
         _wire_build_marker(comp_cfg.wire)
     rows_a_rank = spec.nj * (bricks.total_slots if bricks else 1)
@@ -746,7 +783,8 @@ def _build_mxu_step(mesh, tf, spec, vdi_cfg, comp_cfg, temporal: bool,
         rows = _frame_rows(slabs, spec, plan, bricks)
         if waves:
             return _waves_frame(slabs, rows, origin, spacing, cam, spec, tf,
-                                vdi_cfg, comp_cfg, n, thr, plan, bricks)
+                                vdi_cfg, comp_cfg, n, thr, plan, bricks,
+                                topo)
         ranks = [_mxu_rank_generate(
             slabs, rows, r, origin, spacing, cam, spec, tf, vdi_cfg,
             None if thr is None else _rank_thr(thr, r, rows_a_rank),
@@ -757,7 +795,7 @@ def _build_mxu_step(mesh, tf, spec, vdi_cfg, comp_cfg, temporal: bool,
         meta = ranks[0][1]
         thr2 = None if thr is None else _stack_thr([t for _, _, t in ranks])
         del ranks
-        blocks = _composite_exchanged(color, depth, n, comp_cfg)
+        blocks = _composite_exchanged(color, depth, n, comp_cfg, topo)
         del color, depth
         return VDI(torch.cat([b.color for b in blocks], dim=-1),
                    torch.cat([b.depth for b in blocks], dim=-1)), meta, thr2
@@ -784,7 +822,9 @@ def distributed_initial_threshold_mxu(mesh: Mesh, tf: TransferFunction,
     (``plan`` or ``bricks``; the mode is implied by which is given).
     Returns ``f(vol_data, origin, spacing, cam) -> ThresholdState`` with
     rank-stacked ``[n*nj, ni]`` maps (``[n*slots*nj, ni]`` under a brick
-    map: one map set a slot, row-stacked)."""
+    map: one map set a slot, row-stacked). Generation is
+    topology-agnostic: on a two-level mesh the maps stack in flat rank
+    order, as the step carries them."""
     vdi_cfg = vdi_cfg or VDIConfig()
     _, n, _ = resolve_mesh_topology(mesh)
     plan = _resolve_plan("occupancy", n, plan)

@@ -19,10 +19,15 @@ adapter (anything with ``kind``, ``advance(n)`` and ``.field``).
 The reference's other session features are later slices of the port and
 raise ``NotImplementedError`` naming their ROADMAP row: frame blocks in
 one launch (``runtime.scan_frames > 1``, A3/A7), the plain image modes
-(A4), the gather engine (A9), the other sims (A10), the two-level
-topology (A8b, item 5), K budgets and fragment reuse (A8b, item 6),
-steering (A11), and the telemetry collector, device profiles and cost
-snapshots (A12).
+(A4), the gather engine (A9), the other sims (A10), K budgets and
+fragment reuse (A8b, item 6), steering (A11), and the telemetry
+collector, device profiles and cost snapshots (A12).
+
+A hierarchical ``topology`` (``num_hosts > 1``) builds the two-level
+``(hosts, ranks)`` mesh of ``mesh.num_devices`` ranks
+(``parallel/topology.make_topology_mesh``) and every step composites in
+two levels (``parallel/hier.py``); ``_n_ranks`` is the total rank
+count, which the checkpoint records.
 
 With ``composite.rebalance`` ``"occupancy"`` or ``"bricks"`` the session
 re-plans the render decomposition every ``rebalance_period`` frames,
@@ -63,9 +68,9 @@ from scenery_insitu_tpu_torch.core.transfer import (TransferFunction,
 from scenery_insitu_tpu_torch.core.vdi import VDI, VDIMetadata, to_numpy
 from scenery_insitu_tpu_torch.device import resolve_device
 from scenery_insitu_tpu_torch.ops import slicer as _slicer
-from scenery_insitu_tpu_torch.parallel.mesh import Mesh, make_mesh, \
-    shard_volume
-from scenery_insitu_tpu_torch.parallel.topology import resolve_mesh_topology
+from scenery_insitu_tpu_torch.parallel.mesh import Mesh, shard_volume
+from scenery_insitu_tpu_torch.parallel.topology import (
+    make_topology_mesh, resolve_mesh_topology)
 from scenery_insitu_tpu_torch.runtime.failsafe import SinkGuard
 from scenery_insitu_tpu_torch.sim import grayscott as gs
 
@@ -96,9 +101,6 @@ def check_ported(cfg: FrameworkConfig) -> None:
     if cfg.sim.kind in _OTHER_SIMS:
         _unported(f"sim.kind={cfg.sim.kind!r}", "A10")
     cc = cfg.composite
-    if cfg.topology.num_hosts > 1:
-        _unported(f"topology.num_hosts={cfg.topology.num_hosts} (the "
-                  "two-level composite)", "A8b, item 5")
     if cc.k_budget != "static":
         _unported(f"composite.k_budget={cc.k_budget!r}", "A8b, item 6")
     if cc.temporal_reuse != "off":
@@ -206,14 +208,17 @@ class InSituSession:
                                  f"mesh's {mesh.device}")
             self.mesh = mesh
         else:
-            # mesh.num_devices ranks in-process on the one device; 0 is
-            # one rank
-            self.mesh = make_mesh(self.cfg.mesh.num_devices or 1,
-                                  device=device,
-                                  axis_name=self.cfg.mesh.axis_name)
+            # mesh.num_devices ranks in-process on the one device (0 is
+            # one rank), two-level under a hierarchical topology
+            self.mesh, _ = make_topology_mesh(self.cfg.topology,
+                                              self.cfg.mesh, device=device)
         self.device = self.mesh.device
+        # the flat axis view and the total rank count every mesh consumer
+        # uses; a flat mesh ignores the topology, as the reference's does
         self._flat_axis, self._n_ranks, self._topo = resolve_mesh_topology(
-            self.mesh, topology=self.cfg.topology)
+            self.mesh, topology=(self.cfg.topology
+                                 if len(self.mesh.axis_names) > 1
+                                 else None))
         # the recorder feeds the per-phase Timers; it takes over the
         # process slot whether enabled or not, so a finished session's
         # recorder stops absorbing this one's events

@@ -37,9 +37,9 @@ from tests.test_torch_rebalance import (CPU, D, EYES, GATE, N, REGIMES,
                                         MovingSim, assert_frames_close,
                                         assert_meta_global,
                                         assert_sessions_match, jax_sharded,
-                                        live_slots, port_slabs, run_jax,
-                                        run_port, run_sessions, scene_data,
-                                        session_overrides)
+                                        live_slots, memo_runs, port_slabs,
+                                        run_jax, run_port, run_sessions,
+                                        scene_data, session_overrides)
 
 # the reference tests' maps (tests/test_bricks.py)
 OWNER = (3, 0, 5, 1, 4, 7, 2, 6)
@@ -48,6 +48,8 @@ INTERLEAVED = tuple(list(range(N)) + list(range(N)))
 ISLANDS = (0, 0, 1, 2, 3, 4, 5, 6)
 MAPS = {"owner": OWNER, "perm": tuple(PERM[o] for o in OWNER),
         "interleaved": INTERLEAVED, "islands": ISLANDS}
+# the port runs several tests of this file repeat, each run once
+port_run = memo_runs(run_port)
 
 
 def maps(owner, level=()):
@@ -210,7 +212,7 @@ def brick_steps(request):
 
 def test_brick_steps_match_reference_and_even(brick_steps):
     eye = brick_steps["eye"]
-    even = run_port(eye)
+    even = port_run(eye)
     for name, owner in MAPS.items():
         got = run_port(eye, "bricks", bricks=maps(owner)[1])
         assert_frames_close(got, brick_steps[name])
@@ -232,7 +234,7 @@ def test_brick_temporal_step_matches_reference_and_even(owner):
     nj = got[0][0].shape[-2]
     assert got[0][2][0].shape[0] == N * tm.slots * nj
     assert_frames_close(got, want)
-    assert_frames_close(got, run_port(EYES[0], temporal=True, data=noisy),
+    assert_frames_close(got, port_run(EYES[0], temporal=True, data=noisy),
                         rtol=0.0, atol=GATE, thr_atol=None)
 
 
@@ -246,7 +248,7 @@ def test_brick_schedules_cross_match_frame(comp, owner):
     reproduce the brick frame schedule's all_to_all output (the
     temporal carry through the waves too)."""
     bm = maps(owner)[1]
-    base = run_port(EYES[0], "bricks", temporal=True, bricks=bm)
+    base = port_run(EYES[0], "bricks", temporal=True, bricks=bm)
     got = run_port(EYES[0], "bricks", temporal=True, comp=comp, bricks=bm)
     assert_frames_close(got, base, rtol=0.0, atol=GATE)
 

@@ -1010,3 +1010,61 @@ def test_resegment_and_count_attributes(dev):
             assert a["blocks_per_sm"] >= 1 and a["registers"] > 0
     with pytest.raises(ValueError):
         cm.count_attributes(1, 33)
+
+
+def test_resegment_on_hier_top_stream(dev):
+    """K4 at the top of the two-level composite: the merged N·K stream a
+    rank of a 2 x 4 mesh resegments (a 32^3 Gray-Scott frame, its
+    level-1 all_to_all and level-2 DCN merges), its fullest block
+    against the plain version: thresholds and live slots exact, colour
+    and depth within 1e-6."""
+    from scenery_insitu_tpu_torch.config import (CompositeConfig,
+                                                 MeshConfig,
+                                                 SliceMarchConfig,
+                                                 TopologyConfig, VDIConfig)
+    from scenery_insitu_tpu_torch.core.camera import Camera
+    from scenery_insitu_tpu_torch.core.transfer import for_dataset
+    from scenery_insitu_tpu_torch.core.volume import Volume
+    from scenery_insitu_tpu_torch.ops import slicer
+    from scenery_insitu_tpu_torch.parallel import hier
+    from scenery_insitu_tpu_torch.parallel import pipeline as dp
+    from scenery_insitu_tpu_torch.parallel.mesh import shard_volume
+    from scenery_insitu_tpu_torch.parallel.topology import make_topology_mesh
+
+    g, k = 32, 8
+    mesh, topo = make_topology_mesh(TopologyConfig(num_hosts=2),
+                                    MeshConfig(num_devices=8), device=dev)
+    field = gs.multi_step(gs.GrayScott.init((g,) * 3, seed=0, device="cpu"),
+                          20).v.to(dev)
+    box = Volume.centered(field, extent=2.0)
+    cam = Camera.create((0.0, 0.6, 3.0), device=dev)
+    spec = slicer.make_spec(cam, (g,) * 3, SliceMarchConfig(fold="pallas_seg"),
+                            axis_sign=slicer.choose_axis(cam), multiple_of=8)
+    vcfg = VDIConfig(max_supersegments=k, adaptive_mode="histogram")
+    slabs = shard_volume(field, mesh)
+    rows = dp._frame_rows(slabs, spec)
+    frags = [dp._mxu_rank_generate(slabs, rows, r, box.origin, box.spacing,
+                                   cam, spec, for_dataset("gray_scott",
+                                                          device=dev),
+                                   vcfg)[0] for r in range(8)]
+    streams = hier.hier_accumulate(torch.stack([f.color for f in frags]),
+                                   torch.stack([f.depth for f in frags]),
+                                   topo, CompositeConfig())
+    assert all(sc.shape[0] == 8 * k for sc, _ in streams)
+    sc, sd = max(streams, key=lambda s: int(torch.isfinite(s[1][:, 0]).sum()))
+    h, w = sc.shape[2:]
+    tk = torch.empty((h, w), device=dev)
+    tp = torch.empty((h, w), device=dev)
+    before = kernels.launches()["resegment_sorted"]
+    kern = cc.resegment_sorted(sc, sd, None, 16, threshold_out=tk,
+                               adaptive_iters=6)
+    assert kernels.launches()["resegment_sorted"] == before + 1
+    plain = cc.resegment_sorted_plain(sc, sd, None, 16, threshold_out=tp,
+                                      adaptive_iters=6)
+    torch.cuda.synchronize()
+    assert torch.equal(tk, tp)
+    live = lambda d: torch.isfinite(d[:, 0]).sum(0)
+    assert torch.equal(live(kern[1]), live(plain[1]))
+    assert int(live(plain[1]).sum()) > 0
+    for a, b in zip(kern, plain):
+        assert _err(a, b) <= 1e-6

@@ -219,12 +219,13 @@ def test_width_divisibility_check():
 
 
 def test_unported_topology_raises():
+    """A two-host topology on a flat mesh is a caller's bug: it raises
+    the reference's message (the two-level mesh comes from
+    ``topology.make_topology_mesh``)."""
     mesh = tmesh.make_mesh(N, device=CPU)
-
-    class TwoHosts:
-        num_hosts = 2
-
     s = _setup(EYES[0])
-    with pytest.raises(NotImplementedError, match="A8b"):
-        tpipe.distributed_vdi_step_mxu(mesh, s["ttf"], s["tspec"],
-                                       topology=TwoHosts())
+    with pytest.raises(ValueError, match="flat 1-D") as e:
+        tpipe.distributed_vdi_step_mxu(
+            mesh, s["ttf"], s["tspec"],
+            topology=tcfg.TopologyConfig(num_hosts=2))
+    assert "make_topology_mesh" in str(e.value)

@@ -20,6 +20,9 @@ block. The scene is the reference tests' (``tests/test_rebalance.py``):
 The helpers here (scene, steps of both packages, comparisons) serve
 ``tests/test_torch_bricks.py`` and ``tests/test_torch_lod.py`` too."""
 
+import copy
+import hashlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -165,6 +168,38 @@ def run_port(eye, rebalance="even", temporal=False, frames=2, data=None, k=6,
         out.append((np_(vdi.color), np_(vdi.depth), [np_(x) for x in thr],
                     meta))
     return out
+
+
+def _memo_key(value):
+    """A hashable key of a `run_port` argument: arrays by their dtype,
+    shape and bytes, containers item by item, the rest by repr."""
+    if isinstance(value, np.ndarray):
+        return ("ndarray", value.dtype.str, value.shape,
+                hashlib.sha1(value.tobytes()).hexdigest())
+    if isinstance(value, dict):
+        return tuple(sorted((k, _memo_key(v)) for k, v in value.items()))
+    if isinstance(value, (tuple, list)):
+        return tuple(_memo_key(v) for v in value)
+    return repr(value)
+
+
+def memo_runs(runner):
+    """``runner`` (`run_port`) memoised for one test file: each distinct
+    call runs once, and every caller gets its own deep copy of the
+    result. Runs whose side effects a test reads (a recorder's counters)
+    call ``runner`` itself."""
+    cache = {}
+
+    def run(*args, **kw):
+        key = (_memo_key(args), _memo_key(kw))
+        if key not in cache:
+            cache[key] = runner(*args, **kw)
+        return copy.deepcopy(cache[key])
+
+    return run
+
+
+port_run = memo_runs(run_port)
 
 
 def assert_frames_close(got, want, rtol=RTOL, atol=ATOL, thr_atol=1e-6):
@@ -382,7 +417,7 @@ def test_planned_step_matches_reference_and_even(plan_steps):
     got = run_port(eye, "occupancy", k=10, plan=PLAN)
     assert_frames_close(got, plan_steps["step"])
     assert_meta_global(got, plan_steps["step"][0][3])
-    assert_frames_close(got, run_port(eye, k=10), rtol=0.0, atol=GATE)
+    assert_frames_close(got, port_run(eye, k=10), rtol=0.0, atol=GATE)
     assert live_slots(got) > 0
 
 
@@ -397,7 +432,7 @@ def test_planned_temporal_step_matches_reference_and_even(plan_steps):
                    plan=PLAN)
     assert_frames_close(got, plan_steps["temporal"])
     if eye == EYES[0]:
-        assert_frames_close(got, run_port(eye, temporal=True, k=10,
+        assert_frames_close(got, port_run(eye, temporal=True, k=10,
                                           data=noisy),
                             rtol=0.0, atol=GATE)
 
@@ -413,7 +448,7 @@ def test_planned_waves_cross_matches_frame(exchange):
     frame = run_port(EYES[0], "occupancy", temporal=True,
                      comp=dict(exchange=exchange), plan=PLAN)
     assert_frames_close(got, frame, rtol=0.0, atol=1e-6)
-    assert_frames_close(got, run_port(EYES[0], temporal=True), rtol=0.0,
+    assert_frames_close(got, port_run(EYES[0], temporal=True), rtol=0.0,
                         atol=GATE)
 
 

@@ -2,15 +2,17 @@
 """Drive the PyTorch/CUDA port's in-situ frames on one CUDA card: the
 single-chip frame, the distributed sort-last frame, the fold
 microbenchmark, the in-situ session, the sort-last exchange schedules,
-the render decomposition and the two-level composite.
+the render decomposition, the two-level composite, and the K budgets
+and fragment reuse.
 
     python3 chip_smoke.py               # the whole run (needs one card)
     python3 chip_smoke.py --profile     # + device time by kernel
+    python3 chip_smoke.py --phase11-only  # phase 4's frame and phase 11
     python3 chip_smoke.py --k4-compare old=OTHER/resegment.cu \
         --k2-compare old=OTHER/count_multi.cu \
         --events-compare old=OTHER/fold_chunk.cu  # + designs in turns
 
-``--profile`` adds to each frame of phases 3 to 5 and 8 to 10 (a) two
+``--profile`` adds to each frame of phases 3 to 5 and 8 to 11 (a) two
 profiled frames: device time by kernel and by operator, each of the port's own kernels'
 device ms and launches a frame by build (``<prefix>.port_kernel``),
 the busy share, the idle gaps, copies and synchronisations.
@@ -245,6 +247,31 @@ and prints no result):
    (K4 8 a frame), its first two frames equal to the hand-driven
    hierarchical step bit for bit, a checkpoint after 4 frames resumed
    bit for bit, ms a frame beside phase 7's.
+11. occupancy K budgets and temporal fragment reuse on phase 4's
+   configuration: (a) ``k_budget="occupancy"`` with ``k_budget_min`` K
+   (every target K), driven as phase 4 drives its frame, bit for bit
+   phase 4's frame and thresholds; then the default budget: each
+   rank's target at the last frame against ``k_budget_target``
+   recomputed on the host from the ranks' live fractions, each rank's
+   mean used slots against the static frame's, the image's dB against
+   phase 4's; (b) ``temporal_reuse="ranges"`` on a frozen field (phase
+   4's initial state, no sim advance, a still camera; temporal
+   thresholds) on the frame schedule, in tile waves and on the 2 x 4
+   mesh: frame 1 marches every rank, frames 2-8 launch no K1 and 8 K4
+   a frame (8·T in waves), each equal to frame 1 bit for bit, ms a
+   frame beside phase 4's; (c) reuse on an advancing Gray-Scott field
+   whose seed cubes sit in rank 1's slab (the others at the exact
+   fixed point u = 1, v = 0), histogram and temporal, each against
+   the same run with reuse off: the clean ranks and K1's launches a
+   frame, ms a frame, histogram frames bit for bit, temporal ones at
+   60 dB or more; (d) phase 7's session over 8 ranks with reuse and
+   ``obs.enabled`` on that field, the camera still: a warm and 8 timed
+   frames (host clock), the reuse counters and the last
+   ``delta_dirty_tiles`` event, its first 3 frames bit for bit against
+   the hand-driven step; (e) the P-frame codec (``ops/delta.py``) on
+   (c)'s histogram reuse frames, 8 column tiles a frame through
+   qpack8, encoded, packed, unpacked and decoded bit for bit, the code
+   bytes a frame against ``modeled_delta_traffic``.
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -4507,6 +4534,644 @@ def run_hier_session(dev):
         shutil.rmtree(out, ignore_errors=True)
 
 
+# ------------------------------------------------------------ phase 11
+
+
+# phase 11: each run's frames (the first marches every rank), the
+# advancing field's seed cubes (z centre, y, x as shares of the grid:
+# at 512^3 z = 104, inside rank 1's slab; half side GRID / 64) and the
+# P-frame codec's I period (its tiles: one a rank's column block)
+REUSE_FRAMES = 8
+REUSE_PSNR_DB = 60.0
+LOW_SEEDS = ((13 / 64, 1 / 2, 1 / 2), (13 / 64, 5 / 16, 11 / 16),
+             (13 / 64, 11 / 16, 5 / 16))
+DELTA_IFRAME = 8
+# phase 11 (b)'s frozen-field configurations: (name, schedule, hosts)
+FROZEN_CONFIGS = (("r1_frame", "frame", 1), ("r2_waves", "waves", 1),
+                  ("r3_hier", "frame", 2))
+
+
+def kbudget_targets(dp, mesh, spec, tf, vcfg, ccfg, v, origin, spacing,
+                    cam):
+    """Every rank's K budget target as the step computes it (its frame
+    state's pyramids, the live fractions summed on the device) and the
+    same recomputed on the host from the ranks' live fractions in f32;
+    returns (device targets, host targets, live fractions), numpy."""
+    import numpy as np
+
+    from scenery_insitu_tpu_torch.parallel.mesh import shard_volume
+
+    slabs = shard_volume(v, mesh)
+    rows = dp._frame_rows(slabs, spec)
+    frames = [dp._RankFrame(slabs, rows, r, origin, spacing, cam, spec, tf,
+                            pyramid=True) for r in range(RANKS)]
+    got = np.array([float(x) for x in dp._k_targets(frames, RANKS, vcfg,
+                                                    ccfg)], np.float32)
+    live = np.array([float(fr.pyrs[0].live_fraction()) for fr in frames],
+                    np.float32)
+    total = np.float32(0.0)
+    for x in live:
+        total = np.float32(total + x)
+    k = np.float32(vcfg.max_supersegments)
+    if total > 1e-9:
+        host = np.float32(RANKS * vcfg.max_supersegments) * live / \
+            np.maximum(total, np.float32(1e-12))
+    else:
+        host = np.full(RANKS, k, np.float32)
+    host = np.clip(host, np.float32(min(ccfg.k_budget_min, K)), k)
+    return got, host.astype(np.float32), live
+
+
+def rank_slots(dp, mesh, spec, tf, vcfg, v, origin, spacing, cam, thr,
+               kts=None):
+    """Every rank's mean live slots a pixel of its fragment, marched on
+    ``v`` at ``cam`` with its carried maps of ``thr`` (and its K budget
+    target)."""
+    import torch
+
+    from scenery_insitu_tpu_torch.parallel.mesh import shard_volume
+
+    slabs = shard_volume(v, mesh)
+    rows = dp._frame_rows(slabs, spec)
+    out = []
+    for r in range(RANKS):
+        kt = None if kts is None else torch.tensor(float(kts[r]),
+                                                   device=v.device)
+        vdi = dp._mxu_rank_generate(slabs, rows, r, origin, spacing, cam,
+                                    spec, tf, vcfg,
+                                    dp._rank_thr(thr, r, spec.nj),
+                                    k_target=kt)[0]
+        out.append(float(torch.isfinite(vdi.depth[:, 0]).sum(0)
+                         .float().mean()))
+    return out
+
+
+def run_kbudget_frames(dev, ref0):
+    """Phase 11 (a): the K budget on phase 4's frame. First with
+    ``k_budget_min = K`` (every target K): the frame equals phase 4's
+    bit for bit. Then the default budget over phase 4's 8 temporal
+    frames: each rank's target at the last frame against the host's
+    recompute, each rank's mean used slots against the static frame's,
+    the image against phase 4's. Returns {name: run}."""
+    import numpy as np
+    import torch
+
+    from scenery_insitu_tpu_torch.core.vdi import render_vdi_same_view
+    from scenery_insitu_tpu_torch.core.volume import Volume
+    from scenery_insitu_tpu_torch.parallel import pipeline as dp
+    from scenery_insitu_tpu_torch.sim import grayscott as gs
+
+    frames = WARMUP_FRAMES + TIMED_FRAMES
+    res = {}
+    for name, kmin in (("kbudget_kmin16", K), ("kbudget", None)):
+        comp = dict(k_budget="occupancy")
+        if kmin is not None:
+            comp["k_budget_min"] = kmin
+        mesh, spec, tf, (vcfg, ccfg), seed, step, camera = dist_steps(
+            dev, RANKS, GRID, BASE_EYE, **comp)
+        st = gs.GrayScott.init((GRID,) * 3, seed=SEED, device=dev)
+        box = Volume.centered(st.v, extent=2.0)
+        run = drive_dist_frames(name, step, seed, mesh, camera, st,
+                                box.origin, box.spacing)
+        require_launched(run["launches"], DIST_KERNELS, name)
+        check_vdi(name, run["vdi"], (K_OUT, 4, spec.nj, spec.ni),
+                  (K_OUT, 2, spec.nj, spec.ni))
+        cam = camera(frames - 1)
+        got, host, live = kbudget_targets(dp, mesh, spec, tf, vcfg, ccfg,
+                                          run["v"], box.origin, box.spacing,
+                                          cam)
+        err = float(np.abs(got - host).max())
+        log(f"{name}.targets", f"{[round(float(x), 4) for x in got]} "
+            f"(host recompute max diff {err:.3e}; live fractions "
+            f"{[round(float(x), 4) for x in live]}; k_min "
+            f"{ccfg.k_budget_min}, K {K})")
+        if not err <= 1e-5:
+            raise AssertionError(f"{name}: the step's targets differ from "
+                                 f"the host's recompute by {err}")
+        dc, dd, same, share, exact = vdi_gap(run["vdi"], ref0["vdi"])
+        tdiff = thr_gap(run["thr"], ref0["thr"])
+        psnr = image_psnr(render_vdi_same_view(run["vdi"]),
+                          render_vdi_same_view(ref0["vdi"]))
+        log(f"{name}.vs_phase4", f"bit_exact={exact} colour_max_diff="
+            f"{dc:.3e} depth_max_diff={dd:.3e} same_live_slots={same} "
+            f"pixels_live_count_differs={share:.6f} threshold_max_diff="
+            f"{tdiff:.3e} psnr_db={psnr:.2f} (phase 4's {frames} frames, "
+            f"static K)")
+        if kmin is not None:
+            if not ((got == K).all() and exact and tdiff == 0.0):
+                raise AssertionError(f"{name}: with every target K the "
+                                     f"frame is not phase 4's bit for bit")
+        else:
+            ours = rank_slots(dp, mesh, spec, tf, vcfg, run["v"],
+                              box.origin, box.spacing, cam, run["thr"],
+                              got)
+            static = rank_slots(dp, mesh, spec, tf, vcfg, run["v"],
+                                box.origin, box.spacing, cam, ref0["thr"])
+            log(f"{name}.used_slots", f"budget {[round(x, 3) for x in ours]}"
+                f" static {[round(x, 3) for x in static]} (mean live slots "
+                f"a pixel of each rank's fragment at the last frame)")
+        res[name] = run
+        del run["frame"]
+        torch.cuda.empty_cache()
+    return res
+
+
+def low_slab_state(dev):
+    """Gray-Scott at the exact fixed point u = 1, v = 0 but for
+    LOW_SEEDS' cubes, all inside rank 1's slab at 512^3: the non-zero
+    front moves one cell a step, so after phase 11's 90 steps the slabs
+    of ranks 4-7 are still exactly at the fixed point (the periodic z
+    boundary wraps nothing that far)."""
+    import torch
+
+    from scenery_insitu_tpu_torch.sim import grayscott as gs
+
+    st = gs.GrayScott.init((GRID,) * 3, seed=SEED, device=dev)
+    u = torch.ones_like(st.u)
+    v = torch.zeros_like(st.v)
+    r = max(GRID // 64, 1)
+    for share in LOW_SEEDS:
+        z, y, x = (int(s * GRID) for s in share)
+        u[z - r:z + r, y - r:y + r, x - r:x + r] = 0.5
+        v[z - r:z + r, y - r:y + r, x - r:x + r] = 0.25
+    return gs.GrayScott(u, v, st.params)
+
+
+def reuse_steps(dev, mode, reuse, fold="auto", **comp):
+    """Phase 4's distributed step in ``mode`` (``"temporal"`` or
+    ``"histogram"``) with fragment reuse on or off: (mesh, spec, tf,
+    (vcfg, ccfg), thr seed or None, reuse seed or None, step)."""
+    from scenery_insitu_tpu_torch.config import (CompositeConfig,
+                                                 MeshConfig,
+                                                 SliceMarchConfig, VDIConfig)
+    from scenery_insitu_tpu_torch.core.camera import Camera
+    from scenery_insitu_tpu_torch.core.transfer import for_dataset
+    from scenery_insitu_tpu_torch.ops import slicer
+    from scenery_insitu_tpu_torch.parallel import pipeline as dp
+    from scenery_insitu_tpu_torch.parallel.topology import make_topology_mesh
+
+    topology = comp.pop("topology", None)
+    mesh, _ = make_topology_mesh(topology, MeshConfig(num_devices=RANKS),
+                                 device=dev)
+    base = Camera.create(BASE_EYE, fov_y_deg=50.0, near=0.5, far=20.0,
+                         device=dev)
+    vcfg = VDIConfig(max_supersegments=K, adaptive_mode=mode,
+                     histogram_bins=BINS)
+    spec = slicer.make_spec(base, (GRID,) * 3,
+                            SliceMarchConfig(fold=fold, chunk=CHUNK),
+                            axis_sign=slicer.choose_axis(base),
+                            multiple_of=RANKS)
+    if comp.get("schedule") == "waves":
+        comp.setdefault("wave_tiles", wave_tiles_for(spec.ni, RANKS))
+    if reuse:
+        comp["temporal_reuse"] = "ranges"
+    ccfg = CompositeConfig(max_output_supersegments=K_OUT,
+                           adaptive_iters=COMP_ITERS, **comp)
+    tf = for_dataset("gray_scott", device=dev)
+    build = (dp.distributed_vdi_step_mxu_temporal if mode == "temporal"
+             else dp.distributed_vdi_step_mxu)
+    step = build(mesh, tf, spec, vcfg, ccfg, topology=topology)
+    seed = (dp.distributed_initial_threshold_mxu(mesh, tf, spec, vcfg)
+            if mode == "temporal" else None)
+    rseed = (dp.distributed_initial_reuse_mxu(mesh, tf, spec, vcfg, ccfg)
+             if reuse else None)
+    return mesh, spec, tf, (vcfg, ccfg), seed, rseed, step, base
+
+
+def reuse_frames(built, st, origin, spacing, advance, keep=False):
+    """REUSE_FRAMES frames of a phase 11 step from the state ``st`` at a
+    still camera (the sim advanced SIM_STEPS a frame when ``advance``),
+    each timed with CUDA events and the host clock, its launches read
+    after it. Returns the frames' VDIs (on the card when ``keep``),
+    dirty bits, launches, ms and the final thresholds."""
+    import torch
+
+    from scenery_insitu_tpu_torch import kernels
+    from scenery_insitu_tpu_torch.parallel.mesh import shard_volume
+    from scenery_insitu_tpu_torch.sim import grayscott as gs
+
+    mesh, spec, _, _, seed, rseed, step, cam = built
+    out = dict(vdi=[], dirty=[], launches=[], ms=[], wall=[])
+    kernels.reset_launches()
+    field = shard_volume(st.field, mesh)
+    thr = None if seed is None else seed(field, origin, spacing, cam)
+    ru = None if rseed is None else rseed(field, origin, spacing, cam)
+    out["seed_launches"] = kernels.launches()
+    torch.cuda.synchronize()
+    for i in range(REUSE_FRAMES):
+        kernels.reset_launches()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        h0 = time.perf_counter()
+        a.record()
+        if advance:
+            st = gs.multi_step_fast(st, SIM_STEPS)
+        args = (shard_volume(st.field, mesh), origin, spacing, cam)
+        if thr is not None:
+            args += (thr,)
+        if ru is not None:
+            args += (ru,)
+        res = step(*args)
+        if thr is not None and ru is not None:
+            (vdi, meta), thr, ru = res
+        elif thr is not None:
+            (vdi, meta), thr = res
+        elif ru is not None:
+            (vdi, meta), ru = res
+        else:
+            vdi, meta = res
+        b.record()
+        b.synchronize()
+        out["wall"].append((time.perf_counter() - h0) * 1e3)
+        out["ms"].append(a.elapsed_time(b))
+        out["launches"].append(kernels.launches())
+        out["dirty"].append(None if ru is None else
+                            [int(x) for x in ru.dirty.tolist()])
+        out["vdi"].append(vdi if keep else type(vdi)(
+            vdi.color.cpu(), vdi.depth.cpu()))
+    out.update(thr=thr, ru=ru, st=st, spec=spec, meta=meta)
+    return out
+
+
+def frames_ms(ms):
+    s = sorted(ms)
+    return s[len(s) // 2]
+
+
+def run_reuse_frozen(dev, ref0, profile=False):
+    """Phase 11 (b): fragment reuse on a frozen 512^3 field (phase 4's
+    initial state, no sim advance, a still camera), temporal thresholds,
+    on the frame schedule, in tile waves and on the 2 x 4 two-level
+    mesh: frame 1 marches every rank; frames 2-8 launch no K1 and 8 K4
+    a frame (8·T in waves) and equal frame 1 bit for bit. Returns
+    {name: summary}."""
+    import torch
+
+    from scenery_insitu_tpu_torch.core.volume import Volume
+    from scenery_insitu_tpu_torch.sim import grayscott as gs
+
+    res = {}
+    for name, sched, hosts in FROZEN_CONFIGS:
+        prefix = f"reuse_{name}"
+        comp = dict(schedule=sched)
+        if hosts > 1:
+            comp["topology"] = hier_topology(hosts, "f32")
+        built = reuse_steps(dev, "temporal", True, **comp)
+        ccfg = built[3][1]
+        t = ccfg.wave_tiles if sched == "waves" else 1
+        st = gs.GrayScott.init((GRID,) * 3, seed=SEED, device=dev)
+        box = Volume.centered(st.v, extent=2.0)
+        run = reuse_frames(built, st, box.origin, box.spacing,
+                           advance=False, keep=True)
+        first = run["vdi"][0]
+        if run["dirty"][0] != [1] * RANKS:
+            raise AssertionError(f"{prefix}: frame 1 dirty bits "
+                                 f"{run['dirty'][0]}")
+        k1 = [x["seg_fold_compact"] for x in run["launches"]]
+        k4 = [x["resegment_sorted"] for x in run["launches"]]
+        for i in range(1, REUSE_FRAMES):
+            vdi = run["vdi"][i]
+            if run["dirty"][i] != [0] * RANKS or k1[i] != 0 or \
+                    k4[i] != RANKS * t:
+                raise AssertionError(
+                    f"{prefix}: frame {i + 1} dirty {run['dirty'][i]}, K1 "
+                    f"{k1[i]}, K4 {k4[i]} (expected none, 0, {RANKS * t})")
+            if not (torch.equal(vdi.color, first.color)
+                    and torch.equal(vdi.depth, first.depth)):
+                raise AssertionError(f"{prefix}: frame {i + 1} differs "
+                                     f"from frame 1")
+        if k1[0] <= 0:
+            raise AssertionError(f"{prefix}: frame 1 launched no K1")
+        check_vdi(prefix, first, (K_OUT, 4, run["spec"].nj,
+                                  run["spec"].ni),
+                  (K_OUT, 2, run["spec"].nj, run["spec"].ni))
+        ms = frames_ms(run["ms"][1:])
+        wall = frames_ms(run["wall"][1:])
+        log(f"{prefix}.frames", f"K1 {k1} K4 {k4} a frame; frames 2-"
+            f"{REUSE_FRAMES} bit for bit frame 1's (schedule={sched} "
+            f"wave_tiles={t} hosts={hosts})")
+        log(f"{prefix}.ms_per_frame", f"{ms:.3f} (median of frames 2-"
+            f"{REUSE_FRAMES}, CUDA events; host clock {wall:.3f}); frame 1 "
+            f"{run['ms'][0]:.3f}; phase 4's {ref0['ms']:.3f}")
+        if profile:
+            mesh, _, _, _, _, _, step, cam = built
+            from scenery_insitu_tpu_torch.parallel.mesh import shard_volume
+
+            state = [run["thr"], run["ru"]]
+            field = shard_volume(st.field, mesh)
+
+            def one(_, state=state, step=step, field=field, cam=cam,
+                    box=box):
+                (_, _), state[0], state[1] = step(
+                    field, box.origin, box.spacing, cam, *state)
+
+            profile_frames(f"{prefix}.profile", one)
+        res[name] = dict(ms=ms, wall=wall, first_ms=run["ms"][0],
+                         launches=sum_launches(run["launches"]
+                                               + [run["seed_launches"]]),
+                         k1=k1, k4=k4)
+        del run, first, built
+        torch.cuda.empty_cache()
+    return res
+
+
+def sum_launches(per_frame):
+    out = collections.Counter()
+    for x in per_frame:
+        out.update(x)
+    return dict(out)
+
+
+def run_reuse_advancing(dev, profile=False):
+    """Phase 11 (c): fragment reuse on the advancing low-slab field
+    (`low_slab_state`), histogram then temporal thresholds, each against
+    the same run with reuse off: the clean ranks and K1's launches a
+    frame, ms a frame; histogram frames bit for bit, temporal ones at
+    REUSE_PSNR_DB. Returns the summaries and the histogram reuse run's
+    frames (host) for (e)."""
+    import torch
+
+    from scenery_insitu_tpu_torch.core.vdi import render_vdi_same_view
+    from scenery_insitu_tpu_torch.core.volume import Volume
+
+    res, keep = {}, None
+    for mode in ("histogram", "temporal"):
+        runs = {}
+        for reuse in (False, True):
+            prefix = f"reuse_low_{mode}_{'on' if reuse else 'off'}"
+            built = reuse_steps(dev, mode, reuse)
+            st = low_slab_state(dev)
+            box = Volume.centered(st.v, extent=2.0)
+            run = reuse_frames(built, st, box.origin, box.spacing,
+                               advance=True)
+            k1 = [x["seg_fold_compact"] for x in run["launches"]]
+            require_launched(sum_launches(run["launches"]
+                                          + [run["seed_launches"]]),
+                             DIST_KERNELS, prefix)
+            clean = [None if d is None else RANKS - sum(d)
+                     for d in run["dirty"]]
+            log(f"{prefix}.frames", f"clean ranks {clean} K1 {k1} a frame")
+            log(f"{prefix}.ms_per_frame", f"{frames_ms(run['ms'][1:]):.3f} "
+                f"(median of frames 2-{REUSE_FRAMES}, CUDA events; host "
+                f"clock {frames_ms(run['wall'][1:]):.3f}; every frame "
+                f"{[round(x, 3) for x in run['ms']]})")
+            runs[reuse] = run
+            if profile and reuse and mode == "histogram":
+                from scenery_insitu_tpu_torch.parallel.mesh import (
+                    shard_volume)
+                from scenery_insitu_tpu_torch.sim import grayscott as gs
+
+                mesh, _, _, _, _, _, step, cam = built
+                state = [run["st"], run["ru"]]
+
+                def one(_, state=state, step=step, mesh=mesh, cam=cam,
+                        box=box):
+                    state[0] = gs.multi_step_fast(state[0], SIM_STEPS)
+                    (_, _), state[1] = step(shard_volume(state[0].field,
+                                                         mesh),
+                                            box.origin, box.spacing, cam,
+                                            state[1])
+
+                profile_frames(f"{prefix}.profile", one)
+            del built
+        off, on = runs[False], runs[True]
+        worst, gaps = math.inf, []
+        for i, (a, b) in enumerate(zip(on["vdi"], off["vdi"])):
+            dc, dd, same, share, exact = vdi_gap(a, b)
+            gaps.append((exact, dc, dd))
+            if mode == "histogram" and not exact:
+                raise AssertionError(f"reuse_low_histogram: frame {i + 1} "
+                                     f"differs from reuse off ({dc}, {dd})")
+            psnr = image_psnr(render_vdi_same_view(a),
+                              render_vdi_same_view(b))
+            worst = min(worst, psnr)
+        log(f"reuse_low_{mode}.vs_off", f"min_psnr_db={worst:.2f} "
+            f"(bit_exact, colour, depth max diff) a frame "
+            f"{[(e, float(f'{c:.3e}'), float(f'{d:.3e}')) for e, c, d in gaps]}")
+        if mode == "temporal" and not worst >= REUSE_PSNR_DB:
+            raise AssertionError(f"reuse_low_temporal: {worst:.2f} dB from "
+                                 f"reuse off")
+        res[mode] = dict(on_ms=frames_ms(on["ms"][1:]),
+                         off_ms=frames_ms(off["ms"][1:]),
+                         on_launches=sum_launches(on["launches"]
+                                                  + [on["seed_launches"]]),
+                         off_launches=sum_launches(off["launches"]
+                                                   + [off["seed_launches"]]),
+                         clean=[RANKS - sum(d) for d in on["dirty"]],
+                         k1=[x["seg_fold_compact"] for x in on["launches"]],
+                         psnr=worst)
+        if mode == "histogram":
+            keep = on["vdi"]
+        del runs, off, on
+        torch.cuda.empty_cache()
+    return res, keep
+
+
+class LowSlabSim:
+    """A sim adapter over `low_slab_state`, advanced by K3."""
+
+    kind = "gray_scott"
+
+    def __init__(self, dev):
+        self.state = low_slab_state(dev)
+
+    def advance(self, n):
+        from scenery_insitu_tpu_torch.sim import grayscott as gs
+
+        self.state = gs.multi_step_fast(self.state, n)
+
+    @property
+    def field(self):
+        return self.state.field
+
+
+def run_reuse_session(dev):
+    """Phase 11 (d): phase 7's session over 8 ranks with fragment reuse
+    and ``obs.enabled`` on the advancing low-slab field, the camera
+    still: a warm and 8 timed frames (host clock), the reuse counters
+    and the last ``delta_dirty_tiles`` event, and its first 3 frames
+    equal to the hand-driven reuse step bit for bit. Returns (launches,
+    ms, counters)."""
+    import numpy as np
+
+    from scenery_insitu_tpu_torch import kernels
+    from scenery_insitu_tpu_torch.core.camera import Camera
+    from scenery_insitu_tpu_torch.core.transfer import for_dataset
+    from scenery_insitu_tpu_torch.ops import slicer
+    from scenery_insitu_tpu_torch.parallel import pipeline as dp
+    from scenery_insitu_tpu_torch.parallel.mesh import shard_volume
+    from scenery_insitu_tpu_torch.runtime.session import InSituSession
+    from scenery_insitu_tpu_torch.sim import grayscott as gs
+
+    cfg = session_config(GRID, ranks=RANKS).with_overrides(
+        "composite.temporal_reuse=ranges", "obs.enabled=true")
+    frames = {}
+    cam0 = Camera.create(BASE_EYE, fov_y_deg=50.0, near=0.5, far=20.0,
+                         device=dev)
+    sim = LowSlabSim(dev)
+    st0 = sim.state
+    sess = InSituSession(cfg, camera=cam0, sim=sim,
+                         sinks=[capture_into(frames)], device=dev)
+    origin, spacing = sess._origin, sess._spacing
+    kernels.reset_launches()
+    sess.run(SESSION_WARM)
+    before = phase_stats(sess.timers)
+    ms, _ = timed_run(sess, SESSION_TIMED)
+    launches = kernels.launches()
+    log("session_reuse.launches", json.dumps(launches))
+    require_launched(launches, DIST_KERNELS, "the reuse session")
+    c = sess.obs.counters
+    counters = {k: c.get(k, 0) for k in ("delta_march_skipped",
+                                         "reuse_steps_built",
+                                         "compile_step", "build_steps")}
+    evs = [e for e in sess.obs.events if e.get("name") == "delta_dirty_tiles"]
+    log("session_reuse.counters", json.dumps(counters) + " last "
+        "delta_dirty_tiles " + json.dumps(evs[-1]["attrs"] if evs else None))
+    if counters["reuse_steps_built"] < 1 or not evs:
+        raise AssertionError("session_reuse: no reuse step or dirty event")
+    log("session_reuse.ms_per_frame", f"{ms:.3f} (host clock, mean of "
+        f"{SESSION_TIMED} frames after a warm one, every frame fetched; "
+        f"phase 7's one-rank session "
+        f"{SESSION_MS.get('session_nosinks', math.nan):.3f} without "
+        f"sinks)")
+    log_phase_stats("session_reuse", sess.timers, before)
+    mesh = sess.mesh
+    del sess
+
+    spec = slicer.make_spec(cam0, (GRID,) * 3, cfg.slicer,
+                            axis_sign=slicer.choose_axis(cam0),
+                            multiple_of=RANKS)
+    tf = for_dataset("gray_scott", device=dev)
+    seed = dp.distributed_initial_threshold_mxu(mesh, tf, spec, cfg.vdi)
+    rseed = dp.distributed_initial_reuse_mxu(mesh, tf, spec, cfg.vdi,
+                                             cfg.composite)
+    step = dp.distributed_vdi_step_mxu_temporal(mesh, tf, spec, cfg.vdi,
+                                                cfg.composite)
+    st, thr, ru, hand = st0, None, None, {}
+    for i in range(3):
+        st = gs.multi_step_fast(st, SIM_STEPS)
+        field = shard_volume(st.field, mesh)
+        if thr is None:
+            thr = seed(field, origin, spacing, cam0)
+            ru = rseed(field, origin, spacing, cam0)
+        (vdi, _), thr, ru = step(field, origin, spacing, cam0, thr, ru)
+        hand[i] = {"vdi_color": vdi.color.cpu().numpy(),
+                   "vdi_depth": vdi.depth.cpu().numpy()}
+    log("session_reuse.hand_dirty", f"{ru.dirty.tolist()} (frame 3)")
+    check_frames_equal("session_reuse_vs_hand",
+                       {i: frames[i] for i in hand}, hand)
+    return launches, ms, counters
+
+
+def run_delta_codec(vdis):
+    """Phase 11 (e): the P-frame codec on (c)'s histogram reuse frames:
+    each frame's RANKS column-block tiles quantized to qpack8 and
+    encoded against the previous frame's (`ops/delta.DeltaEncoder`,
+    I period DELTA_IFRAME), packed (`io/vdi_io.pack_delta_blobs`, zlib),
+    unpacked and decoded bit for bit; the code bytes a frame against
+    `ops/delta.modeled_delta_traffic` at the run's measured SKIP and P
+    shares. Returns the summary."""
+    import numpy as np
+
+    from scenery_insitu_tpu_torch.io.vdi_io import (decompress,
+                                                    delta_expected_bytes,
+                                                    pack_delta_blobs,
+                                                    unpack_delta_payload)
+    from scenery_insitu_tpu_torch.ops import delta as dl
+    from scenery_insitu_tpu_torch.ops.wire import qpack8_quantize_np
+
+    enc, dec = dl.DeltaEncoder(DELTA_IFRAME), dl.DeltaDecoder()
+    per_frame, modes = [], collections.Counter()
+    full_total = wire_total = packed_total = 0
+    changed = slots = 0
+    t0 = time.perf_counter()
+    for vdi in vdis:
+        color, depth = vdi.color.numpy(), vdi.depth.numpy()
+        w = color.shape[-1] // RANKS
+        fb = wb = pb = 0
+        for t in range(RANKS):
+            cc, dd, near, far = qpack8_quantize_np(
+                color[..., t * w:(t + 1) * w], depth[..., t * w:(t + 1) * w])
+            rec = enc.encode(t, cc, dd, near, far)
+            modes[rec.mode] += 1
+            if rec.mode == "P":
+                changed += rec.c_payload[2].size
+                slots += cc.size
+            h, cb, db = pack_delta_blobs(rec, codec="zlib")
+            craw = decompress(cb, "zlib") if cb else b""
+            draw = decompress(db, "zlib") if db else b""
+            if (len(craw), len(draw)) != delta_expected_bytes(
+                    h, cc.shape, dd.shape):
+                raise AssertionError("delta_codec: blob byte counts")
+            cp, dp_ = unpack_delta_payload(h, craw, draw, cc.shape,
+                                           dd.shape)
+            got = dec.apply(t, h["mode"], h["gen"], h["base"], cp, dp_,
+                            rec.scale)
+            if got is None or not (np.array_equal(got[0], cc)
+                                   and np.array_equal(got[1], dd)):
+                raise AssertionError(f"delta_codec: tile {t} does not "
+                                     f"decode bit for bit")
+            fb += rec.full_bytes
+            wb += rec.wire_bytes
+            pb += len(cb) + len(db)
+        per_frame.append((fb, wb, pb))
+        full_total += fb
+        wire_total += wb
+        packed_total += pb
+    n = len(vdis) * RANKS
+    k, _, h, wd = vdis[0].color.shape
+    skip = modes["SKIP"] / n
+    p = modes["P"] / n
+    model = dl.modeled_delta_traffic(k, h, wd, skip_frac=skip, p_frac=p,
+                                     residual_frac=(changed / slots
+                                                    if slots else 0.0),
+                                     iframe_period=DELTA_IFRAME)
+    log("delta_codec.frames", json.dumps(
+        [dict(full=f, wire=w, zlib=z) for f, w, z in per_frame]) +
+        f" (code bytes a frame: qpack8 full, the records' wire bytes, "
+        f"after zlib; modes {dict(modes)}; decoded bit for bit; "
+        f"{time.perf_counter() - t0:.1f} s on the host)")
+    log("delta_codec.vs_model", f"measured {wire_total / len(vdis):.0f} B "
+        f"a frame of {full_total / len(vdis):.0f} (x"
+        f"{full_total / max(wire_total, 1):.3f}); modelled "
+        f"{model['delta_bytes_per_frame']:.0f} of "
+        f"{model['qpack8_bytes_per_frame']} (x"
+        f"{model['reduction_vs_qpack8']:.3f}) at skip {skip:.3f}, P "
+        f"{p:.3f}, residual {model['residual_frac']:.4f}")
+    return dict(modes=dict(modes), wire=wire_total / len(vdis),
+                full=full_total / len(vdis), packed=packed_total / len(vdis),
+                model=model["delta_bytes_per_frame"])
+
+
+def run_phase11(dev, ref0, done, profile=False):
+    """Phase 11: (a) the K budget, (b) reuse on the frozen field, (c)
+    reuse on the advancing low-slab field, (d) the reuse session, (e)
+    the P-frame codec; ``done(name)`` logs each part's wall time.
+    Returns the summaries and every run's launches by configuration."""
+    import torch
+
+    out = {"kbudget": run_kbudget_frames(dev, ref0)}
+    launches = {n: r["launches"] for n, r in out["kbudget"].items()}
+    done("phase11.a")
+    out["frozen"] = run_reuse_frozen(dev, ref0, profile)
+    launches.update({n: r["launches"] for n, r in out["frozen"].items()})
+    done("phase11.b")
+    out["low"], vdis = run_reuse_advancing(dev, profile)
+    for mode, r in out["low"].items():
+        launches[f"low_{mode}_on"] = r["on_launches"]
+        launches[f"low_{mode}_off"] = r["off_launches"]
+    done("phase11.c")
+    out["session"] = run_reuse_session(dev)
+    launches["session_reuse"] = out["session"][0]
+    torch.cuda.empty_cache()
+    done("phase11.d")
+    out["codec"] = run_delta_codec(vdis)
+    del vdis
+    done("phase11.e")
+    out["launches"] = launches
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -4533,6 +5198,10 @@ def main(argv=None) -> int:
                     help="another design of csrc/count_multi.cu (the same "
                          "C entries) to check and time in turns with K2 in "
                          "phase 2; repeatable")
+    ap.add_argument("--phase11-only", action="store_true",
+                    help="run the build, phase 4's distributed frame (the "
+                         "reference of phase 11 (a)) and phase 11 only, "
+                         "then exit without the kernel table")
     ap.add_argument("--events-compare", action="append", default=[],
                     metavar="NAME=PATH",
                     help="another design of csrc/fold_chunk.cu (the same C "
@@ -4565,6 +5234,14 @@ def main(argv=None) -> int:
         log(f"{name}.wall_s", f"{time.perf_counter() - t0:.1f} (since the "
             f"build)")
 
+    if args.phase11_only:
+        dist_ref = run_dist_frame(dev, args.profile)[3]
+        phase_done("phase4")
+        run_phase11(dev, dist_ref, phase_done, args.profile)
+        phase_done("phase11")
+        log("phase11_only", "done (no kernel table: run without flags for "
+            "it)")
+        return 0
     compare = compare_folds(args.k1_compare)
     fused_compare = compare_fused(args.fused_compare)
     k4_compare = compare_resegments(args.k4_compare)
@@ -4644,7 +5321,6 @@ def main(argv=None) -> int:
     t10 = time.perf_counter()
     hier = run_hier_frames(dev, dist_ref, decomp.pop("p1_frame"),
                            args.profile)
-    del dist_ref
     torch.cuda.empty_cache()
     phase_done("phase10.frames")
     check_small_hier(dev)
@@ -4653,6 +5329,13 @@ def main(argv=None) -> int:
     log("phase10.wall_s", f"{time.perf_counter() - t10:.1f} (the two-level "
         f"composite)")
     phase_done("phase10")
+    t11 = time.perf_counter()
+    p11 = run_phase11(dev, dist_ref, phase_done, args.profile)
+    del dist_ref
+    torch.cuda.empty_cache()
+    log("phase11.wall_s", f"{time.perf_counter() - t11:.1f} (K budgets and "
+        f"fragment reuse)")
+    phase_done("phase11")
     n_frames = WARMUP_FRAMES + TIMED_FRAMES
 
     table = [
@@ -4825,9 +5508,18 @@ def main(argv=None) -> int:
             march_ms=r["march_ms"], march_bound_ms=r["march_bound_ms"],
             compare_ms=r["compare_ms"]))
     # the session's runs (phase 7): K3, K2 and K1 in the flagship loop,
-    # K4 in the 4-rank session
+    # K4 in the 4-rank session; phase 11: each K budget and reuse run's
+    # launches (8 frames and their seeds), and K1's and K4's a frame on
+    # the frozen field (the first frame marches every rank)
     for row in table:
         name = row["name"]
+        if name in DIST_KERNELS:
+            row["phase11_launches"] = {c: v.get(name, 0) for c, v in
+                                       p11["launches"].items()}
+        if name in ("seg_fold_compact", "resegment_sorted"):
+            key = "k1" if name == "seg_fold_compact" else "k4"
+            row["phase11_frozen_launches_per_frame"] = {
+                c: v[key] for c, v in p11["frozen"].items()}
         if name in FRAME_KERNELS:
             row["session_launches"] = session_launches[name]
             row["hier_session_launches"] = hier_session_launches[name]

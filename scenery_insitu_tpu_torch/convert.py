@@ -17,6 +17,7 @@ import torch
 from scenery_insitu_tpu_torch.core.transfer import TransferFunction
 from scenery_insitu_tpu_torch.core.vdi import VDI, VDIMetadata
 from scenery_insitu_tpu_torch.device import resolve_device
+from scenery_insitu_tpu_torch.ops.delta import DeltaRecord, ReuseState
 from scenery_insitu_tpu_torch.ops.occupancy import FieldRanges
 from scenery_insitu_tpu_torch.ops.supersegments import ThresholdState
 from scenery_insitu_tpu_torch.sim.grayscott import GrayScott, GrayScottParams
@@ -93,6 +94,33 @@ def packed_state(packed, device=None):
                          f"{tuple(color.shape)}, depth {tuple(depth.shape)}"
                          f", small {tuple(small.shape)} (5 or 12 rows)")
     return color, depth, small
+
+
+def reuse_state(state, device=None) -> ReuseState:
+    """The rank-stacked fragment reuse carry: ``sig f32[n*S]``, ``color
+    f32[n*K, 4, H, W]`` and ``depth f32[n*K, 2, H, W]`` on ``device``;
+    ``valid`` and ``dirty i32[n]`` on the host, where the port's step
+    decides."""
+    dev = resolve_device(device)
+    sig, color, depth, valid, dirty = _fields(state, ReuseState._fields)
+    return ReuseState(_tensor(sig, np.float32, dev),
+                      _tensor(color, np.float32, dev),
+                      _tensor(depth, np.float32, dev),
+                      _tensor(valid, np.int32, "cpu"),
+                      _tensor(dirty, np.int32, "cpu"))
+
+
+def delta_record(rec) -> DeltaRecord:
+    """A P-frame codec record (the reference's ``ops/delta.DeltaRecord``,
+    numpy payloads) as the port's; the payload arrays are copied."""
+    vals = dict(zip(DeltaRecord._fields,
+                    _fields(rec, DeltaRecord._fields)))
+    for k in ("c_payload", "d_payload"):
+        vals[k] = tuple(np.array(x) for x in vals[k])
+    for k in ("gen", "base_gen", "full_bytes", "wire_bytes"):
+        vals[k] = int(vals[k])
+    vals["scale"] = tuple(float(x) for x in vals["scale"])
+    return DeltaRecord(**vals)
 
 
 _META_DTYPES = {"window_dims": np.int32, "index": np.int32,

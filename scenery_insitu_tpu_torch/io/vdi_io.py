@@ -15,9 +15,10 @@ Codecs: ``none``, ``zlib``, ``lzma`` and ``zstd``; ``zstd`` degrades to
 ``zlib`` (ledgered ``io.vdi_codec``) where the ``zstandard`` package is
 missing. ``precision="qpack8"`` quantizes the buffers with the sort-last
 wire's quantizer (``ops/wire.qpack8_quantize_np``) before the codec and
-``load_vdi`` dequantizes them back to f32. The LZ4 block codec is
-ROADMAP A11 and the temporal-delta records ROADMAP A8b item 6; each
-raises here.
+``load_vdi`` dequantizes them back to f32. The temporal-delta records
+of ``ops/delta.py`` serialize through `pack_delta_blobs` and
+`unpack_delta_payload`. The LZ4 block codec is ROADMAP A11 and raises
+here.
 """
 
 from __future__ import annotations
@@ -238,13 +239,77 @@ def load_vdi_tile(path: str) -> Tuple[VDI, Optional[VDIMetadata],
 
 # ------------------------------------------------- temporal-delta records
 
-def _delta(*_, **__):
-    raise NotImplementedError(
-        "temporal-delta records (the P-frame wire codec) are not ported "
-        "yet (ROADMAP A8b item 6)")
+def pack_delta_blobs(rec, codec: str = "zstd", level: int = -1
+                     ) -> Tuple[dict, bytes, bytes]:
+    """Serialize one ``ops/delta.DeltaRecord`` into the stream's three
+    parts: ``(header_fields, color_blob, depth_blob)``. The header holds
+    the mode, the generation and its base, and for P the run and value
+    counts that re-split the blobs; the blobs are the codec-compressed
+    payloads: the full code arrays for I, ``starts | lengths | values``
+    for P, empty for SKIP."""
+    codec = resolve_codec(codec)
+    h = {"mode": rec.mode, "gen": int(rec.gen), "base": int(rec.base_gen)}
+    if rec.mode == "I":
+        cblob = compress(rec.c_payload[0].tobytes(), codec, level)
+        dblob = compress(rec.d_payload[0].tobytes(), codec, level)
+    elif rec.mode == "P":
+        cs, cl, cv = rec.c_payload
+        ds, dl, dv = rec.d_payload
+        h.update(c_runs=int(cs.size), c_n=int(cv.size),
+                 d_runs=int(ds.size), d_n=int(dv.size))
+        cblob = compress(cs.tobytes() + cl.tobytes() + cv.tobytes(),
+                         codec, level)
+        dblob = compress(ds.tobytes() + dl.tobytes() + dv.tobytes(),
+                         codec, level)
+    elif rec.mode == "SKIP":
+        cblob = dblob = b""
+    else:
+        raise ValueError(f"unknown delta mode {rec.mode!r}")
+    return h, cblob, dblob
 
 
-pack_delta_blobs = unpack_delta_payload = delta_expected_bytes = _delta
+def delta_expected_bytes(dh: dict, cshape: Tuple[int, ...],
+                         dshape: Tuple[int, ...]) -> Tuple[int, int]:
+    """The decompressed byte counts a delta record's blobs must have;
+    ``cshape``/``dshape`` are the FULL tile's code shapes."""
+    mode = dh.get("mode")
+    if mode == "I":
+        return (int(np.prod(cshape)) * 4, int(np.prod(dshape)) * 2)
+    if mode == "P":
+        return (int(dh["c_runs"]) * 8 + int(dh["c_n"]) * 4,
+                int(dh["d_runs"]) * 8 + int(dh["d_n"]) * 2)
+    if mode == "SKIP":
+        return 0, 0
+    raise ValueError(f"unknown delta mode {mode!r}")
+
+
+def unpack_delta_payload(dh: dict, craw: bytes, draw: bytes,
+                         cshape: Tuple[int, ...], dshape: Tuple[int, ...]
+                         ) -> Tuple[tuple, tuple]:
+    """Inverse of `pack_delta_blobs` on the decompressed blobs: the
+    ``(c_payload, d_payload)`` that ``ops/delta.DeltaDecoder.apply``
+    takes."""
+    mode = dh["mode"]
+    if mode == "SKIP":
+        return (), ()
+    if mode == "I":
+        return ((np.frombuffer(craw, np.uint32).reshape(cshape),),
+                (np.frombuffer(draw, np.uint16).reshape(dshape),))
+    if mode != "P":
+        raise ValueError(f"unknown delta mode {mode!r}")
+
+    def split(raw, runs, n, vdtype):
+        b = np.frombuffer(raw, np.uint8)
+        starts = b[:runs * 4].view(np.uint32)
+        lengths = b[runs * 4:runs * 8].view(np.uint32)
+        values = b[runs * 8:].view(vdtype)
+        if values.size != n:
+            raise ValueError(f"residual carries {values.size} values, "
+                             f"header declares {n}")
+        return starts, lengths, values
+
+    return (split(craw, int(dh["c_runs"]), int(dh["c_n"]), np.uint32),
+            split(draw, int(dh["d_runs"]), int(dh["d_n"]), np.uint16))
 
 
 # ------------------------------------------------- variable-length segments

@@ -78,6 +78,10 @@ _LEDGER_REGISTRY: Dict[str, str] = {
                           "frame schedule runs (nothing to overlap)",
     "config.removed_key": "a removed config key was set and ignored "
                           "(deprecation note in the reason)",
+    "delta.reuse": "temporal fragment reuse requested where no marched "
+                   "VDI fragment can be carried (gather/hybrid/plain/"
+                   "particle modes, scan blocks); every frame "
+                   "re-marches",
     "delivery.drain": "teardown drain of the async delivery queue timed "
                       "out; undelivered frames were abandoned so "
                       "shutdown could proceed",
@@ -93,6 +97,9 @@ _LEDGER_REGISTRY: Dict[str, str] = {
                            "loop; the last unflushed obs window was "
                            "dumped best-effort to the configured "
                            "trace/metrics paths",
+    "occupancy.k_budget": "occupancy K budgets requested where no "
+                          "pyramid/adaptive threshold exists; static "
+                          "budgets run",
     "occupancy.rebalance": "render rebalancing requested where there is "
                            "nothing to rebalance (single rank / no volume "
                            "field); even z-slabs render",
@@ -132,6 +139,11 @@ _COUNTER_REGISTRY: Dict[str, str] = {
     "delivery_frames_delivered": "the async delivery worker finished "
                                  "one frame's sinks (tiles in column "
                                  "order, then the frame sinks)",
+    "delta_bytes_saved": "wire bytes avoided by a temporal-delta "
+                         "(SKIP/P) record vs the full I-tile encoding",
+    "delta_march_skipped": "a rank's re-march was skipped because its "
+                           "occupancy range signature was unchanged",
+    "delta_tiles_skipped": "an unchanged tile shipped as a SKIP record",
     "delivery_frames_enqueued": "the render loop handed one fetched "
                                 "frame to the async delivery queue",
     "delivery_frames_inflight": "net frames inside the delivery plane "
@@ -145,12 +157,17 @@ _COUNTER_REGISTRY: Dict[str, str] = {
                              "dispatch path",
     "hier_composite_builds": "a two-level hierarchical composite "
                              "schedule was built",
+    "iframe_forced": "the delta encoder forced a full I-tile (resync or "
+                     "cadence)",
+    "occupancy_kbudget_builds": "a K-budget occupancy plan was built",
     "rebalance_replans": "a rebalance replan (slab or brick-steal) was "
                          "executed",
     "rebalance_steps_built": "a render step was built for a rebalanced "
                              "partition",
     "regime_switches": "the camera entered another march regime than "
                        "the previous frame's",
+    "reuse_steps_built": "a temporal-reuse render step (carried "
+                         "fragments) was built",
     "ring_exchange_builds": "a ring all-to-all exchange program was "
                             "built",
     "ring_steps_built": "one hop of a ring exchange was built",

@@ -265,6 +265,26 @@ def _data_dim(axis_xyz: int) -> int:
     return {0: -1, 1: -2, 2: -3}[axis_xyz]
 
 
+# ------------------------------------------------------ load-aware K budget
+
+
+def k_budget_target(live_frac, total_live, n_ranks: int, k: int,
+                    k_min: int = 4) -> torch.Tensor:
+    """f32[] per-rank segment-count target of ``CompositeConfig.k_budget
+    = "occupancy"``: this rank's share ``n_ranks * k * live / total`` of
+    the mesh-wide budget, by its pyramid's live fraction, clamped to
+    ``[min(k_min, k), k]``; an all-empty mesh (total ~ 0) gives ``k``.
+    Output shapes stay at K on every rank: a sparse rank's adaptive
+    threshold closes fewer segments instead of chasing K. Tensors stay
+    on their device; numbers become CPU tensors."""
+    live = torch.as_tensor(live_frac, dtype=torch.float32)
+    total = torch.clamp(torch.as_tensor(total_live, dtype=torch.float32,
+                                        device=live.device), min=1e-12)
+    share = n_ranks * k * live / total
+    share = torch.where(total > 1e-9, share, torch.full_like(share, k))
+    return torch.clamp(share, float(min(k_min, k)), float(k))
+
+
 # -------------------------------------------- uneven z-slab render plans
 
 

@@ -784,7 +784,7 @@ def generate_vdi_mxu(vol: Volume, tf: TransferFunction, cam: Camera,
                      box_max: Optional[torch.Tensor] = None, v_bounds=None,
                      occupancy=None, axcam: Optional[AxisCamera] = None,
                      volp: Optional[torch.Tensor] = None, w_bounds=None,
-                     step_scale: float = 1.0
+                     step_scale: float = 1.0, k_target=None
                      ) -> Tuple[VDI, VDIMetadata, AxisCamera]:
     """VDI generation on the slice march, with the threshold of
     ``cfg.adaptive_mode`` "histogram" (one counting march over all
@@ -796,9 +796,13 @@ def generate_vdi_mxu(vol: Volume, tf: TransferFunction, cam: Camera,
     `_frame_march` (a caller's ``axcam`` replaces the box); ``w_bounds``
     and ``step_scale`` (a brick pooled 2^l-fold marches with
     ``step_scale = 2^-l`` on the fine camera with ``dwm * 2^l``): see
-    `slice_march`."""
+    `slice_march`. ``k_target`` (an f32 0-dim tensor, the occupancy K
+    budget's ``ops/occupancy.k_budget_target``) is the segment count the
+    adaptive threshold picks against instead of K; output shapes stay
+    at K."""
     cfg = cfg or VDIConfig()
     k = cfg.max_supersegments
+    kt = k if k_target is None else k_target
     nj, ni = spec.nj, spec.ni
     dev = vol.data.device
     if cfg.adaptive and cfg.adaptive_mode == "temporal":
@@ -810,7 +814,7 @@ def generate_vdi_mxu(vol: Volume, tf: TransferFunction, cam: Camera,
                                 v_bounds, occupancy, axcam, volp, w_bounds,
                                 step_scale)
     if cfg.adaptive and cfg.adaptive_mode == "histogram":
-        threshold = _histogram_threshold(march, cfg, k, nj, ni, spec.fold,
+        threshold = _histogram_threshold(march, cfg, kt, nj, ni, spec.fold,
                                          dev)
     elif cfg.adaptive:
         def count_fn(thr):
@@ -819,7 +823,7 @@ def generate_vdi_mxu(vol: Volume, tf: TransferFunction, cam: Camera,
                     st = ss.push_count(st, thr, rgba[i])
                 return st
             return march(consume, ss.init_count(nj, ni, device=dev)).count
-        threshold = ss.adaptive_threshold(count_fn, k, cfg.adaptive_iters,
+        threshold = ss.adaptive_threshold(count_fn, kt, cfg.adaptive_iters,
                                           nj, ni, device=dev)
     else:
         threshold = torch.full((nj, ni), cfg.threshold, device=dev)
@@ -858,6 +862,7 @@ def generate_vdi_mxu_temporal(vol: Volume, tf: TransferFunction,
                               axcam: Optional[AxisCamera] = None,
                               volp: Optional[torch.Tensor] = None,
                               w_bounds=None, step_scale: float = 1.0,
+                              k_target=None,
                               ) -> Tuple[VDI, VDIMetadata, AxisCamera,
                                          ss.ThresholdState]:
     """VDI generation with ONE march per frame (adaptive_mode
@@ -867,7 +872,8 @@ def generate_vdi_mxu_temporal(vol: Volume, tf: TransferFunction,
     target band for the next frame. Returns (vdi, meta, axcam,
     next_threshold). ``box_min``/``box_max``/``v_bounds``/``occupancy``/
     ``axcam``/``volp``/``w_bounds``/``step_scale``: see
-    `generate_vdi_mxu`."""
+    `generate_vdi_mxu`; the controller bisects toward ``k_target``
+    instead of K when it is given."""
     cfg = cfg or VDIConfig()
     k = cfg.max_supersegments
     axcam, march = _frame_march(vol, tf, cam, spec, box_min, box_max,
@@ -876,7 +882,8 @@ def generate_vdi_mxu_temporal(vol: Volume, tf: TransferFunction,
     color, depth, count = _write_march(march, vol, tf, axcam, spec,
                                        threshold.thr, k, count=True,
                                        step_scale=step_scale)
-    next_thr = ss.update_threshold(threshold, count, k,
+    next_thr = ss.update_threshold(threshold, count,
+                                   k if k_target is None else k_target,
                                    cfg.adaptive_delta, cfg.thr_min,
                                    cfg.thr_max, cfg.temporal_track)
     return (VDI(color, depth),

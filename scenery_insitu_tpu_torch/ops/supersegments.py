@@ -232,10 +232,13 @@ def update_threshold(state: ThresholdState, count: torch.Tensor, max_k,
     becomes the lower bound and bisects up; under the band it becomes the
     upper bound and bisects down (only when the bracket allows a >= 25%
     step); in band it holds. The bracket then decays outward by
-    ``track``."""
+    ``track``.
+
+    ``max_k`` is an int K or an f32 0-dim tensor: the per-rank target of
+    the occupancy K budget (``ops/occupancy.k_budget_target``), compared
+    with the counts as f32 and never rounded to an int."""
     over = count > max_k
-    # the band edge: the f64 product rounded to f32, then floored
-    under = count < float(np.floor(np.float32(max_k * (1.0 - delta))))
+    under = count < _band_edge(max_k, delta)
     thr, lo, hi = state
 
     lo = torch.where(over, thr, lo)
@@ -250,10 +253,20 @@ def update_threshold(state: ThresholdState, count: torch.Tensor, max_k,
     return ThresholdState(new, lo, hi)
 
 
+def _band_edge(max_k, delta: float):
+    """The lower band edge ``floor(max_k * (1 - delta))``: for an int K
+    the f64 product rounded to f32, then floored (a host float); for an
+    f32 tensor target the f32 product floored on its device."""
+    if isinstance(max_k, torch.Tensor):
+        return torch.floor(max_k * (1.0 - delta))
+    return float(np.floor(np.float32(max_k * (1.0 - delta))))
+
+
 def pick_threshold(counts: torch.Tensor, tvec: torch.Tensor,
                    max_k) -> torch.Tensor:
     """Smallest candidate whose count is <= max_k (counts are
-    non-increasing in threshold). counts i32[B, H, W] -> thr f32[H, W]."""
+    non-increasing in threshold). counts i32[B, H, W] -> thr f32[H, W].
+    ``max_k``: an int K, or an f32 tensor target compared as f32."""
     ok = counts <= max_k                                    # [B, H, W]
     idx = torch.argmax(ok.to(torch.int8), dim=0)            # first True
     idx = torch.where(torch.any(ok, dim=0), idx, len(tvec) - 1)

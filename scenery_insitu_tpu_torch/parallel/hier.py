@@ -27,7 +27,12 @@ payloads unchanged, so the merged stream is the flat composite's up to
 the order of bit-identical start depths, which follows arrival order in
 the reference too. On the in-process mesh the ranks run in turn and no
 byte crosses a link; the traffic is modelled (`modeled_dcn_traffic`).
-The host path (domain partials shipped to a head as tile streams) is
+The K budget and fragment reuse (``CompositeConfig.k_budget``,
+``temporal_reuse``) act on the march, which runs over the flat rank view
+(``parallel/pipeline.py``): the budget sums the live fractions of all N
+ranks, the reuse carry is seeded and stacked by flat rank, and a clean
+rank's carried fragment enters level 1 as a marched one would; the
+levels never see either. The host path (domain partials shipped to a head as tile streams) is
 ROADMAP A8b items 8–9.
 """
 

@@ -73,8 +73,28 @@ march is the flat mesh's, rank by flat rank, and the exchange and
 composite split into a level inside each domain and a level across
 domains, resegmented once at the top (``parallel/hier.py``); the blocks
 come back in the ranks-major order ``Topology.out_axis``, which is the
-frame's natural column order. K budgets and fragment reuse (A8b item 6)
-are still to come.
+frame's natural column order.
+
+Two knobs of ``CompositeConfig`` act on the march, as in the reference
+(slab and plan decompositions; a brick map ledgers both inert):
+
+``k_budget="occupancy"``  every rank's adaptive threshold picks (or, in
+                temporal mode, bisects) toward its share of the ``n *
+                K`` budget (``ops/occupancy.k_budget_target``), by its
+                pyramid's live fraction over the sum of all ranks' (the
+                reference's psum, here a sum over the in-process
+                ranks). Output shapes stay at K.
+``temporal_reuse="ranges"``  the step carries each rank's last marched
+                fragment (``ops/delta.ReuseState``); a rank whose
+                pyramid ranges and camera did not move (within
+                ``reuse_tol``) marches nothing and feeds the carried
+                fragment to the exchange, its threshold maps held.
+
+A frame therefore runs in two passes: every rank's frame state (one
+pyramid a rank, built when the spec skips empty space or a knob needs
+it), the targets and the dirty bits (one copy to the host a frame),
+then the marches of the dirty ranks (the reference's ``lax.cond``
+becomes a Python branch a rank; a clean rank launches no march kernel).
 """
 
 from __future__ import annotations
@@ -82,6 +102,7 @@ from __future__ import annotations
 import math
 from typing import List, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from scenery_insitu_tpu_torch import obs as _obs
@@ -564,48 +585,10 @@ def _unit_camera(axcam: slicer.AxisCamera, f: int) -> slicer.AxisCamera:
     return axcam if f == 1 else axcam._replace(dwm=axcam.dwm * f)
 
 
-def _generate_rank(dec: _Decomp, origin, cam, spec, tf, vdi_cfg,
-                   threshold=None):
-    """A rank's slice-march VDI of its decomposition: every unit marched
-    on the shared camera, the slot fragments concatenated into one
-    ``[slots*K]`` stream (the exchange and composite sort every pixel's
-    stream, so interleaved depth ranges need no merge here). Returns
-    (vdi, meta, next_threshold); the last is None unless a threshold
-    state was passed (temporal mode: one ``[nj, ni]`` map set a slot,
-    row-stacked). The metadata describes the global volume."""
-    axcam = slicer.make_axis_camera(dec.ref, cam, spec, box_min=origin,
-                                    box_max=dec.gmax)
-    colors, depths, thr2s = [], [], []
-    for s, u in enumerate(dec.units):
-        kw = dict(v_bounds=u.v_bounds, w_bounds=u.w_bounds,
-                  axcam=_unit_camera(axcam, u.f), step_scale=1.0 / u.f)
-        if threshold is None:
-            vdi, _, _ = slicer.generate_vdi_mxu(u.vol, tf, cam, spec,
-                                                vdi_cfg, **kw)
-        else:
-            vdi, _, _, t2 = slicer.generate_vdi_mxu_temporal(
-                u.vol, tf, cam, spec, _thr_slot(threshold, s, spec.nj),
-                vdi_cfg, **kw)
-            thr2s.append(t2)
-        colors.append(vdi.color)
-        depths.append(vdi.depth)
-    meta = _global_meta(dec, axcam, spec, origin)
-    thr2 = _stack_thr(thr2s) if thr2s else None
-    return VDI(_cat_slots(colors), _cat_slots(depths)), meta, thr2
-
-
 def _global_meta(dec: _Decomp, axcam, spec, origin):
     return slicer._vdi_meta(dec.ref, axcam, spec.ni, spec.nj)._replace(
         volume_dims=torch.tensor(dec.dims, dtype=torch.float32,
                                  device=origin.device))
-
-
-def _mxu_rank_generate(slabs, halo, r, origin, spacing, cam, spec, tf,
-                       vdi_cfg, threshold=None, plan=None, bricks=None):
-    """Rank r's VDI of the frame whose rows `_frame_rows` assembled
-    (``halo``). Returns (vdi, meta, next_threshold)."""
-    dec = _rank_units(slabs, halo, r, origin, spacing, spec, plan, bricks)
-    return _generate_rank(dec, origin, cam, spec, tf, vdi_cfg, threshold)
 
 
 def _halo_for(slabs: torch.Tensor, spec: slicer.AxisSpec):
@@ -615,12 +598,19 @@ def _halo_for(slabs: torch.Tensor, spec: slicer.AxisSpec):
 
 
 class _RankFrame:
-    """Rank r's per-frame state shared by its tile waves: its march
-    units, the virtual camera, and a unit's one permuted copy and one
-    occupancy gate."""
+    """Rank r's state of one frame, built before any rank marches and
+    shared by every march of the frame (the frame schedule's one, or the
+    tile waves'): its march units, the virtual camera, and a unit's one
+    permuted copy and one occupancy pyramid
+    (``ops/occupancy.pyramid_from_volume``). The pyramid is built when
+    the spec skips empty space (its gate feeds the march) or when
+    ``pyramid`` asks for it: the K budget reads its live fraction, fragment
+    reuse its ranges."""
 
     def __init__(self, slabs, halo, r, origin, spacing, cam, spec, tf,
-                 plan=None, bricks=None):
+                 plan=None, bricks=None, pyramid: bool = False):
+        from scenery_insitu_tpu_torch.ops import occupancy as _occ
+
         self.dec = _rank_units(slabs, halo, r, origin, spacing, spec, plan,
                                bricks)
         self.axcam = slicer.make_axis_camera(self.dec.ref, cam, spec,
@@ -628,67 +618,290 @@ class _RankFrame:
                                              box_max=self.dec.gmax)
         self.volps = [slicer.permute_volume(u.vol, spec)
                       for u in self.dec.units]
-        self.occs = [slicer.occupancy_for(u.vol, tf, spec, volp=vp)
+        build = spec.skip_empty or pyramid
+        self.pyrs = [_occ.pyramid_from_volume(u.vol, tf, spec, volp=vp)
+                     if build else None
                      for u, vp in zip(self.dec.units, self.volps)]
 
 
+def _march_units(fr: _RankFrame, cam, spec, axcam, tf, vdi_cfg,
+                 slot_thr=None, k_target=None):
+    """A rank's march of every unit of its frame state on ``axcam`` and
+    ``spec`` (the frame's, or a tile wave's `slicer.wave_camera`), the
+    slot fragments concatenated into one ``[slots*K]`` stream (the
+    exchange and composite sort every pixel's stream, so interleaved
+    depth ranges need no merge here). ``slot_thr``: in temporal mode
+    each unit's threshold maps, else None; ``k_target``: the rank's K
+    budget target, else None. Returns (color, depth, each unit's next
+    maps or None)."""
+    colors, depths, thr2s = [], [], []
+    for s, u in enumerate(fr.dec.units):
+        kw = dict(v_bounds=u.v_bounds, w_bounds=u.w_bounds,
+                  occupancy=fr.pyrs[s], axcam=_unit_camera(axcam, u.f),
+                  volp=fr.volps[s], step_scale=1.0 / u.f,
+                  k_target=k_target)
+        if slot_thr is None:
+            vdi, _, _ = slicer.generate_vdi_mxu(u.vol, tf, cam, spec,
+                                                vdi_cfg, **kw)
+        else:
+            vdi, _, _, t2 = slicer.generate_vdi_mxu_temporal(
+                u.vol, tf, cam, spec, slot_thr[s], vdi_cfg, **kw)
+            thr2s.append(t2)
+        colors.append(vdi.color)
+        depths.append(vdi.depth)
+    return (_cat_slots(colors), _cat_slots(depths),
+            thr2s if slot_thr is not None else None)
+
+
+def _slot_maps(thr: Optional[ss.ThresholdState], fr: _RankFrame,
+               nj: int):
+    """A rank's row-stacked maps split into its units' ``[nj, ni]``
+    sets (None stays None)."""
+    if thr is None:
+        return None
+    return [_thr_slot(thr, s, nj) for s in range(len(fr.dec.units))]
+
+
+def _mxu_rank_generate(slabs, halo, r, origin, spacing, cam, spec, tf,
+                       vdi_cfg, threshold=None, plan=None, bricks=None,
+                       k_target=None):
+    """Rank r's VDI of the frame whose rows `_frame_rows` assembled
+    (``halo``): its frame state and its march. Returns (vdi, meta,
+    next_threshold); the metadata describes the global volume."""
+    fr = _RankFrame(slabs, halo, r, origin, spacing, cam, spec, tf, plan,
+                    bricks)
+    c, d, thr2 = _march_units(fr, cam, spec, fr.axcam, tf, vdi_cfg,
+                              _slot_maps(threshold, fr, spec.nj), k_target)
+    return (VDI(c, d), _global_meta(fr.dec, fr.axcam, spec, origin),
+            None if thr2 is None else _stack_thr(thr2))
+
+
+# ------------------------------------- K budgets and fragment reuse
+
+
+def _resolve_budget(comp_cfg: CompositeConfig, vdi_cfg: VDIConfig, n: int,
+                    bricks) -> bool:
+    """Build-time resolution of ``comp_cfg.k_budget``: True re-targets
+    every rank's adaptive threshold at its share of the ``n * K`` budget
+    (`_k_targets`). A brick map, or a fixed threshold, has no budget to
+    apply and goes on the ledger, as the reference's step and frame
+    state record them."""
+    if comp_cfg.k_budget != "occupancy":
+        return False
+    if bricks is not None:
+        _obs.degrade("occupancy.k_budget", "occupancy", "static",
+                     "brick-partitioned MXU steps derive no per-rank "
+                     "budget sum (slab decompositions only)", warn=False)
+        return False
+    if not vdi_cfg.adaptive:
+        _obs.degrade("occupancy.k_budget", "occupancy", "static",
+                     "k budgets re-target the ADAPTIVE threshold; "
+                     "vdi.adaptive=False ignores them", warn=False)
+        return False
+    rec = _obs.get_recorder()
+    rec.count("occupancy_kbudget_builds")
+    rec.event("occupancy_kbudget_build", ranks=n,
+              k=vdi_cfg.max_supersegments, k_min=comp_cfg.k_budget_min)
+    return True
+
+
+def _resolve_reuse(comp_cfg: CompositeConfig, supported: bool = True,
+                   where: str = "") -> bool:
+    """Build-time resolution of ``comp_cfg.temporal_reuse``: True threads
+    the carried `ops.delta.ReuseState` through the step. A step with
+    no marched fragment to carry (``supported=False``: a brick map) puts
+    the inert knob on the ledger instead."""
+    if comp_cfg.temporal_reuse != "ranges":
+        return False
+    if not supported:
+        _obs.degrade("delta.reuse", "ranges", "off",
+                     f"{where} carries no reusable VDI fragment "
+                     "(temporal_reuse is an MXU VDI step feature)",
+                     warn=False)
+        return False
+    _obs.get_recorder().count("reuse_steps_built")
+    return True
+
+
+def _k_targets(frames: List[_RankFrame], n: int, vdi_cfg: VDIConfig,
+               comp_cfg: CompositeConfig) -> List[torch.Tensor]:
+    """Every rank's K budget target (``ops/occupancy.k_budget_target``)
+    from the live fractions of the ranks' pyramids, summed over all n
+    ranks in rank order (the reference's sum over the mesh); f32
+    0-dim tensors on the device, never read by the host."""
+    from scenery_insitu_tpu_torch.ops import occupancy as _occ
+
+    live = [fr.pyrs[0].live_fraction() for fr in frames]
+    total = live[0]
+    for x in live[1:]:
+        total = total + x
+    return [_occ.k_budget_target(x, total, n, vdi_cfg.max_supersegments,
+                                 comp_cfg.k_budget_min) for x in live]
+
+
+class _Reuse(NamedTuple):
+    """One frame's reuse decision: every rank's signature, the host's
+    dirty bits, the incoming carry's fragments viewed by rank (color
+    [n, K, 4, nj, ni], depth [n, K, 2, nj, ni]) and its signatures."""
+
+    sigs: List[torch.Tensor]
+    dirty: np.ndarray               # bool[n]
+    color: torch.Tensor
+    depth: torch.Tensor
+    prev_sig: torch.Tensor          # f32[n*S]
+
+
+def _reuse_decide(frames: List[_RankFrame], cam, ru, tol: float,
+                  k: int) -> _Reuse:
+    """Every rank's signature against its carried one, decided with ONE
+    copy of the ranks' moved bits to the host (none while the carry is
+    the seed, where every rank marches)."""
+    from scenery_insitu_tpu_torch.ops import delta as _delta
+
+    n = len(frames)
+    sigs = [_delta.reuse_signature(fr.pyrs[0], cam) for fr in frames]
+    s = sigs[0].numel()
+    if ru.sig.numel() != n * s:
+        raise ValueError(f"reuse carry holds {ru.sig.numel()} signature "
+                         f"values; this frame's {n} ranks need {n * s} "
+                         f"(seed it with distributed_initial_reuse_mxu "
+                         f"for this step)")
+    invalid = ru.valid.cpu().numpy() == 0
+    if invalid.all():
+        dirty = np.ones(n, bool)
+    else:
+        nr = 2 * frames[0].pyrs[0].lo.numel()
+        moved = torch.stack([_delta.reuse_moved(
+            sg, ru.sig[r * s:(r + 1) * s], tol, nr)
+            for r, sg in enumerate(sigs)])
+        dirty = moved.cpu().numpy() | invalid
+    return _Reuse(sigs, dirty,
+                  ru.color.reshape((n, k) + tuple(ru.color.shape[1:])),
+                  ru.depth.reshape((n, k) + tuple(ru.depth.shape[1:])),
+                  ru.sig)
+
+
+def _reuse_carry(dec: _Reuse, color: torch.Tensor,
+                 depth: torch.Tensor):
+    """The outgoing carry: a marched rank's signature and fragment, a
+    clean rank's carried ones (its signature stays the last MARCHED
+    frame's, so drift under a tolerance accumulates), from the
+    rank-stacked fragments ``color [n, K, ...]`` of this frame."""
+    from scenery_insitu_tpu_torch.ops import delta as _delta
+
+    n = len(dec.sigs)
+    s = dec.sigs[0].numel()
+    sig = torch.cat([sg if dec.dirty[r] else dec.prev_sig[r * s:(r + 1) * s]
+                     for r, sg in enumerate(dec.sigs)])
+    return _delta.ReuseState(
+        sig=sig, color=color.reshape((-1,) + tuple(color.shape[2:])),
+        depth=depth.reshape((-1,) + tuple(depth.shape[2:])),
+        valid=torch.ones(n, dtype=torch.int32),
+        dirty=torch.as_tensor(dec.dirty.astype(np.int32)))
+
+
+# ---------------------------------------------------------- schedules
+
+
+def _frame_schedule(frames, cam, spec, tf, vdi_cfg, thr, rows_a_rank,
+                    kts, dec: Optional[_Reuse]):
+    """The frame schedule's generation: every dirty rank marches its
+    frame state once (every rank without reuse); a clean rank's
+    fragment is the carried one and its threshold maps hold. Returns
+    the rank-stacked fragments (color [n, K, ...], depth) and the
+    rank-stacked next thresholds (None without temporal state)."""
+    if dec is not None and not dec.dirty.any():
+        # nothing marches: the carry IS this frame's fragments
+        return dec.color, dec.depth, thr
+    colors, depths, thr2s = [], [], []
+    for r, fr in enumerate(frames):
+        thr_r = None if thr is None else _rank_thr(thr, r, rows_a_rank)
+        if dec is None or dec.dirty[r]:
+            c, d, t2 = _march_units(fr, cam, spec, fr.axcam, tf, vdi_cfg,
+                                    _slot_maps(thr_r, fr, spec.nj),
+                                    None if kts is None else kts[r])
+            t2 = None if t2 is None else _stack_thr(t2)
+        else:
+            c, d, t2 = dec.color[r], dec.depth[r], thr_r
+        colors.append(c)
+        depths.append(d)
+        thr2s.append(t2)
+    thr2 = None if thr is None else _stack_thr(thr2s)
+    return torch.stack(colors), torch.stack(depths), thr2
+
+
 def _march_wave(frames, w: int, n: int, t: int, cam, spec, tf, vdi_cfg,
-                thr_full):
+                thr_full, kts=None, dec: Optional[_Reuse] = None):
     """Every rank's march of tile wave ``w`` on its shared frame state,
     every slot of a rank concatenated into one stream. ``thr_full``
     (temporal mode; else None) holds each rank's full-frame threshold
     maps: each slot's wave columns are sliced out and the controller's
-    update scattered back in place of the list entry. Returns the
-    rank-stacked wave fragments (color, depth)."""
+    update scattered back in place of the list entry. ``kts``: each
+    rank's K budget target. ``dec``: a reuse decision: a clean rank
+    marches nothing, its wave is the carried fragment's wave columns and
+    its maps hold. Returns the rank-stacked wave fragments (color,
+    depth)."""
     nj = spec.nj
     colors, depths = [], []
     for r, fr in enumerate(frames):
+        if dec is not None and not dec.dirty[r]:
+            colors.append(slicer.wave_cols(dec.color[r], n, t, w))
+            depths.append(slicer.wave_cols(dec.depth[r], n, t, w))
+            continue
         axcam_w, spec_w = slicer.wave_camera(fr.axcam, spec, n, t, w)
-        cs, ds, parts = [], [], []
-        for s, u in enumerate(fr.dec.units):
-            kw = dict(v_bounds=u.v_bounds, w_bounds=u.w_bounds,
-                      occupancy=fr.occs[s], axcam=_unit_camera(axcam_w, u.f),
-                      volp=fr.volps[s], step_scale=1.0 / u.f)
-            if thr_full is None:
-                vdi, _, _ = slicer.generate_vdi_mxu(u.vol, tf, cam, spec_w,
-                                                    vdi_cfg, **kw)
-            else:
-                thr_s = _thr_slot(thr_full[r], s, nj)
-                thr_w = ss.ThresholdState(*(slicer.wave_cols(m, n, t, w)
-                                            for m in thr_s))
-                vdi, _, _, thr2w = slicer.generate_vdi_mxu_temporal(
-                    u.vol, tf, cam, spec_w, thr_w, vdi_cfg, **kw)
-                parts.append(ss.ThresholdState(*(
-                    slicer.wave_update_cols(m, mw, n, t, w)
-                    for m, mw in zip(thr_s, thr2w))))
-            cs.append(vdi.color)
-            ds.append(vdi.depth)
-        if thr_full is not None:
-            thr_full[r] = _stack_thr(parts)
-        colors.append(_cat_slots(cs))
-        depths.append(_cat_slots(ds))
+        parts = _slot_maps(None if thr_full is None else thr_full[r], fr,
+                           nj)
+        thr_w = None if parts is None else [ss.ThresholdState(*(
+            slicer.wave_cols(m, n, t, w) for m in p)) for p in parts]
+        c, d, thr2w = _march_units(fr, cam, spec_w, axcam_w, tf, vdi_cfg,
+                                   thr_w, None if kts is None else kts[r])
+        if parts is not None:
+            thr_full[r] = _stack_thr([ss.ThresholdState(*(
+                slicer.wave_update_cols(m, mw, n, t, w)
+                for m, mw in zip(p, p2))) for p, p2 in zip(parts, thr2w)])
+        colors.append(c)
+        depths.append(d)
     return torch.stack(colors), torch.stack(depths)
 
 
-def _waves_frame(slabs, halo, origin, spacing, cam, spec, tf, vdi_cfg,
-                 comp_cfg, n, thr, plan=None, bricks=None, topo=None):
-    """The tile-wave frame: per rank one shared frame state, then the
+def _waves_frame(frames, origin, cam, spec, tf, vdi_cfg, comp_cfg, n,
+                 thr, topo=None, kts=None, dec: Optional[_Reuse] = None):
+    """The tile-wave frame on the ranks' shared frame states, in the
     reference's pipeline order (march wave 0; composite wave w-1, march
     wave w; composite the last wave), each wave's fragments exchanged
     and composited by `_composite_exchanged` (two-level under ``topo``).
-    Returns (VDI, meta, thr')."""
+    Under reuse the marched ranks' waves fill the outgoing fragment
+    column by column. Returns (VDI, meta, thr', fragments or None)."""
     t = comp_cfg.wave_tiles
-    frames = [_RankFrame(slabs, halo, r, origin, spacing, cam, spec, tf,
-                         plan, bricks) for r in range(n)]
     rows = spec.nj * len(frames[0].dec.units)
     thr_full = None if thr is None else \
         [_rank_thr(thr, r, rows) for r in range(n)]
+    acc = None
+    if dec is not None:
+        if dec.dirty.any():
+            acc = (torch.empty_like(dec.color), torch.empty_like(dec.depth))
+            for r in range(n):
+                if not dec.dirty[r]:
+                    acc[0][r].copy_(dec.color[r])
+                    acc[1][r].copy_(dec.depth[r])
+        else:
+            acc = (dec.color, dec.depth)
+
+    def march(w):
+        frag = _march_wave(frames, w, n, t, cam, spec, tf, vdi_cfg,
+                           thr_full, kts, dec)
+        if dec is not None and dec.dirty.any():
+            for r in range(n):
+                if dec.dirty[r]:
+                    for a, x in zip(acc, frag):
+                        _wave_put(a[r], x[r], n, t, w)
+        return frag
+
     outs = []                       # per wave: every rank's block
-    frag = _march_wave(frames, 0, n, t, cam, spec, tf, vdi_cfg, thr_full)
+    frag = march(0)
     for w in range(1, t):
         outs.append(_composite_exchanged(*frag, n, comp_cfg, topo))
-        frag = _march_wave(frames, w, n, t, cam, spec, tf, vdi_cfg,
-                           thr_full)
+        frag = march(w)
     outs.append(_composite_exchanged(*frag, n, comp_cfg, topo))
     del frag
     # column block j is its wave tiles side by side
@@ -697,14 +910,25 @@ def _waves_frame(slabs, halo, origin, spacing, cam, spec, tf, vdi_cfg,
     fr0 = frames[0]
     meta = _global_meta(fr0.dec, fr0.axcam, spec, origin)
     thr2 = None if thr is None else _stack_thr(thr_full)
-    return VDI(color, depth), meta, thr2
+    return VDI(color, depth), meta, thr2, acc
+
+
+def _wave_put(x: torch.Tensor, xw: torch.Tensor, n: int, t: int,
+              w: int) -> None:
+    """Write wave ``w``'s columns ``xw [..., n * wb]`` into the
+    contiguous ``x [..., ni]`` in place (`slicer.wave_update_cols`
+    without the copy)."""
+    wb = slicer.wave_block(x.shape[-1], n, t)
+    x.view(x.shape[:-1] + (n, t, wb))[..., w, :] = \
+        xw.reshape(xw.shape[:-1] + (n, wb))
 
 
 def distributed_vdi_step_mxu(mesh: Mesh, tf: TransferFunction,
                              spec: slicer.AxisSpec,
                              vdi_cfg: Optional[VDIConfig] = None,
                              comp_cfg: Optional[CompositeConfig] = None,
-                             topology=None, plan=None, bricks=None):
+                             topology=None, plan=None, bricks=None,
+                             reuse_tol: float = 0.0):
     """Distributed sort-last VDI step on the slice march. Returns
     ``f(vol_data, origin, spacing, cam) -> (VDI, meta)``.
 
@@ -713,16 +937,22 @@ def distributed_vdi_step_mxu(mesh: Mesh, tf: TransferFunction,
     multiple_of=n)``). The VDI is the global ``[K_out, 4|2, nj, ni]``
     on the virtual axis camera's grid; ``meta`` is rank 0's metadata
     with the global volume dims. ``comp_cfg`` picks the exchange, the
-    wire, the schedule and the render decomposition; ``plan`` (a tuple
-    of band depths, ``rebalance="occupancy"``) or ``bricks`` (a
-    `parallel.bricks.BrickMap`, ``rebalance="bricks"``) is the
-    decomposition itself (see the module docstring). On a two-level
-    mesh (``topology.make_topology_mesh``) the composite runs in two
-    levels; ``topology``, a ``TopologyConfig``, is checked against the
-    mesh and brings the DCN wire."""
+    wire, the schedule, the render decomposition, the K budget and
+    fragment reuse; ``plan`` (a tuple of band depths,
+    ``rebalance="occupancy"``) or ``bricks`` (a `parallel.bricks.
+    BrickMap`, ``rebalance="bricks"``) is the decomposition itself (see
+    the module docstring). On a two-level mesh
+    (``topology.make_topology_mesh``) the composite runs in two levels;
+    ``topology``, a ``TopologyConfig``, is checked against the mesh and
+    brings the DCN wire.
+
+    ``comp_cfg.temporal_reuse == "ranges"`` makes the step ``f(vol_data,
+    origin, spacing, cam, reuse) -> ((VDI, meta), reuse')``: seed
+    ``reuse`` with `distributed_initial_reuse_mxu`; ``reuse_tol`` is the
+    dirty tolerance (``FrameworkConfig.delta.range_tol``)."""
     return _build_mxu_step(mesh, tf, spec, vdi_cfg, comp_cfg,
                            temporal=False, topology=topology, plan=plan,
-                           bricks=bricks)
+                           bricks=bricks, reuse_tol=reuse_tol)
 
 
 def distributed_vdi_step_mxu_temporal(mesh: Mesh, tf: TransferFunction,
@@ -731,26 +961,39 @@ def distributed_vdi_step_mxu_temporal(mesh: Mesh, tf: TransferFunction,
                                       comp_cfg: Optional[CompositeConfig]
                                       = None,
                                       topology=None, plan=None,
-                                      bricks=None):
+                                      bricks=None, reuse_tol: float = 0.0):
     """`distributed_vdi_step_mxu` with the carried per-rank temporal
     threshold state (``adaptive_mode="temporal"``: one march per rank
     per frame). Returns ``f(vol_data, origin, spacing, cam, thr) ->
     ((VDI, meta), thr')`` where ``thr`` is the rank-stacked
     ``ThresholdState`` of `distributed_initial_threshold_mxu` with the
     same ``plan`` or ``bricks`` (``[n*nj, ni]`` maps; ``[n*slots*nj,
-    ni]`` under a brick map)."""
+    ni]`` under a brick map). With ``temporal_reuse="ranges"``:
+    ``f(vol_data, origin, spacing, cam, thr, reuse) -> ((VDI, meta),
+    thr', reuse')``; a clean rank's maps hold, since nothing was
+    marched."""
     return _build_mxu_step(mesh, tf, spec, vdi_cfg, comp_cfg,
                            temporal=True, topology=topology, plan=plan,
-                           bricks=bricks)
+                           bricks=bricks, reuse_tol=reuse_tol)
 
 
 def _build_mxu_step(mesh, tf, spec, vdi_cfg, comp_cfg, temporal: bool,
-                    topology=None, plan=None, bricks=None):
+                    topology=None, plan=None, bricks=None,
+                    reuse_tol: float = 0.0):
     """The step both entries build: generate on every rank, exchange and
     composite under ``comp_cfg``, with or without the temporal threshold
-    state carried through. The build's counters and events (ring, wire,
-    waves, plans, bricks, the two-level composite) are recorded here,
-    once a step as the reference records them once a compile."""
+    state and the reuse carry threaded through. The build's counters and
+    events (ring, wire, waves, plans, bricks, the two-level composite,
+    the K budget, reuse) are recorded here, once a step as the reference
+    records them once a compile.
+
+    A frame runs in two passes. Pass 1 builds every rank's frame state
+    (`_RankFrame`: units, camera, permuted copy, pyramid), then the K
+    budget's targets (the live fractions summed over all ranks) and the
+    reuse decision (one copy of the dirty bits to the host). Pass 2
+    marches the dirty ranks only, on the frame schedule or in tile
+    waves; a clean rank launches no march kernel. The exchange and
+    composite run as without reuse."""
     vdi_cfg = vdi_cfg or VDIConfig()
     comp_cfg = comp_cfg or CompositeConfig()
     _, n, topo = resolve_mesh_topology(mesh, topology)
@@ -760,6 +1003,9 @@ def _build_mxu_step(mesh, tf, spec, vdi_cfg, comp_cfg, temporal: bool,
     waves = _resolve_waves(comp_cfg, n, spec.ni)
     plan = _resolve_plan(comp_cfg, n, plan)
     bricks = _resolve_bricks(comp_cfg, n, bricks)
+    budget = _resolve_budget(comp_cfg, vdi_cfg, n, bricks)
+    reuse = _resolve_reuse(comp_cfg, supported=bricks is None,
+                           where="the brick-partitioned MXU step")
     # a rank's fragment: K slots, or K a brick slot
     k = vdi_cfg.max_supersegments * (bricks.total_slots if bricks else 1)
     if waves:
@@ -778,36 +1024,56 @@ def _build_mxu_step(mesh, tf, spec, vdi_cfg, comp_cfg, temporal: bool,
         _wire_build_marker(comp_cfg.wire)
     rows_a_rank = spec.nj * (bricks.total_slots if bricks else 1)
 
-    def body(data, origin, spacing, cam, thr):
+    def body(data, origin, spacing, cam, thr, ru):
         slabs = _check_sharded(data, mesh)
         rows = _frame_rows(slabs, spec, plan, bricks)
-        if waves:
-            return _waves_frame(slabs, rows, origin, spacing, cam, spec, tf,
-                                vdi_cfg, comp_cfg, n, thr, plan, bricks,
-                                topo)
-        ranks = [_mxu_rank_generate(
-            slabs, rows, r, origin, spacing, cam, spec, tf, vdi_cfg,
-            None if thr is None else _rank_thr(thr, r, rows_a_rank),
-            plan, bricks) for r in range(n)]
+        # pass 1: every rank's frame state, targets and dirty bits
+        frames = [_RankFrame(slabs, rows, r, origin, spacing, cam, spec, tf,
+                             plan, bricks, pyramid=budget or reuse)
+                  for r in range(n)]
         del rows
-        color = torch.stack([vdi.color for vdi, _, _ in ranks])
-        depth = torch.stack([vdi.depth for vdi, _, _ in ranks])
-        meta = ranks[0][1]
-        thr2 = None if thr is None else _stack_thr([t for _, _, t in ranks])
-        del ranks
+        kts = _k_targets(frames, n, vdi_cfg, comp_cfg) if budget else None
+        dec = None if ru is None else _reuse_decide(frames, cam, ru,
+                                                    reuse_tol, k)
+        # pass 2: the dirty ranks' marches, the exchange and composite
+        if waves:
+            out, meta, thr2, acc = _waves_frame(
+                frames, origin, cam, spec, tf, vdi_cfg, comp_cfg, n, thr,
+                topo, kts, dec)
+            return out, meta, thr2, (None if dec is None
+                                     else _reuse_carry(dec, *acc))
+        color, depth, thr2 = _frame_schedule(frames, cam, spec, tf, vdi_cfg,
+                                             thr, rows_a_rank, kts, dec)
+        meta = _global_meta(frames[0].dec, frames[0].axcam, spec, origin)
+        del frames
+        ru2 = None if dec is None else _reuse_carry(dec, color, depth)
         blocks = _composite_exchanged(color, depth, n, comp_cfg, topo)
         del color, depth
         return VDI(torch.cat([b.color for b in blocks], dim=-1),
-                   torch.cat([b.depth for b in blocks], dim=-1)), meta, thr2
+                   torch.cat([b.depth for b in blocks], dim=-1)), meta, \
+            thr2, ru2
 
-    if temporal:
+    if temporal and reuse:
+        def step(vol_data, origin, spacing, cam: Camera,
+                 thr: ss.ThresholdState, ru):
+            out, meta, thr2, ru2 = body(vol_data, origin, spacing, cam, thr,
+                                        ru)
+            return (out, meta), thr2, ru2
+    elif temporal:
         def step(vol_data, origin, spacing, cam: Camera,
                  thr: ss.ThresholdState):
-            out, meta, thr2 = body(vol_data, origin, spacing, cam, thr)
+            out, meta, thr2, _ = body(vol_data, origin, spacing, cam, thr,
+                                      None)
             return (out, meta), thr2
+    elif reuse:
+        def step(vol_data, origin, spacing, cam: Camera, ru):
+            out, meta, _, ru2 = body(vol_data, origin, spacing, cam, None,
+                                     ru)
+            return (out, meta), ru2
     else:
         def step(vol_data, origin, spacing, cam: Camera):
-            out, meta, _ = body(vol_data, origin, spacing, cam, None)
+            out, meta, _, _ = body(vol_data, origin, spacing, cam, None,
+                                   None)
             return out, meta
     return step
 
@@ -824,7 +1090,8 @@ def distributed_initial_threshold_mxu(mesh: Mesh, tf: TransferFunction,
     rank-stacked ``[n*nj, ni]`` maps (``[n*slots*nj, ni]`` under a brick
     map: one map set a slot, row-stacked). Generation is
     topology-agnostic: on a two-level mesh the maps stack in flat rank
-    order, as the step carries them."""
+    order, as the step carries them. The seed builds no K budget: it
+    picks against K, as the reference's does."""
     vdi_cfg = vdi_cfg or VDIConfig()
     _, n, _ = resolve_mesh_topology(mesh)
     plan = _resolve_plan("occupancy", n, plan)
@@ -846,5 +1113,38 @@ def distributed_initial_threshold_mxu(mesh: Mesh, tf: TransferFunction,
                 step_scale=1.0 / u.f) for u in dec.units]
         return ss.ThresholdState(*(torch.cat(parts)
                                    for parts in zip(*states)))
+
+    return seed
+
+
+def distributed_initial_reuse_mxu(mesh: Mesh, tf: TransferFunction,
+                                  spec: slicer.AxisSpec,
+                                  vdi_cfg: Optional[VDIConfig] = None,
+                                  comp_cfg: Optional[CompositeConfig] = None,
+                                  plan=None):
+    """Seeder of a ``temporal_reuse="ranges"`` step: ``f(vol_data,
+    origin, spacing, cam) -> ReuseState`` with ``valid = 0`` for every
+    rank, so the first frame marches every rank and fills the carry.
+    The signature's length comes from the frame state the step builds
+    (one pyramid a rank, on its slab or its ``plan`` band), so the
+    shapes agree; the seed builds no K budget. On a two-level mesh the
+    carry is seeded over the flat rank view: it is per-rank state the
+    composite levels never see."""
+    from scenery_insitu_tpu_torch.ops import delta as _delta
+    from scenery_insitu_tpu_torch.ops import occupancy as _occ
+
+    vdi_cfg = vdi_cfg or VDIConfig()
+    comp_cfg = comp_cfg or CompositeConfig()
+    _, n, _ = resolve_mesh_topology(mesh)
+    plan = _resolve_plan(comp_cfg, n, plan)
+
+    def seed(vol_data, origin, spacing, cam: Camera):
+        slabs = _check_sharded(vol_data, mesh)
+        rows = _frame_rows(slabs, spec, plan)
+        dec = _rank_units(slabs, rows, 0, origin, spacing, spec, plan)
+        pyr = _occ.pyramid_from_volume(dec.units[0].vol, tf, spec)
+        sig = _delta.reuse_signature(pyr, cam)
+        return _delta.init_reuse_like(sig, vdi_cfg.max_supersegments,
+                                      spec.nj, spec.ni, n=n)
 
     return seed

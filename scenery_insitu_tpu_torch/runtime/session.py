@@ -19,9 +19,20 @@ adapter (anything with ``kind``, ``advance(n)`` and ``.field``).
 The reference's other session features are later slices of the port and
 raise ``NotImplementedError`` naming their ROADMAP row: frame blocks in
 one launch (``runtime.scan_frames > 1``, A3/A7), the plain image modes
-(A4), the gather engine (A9), the other sims (A10), K budgets and
-fragment reuse (A8b, item 6), steering (A11), and the telemetry
-collector, device profiles and cost snapshots (A12).
+(A4), the gather engine (A9), the other sims (A10), steering (A11), and
+the telemetry collector, device profiles and cost snapshots (A12).
+
+``composite.k_budget="occupancy"`` re-targets every rank's adaptive
+threshold in the steps themselves. ``composite.temporal_reuse="ranges"``
+makes each regime's step carry its ranks' last marched fragments
+(``ops/delta.ReuseState``, seeded by ``distributed_initial_reuse_mxu``)
+beside the temporal thresholds; a rank whose occupancy ranges and
+camera did not move marches nothing. The carry is dropped when the
+camera re-enters a regime and when the steps rebuild (a new plan), and
+with ``obs.enabled`` each frame counts the previous frame's skipped
+marches (``delta_march_skipped``, ``delta_dirty_tiles``) from the carry
+it receives, which is already on the host. A brick map carries no
+fragment (the step ledgers ``delta.reuse``).
 
 A hierarchical ``topology`` (``num_hosts > 1``) builds the two-level
 ``(hosts, ranks)`` mesh of ``mesh.num_devices`` ranks
@@ -100,12 +111,6 @@ def check_ported(cfg: FrameworkConfig) -> None:
                          "(expected 'auto', 'mxu' or 'gather')")
     if cfg.sim.kind in _OTHER_SIMS:
         _unported(f"sim.kind={cfg.sim.kind!r}", "A10")
-    cc = cfg.composite
-    if cc.k_budget != "static":
-        _unported(f"composite.k_budget={cc.k_budget!r}", "A8b, item 6")
-    if cc.temporal_reuse != "off":
-        _unported(f"composite.temporal_reuse={cc.temporal_reuse!r}",
-                  "A8b, item 6")
     if cfg.obs.collector:
         _unported("obs.collector (the fleet telemetry side-channel)",
                   "A12")
@@ -298,10 +303,15 @@ class InSituSession:
         self.obs.count("build_steps")
         self._mxu_steps = {}   # regime key -> distributed step
         self._mxu_thr = {}     # regime key -> temporal threshold state
+        self._mxu_reuse = {}   # regime key -> fragment reuse carry
         self.mode = "vdi"
         self._step = None
         self._temporal = (self.cfg.vdi.adaptive
                           and self.cfg.vdi.adaptive_mode == "temporal")
+        # fragment reuse rides the slab and plan steps; a brick map's
+        # step ledgers the inert knob (delta.reuse) and takes no carry
+        self._reuse = (self.cfg.composite.temporal_reuse == "ranges"
+                       and self._bricks is None)
 
     def _apply_tf_message(self, msg: dict) -> None:
         """'tf' steering messages are ROADMAP A11."""
@@ -522,7 +532,33 @@ class InSituSession:
     def _enter_regime(self, key) -> None:
         if key != getattr(self, "_last_regime_key", key):
             self.obs.count("regime_switches")
+            # a carried fragment is as stale as the carried thresholds:
+            # the field moved on while the camera was elsewhere, and the
+            # re-entered regime's signature could hide that
+            self._mxu_reuse.pop(key, None)
         drop_on_regime_reentry(self, self._mxu_thr, key)
+
+    def _note_dirty(self, ru) -> None:
+        """The accounting of the reuse carry's LAST decision:
+        ``delta_march_skipped`` counts the tiles whose march did not run
+        and the ``delta_dirty_tiles`` event carries the ranks' dirty
+        bits. It reads the incoming carry, whose bits the previous frame
+        decided on the host, so it copies nothing from the device."""
+        if not bool(ru.valid.any()):
+            return                       # the seed: nothing decided yet
+        d = ru.dirty.numpy()
+        cc = self.cfg.composite
+        n = d.size
+        tiles_per_rank = (cc.wave_tiles
+                          if cc.schedule == "waves" and n > 1 else 1)
+        clean = int((d == 0).sum())
+        if clean:
+            self.obs.count("delta_march_skipped", clean * tiles_per_rank)
+        self.obs.event("delta_dirty_tiles", frame=self.frame_index - 1,
+                       dirty=[int(x) for x in d],
+                       tiles_per_rank=tiles_per_rank,
+                       skipped_tiles=clean * tiles_per_rank,
+                       total_tiles=n * tiles_per_rank)
 
     def prewarm_regimes(self, regimes=None) -> dict:
         """Build and run the step of each (axis, sign) march regime once,
@@ -535,6 +571,7 @@ class InSituSession:
             regimes = [(a, s) for a in (0, 1, 2) for s in (1, -1)]
         cam0 = self.camera
         thr0 = dict(self._mxu_thr)
+        reuse0 = dict(self._mxu_reuse)
         had_last = hasattr(self, "_last_regime_key")
         last0 = getattr(self, "_last_regime_key", None)
         times = {}
@@ -555,6 +592,7 @@ class InSituSession:
         finally:
             self.camera = cam0
             self._mxu_thr = thr0
+            self._mxu_reuse = reuse0
             if had_last:
                 self._last_regime_key = last0
             elif hasattr(self, "_last_regime_key"):
@@ -563,15 +601,17 @@ class InSituSession:
 
     def _mxu_step(self):
         """The distributed step of the camera's march regime, built once
-        per (axis, sign). In temporal mode the returned callable seeds and
-        carries the regime's threshold state itself, so callers see one
-        4-argument signature."""
+        per (axis, sign). In temporal mode, and with fragment reuse, the
+        returned callable seeds and carries the regime's threshold state
+        and reuse carry itself, so callers see one 4-argument
+        signature."""
         from scenery_insitu_tpu_torch.parallel.pipeline import (
+            distributed_initial_reuse_mxu,
             distributed_initial_threshold_mxu, distributed_vdi_step_mxu,
             distributed_vdi_step_mxu_temporal)
 
         regime = self._slicer.choose_axis(self.camera)
-        if self._temporal:
+        if self._temporal or self._reuse:
             self._enter_regime(regime)
         step = self._mxu_steps.get(regime)
         if step is None:
@@ -584,21 +624,46 @@ class InSituSession:
                                           self.cfg.slicer, axis_sign=regime,
                                           multiple_of=n)
             decomp = dict(plan=self._plan, bricks=self._bricks)
+            tol = self.cfg.delta.range_tol
+            rseed = (distributed_initial_reuse_mxu(
+                         self.mesh, self.tf, spec, self.cfg.vdi,
+                         self.cfg.composite, plan=self._plan)
+                     if self._reuse else None)
             if self._temporal:
                 inner = distributed_vdi_step_mxu_temporal(
                     self.mesh, self.tf, spec, self.cfg.vdi,
                     self.cfg.composite, topology=self.cfg.topology,
-                    **decomp)
+                    reuse_tol=tol, **decomp)
                 seed = distributed_initial_threshold_mxu(
                     self.mesh, self.tf, spec, self.cfg.vdi, **decomp)
 
                 def step(field, origin, spacing, cam, _regime=regime,
-                         _inner=inner, _seed=seed):
+                         _inner=inner, _seed=seed, _rseed=rseed):
                     thr = self._mxu_thr.get(_regime)
                     if thr is None:
                         thr = _seed(field, origin, spacing, cam)
-                    out, self._mxu_thr[_regime] = _inner(
-                        field, origin, spacing, cam, thr)
+                    if _rseed is None:
+                        out, self._mxu_thr[_regime] = _inner(
+                            field, origin, spacing, cam, thr)
+                        return out
+                    ru = self._carried_reuse(_regime, _rseed, field, origin,
+                                             spacing, cam)
+                    out, self._mxu_thr[_regime], \
+                        self._mxu_reuse[_regime] = _inner(
+                            field, origin, spacing, cam, thr, ru)
+                    return out
+            elif self._reuse:
+                inner = distributed_vdi_step_mxu(
+                    self.mesh, self.tf, spec, self.cfg.vdi,
+                    self.cfg.composite, topology=self.cfg.topology,
+                    plan=self._plan, reuse_tol=tol)
+
+                def step(field, origin, spacing, cam, _regime=regime,
+                         _inner=inner, _rseed=rseed):
+                    ru = self._carried_reuse(_regime, _rseed, field, origin,
+                                             spacing, cam)
+                    out, self._mxu_reuse[_regime] = _inner(
+                        field, origin, spacing, cam, ru)
                     return out
             else:
                 step = distributed_vdi_step_mxu(
@@ -607,6 +672,16 @@ class InSituSession:
                     **decomp)
             self._mxu_steps[regime] = step
         return step
+
+    def _carried_reuse(self, regime, rseed, field, origin, spacing, cam):
+        """The regime's reuse carry (seeded on first use or after a
+        drop), noted on the recorder when it is enabled."""
+        ru = self._mxu_reuse.get(regime)
+        if ru is None:
+            ru = rseed(field, origin, spacing, cam)
+        if self.obs.enabled:
+            self._note_dirty(ru)
+        return ru
 
     # ------------------------------------------------ render rebalancing
 

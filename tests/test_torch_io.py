@@ -169,17 +169,59 @@ def _qpack8_saves(path):
     assert int(jm.precision) == int(tm.precision) == 1
 
 
+def _delta_record():
+    """A P record of the port's encoder over a seeded tile."""
+    from scenery_insitu_tpu_torch.ops import delta as tdl
+
+    rng = np.random.default_rng(6)
+    c = rng.integers(0, 2**31, (2, 5, 7)).astype(np.uint32)
+    d = rng.integers(0, 2**15, (2, 5, 7)).astype(np.uint16)
+    enc = tdl.DeltaEncoder(iframe_period=10**6)
+    enc.encode(0, c, d, 0.0, 1.0)
+    c2 = c.copy()
+    c2.ravel()[3:6] ^= 9
+    return enc.encode(0, c2, d, 0.0, 1.0), c2, d
+
+
+def _delta_packs(path):
+    """A P record packs into blobs the reference's packer writes byte for
+    byte."""
+    rec, _, _ = _delta_record()
+    assert rec.mode == "P"
+    assert tio.pack_delta_blobs(rec, codec="zlib") == \
+        jio.pack_delta_blobs(rec, codec="zlib")
+
+
+def _delta_unpacks(path):
+    """The packed P record unpacks (in both packages) into the payload
+    that rebuilds the tile."""
+    from scenery_insitu_tpu_torch.ops import delta as tdl
+
+    rec, c2, d = _delta_record()
+    h, cb, db = tio.pack_delta_blobs(rec, codec="zlib")
+    craw, draw = tio.decompress(cb, "zlib"), tio.decompress(db, "zlib")
+    cp, dp = tio.unpack_delta_payload(h, craw, draw, c2.shape, d.shape)
+    jcp, jdp = jio.unpack_delta_payload(h, craw, draw, c2.shape, d.shape)
+    for a, b in zip(cp + dp, jcp + jdp):
+        np.testing.assert_array_equal(a, b)
+    base = c2.copy()
+    base.ravel()[3:6] ^= 9
+    np.testing.assert_array_equal(tdl.apply_runs(base, *cp), c2)
+
+
 @pytest.mark.parametrize("call", [
     lambda p: tio.compress(b"x", "lz4"),
     lambda p: tio.decompress(b"x", "lz4"),
     _qpack8_saves,
-    lambda p: tio.pack_delta_blobs(None),
-    lambda p: tio.unpack_delta_payload({}, b"", b"", (), ()),
+    _delta_packs,
+    _delta_unpacks,
 ], ids=["lz4_enc", "lz4_dec", "qpack8", "delta_pack", "delta_unpack"])
 def test_unported_formats_raise(call, tmp_path):
     """The formats still to port raise naming their ROADMAP row; qpack8
-    artifacts (ROADMAP A8b item 2) are ported and now save."""
-    if call is _qpack8_saves:
+    artifacts (ROADMAP A8b item 2) are ported and now save, and the
+    temporal-delta records (item 6) round-trip with the reference's
+    bytes."""
+    if call in (_qpack8_saves, _delta_packs, _delta_unpacks):
         call(str(tmp_path / "x.npz"))
         return
     with pytest.raises(NotImplementedError, match=r"ROADMAP A(11|8b)"):

@@ -372,10 +372,15 @@ UNPORTED = {
     "rebalance_bricks": (_runs_with(**{"composite.rebalance": "bricks"}),
                          ("occupancy.rebalance",)),
     "lod": (_runs_with(**{"lod.enabled": "true"}), ("lod.inert",)),
-    "temporal_reuse": (_raises_with(
-        **{"composite.temporal_reuse": "ranges"}), "A8b, item 6"),
-    "k_budget": (_raises_with(**{"composite.k_budget": "occupancy"}),
-                 "A8b, item 6"),
+    # ported since (A8b, item 6): a one-rank session builds its reuse
+    # step, or its budgeted step, and counts the build as the
+    # reference's session does
+    "temporal_reuse": (_runs_with(
+        **{"composite.temporal_reuse": "ranges", "obs.enabled": "true"}),
+        {"reuse_steps_built": 1}),
+    "k_budget": (_runs_with(**{"composite.k_budget": "occupancy",
+                               "obs.enabled": "true"}),
+                 {"occupancy_kbudget_builds": 1}),
     # ported since (A8b, item 5): a 2-host session of 2 ranks builds
     # the two-level mesh and composites its frame in two levels
     "num_hosts": (_runs_with(n=2, **{"topology.num_hosts": "2",

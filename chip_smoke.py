@@ -2,12 +2,13 @@
 """Drive the PyTorch/CUDA port's in-situ frames on one CUDA card: the
 single-chip frame, the distributed sort-last frame, the fold
 microbenchmark, the in-situ session, the sort-last exchange schedules,
-the render decomposition, the two-level composite, and the K budgets
-and fragment reuse.
+the render decomposition, the two-level composite, the K budgets
+and fragment reuse, and the gather engine with the plain images.
 
     python3 chip_smoke.py               # the whole run (needs one card)
     python3 chip_smoke.py --profile     # + device time by kernel
     python3 chip_smoke.py --phase11-only  # phase 4's frame and phase 11
+    python3 chip_smoke.py --phase12-only  # the build and phase 12
     python3 chip_smoke.py --k4-compare old=OTHER/resegment.cu \
         --k2-compare old=OTHER/count_multi.cu \
         --events-compare old=OTHER/fold_chunk.cu  # + designs in turns
@@ -272,6 +273,32 @@ and prints no result):
    (c)'s histogram reuse frames, 8 column tiles a frame through
    qpack8, encoded, packed, unpacked and decoded bit for bit, the code
    bytes a frame against ``modeled_delta_traffic``.
+12. the gather engine and the plain images at the bench's gather
+   configuration (1280 x 720, 256 samples a ray, K = 16, histogram
+   with 16 bins): (a) the single-chip gather frame on the 512^3
+   Gray-Scott state with phase 3's oscillating eye, 1 warm-up and 3
+   timed frames, K3 launched and no other kernel (the ray march and the
+   one-rank composite launch none), the sim and the march timed apart,
+   and 3 frames at 32^3 (96 x 72, 64 steps) against the CPU's plain
+   versions; (b) the gather ``distributed_vdi_step`` on phase 4's
+   8-rank mesh and composite, from (a)'s final state, 1 warm-up and 2
+   timed frames, K4 8 a frame, its same-view image at least 25 dB from
+   the single-chip plain raycast at that state and eye (the reference's
+   bar), K4 against its plain version on the step's own 128-slot,
+   720 x 160 streams (rebuilt from the last frame's fragments, which
+   resegment to the step's VDI bit for bit) and a frame's 8 launches
+   timed beside their bound, and at 32^3 over 4 ranks against the CPU
+   the ring in tile
+   waves and the 2 x 2 topology; (c) ``distributed_plain_step`` and
+   ``distributed_plain_step_mxu`` (warped to the display camera) on the
+   8 ranks, at least 28 and 32 dB from ``raycast`` and
+   ``slicer.raycast_mxu``, launching no kernel; (d) phase 7's session
+   over 8 ranks in the plain slice-march mode and the gather VDI mode,
+   a warm and 4 timed frames each with a PNG sink every 4, the first 2
+   frames bit for bit against the hand-driven step, the plain PNG's
+   pixels the payload's; (e) the committed golden images of the gather
+   raycast, the slice-march plain render and the gather VDI's decode
+   rendered on the card within 3.0 (8-bit).
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -5172,6 +5199,613 @@ def run_phase11(dev, ref0, done, profile=False):
     return out
 
 
+# ------------------------------------------------------------ phase 12
+
+
+# the bench's gather configuration (bench.py:180-184): 1280 x 720, 256
+# samples a ray; the temporal mode is the slice march's, so histogram
+# (bench.py:252-260)
+GATHER_W, GATHER_H, GATHER_STEPS = 1280, 720, 256
+GATHER_TIMED = 3
+GATHER_DIST_TIMED = 2
+GATHER_SESSION_TIMED = 4
+# the reference's bars against the single-chip plain renders
+# (tests/test_parallel.py:77-107, :206-236)
+GATHER_VDI_DB, PLAIN_DB, PLAIN_MXU_DB = 25.0, 28.0, 32.0
+PLAIN_BG = (0.1, 0.2, 0.3, 1.0)
+# the golden configs of tests/golden/make_golden.py and
+# tests/test_golden.py's bar (max 8-bit difference)
+GOLDEN = dict(grid=32, w=96, h=72, seed=11, eye=(0.35, 0.55, 2.7), k=6,
+              steps=96)
+GOLDEN_BAR = 3.0
+
+
+def gather_vdi_cfg():
+    from scenery_insitu_tpu_torch.config import VDIConfig
+
+    return VDIConfig(max_supersegments=K, adaptive_iters=2,
+                     adaptive_mode="histogram", histogram_bins=BINS)
+
+
+def gather_step(dev, w=None, h=None, steps=None):
+    """The bench's gather frame step (``SITPU_BENCH_ENGINE=gather``) at
+    ``w`` x ``h`` and ``steps`` (None: the gather configuration's)."""
+    from scenery_insitu_tpu_torch.config import CompositeConfig
+    from scenery_insitu_tpu_torch.models.pipelines import \
+        grayscott_vdi_frame_step
+
+    w, h = w or GATHER_W, h or GATHER_H
+    steps = steps or GATHER_STEPS
+    return grayscott_vdi_frame_step(
+        sim_steps=SIM_STEPS, vdi_cfg=gather_vdi_cfg(),
+        comp_cfg=CompositeConfig(max_output_supersegments=K,
+                                 adaptive_iters=2),
+        engine="gather", width=w, height=h, max_steps=steps, device=dev)
+
+
+def timed_frames(prefix, frame, state, warm, timed):
+    """``warm`` then ``timed`` calls of ``state = frame(state, i)``, each
+    timed call by CUDA events and the host clock; logs and returns the
+    medians (ms) and the last state."""
+    import torch
+
+    for i in range(warm):
+        state = frame(state, i)
+    torch.cuda.synchronize()
+    ev, wall = [], []
+    for i in range(warm, warm + timed):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        h0 = time.perf_counter()
+        a.record()
+        state = frame(state, i)
+        b.record()
+        b.synchronize()
+        wall.append((time.perf_counter() - h0) * 1e3)
+        ev.append(a.elapsed_time(b))
+    ev.sort()
+    wall.sort()
+    ms, wall_ms = ev[len(ev) // 2], wall[len(wall) // 2]
+    FRAME_MS[prefix] = (ms, wall_ms)
+    log(f"{prefix}.ms_per_frame", f"{ms:.3f} (median of {timed}, CUDA "
+        f"events; host clock {wall_ms:.3f}; {warm} warm-up)")
+    return ms, state
+
+
+def require_only(launches, names, path):
+    """Every kernel of ``names`` launched on ``path``, no other."""
+    require_launched(launches, names, path)
+    other = {k: n for k, n in launches.items() if n and k not in names}
+    if other:
+        raise AssertionError(f"{path} launched kernels it does not run: "
+                             f"{other}")
+
+
+def run_gather_frame(dev, profile=False):
+    """Phase 12 (a): the single-chip gather frame at the bench's gather
+    configuration (512^3 Gray-Scott, 10 sim steps, 1280 x 720, 256
+    steps, K = 16, histogram with 16 bins), phase 3's oscillating eye: 1
+    warm-up and 3 timed frames with the launch counts read from that run
+    (K3 only: the march and its composite launch no kernel), the sim and
+    the march timed apart, then the frame against the CPU's plain
+    versions on a 32^3 grid. Returns the launch counts and the final
+    state."""
+    import torch
+
+    from scenery_insitu_tpu_torch import kernels
+    from scenery_insitu_tpu_torch.core.camera import Camera, orbit
+    from scenery_insitu_tpu_torch.core.transfer import for_dataset
+    from scenery_insitu_tpu_torch.core.vdi import VDI
+    from scenery_insitu_tpu_torch.core.volume import Volume
+    from scenery_insitu_tpu_torch.ops.vdi_gen import generate_vdi
+    from scenery_insitu_tpu_torch.sim import grayscott as gs
+
+    step = gather_step(dev)
+    log("gather.config", f"grid={GRID}^3 image={GATHER_W}x{GATHER_H} "
+        f"steps={GATHER_STEPS} k={K} histogram bins={BINS} "
+        f"sim_steps={SIM_STEPS}")
+    base = Camera.create(BASE_EYE, fov_y_deg=50.0, near=0.5, far=20.0,
+                         device=dev)
+    eye = lambda i: orbit(base, yaw_of(i)).eye
+    st = gs.GrayScott.init((GRID,) * 3, seed=SEED, device=dev)
+
+    def frame(s, i):
+        color, depth, u, v = step(s[0], s[1], eye(i))
+        return u, v, color, depth
+
+    kernels.reset_launches()
+    _, (u, v, color, depth) = timed_frames(
+        "gather", frame, (st.u, st.v, None, None), 1, GATHER_TIMED)
+    launches = kernels.launches()
+    log("gather.launches", json.dumps(launches))
+    require_only(launches, ("grayscott_fused",), "the gather frame")
+    check_vdi("gather", VDI(color, depth), (K, 4, GATHER_H, GATHER_W),
+              (K, 2, GATHER_H, GATHER_W))
+    del color, depth
+    sim_ms = median_ms(lambda _: gs.multi_step_fast(
+        gs.GrayScott(u, v, st.params), SIM_STEPS), GATHER_TIMED)
+    log("gather.sim_ms", f"{sim_ms:.3f}")
+    tf = for_dataset("gray_scott", device=dev)
+    vol = Volume.centered(v, extent=2.0)
+    cam = Camera.create(eye(0), fov_y_deg=50.0, near=0.5, far=20.0,
+                        device=dev)
+    march_ms = median_ms(lambda _: generate_vdi(
+        vol, tf, cam, GATHER_W, GATHER_H, gather_vdi_cfg(),
+        max_steps=GATHER_STEPS), GATHER_TIMED)
+    log("gather.march_ms", f"{march_ms:.3f} (median of {GATHER_TIMED} "
+        f"marches alone: the histogram's counting march and the write "
+        f"march, {2 * GATHER_STEPS} steps)")
+    if profile:
+        state = [u, v]
+
+        def one(i):
+            _, _, state[0], state[1] = step(*state, eye(i))
+
+        profile_frames("gather.profile", one)
+    check_small_gather_frame(dev)
+    return launches, (u, v)
+
+
+def check_small_gather_frame(dev):
+    """The gather frame on the card against the CPU's plain versions: 3
+    frames of a 32^3 grid at 96 x 72, 64 steps."""
+    import torch
+
+    from scenery_insitu_tpu_torch.core.camera import Camera, orbit
+    from scenery_insitu_tpu_torch.core.vdi import VDI, render_vdi_same_view
+    from scenery_insitu_tpu_torch.sim import grayscott as gs
+
+    n = 32
+    st = gs.GrayScott.init((n,) * 3, seed=SEED, device="cpu")
+    base = Camera.create(BASE_EYE, device="cpu")
+    outs = {}
+    for name, d in (("cuda", dev), ("cpu", "cpu")):
+        step = gather_step(d, 96, 72, 64)
+        u, v = st.u.to(d), st.v.to(d)
+        imgs = []
+        for i in range(3):
+            color, depth, u, v = step(u, v, orbit(base, yaw_of(i)).eye.to(d))
+            imgs.append(render_vdi_same_view(VDI(color, depth)).cpu())
+        outs[name] = torch.stack(imgs)
+    small_gate("small_gather", outs["cuda"], outs["cpu"])
+
+
+def small_gate(prefix, got, want, tol=1e-4):
+    """A small run on the card against the CPU's: images within ``tol``
+    (largest and mean absolute difference)."""
+    diff = (got - want).abs()
+    log(f"{prefix}.image_max_abs_diff", f"{float(diff.max()):.3e}")
+    log(f"{prefix}.image_mean_abs_diff", f"{float(diff.mean()):.3e}")
+    if not (float(diff.max()) <= tol and float(diff.mean()) <= tol):
+        raise AssertionError(f"{prefix}: the card's run differs from the "
+                             f"CPU's plain versions")
+
+
+def plain_reference(vol, tf, cam, dev, bg=(0.0, 0.0, 0.0, 0.0)):
+    """The single-chip plain raycast at the gather configuration, early
+    exit off, as the reference's parity tests render it."""
+    from scenery_insitu_tpu_torch.config import RenderConfig
+    from scenery_insitu_tpu_torch.ops.raycast import raycast
+
+    return raycast(vol, tf, cam, GATHER_W, GATHER_H, RenderConfig(
+        max_steps=GATHER_STEPS, early_exit_alpha=1.1, background=bg)).image
+
+
+def run_gather_dist(dev, state, profile=False):
+    """Phase 12 (b) and (c) on phase 4's 8-rank mesh at the gather
+    configuration, from phase 12 (a)'s final state: (b) the gather
+    `distributed_vdi_step` (phase 4's composite: K_out 16, a 6-step
+    search), 1 warm-up and 2 timed frames, K4 once per rank and frame,
+    its same-view image >= 25 dB from the single-chip plain raycast at
+    that state and eye; (c) `distributed_plain_step` (>= 28 dB from the
+    raycast) and `distributed_plain_step_mxu` warped to the display
+    camera (>= 32 dB from `slicer.raycast_mxu`), 1 warm-up and 1 timed
+    frame each, launching no kernel. K4 is then held against its plain
+    version on (b)'s own streams (`gather_k4`). Returns the launch
+    counts of (b) and `gather_k4`'s numbers."""
+    import torch
+
+    from scenery_insitu_tpu_torch import kernels
+    from scenery_insitu_tpu_torch.config import (CompositeConfig,
+                                                 RenderConfig,
+                                                 SliceMarchConfig)
+    from scenery_insitu_tpu_torch.core.camera import Camera, orbit
+    from scenery_insitu_tpu_torch.core.transfer import for_dataset
+    from scenery_insitu_tpu_torch.core.vdi import render_vdi_same_view
+    from scenery_insitu_tpu_torch.core.volume import Volume
+    from scenery_insitu_tpu_torch.ops import slicer
+    from scenery_insitu_tpu_torch.parallel import pipeline as dp
+    from scenery_insitu_tpu_torch.parallel.mesh import make_mesh, shard_volume
+    from scenery_insitu_tpu_torch.sim import grayscott as gs
+
+    u, v = state
+    mesh = make_mesh(RANKS, device=dev)
+    tf = for_dataset("gray_scott", device=dev)
+    box = Volume.centered(v, extent=2.0)
+    origin, spacing = box.origin, box.spacing
+    base = Camera.create(BASE_EYE, fov_y_deg=50.0, near=0.5, far=20.0,
+                         device=dev)
+    camera = lambda i: Camera.create(orbit(base, yaw_of(i)).eye,
+                                     fov_y_deg=50.0, near=0.5, far=20.0,
+                                     device=dev)
+    params = gs.GrayScottParams.create(device=dev)
+    ccfg = CompositeConfig(max_output_supersegments=K_OUT,
+                           adaptive_iters=COMP_ITERS)
+    step = dp.distributed_vdi_step(mesh, tf, GATHER_W, GATHER_H,
+                                   gather_vdi_cfg(), ccfg,
+                                   max_steps=GATHER_STEPS)
+    log("gather_dist.config", f"ranks={RANKS} image={GATHER_W}x{GATHER_H} "
+        f"steps={GATHER_STEPS} k={K} k_out={K_OUT} "
+        f"composite_iters={COMP_ITERS}")
+
+    def frame(s, i):
+        st = gs.multi_step_fast(gs.GrayScott(s[0], s[1], params), SIM_STEPS)
+        vdi = step(shard_volume(st.field, mesh), origin, spacing, camera(i))
+        return st.u, st.v, vdi
+
+    kernels.reset_launches()
+    _, (u, v, vdi) = timed_frames("gather_dist", frame, (u, v, None), 1,
+                                  GATHER_DIST_TIMED)
+    launches = kernels.launches()
+    log("gather_dist.launches", json.dumps(launches))
+    frames = 1 + GATHER_DIST_TIMED
+    require_only(launches, ("grayscott_fused", "resegment_sorted"),
+                 "the gather distributed frame")
+    if launches["resegment_sorted"] != RANKS * frames:
+        raise AssertionError(f"K4 launched {launches['resegment_sorted']} "
+                             f"times in {frames} frames of {RANKS} ranks")
+    check_vdi("gather_dist", vdi, (K_OUT, 4, GATHER_H, GATHER_W),
+              (K_OUT, 2, GATHER_H, GATHER_W))
+    cam = camera(frames - 1)
+    vol = Volume.centered(v, extent=2.0)
+    slabs = shard_volume(v, mesh)
+    ref = plain_reference(vol, tf, cam, dev)
+    psnr_gate("gather_dist", image_psnr(render_vdi_same_view(vdi), ref),
+              GATHER_VDI_DB, "the single-chip plain raycast")
+    k4 = gather_k4(dp, mesh, tf, v, origin, spacing, cam, ccfg, vdi)
+    del vdi
+    if profile:
+        state = [u, v]
+
+        def one(i):
+            state[0], state[1], _ = frame(state, i)
+
+        profile_frames("gather_dist.profile", one, frames=1)
+
+    # (c) the plain steps: no kernel of the port runs in them
+    rcfg = RenderConfig(max_steps=GATHER_STEPS, early_exit_alpha=1.1)
+    plain = dp.distributed_plain_step(mesh, tf, GATHER_W, GATHER_H, rcfg)
+    spec = slicer.make_spec(base, (GRID,) * 3,
+                            SliceMarchConfig(chunk=CHUNK), multiple_of=RANKS)
+    plain_mxu = dp.distributed_plain_step_mxu(mesh, tf, spec)
+    args = (slabs, origin, spacing, cam)
+    kernels.reset_launches()
+    _, img = timed_frames("plain_dist", lambda s, i: plain(*args), None, 1,
+                          1)
+    psnr_gate("plain_dist", image_psnr(img, ref), PLAIN_DB,
+              "the single-chip plain raycast")
+    del img, ref
+
+    def mxu_frame(s, i):
+        img, axcam = plain_mxu(*args)
+        return slicer.warp_to_camera(img, axcam, spec, cam, GATHER_W,
+                                     GATHER_H, PLAIN_BG)
+
+    log("plain_mxu_dist.spec", spec)
+    _, img = timed_frames("plain_mxu_dist", mxu_frame, None, 1, 1)
+    ref = slicer.raycast_mxu(vol, tf, cam, GATHER_W, GATHER_H, spec,
+                             background=PLAIN_BG).image
+    psnr_gate("plain_mxu_dist", image_psnr(img, ref), PLAIN_MXU_DB,
+              "the single-chip slice-march plain render")
+    plain_launches = kernels.launches()
+    log("plain_dist.launches", json.dumps(plain_launches))
+    if any(plain_launches.values()):
+        raise AssertionError(f"the plain steps launched kernels: "
+                             f"{plain_launches}")
+    del img, ref, slabs, args
+    torch.cuda.empty_cache()
+    check_small_gather_dist(dev)
+    return launches, k4
+
+
+def gather_k4(dp, mesh, tf, v, origin, spacing, cam, ccfg, vdi):
+    """K4 on the 8-rank gather step's own streams (128 slots a pixel on
+    720 x 160 column blocks): the last frame's rank fragments, marched
+    as the step marches them, exchanged and sorted as its composite
+    sorts them. Their resegment must give the step's VDI bit for bit
+    (so these are the main path's streams); then K4 against its plain
+    version on the fullest (thresholds and live slots exact, colour and
+    depth within 1e-6) and a frame's 8 launches timed beside their
+    bound. Returns (max_abs_err, ms, bound_ms, bound_by)."""
+    import torch
+
+    from scenery_insitu_tpu_torch.ops.composite import (resegment_stream,
+                                                        sort_stream)
+    from scenery_insitu_tpu_torch.ops.vdi_gen import generate_vdi
+    from scenery_insitu_tpu_torch.parallel.mesh import shard_volume
+
+    slabs = shard_volume(v, mesh)
+    rows = dp.halo_exchange_z(slabs)
+    colors, depths = [], []
+    for r in range(RANKS):
+        vol, cmin, cmax, _, gmax = dp._local_volume_and_clip(
+            slabs, rows, r, origin, spacing)
+        frag, _ = generate_vdi(vol, tf, cam, GATHER_W, GATHER_H,
+                               gather_vdi_cfg(), max_steps=GATHER_STEPS,
+                               clip_min=cmin, clip_max=cmax,
+                               sample_min=origin, sample_max=gmax)
+        colors.append(frag.color)
+        depths.append(frag.depth)
+    del slabs, rows, frag
+    rc, rd = dp._exchange_vdi_columns(torch.stack(colors),
+                                      torch.stack(depths), RANKS)
+    del colors, depths
+    _, _, k, _, h, w = rc.shape
+    streams = [sort_stream(rc[j].reshape(RANKS * k, 4, h, w),
+                           rd[j].reshape(RANKS * k, 2, h, w))
+               for j in range(RANKS)]
+    del rc, rd
+    blocks = [resegment_stream(sc, sd, ccfg) for sc, sd in streams]
+    same = (torch.equal(torch.cat([b.color for b in blocks], -1), vdi.color)
+            and torch.equal(torch.cat([b.depth for b in blocks], -1),
+                            vdi.depth))
+    del blocks
+    log("gather_dist.k4_streams", f"{len(streams)} streams of "
+        f"{RANKS * k}x{h}x{w}; their resegment is the step's VDI bit for "
+        f"bit: {same}")
+    if not same:
+        raise AssertionError("gather_dist: the rebuilt streams do not "
+                             "resegment to the step's VDI")
+    err = check_k4_on("gather_dist.resegment", streams)
+    ms, b, by = k4_streams_ms("gather_dist", streams)
+    del streams
+    torch.cuda.empty_cache()
+    return err, ms, b, by
+
+
+def psnr_gate(prefix, db, bar, what):
+    log(f"{prefix}.psnr_db", f"{db:.2f} (against {what}; bar {bar})")
+    if not db >= bar:
+        raise AssertionError(f"{prefix}: {db:.2f} dB from {what}, below "
+                             f"the reference's {bar} dB")
+
+
+def check_small_gather_dist(dev):
+    """The gather distributed step on the card against the CPU's plain
+    versions at 32^3 over 4 ranks, 96 x 72 and 64 steps: the ring in
+    tile waves, and the 2 x 2 topology."""
+    import torch
+
+    from scenery_insitu_tpu_torch.config import (CompositeConfig,
+                                                 MeshConfig, TopologyConfig)
+    from scenery_insitu_tpu_torch.core.camera import Camera
+    from scenery_insitu_tpu_torch.core.transfer import for_dataset
+    from scenery_insitu_tpu_torch.core.vdi import render_vdi_same_view
+    from scenery_insitu_tpu_torch.core.volume import Volume
+    from scenery_insitu_tpu_torch.parallel import pipeline as dp
+    from scenery_insitu_tpu_torch.parallel.mesh import shard_volume
+    from scenery_insitu_tpu_torch.parallel.topology import make_topology_mesh
+    from scenery_insitu_tpu_torch.sim import grayscott as gs
+
+    n = 32
+    v0 = gs.multi_step(gs.GrayScott.init((n,) * 3, seed=SEED, device="cpu"),
+                       2 * SIM_STEPS).v
+    box = Volume.centered(v0, extent=2.0)
+    configs = {"ring_waves": (None, dict(exchange="ring", schedule="waves",
+                                         wave_tiles=2)),
+               "hier_2x2": (TopologyConfig(num_hosts=2), {})}
+    for name, (topo, comp) in configs.items():
+        outs = {}
+        for where, d in (("cuda", dev), ("cpu", "cpu")):
+            mesh, _ = make_topology_mesh(topo, MeshConfig(
+                num_devices=SMALL_RANKS), device=d)
+            step = dp.distributed_vdi_step(
+                mesh, for_dataset("gray_scott", device=d), 96, 72,
+                gather_vdi_cfg(), CompositeConfig(
+                    max_output_supersegments=K_OUT,
+                    adaptive_iters=COMP_ITERS, **comp), max_steps=64,
+                topology=topo)
+            cam = Camera.create(BASE_EYE, fov_y_deg=50.0, near=0.5,
+                                far=20.0, device=d)
+            vdi = step(shard_volume(v0.to(d), mesh), box.origin.to(d),
+                       box.spacing.to(d), cam)
+            outs[where] = render_vdi_same_view(vdi).cpu()
+        small_gate(f"small_gather_{name}", outs["cuda"], outs["cpu"])
+
+
+def run_gather_sessions(dev):
+    """Phase 12 (d): phase 7's session over 8 ranks in the plain
+    slice-march mode and the gather VDI mode (1280 x 720; 256 steps), a
+    warm frame and 4 timed frames each with a PNG sink every 4 frames,
+    the first 2 frames bit for bit against the hand-driven step and the
+    PNG equal to the plain payload's display pixels. Returns each
+    mode's launch counts."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from scenery_insitu_tpu_torch import kernels
+    from scenery_insitu_tpu_torch.core.camera import orbit
+    from scenery_insitu_tpu_torch.core.transfer import for_dataset
+    from scenery_insitu_tpu_torch.ops import slicer
+    from scenery_insitu_tpu_torch.parallel import pipeline as dp
+    from scenery_insitu_tpu_torch.parallel.mesh import make_mesh, shard_volume
+    from scenery_insitu_tpu_torch.runtime.session import png_sink
+    from scenery_insitu_tpu_torch.sim import grayscott as gs
+    from scenery_insitu_tpu_torch.utils.image import load_png, to_display
+
+    modes = {
+        "plain_mxu": ("runtime.generate_vdis=false",),
+        "gather_vdi": ("slicer.engine=gather", "vdi.adaptive_mode=histogram"),
+    }
+    out_launches = {}
+    for name, extra in modes.items():
+        prefix = f"session_{name}"
+        cfg = session_config(GRID, ranks=RANKS).with_overrides(
+            f"render.width={GATHER_W}", f"render.height={GATHER_H}",
+            f"render.max_steps={GATHER_STEPS}", *extra)
+        out = tempfile.mkdtemp(prefix="chip_smoke_gather_")
+        try:
+            frames = {}
+            sess = session(dev, cfg, [png_sink(out, every=SESSION_EVERY),
+                                      capture_into(frames)])
+            st0 = sess.sim.state
+            u0, v0, cam0 = st0.u.clone(), st0.v.clone(), sess.camera
+            kernels.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sess.run(1)
+            torch.cuda.synchronize()
+            log(f"{prefix}.warm_s", f"{time.perf_counter() - t0:.3f}")
+            before = phase_stats(sess.timers)
+            ms, _ = timed_run(sess, GATHER_SESSION_TIMED)
+            launches = kernels.launches()
+            log(f"{prefix}.launches", json.dumps(launches))
+            log(f"{prefix}.mode", f"{sess.mode} engine={sess.engine}")
+            SESSION_MS[prefix] = ms
+            log(f"{prefix}.ms_per_frame", f"{ms:.3f} (host clock, mean of "
+                f"{GATHER_SESSION_TIMED} frames after a warm one, a PNG "
+                f"every {SESSION_EVERY})")
+            log_phase_stats(prefix, sess.timers, before)
+            if name == "gather_vdi":
+                require_only(launches, ("grayscott_fused",
+                                        "resegment_sorted"), prefix)
+                if launches["resegment_sorted"] != RANKS * (
+                        1 + GATHER_SESSION_TIMED):
+                    raise AssertionError(f"{prefix}: K4 launched "
+                                         f"{launches['resegment_sorted']}"
+                                         f" times")
+            else:
+                require_only(launches, ("grayscott_fused",), prefix)
+            out_launches[name] = launches
+            del sess
+
+            # the first 2 frames driven by hand
+            mesh = make_mesh(RANKS, device=dev)
+            tf = for_dataset("gray_scott", device=dev)
+            vox = 2.0 / GRID
+            origin = torch.full((3,), -GRID * vox / 2, dtype=torch.float32,
+                                device=dev)
+            spacing = torch.full((3,), vox, dtype=torch.float32,
+                                 device=dev)
+            r = cfg.render
+            if name == "gather_vdi":
+                step = dp.distributed_vdi_step(
+                    mesh, tf, r.width, r.height, cfg.vdi, cfg.composite,
+                    max_steps=r.max_steps)
+
+                def hand_frame(field, cam):
+                    vdi = step(field, origin, spacing, cam)
+                    return {"vdi_color": vdi.color.cpu().numpy(),
+                            "vdi_depth": vdi.depth.cpu().numpy()}
+            else:
+                spec = slicer.make_spec(cam0, (GRID,) * 3, cfg.slicer,
+                                        axis_sign=slicer.choose_axis(cam0),
+                                        multiple_of=RANKS)
+                step = dp.distributed_plain_step_mxu(mesh, tf, spec, r)
+
+                def hand_frame(field, cam):
+                    img, axcam = step(field, origin, spacing, cam)
+                    return {"image": slicer.warp_to_camera(
+                        img, axcam, spec, cam, r.width, r.height,
+                        r.background).cpu().numpy()}
+            st = gs.GrayScott(u0, v0, st0.params)
+            cam, hand = cam0, {}
+            for i in range(2):
+                st = gs.multi_step_fast(st, SIM_STEPS)
+                hand[i] = hand_frame(shard_volume(st.field, mesh), cam)
+                cam = orbit(cam, np.float32(SESSION_ORBIT))
+            del st
+            for i in hand:
+                for key, want in hand[i].items():
+                    if not np.array_equal(frames[i][key], want):
+                        raise AssertionError(f"{prefix}: frame {i} {key} "
+                                             f"differs from the hand-driven "
+                                             f"step")
+            log(f"{prefix}_vs_hand.bit_exact", f"frames {sorted(hand)}")
+            pngs = sorted(f for f in os.listdir(out) if f.endswith(".png"))
+            log(f"{prefix}.pngs", pngs)
+            if len(pngs) != 2:
+                raise AssertionError(f"{prefix}: expected 2 PNGs, got {pngs}")
+            if name == "plain_mxu":
+                got = load_png(os.path.join(out, "frame00000.png"))
+                if not np.array_equal(got, to_display(frames[0]["image"])):
+                    raise AssertionError(f"{prefix}: the PNG sink's pixels "
+                                         f"differ from the plain image's")
+                log(f"{prefix}.png", f"frame00000.png {got.shape} equals "
+                    f"the plain payload's display pixels")
+            del frames, hand
+        finally:
+            shutil.rmtree(out, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return out_launches
+
+
+def check_goldens(dev):
+    """Phase 12 (e): the committed golden images of the gather raycast,
+    the slice-march plain render and the gather VDI's same-view decode,
+    rendered on the card from their configs, within the golden test's
+    bar (max 8-bit difference)."""
+    from scenery_insitu_tpu_torch.config import (RenderConfig,
+                                                 SliceMarchConfig, VDIConfig)
+    from scenery_insitu_tpu_torch.core.camera import Camera
+    from scenery_insitu_tpu_torch.core.transfer import for_dataset
+    from scenery_insitu_tpu_torch.core.vdi import render_vdi_same_view
+    from scenery_insitu_tpu_torch.core.volume import procedural_volume
+    from scenery_insitu_tpu_torch.ops import slicer
+    from scenery_insitu_tpu_torch.ops.raycast import raycast
+    from scenery_insitu_tpu_torch.ops.vdi_gen import generate_vdi
+    from scenery_insitu_tpu_torch.utils.image import load_png, to_display
+
+    g = GOLDEN
+    vol = procedural_volume(g["grid"], kind="blobs", seed=g["seed"],
+                            device=dev)
+    tf = for_dataset("procedural", device=dev)
+    cam = Camera.create(g["eye"], fov_y_deg=50.0, near=0.3, far=20.0,
+                        device=dev)
+    white = (1.0, 1.0, 1.0, 1.0)
+    spec = slicer.make_spec(cam, tuple(vol.data.shape),
+                            SliceMarchConfig(matmul_dtype="f32", fold="xla"))
+    vdi, _ = generate_vdi(vol, tf, cam, g["w"], g["h"],
+                          VDIConfig(max_supersegments=g["k"],
+                                    adaptive_iters=4), max_steps=g["steps"])
+    images = {
+        "raycast_gather": raycast(vol, tf, cam, g["w"], g["h"], RenderConfig(
+            max_steps=g["steps"], background=white)).image,
+        "raycast_mxu": slicer.raycast_mxu(vol, tf, cam, g["w"], g["h"], spec,
+                                          background=white).image,
+        "vdi_gather_decode": render_vdi_same_view(vdi, background=white)}
+    root = os.path.dirname(os.path.abspath(__file__))
+    for name, img in images.items():
+        want = load_png(os.path.join(root, "tests", "golden",
+                                     f"golden_{name}.png")).astype("float32")
+        got = to_display(img.cpu().numpy()).astype("float32")
+        gap = float(abs(got - want).max())
+        log(f"golden_{name}.max_8bit_diff", f"{gap:.1f} (bar {GOLDEN_BAR})")
+        if not gap <= GOLDEN_BAR:
+            raise AssertionError(f"golden {name}: max 8-bit difference "
+                                 f"{gap} > {GOLDEN_BAR}")
+
+
+def run_phase12(dev, done, profile=False):
+    """Phase 12 (a)-(e); returns the launch counts of each path."""
+    t12 = time.perf_counter()
+    frame_launches, state = run_gather_frame(dev, profile)
+    done("phase12.a")
+    dist_launches, gather_k4_nums = run_gather_dist(dev, state, profile)
+    del state
+    done("phase12.bc")
+    session_launches = run_gather_sessions(dev)
+    done("phase12.d")
+    check_goldens(dev)
+    log("phase12.wall_s", f"{time.perf_counter() - t12:.1f} (the gather "
+        f"engine and the plain images)")
+    return dict(frame=frame_launches, dist=dist_launches,
+                sessions=session_launches, gather_k4=gather_k4_nums)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -5202,6 +5836,10 @@ def main(argv=None) -> int:
                     help="run the build, phase 4's distributed frame (the "
                          "reference of phase 11 (a)) and phase 11 only, "
                          "then exit without the kernel table")
+    ap.add_argument("--phase12-only", action="store_true",
+                    help="run the build and phase 12 only (the gather "
+                         "engine and the plain images), then exit without "
+                         "the kernel table")
     ap.add_argument("--events-compare", action="append", default=[],
                     metavar="NAME=PATH",
                     help="another design of csrc/fold_chunk.cu (the same C "
@@ -5234,6 +5872,12 @@ def main(argv=None) -> int:
         log(f"{name}.wall_s", f"{time.perf_counter() - t0:.1f} (since the "
             f"build)")
 
+    if args.phase12_only:
+        run_phase12(dev, phase_done, args.profile)
+        phase_done("phase12")
+        log("phase12_only", "done (no kernel table: run without flags for "
+            "it)")
+        return 0
     if args.phase11_only:
         dist_ref = run_dist_frame(dev, args.profile)[3]
         phase_done("phase4")
@@ -5336,6 +5980,9 @@ def main(argv=None) -> int:
     log("phase11.wall_s", f"{time.perf_counter() - t11:.1f} (K budgets and "
         f"fragment reuse)")
     phase_done("phase11")
+    p12 = run_phase12(dev, phase_done, args.profile)
+    torch.cuda.empty_cache()
+    phase_done("phase12")
     n_frames = WARMUP_FRAMES + TIMED_FRAMES
 
     table = [
@@ -5525,6 +6172,19 @@ def main(argv=None) -> int:
             row["hier_session_launches"] = hier_session_launches[name]
         elif name == "resegment_sorted":
             row["session_launches"] = small_session_launches[name]
+        # phase 12: each gather and plain path's run (the single-chip
+        # gather frame, the 8-rank gather step, the two 8-rank sessions)
+        row["phase12_launches"] = {
+            "gather_frame": p12["frame"][name],
+            "gather_dist": p12["dist"][name],
+            **{f"session_{m}": v[name]
+               for m, v in p12["sessions"].items()}}
+        if name == "resegment_sorted":
+            # on the 8-rank gather step's 128-slot, 720 x 160 streams
+            err, ms, b, by = p12["gather_k4"]
+            row.update(gather_dist_max_abs_err=err, gather_dist_frame_ms=ms,
+                       gather_dist_frame_bound_ms=b,
+                       gather_dist_frame_bound_by=by)
     log("library_ms", "null for every kernel: no single PyTorch call "
         "computes the fused Gray-Scott steps, the segmented write fold, "
         "the multi-threshold count, the sort-and-resegment of a "

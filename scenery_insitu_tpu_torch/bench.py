@@ -5,7 +5,11 @@ measured path, on this package.
     python -m scenery_insitu_tpu_torch.bench --device cpu   # plain versions
 
 It builds the temporal Gray-Scott frame (``grayscott_vdi_frame_step``,
-the slice march), seeds the threshold state, runs 3 settle frames, then
+the slice march; ``SITPU_BENCH_ENGINE=gather`` the gather engine's ray
+march at ``WIDTH`` x ``HEIGHT`` with ``STEPS`` samples a ray, where the
+temporal mode, a slice-march feature, becomes ``histogram`` on the
+ledger as the reference's does), seeds the threshold state, runs 3
+settle frames, then
 times ``SITPU_BENCH_FRAMES`` frames with the eye oscillating within
 +-0.35 rad of (0, 0.6, 3) (one march regime), and prints ONE JSON line in
 the reference's shape: ``metric``, ``value`` (frames/s), ``unit``,
@@ -16,13 +20,14 @@ host clock around frames that end in a device synchronisation.
 Knobs (environment, the reference's names and defaults; the grid and
 frame count default to 512 and 25 on a card, 128 and 5 on the CPU):
 ``SITPU_BENCH_GRID``, ``K``, ``FRAMES``, ``SIM_STEPS``,
-``ADAPTIVE_ITERS``, ``ADAPTIVE_MODE``, ``FOLD``, ``CHUNK``, ``VTILES``,
+``ADAPTIVE_ITERS``, ``ADAPTIVE_MODE``, ``ENGINE`` (auto|mxu|gather;
+auto is the slice march), ``STEPS``, ``FOLD``, ``CHUNK``, ``VTILES``,
 ``SKIP`` (off|chunk|pyramid|sim), ``SIM_FUSED``, ``RENDER_DTYPE``
 (f32|bf16, the march's copy of the field; bf16 from a grid of 1024 up,
 as the reference defaults it), ``EXCHANGE`` (all_to_all|ring), ``WIRE``
 (f32|bf16|qpack8), ``SCHEDULE`` (frame|waves), ``WAVE_TILES``,
-``REBALANCE`` (even|occupancy), ``WIDTH`` and ``HEIGHT``, each prefixed
-``SITPU_BENCH_``. The frame is one card's, which has no exchange and
+``REBALANCE`` (even|occupancy), ``WIDTH`` and ``HEIGHT`` (the gather
+engine's image), each prefixed ``SITPU_BENCH_``. The frame is one card's, which has no exchange and
 one z band: as in the reference, the exchange, wire, schedule and
 rebalance knobs leave it unchanged and go into the JSON's ``config``
 block with ``modeled_exchange_8rank``, the modeled per-rank exchange
@@ -52,7 +57,6 @@ import torch
 
 # knob -> (the value that is ported, what is not, its ROADMAP row)
 _UNPORTED = {
-    "ENGINE": ("mxu", "the gather engine", "queue A9"),
     "SCAN_FRAMES": ("0", "the one-launch frame loop",
                     "queue A3/A7: a CUDA graph after A3"),
     "AUTOTUNE": ("0", "the fold race at warm-up", "queue A7"),
@@ -67,8 +71,6 @@ def bench_config(env: Mapping[str, str], on_card: bool) -> dict:
     get = lambda name, default: env.get(f"SITPU_BENCH_{name}", default)
     for name, (ported, what, row) in _UNPORTED.items():
         value = get(name, ported)
-        if name == "ENGINE" and value == "auto":
-            value = ported
         if value != ported:
             raise NotImplementedError(
                 f"SITPU_BENCH_{name}={value}: {what} is not ported yet "
@@ -90,8 +92,16 @@ def bench_config(env: Mapping[str, str], on_card: bool) -> dict:
     if skip not in (None, "off", "chunk", "pyramid", "sim"):
         raise ValueError(f"SITPU_BENCH_SKIP must be off|chunk|pyramid|sim,"
                          f" got {skip!r}")
+    from scenery_insitu_tpu_torch import obs
     from scenery_insitu_tpu_torch.config import CompositeConfig
+    from scenery_insitu_tpu_torch.ops import slicer
 
+    engine = slicer.resolve_engine(get("ENGINE", "mxu"))
+    adaptive_mode = get("ADAPTIVE_MODE", "temporal")
+    if adaptive_mode == "temporal" and engine != "mxu":
+        obs.degrade("bench.adaptive_mode", "temporal", "histogram",
+                    "temporal mode is mxu-only", warn=False)
+        adaptive_mode = "histogram"
     # the sort-last settings, validated as CompositeConfig validates them
     exchange = CompositeConfig(
         exchange=get("EXCHANGE", "all_to_all"), wire=get("WIRE", "f32"),
@@ -107,7 +117,8 @@ def bench_config(env: Mapping[str, str], on_card: bool) -> dict:
         frames=int(get("FRAMES", 25 if on_card else 5)),
         sim_steps=int(get("SIM_STEPS", 10)),
         adaptive_iters=int(get("ADAPTIVE_ITERS", 2)),
-        adaptive_mode=get("ADAPTIVE_MODE", "temporal"),
+        adaptive_mode=adaptive_mode, engine=engine,
+        steps=int(get("STEPS", 256)),
         fold=get("FOLD", "auto"),
         chunk=int(get("CHUNK", 16)),
         vtiles=int(get("VTILES", -1)),
@@ -186,11 +197,13 @@ def run(device=None, env: Optional[Mapping[str, str]] = None) -> dict:
                                  schedule=cfg["schedule"],
                                  wave_tiles=cfg["wave_tiles"],
                                  rebalance=cfg["rebalance"]),
-        engine="mxu", grid_shape=(grid,) * 3,
+        engine=cfg["engine"], grid_shape=(grid,) * 3,
         axis_sign=slicer.choose_axis(base), slicer_cfg=march_cfg,
         render_dtype=cfg["render_dtype"], sim_fused=cfg["sim_fused"],
-        occupancy=cfg["skip"], device=dev)
+        occupancy=cfg["skip"], width=cfg["width"], height=cfg["height"],
+        max_steps=cfg["steps"], device=dev)
     spec = step.spec
+    mxu = spec is not None
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     eye = lambda yaw: orbit(base, yaw).eye
 
@@ -217,20 +230,31 @@ def run(device=None, env: Optional[Mapping[str, str]] = None) -> dict:
     dt = (time.perf_counter() - t0) / frames
 
     # how sparse the measured scene was: the pyramid of the final field
-    pyr = occ.pyramid_from_volume(Volume.centered(v, extent=2.0),
-                                  for_dataset("gray_scott", device=dev), spec)
-    clf = pyr.chunk_live_fractions().cpu().numpy()
-    occupancy = {
-        "mode": cfg["skip"] or ("pyramid" if spec.vtiles > 0 else
-                                "chunk" if spec.skip_empty else "off"),
-        "vtiles": spec.vtiles,
-        "live_fraction": round(float(pyr.live_fraction()), 4),
-        "chunk_live_hist": np.histogram(clf, bins=8,
-                                        range=(0.0, 1.0))[0].tolist()}
+    # (the slice march's structure; the gather engine has none)
+    occupancy = None
+    if mxu:
+        pyr = occ.pyramid_from_volume(Volume.centered(v, extent=2.0),
+                                      for_dataset("gray_scott", device=dev),
+                                      spec)
+        clf = pyr.chunk_live_fractions().cpu().numpy()
+        occupancy = {
+            "mode": cfg["skip"] or ("pyramid" if spec.vtiles > 0 else
+                                    "chunk" if spec.skip_empty else "off"),
+            "vtiles": spec.vtiles,
+            "live_fraction": round(float(pyr.live_fraction()), 4),
+            "chunk_live_hist": np.histogram(clf, bins=8,
+                                            range=(0.0, 1.0))[0].tolist()}
+        render = {"image": [spec.ni, spec.nj], "steps": grid,
+                  "fold": spec.fold, "render_dtype": spec.render_dtype,
+                  "vtiles": spec.vtiles, "skip_empty": spec.skip_empty}
+    else:
+        render = {"image": [cfg["width"], cfg["height"]],
+                  "steps": cfg["steps"]}
+    w_img, h_img = render["image"]
     platform = "gpu" if on_card else "cpu"
     tag = "_render_only" if cfg["sim_steps"] == 0 else ""
     return {
-        "metric": f"gray_scott_{grid}c_vdi_fps_{spec.ni}x{spec.nj}_"
+        "metric": f"gray_scott_{grid}c_vdi_fps_{w_img}x{h_img}_"
                   f"{platform}_1chip{tag}",
         "value": round(1.0 / dt, 3),
         "unit": "frames/s",
@@ -244,9 +268,7 @@ def run(device=None, env: Optional[Mapping[str, str]] = None) -> dict:
         "occupancy": occupancy,
         "rebalance": rebalance_block(v, grid, cfg["rebalance"], dev),
         "config": {
-            "grid": grid, "image": [spec.ni, spec.nj], "steps": grid,
-            "fold": spec.fold, "render_dtype": spec.render_dtype,
-            "vtiles": spec.vtiles, "skip_empty": spec.skip_empty,
+            "grid": grid, **render,
             "k": k, "frames": frames, "sim_steps": cfg["sim_steps"],
             "sim_fused": cfg["sim_fused"], "exchange": cfg["exchange"],
             "wire": cfg["wire"], "schedule": cfg["schedule"],
@@ -258,7 +280,7 @@ def run(device=None, env: Optional[Mapping[str, str]] = None) -> dict:
             "device": (torch.cuda.get_device_name(dev) if on_card
                        else "cpu"),
             "power_limit": card_power_limit() if on_card else None,
-            "engine": "mxu"},
+            "engine": cfg["engine"]},
     }
 
 

@@ -302,7 +302,7 @@ class SimConfig:
 class RuntimeConfig:
     """Session-loop, dump and benchmark flags."""
 
-    generate_vdis: bool = True     # False: plain images (ROADMAP A4)
+    generate_vdis: bool = True     # False: plain images
     save_final: bool = False
     dump_dir: str = "dumps"
     benchmark: bool = False

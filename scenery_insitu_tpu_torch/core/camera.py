@@ -4,7 +4,7 @@ parameter ``t``, not NDC z."""
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -93,6 +93,38 @@ def view_matrix(cam: Camera) -> torch.Tensor:
 
 def projection_matrix(cam: Camera, width: int, height: int) -> torch.Tensor:
     return perspective(cam.fov_y, width / height, cam.near, cam.far)
+
+
+def pixel_rays(cam: Camera, width: int, height: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-pixel world-space rays: (origin f32[3], dirs f32[3, H, W]),
+    unit directions so the ray parameter t is world distance; pixel
+    centres, row 0 at the top. ``proj @ view`` is inverted in f32, and a
+    direction runs from the exactly known eye through the pixel's
+    near-plane point: the f32 unprojection of the far plane (ndc z = +1)
+    divides by w ~ 0, and near-minus-far directions drift ~1e-3."""
+    dev = cam.eye.device
+    inv_vp = torch.linalg.inv(projection_matrix(cam, width, height)
+                              @ view_matrix(cam))
+    j = (torch.arange(width, dtype=torch.float32, device=dev) + 0.5) \
+        / width * 2.0 - 1.0
+    i = 1.0 - (torch.arange(height, dtype=torch.float32, device=dev)
+               + 0.5) / height * 2.0
+    ndc_y, ndc_x = torch.meshgrid(i, j, indexing="ij")     # [H, W]
+    ndc = torch.stack([ndc_x, ndc_y, torch.full_like(ndc_x, -1.0),
+                       torch.ones_like(ndc_x)])             # [4, H, W]
+    w = torch.einsum("ab,bhw->ahw", inv_vp, ndc)
+    p_near = w[:3] / w[3:4]
+    dirs = _normalize(p_near - cam.eye.reshape(3, 1, 1), dim=0)
+    return cam.eye, dirs
+
+
+def world_to_ndc(point_w: torch.Tensor, view: torch.Tensor,
+                 proj: torch.Tensor) -> torch.Tensor:
+    """Project world points [..., 3] to NDC [..., 3]."""
+    p = torch.cat([point_w, torch.ones_like(point_w[..., :1])], dim=-1)
+    clip = p @ (proj @ view).T
+    return clip[..., :3] / clip[..., 3:4]
 
 
 def orbit(cam: Camera, yaw, pitch=0.0) -> Camera:

@@ -68,6 +68,11 @@ class Volume(NamedTuple):
             [w, h, d], dtype=torch.float32,
             device=self.origin.device) * self.spacing
 
+    def world_to_voxel(self, p: torch.Tensor) -> torch.Tensor:
+        """World position [..., 3] (x, y, z) -> continuous voxel coords
+        [..., 3] (x, y, z), voxel centres at integer + 0.5."""
+        return (p - self.origin) / self.spacing
+
 
 def procedural_volume(size: int = 128, seed: int = 0, kind: str = "blobs",
                       device=None) -> Volume:

@@ -1,5 +1,5 @@
-"""The single-chip in-situ frame: Gray-Scott advance -> VDI generation by
-slice march -> composite."""
+"""The single-chip in-situ frame: Gray-Scott advance -> VDI generation
+(the slice march, or the gather engine's ray march) -> composite."""
 
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ from scenery_insitu_tpu_torch.device import resolve_device
 from scenery_insitu_tpu_torch.ops import occupancy as occupancy_mod
 from scenery_insitu_tpu_torch.ops import slicer
 from scenery_insitu_tpu_torch.ops.composite import composite_vdis
+from scenery_insitu_tpu_torch.ops.vdi_gen import generate_vdi
 from scenery_insitu_tpu_torch.sim import grayscott as gs
 
 
@@ -56,19 +57,25 @@ def grayscott_vdi_frame_step(sim_steps: int = 5,
                              render_dtype: Optional[str] = None,
                              sim_fused: bool = True,
                              occupancy: Optional[str] = None,
-                             device=None):
+                             width: Optional[int] = None,
+                             height: Optional[int] = None,
+                             max_steps: int = 96, device=None):
     """Single-chip in-situ frame step. Returns ``fn(u, v, eye) -> (color,
     depth, u, v)``; with ``vdi_cfg.adaptive_mode == "temporal"`` it
     carries threshold state: ``fn(u, v, eye, thr) -> (color, depth, u,
     v, thr')``, seeded by the attribute ``fn.init_threshold(u, v, eye)``.
 
-    The engine is the slice march (``mxu``, the reference's name; "auto"
-    resolves to it): it needs the static ``grid_shape`` and
-    ``axis_sign`` (``slicer.choose_axis`` of a representative camera;
-    eyes must stay in that march regime). The VDI lives on the virtual
-    axis camera's grid (``frame_step.spec``), so unlike the reference's
-    signature there is no image width, height or ray step count (those
-    are the gather engine's). ``sim_fused`` advances the sim through the
+    ``engine="mxu"`` is the slice march ("auto" resolves to it on every
+    device, ``slicer.resolve_engine``): it needs the static
+    ``grid_shape`` and ``axis_sign`` (``slicer.choose_axis`` of a
+    representative camera; eyes must stay in that march regime), and
+    the VDI lives on the virtual axis camera's grid
+    (``frame_step.spec``). ``engine="gather"`` marches ``max_steps``
+    samples along every ray of a ``width`` x ``height`` image
+    (``ops/vdi_gen.generate_vdi``, the reference's portable raycaster;
+    ``frame_step.spec`` is None); it has no temporal thresholds and no
+    ``occupancy="sim"`` (both slice-march features, raising
+    ``ValueError`` as the reference does). ``sim_fused`` advances the sim through the
     fused stencil (kernel K3 on CUDA) instead of the roll formulation.
     ``occupancy="sim"`` builds each frame's occupancy pyramid from the
     per-brick ranges of the new field that the sim pass returns (the
@@ -81,32 +88,39 @@ def grayscott_vdi_frame_step(sim_steps: int = 5,
     comp_cfg = comp_cfg or CompositeConfig(max_output_supersegments=8,
                                            adaptive_iters=2)
     params = params or gs.GrayScottParams.create(device=dev)
-    if engine == "gather":
-        raise NotImplementedError(
-            "engine='gather' (ops/raycast.py, ops/vdi_gen.py) is a later "
-            "slice of the port (ROADMAP queue A9)")
-    if engine not in ("auto", "mxu"):
-        raise ValueError(f"unknown render engine {engine!r} "
-                         "(expected 'auto', 'mxu' or 'gather')")
+    engine = slicer.resolve_engine(engine)
     sim_occ = occupancy == "sim"
     slicer_cfg = resolve_occupancy_cfg(slicer_cfg or SliceMarchConfig(),
                                        occupancy)
+    if sim_occ and engine != "mxu":
+        raise ValueError("occupancy='sim' feeds the slice march's "
+                         "pyramid; it needs engine='mxu'")
     if render_dtype is None:
         render_dtype = slicer_cfg.render_dtype
     else:
         slicer_cfg = dataclasses.replace(slicer_cfg,
                                          render_dtype=render_dtype)
-    if grid_shape is None:
-        raise ValueError("engine='mxu' needs the static grid_shape")
-    if axis_sign is None:
-        raise ValueError(
-            "engine='mxu' needs axis_sign — pass slicer.choose_axis(cam) "
-            "for a camera representative of the eyes this step will be "
-            "called with")
-    spec = slicer.make_spec(
-        Camera.create((0.0, 0.6, 3.0), fov_y_deg=fov_y_deg, device=dev),
-        tuple(grid_shape), slicer_cfg, axis_sign=axis_sign)
+    spec = None
+    if engine == "mxu":
+        if grid_shape is None:
+            raise ValueError("engine='mxu' needs the static grid_shape")
+        if axis_sign is None:
+            raise ValueError(
+                "engine='mxu' needs axis_sign — pass slicer.choose_axis("
+                "cam) for a camera representative of the eyes this step "
+                "will be called with")
+        spec = slicer.make_spec(
+            Camera.create((0.0, 0.6, 3.0), fov_y_deg=fov_y_deg,
+                          device=dev),
+            tuple(grid_shape), slicer_cfg, axis_sign=axis_sign)
+    elif width is None or height is None:
+        raise ValueError("engine='gather' needs the image width and height")
     temporal = vdi_cfg.adaptive and vdi_cfg.adaptive_mode == "temporal"
+    if temporal and engine != "mxu":
+        raise ValueError("adaptive_mode='temporal' needs engine='mxu'")
+    if render_dtype not in ("f32", "bf16"):
+        raise ValueError(f"render_dtype must be 'f32' or 'bf16', "
+                         f"got {render_dtype!r}")
     rdt = torch.bfloat16 if render_dtype == "bf16" else None
     advance = gs.multi_step_fast if sim_fused else gs.multi_step
 
@@ -133,9 +147,12 @@ def grayscott_vdi_frame_step(sim_steps: int = 5,
         if temporal:
             vdi, _, _, thr = slicer.generate_vdi_mxu_temporal(
                 vol, tf, cam, spec, thr, vdi_cfg, occupancy=occ)
-        else:
+        elif engine == "mxu":
             vdi, _, _ = slicer.generate_vdi_mxu(vol, tf, cam, spec, vdi_cfg,
                                                 occupancy=occ)
+        else:
+            vdi, _ = generate_vdi(vol, tf, cam, width, height, vdi_cfg,
+                                  max_steps=max_steps)
         out = composite_vdis(vdi.color[None], vdi.depth[None], comp_cfg)
         if temporal:
             return out.color, out.depth, state.u, state.v, thr

@@ -74,6 +74,11 @@ def degrade(component: str, from_: str, to: str, reason: str,
 # The component catalog of every degrade() site in this package: keys
 # are components, values say what degrading means there.
 _LEDGER_REGISTRY: Dict[str, str] = {
+    "bench.adaptive_mode": "bench: temporal adaptive mode needs the mxu "
+                           "engine; histogram runs instead",
+    "bricks.partition": "a brick render partition was configured where "
+                        "the builder has no brick march (hybrid/plain "
+                        "steps); the even z-slab decomposition renders",
     "composite.schedule": "tile waves requested on a single-rank mesh; "
                           "frame schedule runs (nothing to overlap)",
     "config.removed_key": "a removed config key was set and ignored "
@@ -90,6 +95,9 @@ _LEDGER_REGISTRY: Dict[str, str] = {
                      "frame was shed latest-wins",
     "io.vdi_codec": "zstd codec unavailable; VDI IO degrades to stdlib "
                     "zlib",
+    "lod.engine": "a multi-level brick map reached the gather engine, "
+                  "which marches every brick at full resolution; levels "
+                  "flatten to 0 (docs/PERF.md 'LOD marching')",
     "lod.inert": "lod.enabled is set but the session has no brick map "
                  "(composite.rebalance != bricks), so no per-brick "
                  "levels exist to plan; the replan is a no-op",
@@ -157,6 +165,8 @@ _COUNTER_REGISTRY: Dict[str, str] = {
                              "dispatch path",
     "hier_composite_builds": "a two-level hierarchical composite "
                              "schedule was built",
+    "hier_plain_levels": "a plain (non-ring) allgather level of the "
+                         "hierarchical exchange was built",
     "iframe_forced": "the delta encoder forced a full I-tile (resync or "
                      "cadence)",
     "occupancy_kbudget_builds": "a K-budget occupancy plan was built",

@@ -198,3 +198,31 @@ def modeled_exchange_traffic(n: int, k: int, height: int, width: int,
         out["overlap_hidden_frac"] = round(hidden / total, 4) if total \
             else 0.0
     return out
+
+
+def composite_plain(images: torch.Tensor, depths: torch.Tensor,
+                    background: Tuple[float, ...] = (0, 0, 0, 0)
+                    ) -> torch.Tensor:
+    """Plain-image sort-last composite: ``images f32[N, 4, H, W]``
+    premultiplied, ``depths f32[N, H, W]`` (+inf for empty pixels) ->
+    ``f32[4, H, W]`` by per-pixel nearest-first alpha-under, the
+    background blended once. The sort is stable: tied depths (every
+    empty rank's +inf) keep the ranks' order."""
+    order = torch.argsort(depths, dim=0, stable=True)      # [N, H, W]
+    sorted_imgs = torch.take_along_dim(images, order[:, None], dim=0)
+    acc = torch.zeros_like(images[0])
+    for src in sorted_imgs:
+        acc = acc + (1.0 - acc[3:4]) * src
+    bg = torch.tensor(background, dtype=torch.float32,
+                      device=acc.device).reshape(4, 1, 1)
+    return acc + (1.0 - acc[3:4]) * bg
+
+
+def composite_depth_min(images: torch.Tensor, depths: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sort-first composite: per pixel the rank whose fragment is
+    nearest (the first on a tie). Returns (image [4, H, W], depth [H,
+    W])."""
+    idx = torch.argmin(depths, dim=0, keepdim=True)         # [1, H, W]
+    img = torch.take_along_dim(images, idx[:, None], dim=0)[0]
+    return img, torch.take_along_dim(depths, idx, dim=0)[0]

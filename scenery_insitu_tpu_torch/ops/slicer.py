@@ -99,6 +99,19 @@ class AxisSpec:
         return _UV[self.axis][1]
 
 
+def resolve_engine(engine: str) -> str:
+    """A render-engine name ("auto" | "mxu" | "gather"); raises on
+    anything else. "auto" is the slice march on every device: the
+    reference resolves it to the gather engine off its TPU, while here
+    the slice march is the engine whose kernels the card runs."""
+    if engine == "auto":
+        return "mxu"
+    if engine not in ("mxu", "gather"):
+        raise ValueError(f"unknown render engine {engine!r} "
+                         "(expected 'auto', 'mxu' or 'gather')")
+    return engine
+
+
 def choose_axis(cam: Camera) -> Tuple[int, int]:
     """The volume axis most aligned with the view direction (host-side).
     Returns (axis, sign)."""
@@ -364,6 +377,35 @@ def _pad_to_chunks(volp: torch.Tensor, c: int) -> Tuple[torch.Tensor, int]:
     return volp, nchunks
 
 
+def chunk_occupancy(vol: Volume, tf: TransferFunction, spec: AxisSpec,
+                    alpha_eps: float = 1e-5,
+                    volp: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """bool[nchunks]: can the slab of ``spec.chunk`` slices contribute
+    any opacity? The chunk level of the occupancy pyramid
+    (``ops/occupancy.pyramid_from_volume``), conservative: resampling
+    keeps values inside each slice's range, so a slab whose range maps
+    to zero alpha everywhere is invisible."""
+    from scenery_insitu_tpu_torch.ops import occupancy as _occ
+
+    return _occ.pyramid_from_volume(vol, tf, dataclasses.replace(
+        spec, vtiles=0), volp=volp, alpha_eps=alpha_eps).chunks
+
+
+def chunk_occupancy_vtiles(vol: Volume, tf: TransferFunction,
+                           spec: AxisSpec, alpha_eps: float = 1e-5,
+                           volp: Optional[torch.Tensor] = None
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(bool[nchunks], bool[nchunks, vtiles]): the chunk and the (chunk
+    x v-row band) levels of the occupancy pyramid in one pass, each band
+    with its one-row apron; the tile count re-clamps against this
+    volume's v extent (``ops/occupancy.resolved_tiles``)."""
+    from scenery_insitu_tpu_torch.ops import occupancy as _occ
+
+    pyr = _occ.pyramid_from_volume(vol, tf, spec, volp=volp,
+                                   alpha_eps=alpha_eps)
+    return pyr.chunks, pyr.tiles
+
+
 def occupancy_for(vol: Volume, tf: TransferFunction, spec: AxisSpec,
                   volp: Optional[torch.Tensor] = None):
     """The occupancy structure `slice_march` consumes for ``spec``: None,
@@ -590,6 +632,187 @@ def slice_march(vol: Volume, tf: TransferFunction, axcam: AxisCamera,
         else:
             carry = skip(carry, ci)
     return carry
+
+
+# ------------------------------------------------------- plain-image render
+
+
+def hittable_mask(vol: Volume, axcam: AxisCamera,
+                  spec: AxisSpec) -> torch.Tensor:
+    """bool[Nj, Ni]: can this intermediate-grid pixel's ray meet the
+    volume's box at any marched depth? Per pixel, ``pos_u(s) = eu + (u_i
+    - eu) * s`` lies in the volume's u extent for an interval of depth
+    ratios s, likewise v; the pixel is hittable when the two intervals
+    overlap somewhere in s > 0 between the volume's w faces
+    (conservative). The grid's margin pixels never are."""
+    a, ua, va = spec.axis, spec.u_axis, spec.v_axis
+    big = 1e30
+
+    def axis_interval(grid, e, lo, hi):
+        d = grid - e
+        safe = torch.where(d == 0, 1.0, d)
+        inside = (e >= lo) & (e <= hi)
+        s0 = torch.where(d > 0, (lo - e) / safe,
+                         torch.where(d < 0, (hi - e) / safe,
+                                     torch.where(inside, 0.0, big)))
+        s1 = torch.where(d > 0, (hi - e) / safe,
+                         torch.where(d < 0, (lo - e) / safe,
+                                     torch.where(inside, big, -big)))
+        return s0, s1
+
+    u0, u1 = axis_interval(axcam.u_grid, axcam.eye_u, vol.world_min[ua],
+                           vol.world_max[ua])
+    v0, v1 = axis_interval(axcam.v_grid, axcam.eye_v, vol.world_min[va],
+                           vol.world_max[va])
+    sa = float(spec.sign) * (vol.world_min[a] - axcam.eye_w) / axcam.zp
+    sb = float(spec.sign) * (vol.world_max[a] - axcam.eye_w) / axcam.zp
+    lo = torch.maximum(torch.maximum(u0[None, :], v0[:, None]),
+                       torch.minimum(sa, sb))
+    hi = torch.minimum(torch.minimum(u1[None, :], v1[:, None]),
+                       torch.maximum(sa, sb))
+    return torch.clamp(lo, min=0.0) <= hi
+
+
+def render_slices(vol: Volume, tf: TransferFunction, axcam: AxisCamera,
+                  spec: AxisSpec, early_exit_alpha: float = 0.999,
+                  v_bounds=None, step_scale: float = 1.0, occupancy=None,
+                  volp: Optional[torch.Tensor] = None,
+                  w_bounds=None):
+    """The plain image on the intermediate grid: front-to-back
+    alpha-under of the slice march, background-free premultiplied RGBA
+    and the first-hit depth (ray parameter; +inf where empty), as a
+    ``RaycastOutput``. Skips provably empty chunks (``occupancy``: see
+    `_frame_march`; None builds the gate from ``volp``). A pixel stops
+    accumulating once its alpha reaches ``early_exit_alpha``.
+    ``v_bounds``, ``w_bounds``, ``step_scale``: see `slice_march` (the
+    port's march has no u bounds: ranks own rows and slices, never
+    columns).
+
+    Each chunk composites in parallel over its slices: slice s
+    contributes ``rgba_s * prod_{s' < s}(1 - alpha_s')``, and the
+    per-pixel gate tests the alpha before the update, ``1 - (1 - A0) *
+    Tl_excl(s)``, a prefix quantity; once a pixel crosses the gate every
+    later sample is zeroed either way, so gating with the unmasked
+    prefix is the sequential frozen-accumulator semantics up to the
+    association of the products (a pixel within an ulp of the gate can
+    round it one sample apart)."""
+    from scenery_insitu_tpu_torch.ops.raycast import RaycastOutput
+
+    def consume(carry, rgba, t0, t1):
+        acc, first_t = carry
+        t_run = torch.ones_like(acc[3])
+        tls = []
+        for i in range(rgba.shape[0]):
+            tls.append(t_run)
+            t_run = t_run * (1.0 - rgba[i, 3])
+        tl = torch.stack(tls)                               # [C, Nj, Ni]
+        a0 = acc[3:4]
+        gate = 1.0 - (1.0 - a0) * tl < early_exit_alpha
+        contrib = torch.sum(rgba * (tl * gate)[:, None], dim=0)
+        acc = acc + (1.0 - a0) * contrib
+        hit = gate & (rgba[:, 3] > 1e-4)
+        t_hit = torch.amin(torch.where(hit, t0, torch.inf), dim=0)
+        return acc, torch.minimum(first_t, t_hit)
+
+    dev = vol.data.device
+    acc0 = torch.zeros((4, spec.nj, spec.ni), dtype=torch.float32,
+                       device=dev)
+    t_0 = torch.full((spec.nj, spec.ni), torch.inf, device=dev)
+    if volp is None:
+        volp = permute_volume(vol, spec)
+    occ = _resolve_occupancy(vol, tf, spec, occupancy, volp)
+    acc, first_t = slice_march(vol, tf, axcam, spec, consume, (acc0, t_0),
+                               occupancy=occ, volp=volp, v_bounds=v_bounds,
+                               w_bounds=w_bounds, step_scale=step_scale)
+    return RaycastOutput(acc, first_t)
+
+
+def bilinear_image_sample(img: torch.Tensor, gy: torch.Tensor,
+                          gx: torch.Tensor, fill: float = 0.0
+                          ) -> torch.Tensor:
+    """Sample ``img f32[ch, H, W]`` at continuous pixel coordinates (gy,
+    gx) ``[...]`` (pixel centres at integers); out of range gives
+    ``fill``."""
+    ch, h, w = img.shape
+    inb = (gx >= -0.5) & (gx <= w - 0.5) & (gy >= -0.5) & (gy <= h - 0.5)
+    x = torch.clamp(gx, 0.0, w - 1.0)
+    y = torch.clamp(gy, 0.0, h - 1.0)
+    x0 = torch.clamp(torch.floor(x).to(torch.int64), 0, max(w - 2, 0))
+    y0 = torch.clamp(torch.floor(y).to(torch.int64), 0, max(h - 2, 0))
+    fx, fy = x - x0, y - y0
+    x1 = torch.clamp(x0 + 1, max=w - 1)
+    y1 = torch.clamp(y0 + 1, max=h - 1)
+    flat = img.reshape(ch, h * w)
+
+    def at(yi, xi):
+        return flat[:, yi * w + xi]
+
+    out = (at(y0, x0) * ((1 - fx) * (1 - fy))[None]
+           + at(y0, x1) * (fx * (1 - fy))[None]
+           + at(y1, x0) * ((1 - fx) * fy)[None]
+           + at(y1, x1) * (fx * fy)[None])
+    return torch.where(inb[None], out, fill)
+
+
+def warp_to_camera(image: torch.Tensor, axcam: AxisCamera, spec: AxisSpec,
+                   cam: Camera, width: int, height: int,
+                   background: Optional[Tuple[float, ...]] = (0.0, 0.0,
+                                                              0.0, 0.0),
+                   fill: float = 0.0, nearest: bool = False
+                   ) -> torch.Tensor:
+    """Resample an intermediate-grid image ``[ch, Nj, Ni]`` to the
+    display camera's ``[ch, H, W]``: both cameras share the eye, so the
+    map is the homography the reference plane induces, exact. Rays that
+    miss the plane or leave the grid take ``fill``; ``background``
+    (4-channel images) is blended under once, None leaves it out.
+    ``nearest`` takes the nearest grid pixel instead of blending: a
+    channel with sentinel values (a depth map's -1 for empty) must never
+    blend a sentinel with a neighbour."""
+    from scenery_insitu_tpu_torch.core.camera import pixel_rays
+
+    _, dirs = pixel_rays(cam, width, height)               # [3, H, W]
+    de = float(spec.sign) * dirs[spec.axis]
+    hit = de > 1e-6
+    tp = axcam.zp / torch.where(hit, de, 1.0)
+    pu = axcam.eye_u + tp * dirs[spec.u_axis]
+    pv = axcam.eye_v + tp * dirs[spec.v_axis]
+    du = axcam.u_grid[1] - axcam.u_grid[0]
+    dv = axcam.v_grid[1] - axcam.v_grid[0]
+    gi = (pu - axcam.u_grid[0]) / du
+    gj = (pv - axcam.v_grid[0]) / dv
+    if nearest:
+        gi, gj = torch.round(gi), torch.round(gj)
+    out = bilinear_image_sample(image, gj, gi, fill)
+    out = torch.where(hit[None], out, fill)
+    if background is None:
+        return out
+    bg = torch.tensor(background, dtype=torch.float32,
+                      device=out.device).reshape(-1, 1, 1)
+    return out + (1.0 - out[3:4]) * bg
+
+
+def raycast_mxu(vol: Volume, tf: TransferFunction, cam: Camera,
+                width: int, height: int, spec: AxisSpec,
+                early_exit_alpha: float = 0.999,
+                background: Tuple[float, ...] = (0.0, 0.0, 0.0, 0.0),
+                step_scale: float = 1.0):
+    """The plain image on the slice march: `render_slices` on the
+    intermediate grid, warped to the display camera
+    (``RaycastOutput``, as ``ops.raycast.raycast`` returns it)."""
+    from scenery_insitu_tpu_torch.ops.raycast import RaycastOutput
+
+    axcam = make_axis_camera(vol, cam, spec)
+    inter = render_slices(vol, tf, axcam, spec, early_exit_alpha,
+                          step_scale=step_scale)
+    img = warp_to_camera(inter.image, axcam, spec, cam, width, height,
+                         background)
+    # the depth: nearest-sample warp with -1 standing in for +inf, so an
+    # empty pixel never blends with a valid neighbour
+    depth = warp_to_camera(
+        torch.where(torch.isfinite(inter.depth), inter.depth, -1.0)[None],
+        axcam, spec, cam, width, height, background=None, fill=-1.0,
+        nearest=True)[0]
+    return RaycastOutput(img, torch.where(depth >= 0.0, depth, torch.inf))
 
 
 # ----------------------------------------------------------- VDI generation

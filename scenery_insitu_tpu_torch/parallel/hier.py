@@ -20,6 +20,12 @@ level 2   across domains (DCN), every accumulator is encoded once for
 the top   one resegment (K4 on a card) a rank, of a stream of D·K·H =
           N·K slots, the flat composite's length.
 
+The plain-image composite splits the same way
+(`hier_composite_plain`): level 1 folds each domain's fragments into a
+background-free partial with its nearest depth, level 2 exchanges the
+partials across domains on the DCN wire and folds them with the
+background.
+
 Rank (h, d)'s block lands at flat position ``d * H + h``
 (``Topology.out_axis``), so the blocks side by side in that order are
 the frame's columns in natural order. With f32 wires every merge moves
@@ -47,10 +53,11 @@ from scenery_insitu_tpu_torch.config import CompositeConfig
 from scenery_insitu_tpu_torch.core.vdi import VDI
 from scenery_insitu_tpu_torch.ops import wire as _wire
 from scenery_insitu_tpu_torch.ops.composite import (
-    modeled_exchange_traffic, resegment_stream, sort_stream)
+    composite_plain, modeled_exchange_traffic, resegment_stream, sort_stream)
 from scenery_insitu_tpu_torch.parallel.pipeline import (
-    _column_blocks, _exchange_vdi_columns, _ring_accumulate, _ring_blocks,
-    _ring_cap, ring_hop_markers)
+    _column_blocks, _exchange_plain_columns, _exchange_vdi_columns,
+    _out_block_index, _ring_accumulate, _ring_blocks, _ring_cap,
+    ring_hop_markers)
 from scenery_insitu_tpu_torch.parallel.topology import Topology
 
 Stream = Tuple[torch.Tensor, torch.Tensor]
@@ -180,3 +187,36 @@ def hier_composite_vdi(color: torch.Tensor, depth: torch.Tensor,
     are the frame's columns."""
     return [resegment_stream(sc, sd, comp_cfg)
             for sc, sd in hier_accumulate(color, depth, topo, comp_cfg)]
+
+
+def hier_composite_plain(images: torch.Tensor, depths: torch.Tensor,
+                         topo: Topology, background,
+                         wire: str) -> List[torch.Tensor]:
+    """The two-level plain-image composite of the rank-stacked fragments
+    (``images [N, 4, H, W]``, ``depths [N, H, W]``, flat rank ``h * D +
+    d``). Level 1: each domain's D fragments exchanged on ``wire`` (the
+    ring delivers the all_to_all's blocks bit for bit, so one exchange
+    serves both schedules) and folded nearest-first into
+    background-free domain partials, each with its nearest depth
+    (alpha-under is associative over depth-ordered groups, and domains
+    are disjoint z bands, so that depth orders level 2). Level 2: the
+    partials' column sub-blocks exchanged across domains on
+    ``topo.dcn_wire`` and folded with the background, once. Returns the column blocks in output order (`_out_block_index`),
+    which side by side are the frame's columns."""
+    d, hosts = topo.domain_size, topo.num_hosts
+    clear = (0.0, 0.0, 0.0, 0.0)
+    partials = []                          # [h][j]: (partial, depth)
+    for h in range(hosts):
+        ims, dps = images[h * d:(h + 1) * d], depths[h * d:(h + 1) * d]
+        ri, rd = _exchange_plain_columns(ims, dps, d, wire)
+        partials.append([(composite_plain(ri[j], rd[j], clear),
+                          torch.amin(rd[j], dim=0)) for j in range(d)])
+    out = [None] * (hosts * d)
+    for j in range(d):
+        pi = torch.stack([partials[h][j][0] for h in range(hosts)])
+        pd = torch.stack([partials[h][j][1] for h in range(hosts)])
+        ri, rd = _exchange_plain_columns(pi, pd, hosts, topo.dcn_wire)
+        for h in range(hosts):
+            out[_out_block_index(topo, h * d + j)] = composite_plain(
+                ri[h], rd[h], background)
+    return out

@@ -99,6 +99,7 @@ becomes a Python branch a rank; a clean rank launches no march kernel).
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import List, NamedTuple, Optional, Tuple
 
@@ -106,17 +107,21 @@ import numpy as np
 import torch
 
 from scenery_insitu_tpu_torch import obs as _obs
-from scenery_insitu_tpu_torch.config import CompositeConfig, VDIConfig
+from scenery_insitu_tpu_torch.config import (CompositeConfig, RenderConfig,
+                                             VDIConfig)
 from scenery_insitu_tpu_torch.core.camera import Camera
 from scenery_insitu_tpu_torch.core.transfer import TransferFunction
 from scenery_insitu_tpu_torch.core.vdi import VDI
 from scenery_insitu_tpu_torch.core.volume import Volume
+from scenery_insitu_tpu_torch.ops import ao as _ao
 from scenery_insitu_tpu_torch.ops import slicer
 from scenery_insitu_tpu_torch.ops import supersegments as ss
 from scenery_insitu_tpu_torch.ops import wire as _wire
 from scenery_insitu_tpu_torch.ops.composite import (
-    composite_vdis, merge_vdis_pairwise, modeled_exchange_traffic,
-    resegment_stream, sort_stream)
+    composite_plain, composite_vdis, merge_vdis_pairwise,
+    modeled_exchange_traffic, resegment_stream, sort_stream)
+from scenery_insitu_tpu_torch.ops.raycast import raycast
+from scenery_insitu_tpu_torch.ops.vdi_gen import generate_vdi
 from scenery_insitu_tpu_torch.parallel.bricks import BrickMap
 from scenery_insitu_tpu_torch.parallel.mesh import (Mesh, halo_exchange_z,
                                                     reslab_bricks,
@@ -449,18 +454,44 @@ def _wire_build_marker(wire: str) -> None:
 
 
 def _wave_build_marker(n: int, t: int, k: int, h: int, w: int,
-                       cfg: CompositeConfig) -> None:
+                       cfg: CompositeConfig, marched: bool = True) -> None:
     """One wave schedule built: its counters (the build and its T waves)
-    and one event with the modeled overlap accounting."""
+    and one event with the modeled overlap accounting. ``marched=False``
+    tags the gather engine's schedule, whose march is one for the frame
+    and whose waves only exchange and composite."""
     rec = _obs.get_recorder()
     rec.count("wave_schedule_builds")
     rec.count("wave_steps_built", t)
     rec.event("wave_schedule_build", ranks=n, tiles=t, k=k,
-              wave_cols=w // t, tile_cols=w // (n * t), march_per_wave=True,
+              wave_cols=w // t, tile_cols=w // (n * t),
+              march_per_wave=marched,
               traffic=modeled_exchange_traffic(
                   n, k, h, w, k_out=cfg.max_output_supersegments,
                   mode=cfg.exchange, ring_slots=cfg.ring_slots,
                   wire=cfg.wire, schedule="waves", wave_tiles=t))
+
+
+def _exchange_build_markers(n: int, k: int, h: int, w: int,
+                            comp_cfg: CompositeConfig, topo, waves: bool,
+                            marched: bool = True) -> None:
+    """The build markers of a VDI step's exchange and composite on a
+    ``[K, ., h, w]`` fragment: the wave schedule, the two-level
+    composite or the ring (on a wave's width under waves), and a lossy
+    wire's encode."""
+    if waves:
+        _wave_build_marker(n, comp_cfg.wave_tiles, k, h, w, comp_cfg,
+                           marched)
+    w_step = w // (comp_cfg.wave_tiles if waves else 1)
+    if topo is not None:
+        from scenery_insitu_tpu_torch.parallel.hier import _hier_build_marker
+
+        _hier_build_marker(topo, k, h, w_step, comp_cfg)
+        if topo.dcn_wire != "f32":
+            _wire_build_marker(topo.dcn_wire)
+    elif comp_cfg.exchange == "ring" and n > 1:
+        _ring_build_marker(n, k, h, w_step, comp_cfg)
+    if comp_cfg.wire != "f32":
+        _wire_build_marker(comp_cfg.wire)
 
 
 def _resolve_waves(cfg: CompositeConfig, n: int, width: int) -> bool:
@@ -904,9 +935,8 @@ def _waves_frame(frames, origin, cam, spec, tf, vdi_cfg, comp_cfg, n,
         frag = march(w)
     outs.append(_composite_exchanged(*frag, n, comp_cfg, topo))
     del frag
-    # column block j is its wave tiles side by side
-    color = torch.cat([o[j].color for j in range(n) for o in outs], dim=-1)
-    depth = torch.cat([o[j].depth for j in range(n) for o in outs], dim=-1)
+    color = _assemble_waves(outs, n, "color")
+    depth = _assemble_waves(outs, n, "depth")
     fr0 = frames[0]
     meta = _global_meta(fr0.dec, fr0.axcam, spec, origin)
     thr2 = None if thr is None else _stack_thr(thr_full)
@@ -1008,20 +1038,7 @@ def _build_mxu_step(mesh, tf, spec, vdi_cfg, comp_cfg, temporal: bool,
                            where="the brick-partitioned MXU step")
     # a rank's fragment: K slots, or K a brick slot
     k = vdi_cfg.max_supersegments * (bricks.total_slots if bricks else 1)
-    if waves:
-        _wave_build_marker(n, comp_cfg.wave_tiles, k, spec.nj, spec.ni,
-                           comp_cfg)
-    w_step = spec.ni // (comp_cfg.wave_tiles if waves else 1)
-    if topo is not None:
-        from scenery_insitu_tpu_torch.parallel.hier import _hier_build_marker
-
-        _hier_build_marker(topo, k, spec.nj, w_step, comp_cfg)
-        if topo.dcn_wire != "f32":
-            _wire_build_marker(topo.dcn_wire)
-    elif comp_cfg.exchange == "ring" and n > 1:
-        _ring_build_marker(n, k, spec.nj, w_step, comp_cfg)
-    if comp_cfg.wire != "f32":
-        _wire_build_marker(comp_cfg.wire)
+    _exchange_build_markers(n, k, spec.nj, spec.ni, comp_cfg, topo, waves)
     rows_a_rank = spec.nj * (bricks.total_slots if bricks else 1)
 
     def body(data, origin, spacing, cam, thr, ru):
@@ -1148,3 +1165,445 @@ def distributed_initial_reuse_mxu(mesh: Mesh, tf: TransferFunction,
                                       spec.nj, spec.ni, n=n)
 
     return seed
+
+
+# ------------------------------------------------------ the gather engine
+
+
+def _bricks_inert(bricks, where: str) -> None:
+    """A builder with no brick march says a configured brick partition
+    is inert (on the ledger) and renders the even decomposition."""
+    if bricks is not None:
+        _obs.degrade("bricks.partition", "bricks", "slabs",
+                     f"{where} has no brick march (gather/MXU VDI steps "
+                     "only); the even z-slab decomposition renders",
+                     warn=False)
+
+
+def _local_volume_and_clip(slabs: torch.Tensor, rows: torch.Tensor, r: int,
+                           origin: torch.Tensor, spacing: torch.Tensor,
+                           plan=None):
+    """Rank r's halo-padded Volume for the gather engine, its own clip
+    box and the GLOBAL sample box: ``(vol, clip_min, clip_max,
+    sample_min, sample_max)``. ``rows`` holds every rank's rows with one
+    halo slice a side (`halo_exchange_z`, or the ``plan``'s bands from
+    `reslab_z`, padded to ``max(plan)``: the clip box keeps the pad
+    unsampled). The clip boxes tile the global volume (rank r's top
+    face and rank r+1's bottom face are the same f32 expression) and
+    every rank ladders its samples on the global box, so the composite
+    equals the single-device frame whatever the decomposition."""
+    n, dn, h, w = slabs.shape
+    dz = spacing[2]
+    g0, depth = (r * dn, dn) if plan is None else (sum(plan[:r]), plan[r])
+    vol = Volume(rows[r], _shifted(origin, float(g0 - 1) * dz), spacing)
+    gmax = origin + torch.tensor([w, h, dn * n], dtype=torch.float32,
+                                 device=origin.device) * spacing
+    z_lo = origin[2] + float(g0) * dz
+    z_hi = origin[2] + float(g0 + depth) * dz
+    return (vol, torch.stack([origin[0], origin[1], z_lo]),
+            torch.stack([gmax[0], gmax[1], z_hi]), origin, gmax)
+
+
+def _brick_clip_units(slabs: torch.Tensor, bands: torch.Tensor, r: int,
+                      origin: torch.Tensor, spacing: torch.Tensor,
+                      bmap: BrickMap):
+    """`_local_volume_and_clip`'s brick twin: rank r's ``(volume,
+    clip_min, clip_max)`` a brick slot from ``bands`` (`reslab_bricks`
+    with one halo slice), None for an absent slot, and the global box's
+    max corner. The clip boxes tile the global volume as the slabs' do
+    and the samples ladder on the global box, so the frame does not
+    depend on which rank owns a brick. Every brick samples at level 0:
+    the gather engine has no coarse march."""
+    n, dn, h, w = slabs.shape
+    dz = spacing[2]
+    gmax = origin + torch.tensor([w, h, dn * n], dtype=torch.float32,
+                                 device=origin.device) * spacing
+    bz = bmap.brick_depth
+    units = []
+    for s, start in enumerate(bmap.start_table()[r]):
+        start = int(start)                                 # -1 = absent
+        if start < 0:
+            units.append(None)
+            continue
+        vol = Volume(bands[r, s], _shifted(origin, float(start - 1) * dz),
+                     spacing)
+        z_lo = origin[2] + float(start) * dz
+        z_hi = origin[2] + float(start + bz) * dz
+        units.append((vol, torch.stack([origin[0], origin[1], z_lo]),
+                      torch.stack([gmax[0], gmax[1], z_hi])))
+    return units, gmax
+
+
+def _assemble_waves(outs, n: int, field: str = None) -> torch.Tensor:
+    """Every wave's per-rank blocks -> the frame: column block j is its
+    wave tiles side by side, the blocks in column order. ``outs[w][j]``
+    is a tensor, or a VDI whose ``field`` is taken."""
+    pick = (lambda x: x) if field is None else \
+        (lambda x: getattr(x, field))
+    return torch.cat([pick(o[j]) for j in range(n) for o in outs], dim=-1)
+
+
+def _composite_exchanged_waves(color: torch.Tensor, depth: torch.Tensor,
+                               n: int, comp_cfg: CompositeConfig,
+                               topo=None) -> VDI:
+    """Tile-wave exchange and composite of full-frame fragments (the
+    gather engine marches the frame once): every wave's column blocks of
+    the rank-stacked fragments through `_composite_exchanged`, in wave
+    order, reassembled; per pixel the frame schedule's result."""
+    t = comp_cfg.wave_tiles
+    outs = [_composite_exchanged(slicer.wave_cols(color, n, t, w),
+                                 slicer.wave_cols(depth, n, t, w), n,
+                                 comp_cfg, topo) for w in range(t)]
+    return VDI(_assemble_waves(outs, n, "color"),
+               _assemble_waves(outs, n, "depth"))
+
+
+def distributed_vdi_step(mesh: Mesh, tf: TransferFunction, width: int,
+                         height: int, vdi_cfg: Optional[VDIConfig] = None,
+                         comp_cfg: Optional[CompositeConfig] = None,
+                         max_steps: int = 256, plan=None, bricks=None,
+                         topology=None):
+    """Distributed sort-last VDI step on the gather engine. Returns
+    ``f(vol_data, origin, spacing, cam) -> VDI`` with the global
+    ``[K_out, 4|2, height, width]``.
+
+    Every rank marches ``max_steps`` samples a ray over the GLOBAL box
+    (`ops/vdi_gen.generate_vdi`), owning the samples inside its clip box
+    (`_local_volume_and_clip`; a ``plan``'s band, or one clip box a
+    brick slot of ``bricks``, `_brick_clip_units`), and the fragments go
+    through the exchange and composite of ``comp_cfg``: all_to_all or
+    ring, f32, bf16 or qpack8 wires, frame or tile waves (which only
+    exchange and composite wave by wave: the march is one for the
+    frame), flat or two-level (``topology``, see
+    `distributed_vdi_step_mxu`). The K budget and fragment reuse need
+    the slice march's pyramid and carry: configured here they go on the
+    ledger inert, as the reference records them."""
+    vdi_cfg = vdi_cfg or VDIConfig()
+    comp_cfg = comp_cfg or CompositeConfig()
+    _, n, topo = resolve_mesh_topology(mesh, topology)
+    if width % n:
+        raise ValueError(f"width {width} not divisible by mesh size {n}")
+    waves = _resolve_waves(comp_cfg, n, width)
+    if comp_cfg.k_budget == "occupancy":
+        _obs.degrade("occupancy.k_budget", "occupancy", "static",
+                     "gather-engine distributed step has no occupancy "
+                     "pyramid (mxu builders only)", warn=False)
+    _resolve_reuse(comp_cfg, supported=False,
+                   where="the gather-engine distributed step")
+    plan = _resolve_plan(comp_cfg, n, plan)
+    bricks = _resolve_bricks(comp_cfg, n, bricks)
+    if bricks is not None and bricks.max_level:
+        _obs.degrade("lod.engine", "lod", "fine",
+                     "the gather engine has no LOD march (MXU builders "
+                     "only); every brick samples at level 0", warn=False)
+    k_seg = vdi_cfg.max_supersegments
+    k = k_seg * (bricks.slots if bricks else 1)
+    _exchange_build_markers(n, k, height, width, comp_cfg, topo, waves,
+                            marched=False)
+
+    def step(vol_data, origin, spacing, cam: Camera) -> VDI:
+        slabs = _check_sharded(vol_data, mesh)
+        if bricks is not None:
+            bands = reslab_bricks(slabs, bricks, h=1)
+        else:
+            rows = (halo_exchange_z(slabs) if plan is None
+                    else reslab_z(slabs, plan, h=1))
+        colors, depths = [], []
+        for r in range(n):
+            if bricks is not None:
+                units, gmax = _brick_clip_units(slabs, bands, r, origin,
+                                                spacing, bricks)
+            else:
+                vol, cmin, cmax, _, gmax = _local_volume_and_clip(
+                    slabs, rows, r, origin, spacing, plan)
+                units = [(vol, cmin, cmax)]
+            cs, ds = [], []
+            for unit in units:
+                if unit is None:
+                    # an absent slot owns no sample: its fragment is
+                    # empty, whatever the transfer function gives 0
+                    cs.append(torch.zeros((k_seg, 4, height, width),
+                                          device=origin.device))
+                    ds.append(torch.full((k_seg, 2, height, width),
+                                         torch.inf, device=origin.device))
+                    continue
+                vol, cmin, cmax = unit
+                vdi, _ = generate_vdi(vol, tf, cam, width, height, vdi_cfg,
+                                      max_steps=max_steps, clip_min=cmin,
+                                      clip_max=cmax, sample_min=origin,
+                                      sample_max=gmax)
+                cs.append(vdi.color)
+                ds.append(vdi.depth)
+            colors.append(_cat_slots(cs))
+            depths.append(_cat_slots(ds))
+        color, depth = torch.stack(colors), torch.stack(depths)
+        del colors, depths
+        if waves:
+            return _composite_exchanged_waves(color, depth, n, comp_cfg,
+                                              topo)
+        blocks = _composite_exchanged(color, depth, n, comp_cfg, topo)
+        return VDI(torch.cat([b.color for b in blocks], dim=-1),
+                   torch.cat([b.depth for b in blocks], dim=-1))
+
+    return step
+
+
+# -------------------------------------------------------- plain images
+
+
+def _out_block_index(topo, r: int) -> int:
+    """The output column block of flat rank r: r itself on a flat mesh;
+    on a two-level mesh the composite hands rank (h, d) = (r // D, r %
+    D) block ``d * H + h`` (``Topology.out_axis``)."""
+    if topo is None:
+        return r
+    h, d = divmod(r, topo.domain_size)
+    return d * topo.num_hosts + h
+
+
+def _exchange_plain_columns(images: torch.Tensor, depths: torch.Tensor,
+                            n: int, wire: str = "f32"):
+    """Column all_to_all of the rank-stacked plain fragments (``images
+    [n, 4, H, W]``, ``depths [n, H, W]``) on ``wire``: each fragment is
+    encoded once against its own scale, every received block decoded
+    against its sender's. Returns f32 ``([n_dst, n_src, 4, H, W/n],
+    [n_dst, n_src, H, W/n])``."""
+    if wire == "f32":
+        return _exchange_columns(images, n), _exchange_columns(depths, n)
+    enc = [_wire.encode_plain(i, d, wire) for i, d in zip(images, depths)]
+    ri = _exchange_columns(torch.stack([e[0] for e in enc]), n)
+    rd = _exchange_columns(torch.stack([e[1] for e in enc]), n)
+    scales = None if enc[0][2] is None else \
+        torch.stack([e[2] for e in enc])[None]
+    return _wire.decode_plain(ri, rd, scales, wire)
+
+
+def _composite_plain_exchanged(images: torch.Tensor, depths: torch.Tensor,
+                               n: int, background, wire: str = "f32",
+                               topo=None) -> List[torch.Tensor]:
+    """Exchange on ``wire`` and nearest-first composite
+    (`composite_plain`, the background blended once) of the rank-stacked
+    plain fragments. Returns every rank's composited column block ``[4,
+    H, W/n]`` in column order. The ring delivers the all_to_all's
+    blocks bit for bit (every fragment is encoded once, against its own
+    scale, and a plain fragment has no working set to cap), so both
+    schedules run this one exchange; the ring shows in the build
+    markers. ``topo`` runs the two-level composite
+    (``parallel/hier.py``)."""
+    if topo is not None:
+        from scenery_insitu_tpu_torch.parallel.hier import (
+            hier_composite_plain)
+
+        return hier_composite_plain(images, depths, topo, background, wire)
+    ri, rd = _exchange_plain_columns(images, depths, n, wire)
+    return [composite_plain(ri[j], rd[j], background) for j in range(n)]
+
+
+def _composite_plain_waves(images: torch.Tensor, depths: torch.Tensor,
+                           n: int, background, wire: str,
+                           wave_tiles: int, march_wave=None,
+                           topo=None) -> torch.Tensor:
+    """The tile-wave plain frame: wave by wave, the rank-stacked wave
+    fragments exchanged and composited (`_composite_plain_exchanged`),
+    then reassembled into the frame schedule's layout. ``march_wave(w)
+    -> (images_w, depths_w)`` renders each wave (the slice march's
+    wave cameras); None slices the full-frame ``images``/``depths`` the
+    gather engine rendered once."""
+    t = wave_tiles
+    if march_wave is None:
+        def march_wave(w):
+            return (slicer.wave_cols(images, n, t, w),
+                    slicer.wave_cols(depths, n, t, w))
+    outs = [_composite_plain_exchanged(*march_wave(w), n, background,
+                                       wire, topo)
+            for w in range(t)]
+    return _assemble_waves(outs, n)
+
+
+def _plain_build_markers(n: int, h: int, w: int, knobs: CompositeConfig,
+                         topo, waves: bool, marched: bool) -> None:
+    """The build markers of a plain step's exchange: the wave schedule
+    (one slot a pixel, one output slot), the ring's hops, the two-level
+    levels and a lossy wire's encode."""
+    rec = _obs.get_recorder()
+    if waves:
+        _wave_build_marker(n, knobs.wave_tiles, 1, h, w, dataclasses.replace(
+            knobs, max_output_supersegments=1), marched)
+    w_step = w // (knobs.wave_tiles if waves else 1)
+    ring_n = n if topo is None else topo.domain_size
+    if knobs.exchange == "ring" and ring_n > 1:
+        rec.count("ring_exchange_builds")
+        ring_hop_markers(ring_n, 1, h, w_step // ring_n, knobs.wire)
+    if topo is not None:
+        rec.count("hier_composite_builds")
+        rec.count("hier_plain_levels")
+        ring_hop_markers(topo.num_hosts, 1, h, w_step // topo.n_ranks,
+                         topo.dcn_wire, dcn=True)
+        if topo.dcn_wire != "f32":
+            _wire_build_marker(topo.dcn_wire)
+    if knobs.wire != "f32":
+        _wire_build_marker(knobs.wire)
+
+
+def distributed_plain_step_mxu(mesh: Mesh, tf: TransferFunction,
+                               spec: slicer.AxisSpec,
+                               cfg: Optional[RenderConfig] = None,
+                               comp_cfg: Optional[CompositeConfig] = None,
+                               plan=None, bricks=None, topology=None):
+    """Distributed plain image on the slice march (the reference's
+    non-VDI mode). Returns ``f(vol_data, origin, spacing, cam) ->
+    (image f32[4, nj, ni], axcam)``: every rank's `slicer.render_slices`
+    of its slab (or ``plan`` band) on the shared virtual camera, the
+    column exchange and the nearest-first composite, background-free on
+    the intermediate grid; ``axcam`` (every rank's, the same) warps it
+    to the display camera, which blends the background once:
+    ``slicer.warp_to_camera(image, axcam, spec, cam, width, height,
+    background)``.
+
+    ``comp_cfg`` carries the exchange (``exchange`` "all_to_all" |
+    "ring", ``wire`` "f32" | "bf16" | "qpack8"), the schedule (under
+    ``schedule="waves"`` every rank renders one column-block wave of
+    ``wave_tiles`` at a time on its wave camera, one permuted copy and
+    one occupancy gate a frame, and each wave is exchanged and
+    composited) and ``rebalance`` with ``plan``; ``topology`` runs the
+    two-level composite: as on the VDI steps. ``bricks`` and
+    ``comp_cfg.temporal_reuse`` go on the ledger inert.
+    ``cfg.ao_strength > 0`` needs the pre-shaded march and raises
+    (ROADMAP A6)."""
+    cfg = cfg or RenderConfig()
+    comp_cfg = comp_cfg or CompositeConfig()
+    _, n, topo = resolve_mesh_topology(mesh, topology)
+    if spec.ni % n:
+        raise ValueError(f"intermediate width {spec.ni} not divisible by "
+                         f"mesh size {n}")
+    if cfg.ao_strength > 0.0:
+        raise NotImplementedError(
+            "ambient occlusion on the slice march needs shade_volume_ao "
+            "and the pre-shaded march, not ported yet (ROADMAP A6)")
+    waves = _resolve_waves(comp_cfg, n, spec.ni)
+    plan = _resolve_plan(comp_cfg, n, plan)
+    _bricks_inert(bricks, "the plain-image MXU step")
+    _resolve_reuse(comp_cfg, supported=False, where="the plain-image MXU step")
+    _plain_build_markers(n, spec.nj, spec.ni, comp_cfg, topo, waves,
+                         marched=True)
+    bg = (0.0, 0.0, 0.0, 0.0)
+
+    def step(vol_data, origin, spacing, cam: Camera):
+        slabs = _check_sharded(vol_data, mesh)
+        rows = _frame_rows(slabs, spec, plan)
+        units, axcams = [], []
+        for r in range(n):
+            dec = _rank_units(slabs, rows, r, origin, spacing, spec, plan)
+            units.append(dec.units[0])
+            axcams.append(slicer.make_axis_camera(dec.ref, cam, spec,
+                                                  box_min=origin,
+                                                  box_max=dec.gmax))
+        del rows
+
+        def render(u, axcam, spec_u, **kw):
+            return slicer.render_slices(
+                u.vol, tf, axcam, spec_u, cfg.early_exit_alpha,
+                v_bounds=u.v_bounds, step_scale=cfg.step_scale,
+                w_bounds=u.w_bounds, **kw)
+
+        if waves:
+            volps = [slicer.permute_volume(u.vol, spec) for u in units]
+            occs = [slicer.occupancy_for(u.vol, tf, spec, volp=vp)
+                    for u, vp in zip(units, volps)]
+
+            def march_wave(w):
+                outs = []
+                for u, axcam, vp, occ in zip(units, axcams, volps, occs):
+                    axcam_w, spec_w = slicer.wave_camera(
+                        axcam, spec, n, comp_cfg.wave_tiles, w)
+                    outs.append(render(u, axcam_w, spec_w, occupancy=occ,
+                                       volp=vp))
+                return (torch.stack([o.image for o in outs]),
+                        torch.stack([o.depth for o in outs]))
+
+            img = _composite_plain_waves(None, None, n, bg, comp_cfg.wire,
+                                         comp_cfg.wave_tiles, march_wave, topo)
+            return img, axcams[0]
+        outs = [render(u, axcam, spec) for u, axcam in zip(units, axcams)]
+        images = torch.stack([o.image for o in outs])
+        depths = torch.stack([o.depth for o in outs])
+        del outs
+        return torch.cat(_composite_plain_exchanged(
+            images, depths, n, bg, comp_cfg.wire, topo), dim=-1), axcams[0]
+
+    return step
+
+
+def distributed_plain_step(mesh: Mesh, tf: TransferFunction, width: int,
+                           height: int, cfg: Optional[RenderConfig] = None,
+                           comp_cfg: Optional[CompositeConfig] = None,
+                           plan=None, bricks=None, topology=None):
+    """Distributed plain image on the gather engine (the reference's
+    non-VDI mode: raycast and plain-image composite). Returns
+    ``f(vol_data, origin, spacing, cam) -> image f32[4, height,
+    width]``: every rank raycasts its slab (or ``plan`` band) with the
+    global sample ladder and its own clip box, background-free, and the
+    fragments are exchanged and composited nearest-first with
+    ``cfg.background`` blended once. ``comp_cfg``, ``plan``, ``bricks``
+    and ``topology``: see `distributed_plain_step_mxu`
+    (``schedule="waves"`` exchanges and
+    composites wave by wave; the march is one for the frame). With
+    ``cfg.ao_strength > 0`` each rank's occlusion field is blurred on a
+    radius-deep halo (``ao_radius + 1`` slices a side) and trimmed to
+    the one-slice halo the raycaster samples: seam-exact against the
+    single-device AO render."""
+    cfg = cfg or RenderConfig(width=width, height=height)
+    comp_cfg = comp_cfg or CompositeConfig()
+    _, n, topo = resolve_mesh_topology(mesh, topology)
+    if width % n:
+        raise ValueError(f"width {width} not divisible by mesh size {n}")
+    ao_on = cfg.ao_strength > 0.0
+    waves = _resolve_waves(comp_cfg, n, width)
+    plan = _resolve_plan(comp_cfg, n, plan,
+                         min_halo=cfg.ao_radius + 1 if ao_on else 1)
+    _bricks_inert(bricks, "the plain-image gather step")
+    _resolve_reuse(comp_cfg, supported=False,
+                   where="the plain-image gather step")
+    _plain_build_markers(n, height, width, comp_cfg, topo, waves,
+                         marched=False)
+    # rank partials stay background-free (the composite blends it
+    # once); the AO field is built here on the radius-deep halo
+    rank_cfg = dataclasses.replace(cfg, background=(0.0, 0.0, 0.0, 0.0),
+                                   ao_strength=0.0)
+    hr = cfg.ao_radius + 1
+
+    def step(vol_data, origin, spacing, cam: Camera) -> torch.Tensor:
+        slabs = _check_sharded(vol_data, mesh)
+        if plan is None:
+            rows = halo_exchange_z(slabs)
+            ext = halo_exchange_z(slabs, h=hr) if ao_on else None
+            n_keep = slabs.shape[1]
+        else:
+            rows = reslab_z(slabs, plan, h=1)
+            ext = reslab_z(slabs, plan, h=hr) if ao_on else None
+            n_keep = int(max(plan))
+        images, depths = [], []
+        for r in range(n):
+            vol, cmin, cmax, smin, smax = _local_volume_and_clip(
+                slabs, rows, r, origin, spacing, plan)
+            ao_vol = None
+            if ao_on:
+                occ = _ao.occlusion_field(
+                    _ao.tf_alpha(Volume(ext[r], vol.origin, spacing), tf),
+                    cfg.ao_radius, cfg.ao_strength)
+                ao_vol = Volume(occ[hr - 1:hr + n_keep + 1], vol.origin,
+                                spacing)
+            out = raycast(vol, tf, cam, width, height, rank_cfg,
+                          clip_min=cmin, clip_max=cmax, ao_field=ao_vol,
+                          sample_min=smin, sample_max=smax)
+            images.append(out.image)
+            depths.append(out.depth)
+        images, depths = torch.stack(images), torch.stack(depths)
+        if waves:
+            return _composite_plain_waves(images, depths, n,
+                                          cfg.background, comp_cfg.wire,
+                                          comp_cfg.wave_tiles, topo=topo)
+        return torch.cat(_composite_plain_exchanged(
+            images, depths, n, cfg.background, comp_cfg.wire, topo), dim=-1)
+
+    return step

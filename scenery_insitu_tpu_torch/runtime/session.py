@@ -1,11 +1,27 @@
 """The in-situ session loop: per-frame orchestration of sim advance, VDI
 generation, device-to-host delivery and sinks.
 
-The port of the reference's ``runtime/session.py`` on the slice-march
-(``mxu``) VDI frame. Each frame advances the sim, dispatches the
-distributed step of the camera's march regime over the session's
-in-process rank mesh (``parallel/pipeline.py``; one rank is the
-single-card frame), and hands the composited VDI to the sinks. The loop
+The port of the reference's ``runtime/session.py``. Each frame advances
+the sim, dispatches the distributed step over the session's in-process
+rank mesh (``parallel/pipeline.py``; one rank is the single-card frame),
+and hands the result to the sinks. Four modes, as the reference's
+(``slicer.engine``, where "auto" is the slice march on every device, and
+``runtime.generate_vdis``):
+
+- VDIs on the slice march (``mxu``): the step of the camera's march
+  regime, built once a regime, with its carried thresholds and reuse;
+- VDIs on the gather engine: one ``distributed_vdi_step`` at the
+  render width, height and ``max_steps``, no regime, no carried state
+  (``vdi.adaptive_mode`` "search" or "histogram");
+- plain images on the slice march: the regime's
+  ``distributed_plain_step_mxu`` and the homography warp to the display
+  camera, which blends ``render.background``;
+- plain images on the gather engine: one ``distributed_plain_step``.
+
+A VDI payload is ``{"vdi_color", "vdi_depth", "frame", "meta"}``, a
+plain one ``{"image", "frame", "meta"}``: the PNG sink writes the image
+as it is, the VDI sinks pass it by, the checkpoint sink saves the
+session as in any mode. The loop
 keeps ``runtime.pipeline_depth`` frames in flight: a frame's VDI is
 copied into pinned host buffers on a side stream as soon as it is
 dispatched, and the frame retires (fetch, sinks, device tensors dropped)
@@ -18,9 +34,9 @@ adapter (anything with ``kind``, ``advance(n)`` and ``.field``).
 
 The reference's other session features are later slices of the port and
 raise ``NotImplementedError`` naming their ROADMAP row: frame blocks in
-one launch (``runtime.scan_frames > 1``, A3/A7), the plain image modes
-(A4), the gather engine (A9), the other sims (A10), steering (A11), and
-the telemetry collector, device profiles and cost snapshots (A12).
+one launch (``runtime.scan_frames > 1``, A3/A7), the other sims (A10),
+steering (A11), and the telemetry collector, device profiles and cost
+snapshots (A12).
 
 ``composite.k_budget="occupancy"`` re-targets every rank's adaptive
 threshold in the steps themselves. ``composite.temporal_reuse="ranges"``
@@ -76,7 +92,7 @@ from scenery_insitu_tpu_torch.core.camera import (Camera, orbit,
                                                   view_matrix)
 from scenery_insitu_tpu_torch.core.transfer import (TransferFunction,
                                                     for_dataset)
-from scenery_insitu_tpu_torch.core.vdi import VDI, VDIMetadata, to_numpy
+from scenery_insitu_tpu_torch.core.vdi import VDI, VDIMetadata
 from scenery_insitu_tpu_torch.device import resolve_device
 from scenery_insitu_tpu_torch.ops import slicer as _slicer
 from scenery_insitu_tpu_torch.parallel.mesh import Mesh, shard_volume
@@ -101,14 +117,7 @@ def check_ported(cfg: FrameworkConfig) -> None:
     if cfg.runtime.scan_frames > 1:
         _unported(f"runtime.scan_frames={cfg.runtime.scan_frames} (frame "
                   "blocks in one launch)", "A3/A7: a CUDA graph after A3")
-    if not cfg.runtime.generate_vdis:
-        _unported("runtime.generate_vdis=false (the plain image modes)",
-                  "A4")
-    if cfg.slicer.engine == "gather":
-        _unported("slicer.engine='gather'", "A9")
-    if cfg.slicer.engine not in ("auto", "mxu"):
-        raise ValueError(f"unknown render engine {cfg.slicer.engine!r} "
-                         "(expected 'auto', 'mxu' or 'gather')")
+    _slicer.resolve_engine(cfg.slicer.engine)
     if cfg.sim.kind in _OTHER_SIMS:
         _unported(f"sim.kind={cfg.sim.kind!r}", "A10")
     if cfg.obs.collector:
@@ -275,9 +284,9 @@ class InSituSession:
         self._plan = None
         self._bricks = None
         self._plan_frame = None
-        # the slice march, which "auto" resolves to on every device (the
-        # reference picks it on its accelerator)
-        self.engine = "mxu"
+        # "auto" is the slice march on every device (the reference
+        # picks it on its accelerator only)
+        self.engine = _slicer.resolve_engine(self.cfg.slicer.engine)
         self._build_steps()
 
         # world placement: sim grid centered, largest side = 2 world units
@@ -299,19 +308,45 @@ class InSituSession:
         self._free_sets: List[Dict[str, torch.Tensor]] = []
 
     def _build_steps(self) -> None:
-        """(Re)build the per-regime step caches for the current TF."""
+        """(Re)build the steps for the current mode, engine and TF: the
+        gather engine's one step now, the slice march's per-regime
+        caches empty (filled on first use)."""
         self.obs.count("build_steps")
         self._mxu_steps = {}   # regime key -> distributed step
         self._mxu_thr = {}     # regime key -> temporal threshold state
         self._mxu_reuse = {}   # regime key -> fragment reuse carry
-        self.mode = "vdi"
+        r, cc = self.cfg.render, self.cfg.composite
+        self.mode = "vdi" if self.cfg.runtime.generate_vdis else "plain"
         self._step = None
+        if self.engine == "gather" and self.mode == "vdi":
+            from scenery_insitu_tpu_torch.parallel.pipeline import (
+                distributed_vdi_step)
+            self._step = distributed_vdi_step(
+                self.mesh, self.tf, r.width, r.height, self.cfg.vdi, cc,
+                max_steps=r.max_steps, plan=self._plan,
+                bricks=self._bricks, topology=self.cfg.topology)
+        elif self.engine == "gather":
+            from scenery_insitu_tpu_torch.parallel.pipeline import (
+                distributed_plain_step)
+            self._step = distributed_plain_step(
+                self.mesh, self.tf, r.width, r.height, r, cc,
+                plan=self._plan, bricks=self._bricks,
+                topology=self.cfg.topology)
         self._temporal = (self.cfg.vdi.adaptive
-                          and self.cfg.vdi.adaptive_mode == "temporal")
-        # fragment reuse rides the slab and plan steps; a brick map's
-        # step ledgers the inert knob (delta.reuse) and takes no carry
-        self._reuse = (self.cfg.composite.temporal_reuse == "ranges"
-                       and self._bricks is None)
+                          and self.cfg.vdi.adaptive_mode == "temporal"
+                          and self.mode == "vdi" and self.engine == "mxu")
+        # fragment reuse rides the slice march's slab and plan VDI
+        # steps; the other builders (a brick map's, gather, plain)
+        # ledger the inert knob (delta.reuse) and take no carry
+        self._reuse = (cc.temporal_reuse == "ranges" and self.mode == "vdi"
+                       and self.engine == "mxu" and self._bricks is None)
+        if (self.cfg.vdi.adaptive and self.cfg.vdi.adaptive_mode ==
+                "temporal" and not self._temporal and self.mode == "vdi"):
+            raise ValueError(
+                "adaptive_mode='temporal' is carried threshold state of "
+                "the MXU VDI pipeline — this session resolved to mode="
+                f"{self.mode!r} engine={self.engine!r}; use 'histogram' "
+                "there")
 
     def _apply_tf_message(self, msg: dict) -> None:
         """'tf' steering messages are ROADMAP A11."""
@@ -322,7 +357,7 @@ class InSituSession:
 
     def render_frame(self):
         """Advance the sim and dispatch one frame's step; returns its
-        device VDI."""
+        device VDI, or its plain image."""
         if self.steering is not None:
             _unported("steering endpoints", "A11")
         self._maybe_replan()
@@ -332,11 +367,20 @@ class InSituSession:
         with self.obs.span("dispatch", frame=self.frame_index,
                            mode=self.mode, engine=self.engine):
             field = shard_volume(self.sim.field, self.mesh)
-            out, meta = self._mxu_step()(field, self._origin,
-                                         self._spacing, self.camera)
-            # a host scalar: no copy to the device on the dispatch path
-            meta = meta._replace(index=torch.tensor(self.frame_index,
-                                                    dtype=torch.int32))
+            if self._step is not None:
+                out = self._step(field, self._origin, self._spacing,
+                                 self.camera)
+                meta = self.frame_metadata(self.frame_index)
+            elif self.mode == "plain":
+                out = self._plain_mxu_dispatch(field)
+                meta = self.frame_metadata(self.frame_index)
+            else:
+                out, meta = self._mxu_step()(field, self._origin,
+                                             self._spacing, self.camera)
+                # a host scalar: no copy to the device on the dispatch
+                # path
+                meta = meta._replace(index=torch.tensor(
+                    self.frame_index, dtype=torch.int32))
         # metadata snapshot BEFORE the camera advances
         self._pending_meta[self.frame_index] = meta
         for k in [k for k in self._pending_meta
@@ -422,17 +466,24 @@ class InSituSession:
         return {k: torch.empty(s, dtype=dt, pin_memory=True)
                 for k, (s, dt) in shapes.items()}
 
-    def _start_host_copy(self, out: VDI,
-                         done: Optional[torch.cuda.Event]
+    @staticmethod
+    def _leaves(out) -> Dict[str, torch.Tensor]:
+        """A frame's device tensors by payload key: a VDI's colour and
+        depth, or a plain image."""
+        if isinstance(out, VDI):
+            return {"vdi_color": out.color, "vdi_depth": out.depth}
+        return {"image": out}
+
+    def _start_host_copy(self, out, done: Optional[torch.cuda.Event]
                          ) -> Optional[_HostCopy]:
         """Start the frame's device-to-host copy without blocking: the
-        side stream waits on ``done`` and copies the VDI into a pinned
-        set. The caller keeps ``out`` alive until the frame retires, so
-        the device buffers outlive the copy. None on the CPU (the VDI
-        already lies on the host)."""
+        side stream waits on ``done`` and copies the VDI (or the plain
+        image) into a pinned set. The caller keeps ``out`` alive until
+        the frame retires, so the device buffers outlive the copy. None
+        on the CPU (the frame already lies on the host)."""
         if self._copy_stream is None:
             return None
-        leaves = {"color": out.color, "depth": out.depth}
+        leaves = self._leaves(out)
         bufs = self._take_set(leaves)
         with torch.cuda.stream(self._copy_stream):
             self._copy_stream.wait_event(done)
@@ -463,34 +514,33 @@ class InSituSession:
             if done is not None:
                 done.synchronize()
 
-    def _fetch(self, index: int, out: VDI,
-               host: Optional[_HostCopy]) -> dict:
+    def _fetch(self, index: int, out, host: Optional[_HostCopy]) -> dict:
         meta = self._pending_meta.pop(index, None)
         if meta is None:
             meta = self.frame_metadata(index)
         tiles = ()
-        tiled = bool(self.tile_sinks) \
-            and self.cfg.composite.schedule == "waves"
         with self.obs.span("fetch", frame=index):
             if host is not None:
                 # wait on this frame's copy only, then take the bytes out
                 # of the pinned set (which the next frames reuse), so
                 # the payload owns its arrays as the reference's do
                 host.copied.synchronize()
-                color = host.bufs["color"].numpy().copy()
-                depth = host.bufs["depth"].numpy().copy()
+                payload = {k: v.numpy().copy()
+                           for k, v in host.bufs.items()}
                 self._free_sets.append(host.bufs)
             else:
-                color, depth = to_numpy(out)
-            if tiled:
+                payload = {k: v.detach().cpu().numpy()
+                           for k, v in self._leaves(out).items()}
+            if "vdi_color" in payload and self.tile_sinks \
+                    and self.cfg.composite.schedule == "waves":
+                color, depth = payload["vdi_color"], payload["vdi_depth"]
                 if self._delivery is not None:
                     # the worker delivers these views in the same order
                     tiles = self._tile_payloads(index, meta, color, depth)
                 else:
                     # every tile goes out before the frame's sinks run
                     self._deliver_tiles(index, meta, color, depth)
-            payload = {"vdi_color": color, "vdi_depth": depth,
-                       "frame": index, "meta": meta}
+            payload.update(frame=index, meta=meta)
         if self._delivery is not None:
             self._delivery.submit(index, payload, tiles)
         else:
@@ -566,7 +616,8 @@ class InSituSession:
         synthetic camera on that regime's axis. The camera, the carried
         thresholds and the regime tracker are restored; the sim, frame
         index and sinks are never touched. Returns {(axis, sign):
-        seconds}."""
+        seconds}; {} on the gather engine, whose one step has no
+        regime."""
         if regimes is None:
             regimes = [(a, s) for a in (0, 1, 2) for s in (1, -1)]
         cam0 = self.camera
@@ -574,6 +625,8 @@ class InSituSession:
         reuse0 = dict(self._mxu_reuse)
         had_last = hasattr(self, "_last_regime_key")
         last0 = getattr(self, "_last_regime_key", None)
+        if self._step is not None:
+            return {}                   # the gather engine has no regimes
         times = {}
         try:
             for regime in regimes:
@@ -583,8 +636,11 @@ class InSituSession:
                 t0 = time.perf_counter()
                 with self.obs.span("prewarm", regime=str(regime)):
                     field = shard_volume(self.sim.field, self.mesh)
-                    self._mxu_step()(field, self._origin, self._spacing,
-                                     cam)
+                    if self.mode == "plain":
+                        self._plain_mxu_dispatch(field)
+                    else:
+                        self._mxu_step()(field, self._origin,
+                                         self._spacing, cam)
                     done = self._record_done()
                     if done is not None:
                         done.synchronize()
@@ -598,6 +654,36 @@ class InSituSession:
             elif hasattr(self, "_last_regime_key"):
                 del self._last_regime_key
         return times
+
+    def _plain_mxu_dispatch(self, field: torch.Tensor) -> torch.Tensor:
+        """One plain frame on the slice march: the regime's
+        ``distributed_plain_step_mxu`` (built once a regime) and the
+        homography warp of its intermediate image to the display camera,
+        which blends ``render.background``."""
+        from scenery_insitu_tpu_torch.parallel.pipeline import (
+            distributed_plain_step_mxu)
+
+        regime = self._slicer.choose_axis(self.camera)
+        key = ("plain",) + regime
+        entry = self._mxu_steps.get(key)
+        if entry is None:
+            self.obs.count("compile_step")
+            self.obs.event("compile", frame=self.frame_index,
+                           what="plain_step", regime=str(regime))
+            spec = self._slicer.make_spec(
+                self.camera, self.sim.field.shape, self.cfg.slicer,
+                axis_sign=regime, multiple_of=self._n_ranks)
+            step = distributed_plain_step_mxu(
+                self.mesh, self.tf, spec, self.cfg.render,
+                self.cfg.composite, plan=self._plan, bricks=self._bricks,
+                topology=self.cfg.topology)
+            entry = (step, spec)
+            self._mxu_steps[key] = entry
+        step, spec = entry
+        r = self.cfg.render
+        img, axcam = step(field, self._origin, self._spacing, self.camera)
+        return self._slicer.warp_to_camera(img, axcam, spec, self.camera,
+                                           r.width, r.height, r.background)
 
     def _mxu_step(self):
         """The distributed step of the camera's march regime, built once
@@ -743,10 +829,20 @@ class InSituSession:
         n = self._n_ranks
         # an LOD session replans on one rank too: a level changes what
         # that rank marches
-        lod_on = self.cfg.lod.enabled and cc.rebalance == "bricks"
+        lod_on = (self.cfg.lod.enabled and cc.rebalance == "bricks"
+                  and self.mode == "vdi")
         if n == 1 and not lod_on:
             _obs.degrade("occupancy.rebalance", "occupancy", "even",
                          "single-rank mesh has one band", warn=False)
+            return
+        if cc.rebalance == "bricks" and self.mode != "vdi":
+            # only the VDI builders march a brick map: replanning would
+            # rebuild plain steps that render even slabs regardless
+            _obs.degrade(
+                "bricks.partition", "bricks", "slabs",
+                f"mode {self.mode!r} has no brick march (gather/MXU VDI "
+                "steps only); the even z-slab decomposition renders",
+                warn=False)
             return
         if self._plan_frame is not None and \
                 self.frame_index - self._plan_frame < cc.rebalance_period:

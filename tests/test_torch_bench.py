@@ -41,7 +41,8 @@ def test_bench_prints_one_json_line(monkeypatch, capsys):
 
 
 # knobs that raised once and are ported now: value -> resolved setting
-PORTED_KNOBS = {"RENDER_DTYPE": {"bf16": "bf16"},
+PORTED_KNOBS = {"ENGINE": {"gather": "gather"},
+                "RENDER_DTYPE": {"bf16": "bf16"},
                 "EXCHANGE": {"ring": "ring"}, "WIRE": {"qpack8": "qpack8"},
                 "SCHEDULE": {"waves": "waves"},
                 "REBALANCE": {"occupancy": "occupancy"}}
@@ -53,9 +54,9 @@ PORTED_KNOBS = {"RENDER_DTYPE": {"bf16": "bf16"},
     ("WIRE", "qpack8"), ("SCHEDULE", "waves"), ("REBALANCE", "occupancy")])
 def test_bench_unported_knobs_raise(knob, value):
     """Each knob of a part not yet ported raises, naming its ROADMAP row;
-    a knob ported since (the render dtype, the bf16 march copy; the
-    exchange, the wire, the schedule and the rebalance plans) takes the
-    value instead."""
+    a knob ported since (the gather engine; the render dtype, the bf16
+    march copy; the exchange, the wire, the schedule and the rebalance
+    plans) takes the value instead."""
     env = {f"SITPU_BENCH_{knob}": value}
     if knob in PORTED_KNOBS:
         cfg = bench.bench_config(env, on_card=False)

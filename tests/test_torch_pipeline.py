@@ -301,8 +301,24 @@ def test_frame_step_options():
         tpipe.resolve_occupancy_cfg(cfg, "pyramid")
     with pytest.raises(ValueError, match="occupancy must be"):
         tpipe.resolve_occupancy_cfg(cfg, "bricks")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpipe.grayscott_vdi_frame_step(engine="gather", device=CPU)
+    # the gather engine's step: the ray march at its own image size, no
+    # slice-march spec; its slice-march-only options raise
+    gather = tpipe.grayscott_vdi_frame_step(
+        engine="gather", width=16, height=12, max_steps=16, sim_steps=1,
+        device=CPU)
+    assert gather.spec is None
+    c, d, _, _ = gather(torch.from_numpy(u.copy()),
+                        torch.from_numpy(v.copy()),
+                        torch.tensor((0.0, 0.6, 3.0)))
+    assert c.shape == (8, 4, 12, 16) and d.shape == (8, 2, 12, 16)
+    assert torch.isfinite(c).all() and torch.isfinite(d[:, 0]).any()
+    for bad in (dict(occupancy="sim"),
+                dict(vdi_cfg=tcfg.VDIConfig(adaptive_mode="temporal")),
+                dict(width=None)):
+        with pytest.raises(ValueError):
+            tpipe.grayscott_vdi_frame_step(
+                **{**dict(engine="gather", width=16, height=12,
+                          device=CPU), **bad})
     with pytest.raises(ValueError, match="grid_shape"):
         tpipe.grayscott_vdi_frame_step(device=CPU)
 

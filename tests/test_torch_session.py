@@ -358,9 +358,19 @@ def _tf_message():
 
 UNPORTED = {
     "scan_frames": (_raises_with(**{"runtime.scan_frames": "4"}), "A3/A7"),
-    "plain_modes": (_raises_with(**{"runtime.generate_vdis": "false"}),
-                    "A4"),
-    "gather": (_raises_with(**{"slicer.engine": "gather"}), "A9"),
+    # ported since (A4, A9): a one-rank session renders its plain image
+    # on the slice march (one step built for the regime), or its VDI on
+    # the gather engine (one step built with the session, no regime)
+    "plain_modes": (_runs_with(**{"runtime.generate_vdis": "false",
+                                  "render.width": "32",
+                                  "render.height": "24",
+                                  "obs.enabled": "true"}),
+                    {"compile_step": 1, "frames_eager_dispatch": 1}),
+    "gather": (_runs_with(mode="histogram", **{
+        "slicer.engine": "gather", "render.width": "32",
+        "render.height": "24", "render.max_steps": "32",
+        "obs.enabled": "true"}),
+        {"compile_step": 0, "frames_eager_dispatch": 1}),
     "vortex": (_raises_with(**{"sim.kind": "vortex"}), "A10"),
     "lennard_jones": (_raises_with(**{"sim.kind": "lennard_jones"}), "A10"),
     "sho": (_raises_with(**{"sim.kind": "sho"}), "A10"),

@@ -3,12 +3,14 @@
 single-chip frame, the distributed sort-last frame, the fold
 microbenchmark, the in-situ session, the sort-last exchange schedules,
 the render decomposition, the two-level composite, the K budgets
-and fragment reuse, and the gather engine with the plain images.
+and fragment reuse, the gather engine with the plain images, and the
+VDI's novel views with the pre-shaded (ambient-occlusion) march.
 
     python3 chip_smoke.py               # the whole run (needs one card)
     python3 chip_smoke.py --profile     # + device time by kernel
     python3 chip_smoke.py --phase11-only  # phase 4's frame and phase 11
     python3 chip_smoke.py --phase12-only  # the build and phase 12
+    python3 chip_smoke.py --phase13-only  # the build and phase 13
     python3 chip_smoke.py --k4-compare old=OTHER/resegment.cu \
         --k2-compare old=OTHER/count_multi.cu \
         --events-compare old=OTHER/fold_chunk.cu  # + designs in turns
@@ -299,6 +301,30 @@ and prints no result):
    pixels the payload's; (e) the committed golden images of the gather
    raycast, the slice-march plain render and the gather VDI's decode
    rendered on the card within 3.0 (8-bit).
+13. the VDI's novel views and the pre-shaded march, on the default
+   frame's VDI (phase 3's step from the seeded init, 2 frames: K3, K2,
+   K1) at the 1280 x 720 display camera: (a) the plane sweep
+   (``render_vdi_mxu``, 512 planes) at three same-regime eyes >= 25 dB
+   from the gather renderer (``vdi_render.render_vdi``, 512 steps), the
+   frame's own view >= 25 dB from the same-view decode, the camera
+   rebuilt from the metadata >= 40 dB from the stored one; the
+   pre-shaded proxy built once (bytes logged) and marched across regimes
+   (an x march, ``render_vdi_any``) >= 24 dB from the gather renderer,
+   its same view >= 24 dB from the decode, the exact renderer >= 24 dB
+   from the proxy; ``render_vdi_batch`` of 8 cameras within 1e-5 of the
+   8 single renders; no kernel; (b) ``shade_volume_ao`` of the 512^3
+   field and its ``raycast_mxu`` >= 24 dB from the gather AO render;
+   ``generate_vdi_mxu`` of it under ``fold="auto"`` (K2, K1), K2 and K1
+   against their plain versions on the march's own chunks (counts and
+   thresholds exact, colour and depth within 1e-6), the pre-shaded
+   pyramid's gates the same on the card and the CPU; (c) the 8-rank
+   ``distributed_plain_step_mxu`` with AO against the single-device
+   pre-shaded render (rtol 1e-4, atol 2e-5); (d) ``vdi_convert`` on the
+   card's VDI (the NDC and layout round trips, ``validate_vdi`` clean)
+   and the goldens ``novel_view``, ``vdi_decode`` and
+   ``reference_frame`` through the port on the card within 3.0. Each
+   view is timed (ms a view, CUDA events and the host clock);
+   ``--profile`` adds the device operations of a view.
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -5218,6 +5244,7 @@ PLAIN_BG = (0.1, 0.2, 0.3, 1.0)
 GOLDEN = dict(grid=32, w=96, h=72, seed=11, eye=(0.35, 0.55, 2.7), k=6,
               steps=96)
 GOLDEN_BAR = 3.0
+GOLDEN_NOVEL_EYE = (0.9, 0.15, 2.4)
 
 
 def gather_vdi_cfg():
@@ -5806,6 +5833,472 @@ def run_phase12(dev, done, profile=False):
                 sessions=session_launches, gather_k4=gather_k4_nums)
 
 
+# ------------------------------------------------------------ phase 13
+
+# the novel views of the default frame's VDI at the display camera
+NOVEL_W, NOVEL_H = GATHER_W, GATHER_H
+NOVEL_FRAMES = 2            # default frames run before the VDI is kept
+NOVEL_YAWS = (0.0, 0.12, -0.2)      # same-regime eyes about the frame's
+NOVEL_CROSS_EYE = (3.0, 0.6, 0.4)   # an x march: the proxy's regime
+NOVEL_BATCH = 8
+NOVEL_TIMED = 3
+NOVEL_GATHER_STEPS = 512    # the gather renderer, the quality reference
+# the reference tests' bars (tests/test_vdi_novel.py, tests/test_ao.py)
+NOVEL_DB, NOVEL_REC_DB, NOVEL_CROSS_DB = 25.0, 40.0, 24.0
+AO_RADIUS, AO_STRENGTH, AO_DB = 4, 0.8, 24.0
+AO_GATHER_STEPS = 512
+AO_DIST_RTOL, AO_DIST_ATOL = 1e-4, 2e-5
+BATCH_GATE = 1e-5
+
+
+def timed_view(prefix, view, reps=NOVEL_TIMED, warm=True):
+    """`timed_frames` of a stateless ``view()``: (ms, its last output)."""
+    return timed_frames(prefix, lambda _, i: view(), None, int(warm), reps)
+
+
+def img_psnr(a, b) -> float:
+    """The reference tests' PSNR of two premultiplied images (peak 1)."""
+    from scenery_insitu_tpu_torch.utils.image import psnr
+
+    return psnr(a.detach().cpu().numpy(), b.detach().cpu().numpy())
+
+
+def novel_state(dev):
+    """Phase 13's input through the main path: phase 3's frame step
+    (512^3 Gray-Scott, temporal thresholds) from the seeded init for
+    NOVEL_FRAMES frames, its launch counts read from that run (K3
+    advances the sim, K2 seeds the thresholds, K1 folds). Returns the
+    last frame's VDI with the virtual camera and metadata of its march
+    (rebuilt from the same volume, camera and spec), the field and the
+    launch counts."""
+    import torch
+
+    from scenery_insitu_tpu_torch import kernels
+    from scenery_insitu_tpu_torch.core.camera import Camera, orbit
+    from scenery_insitu_tpu_torch.core.vdi import VDI
+    from scenery_insitu_tpu_torch.core.volume import Volume
+    from scenery_insitu_tpu_torch.models.pipelines import \
+        grayscott_vdi_frame_step
+    from scenery_insitu_tpu_torch.ops import slicer
+    from scenery_insitu_tpu_torch.sim import grayscott as gs
+
+    base = Camera.create(BASE_EYE, fov_y_deg=50.0, near=0.5, far=20.0,
+                         device=dev)
+    step = grayscott_vdi_frame_step(grid_shape=(GRID,) * 3,
+                                    axis_sign=slicer.choose_axis(base),
+                                    **frame_config(dev))
+    st = gs.GrayScott.init((GRID,) * 3, seed=SEED, device=dev)
+    u, v = st.u, st.v
+    eye = lambda i: orbit(base, yaw_of(i)).eye
+    kernels.reset_launches()
+    thr = step.init_threshold(u, v, eye(-1))
+    for i in range(NOVEL_FRAMES):
+        color, depth, u, v, thr = step(u, v, eye(i), thr)
+    torch.cuda.synchronize()
+    launches = kernels.launches()
+    log("novel.state_launches", json.dumps(launches))
+    require_only(launches, FRAME_KERNELS, "phase 13's default frames")
+    spec = step.spec
+    vol = Volume.centered(v, extent=2.0)
+    cam = Camera.create(eye(NOVEL_FRAMES - 1), fov_y_deg=50.0, near=0.5,
+                        far=20.0, device=dev)
+    axcam = slicer.make_axis_camera(vol, cam, spec)
+    meta = slicer._vdi_meta(vol, axcam, spec.ni, spec.nj)
+    vdi = VDI(color, depth)
+    check_vdi("novel.vdi", vdi, (K, 4, spec.nj, spec.ni),
+              (K, 2, spec.nj, spec.ni))
+    return dict(vdi=vdi, meta=meta, axcam=axcam, spec=spec, cam=cam, v=v,
+                launches=launches)
+
+
+def run_novel_views(dev, s, profile=False):
+    """Phase 13 (a): novel views of the frame's VDI at 1280 x 720. The
+    plane sweep (`render_vdi_mxu`, every one of the volume's 512 slice
+    planes) at the three same-regime eyes of NOVEL_YAWS, each >= 25 dB
+    from the gather renderer (`vdi_render.render_vdi`, 512 steps), the
+    frame's own view also >= 25 dB from the VDI's same-view decode
+    warped to the display (`core/vdi.render_vdi_same_view`), and the
+    camera rebuilt from the metadata alone >= 40 dB from the stored
+    one; across regimes (an x march) the pre-shaded proxy, built once
+    (its bytes logged), marched by `render_vdi_any` >= 24 dB from the
+    gather renderer and its same view >= 24 dB from the decode; the
+    exact renderer, the proxy >= 24 dB from it; `render_vdi_batch` over
+    8 cameras (sweep tier) against the 8 single renders. No kernel."""
+    import torch
+
+    from scenery_insitu_tpu_torch import kernels
+    from scenery_insitu_tpu_torch.config import SliceMarchConfig
+    from scenery_insitu_tpu_torch.core.camera import Camera, orbit
+    from scenery_insitu_tpu_torch.core.vdi import render_vdi_same_view
+    from scenery_insitu_tpu_torch.ops import slicer
+    from scenery_insitu_tpu_torch.ops import vdi_novel as nv
+    from scenery_insitu_tpu_torch.ops.vdi_render import render_vdi
+
+    vdi, axcam, spec, meta = s["vdi"], s["axcam"], s["spec"], s["meta"]
+    w, h = NOVEL_W, NOVEL_H
+    kernels.reset_launches()
+    cams = [orbit(s["cam"], y) for y in NOVEL_YAWS]
+    regime = slicer.choose_axis(cams[0])
+    if any(slicer.choose_axis(c) != regime for c in cams) or \
+            regime[0] != spec.axis:
+        raise AssertionError("phase 13's same-regime eyes left the regime")
+    log("novel.config", f"vdi {spec.ni}x{spec.nj} k={K} planes={GRID} "
+        f"display {w}x{h} yaws={NOVEL_YAWS} gather_steps="
+        f"{NOVEL_GATHER_STEPS}")
+    decode = slicer.warp_to_camera(render_vdi_same_view(vdi), axcam, spec,
+                                   s["cam"], w, h)
+    sweep = lambda c, ax=axcam, sp=spec: nv.render_vdi_mxu(
+        vdi, ax, sp, c, w, h, num_slices=GRID, axis_sign=regime)
+    for i, cam in enumerate(cams):
+        _, img = timed_view(f"novel.mxu_{i}", lambda: sweep(cam))
+        if not bool(torch.isfinite(img).all()):
+            raise AssertionError("novel view is not finite")
+        _, ref = timed_view(f"novel.gather_{i}", lambda: render_vdi(
+            vdi, meta, cam, w, h, steps=NOVEL_GATHER_STEPS), reps=1,
+            warm=False)
+        psnr_gate(f"novel.mxu_{i}", img_psnr(img, ref), NOVEL_DB,
+                  "the gather renderer")
+        if i == 0:
+            psnr_gate("novel.mxu_same_view", img_psnr(img, decode),
+                      NOVEL_DB, "the same-view decode")
+    spec_m = nv.axis_spec_from_meta(meta, chunk=spec.chunk)
+    rec = nv.axis_camera_from_meta(meta, spec_m)
+    psnr_gate("novel.rebuilt_camera", img_psnr(
+        nv.render_vdi_mxu(vdi, rec, spec_m, cams[1], w, h, num_slices=GRID,
+                          axis_sign=regime), sweep(cams[1])), NOVEL_REC_DB,
+        "the stored camera's view")
+    if profile:
+        profile_frames("novel.mxu.profile", lambda i: sweep(cams[1]))
+
+    # across regimes: the proxy, built once
+    cam_x = Camera.create(NOVEL_CROSS_EYE, fov_y_deg=50.0, near=0.5,
+                          far=20.0, device=dev)
+    if slicer.choose_axis(cam_x)[0] == spec.axis:
+        raise AssertionError("phase 13's cross-regime eye marches the "
+                             "VDI's own axis")
+    nbytes = 16 * GRID * spec.nj * spec.ni
+    log("novel.proxy_bytes", f"{nbytes} ({nbytes / 2**30:.3f} GiB: 4 "
+        f"channels x f32 x {GRID} planes x {spec.nj} x {spec.ni})")
+    _, proxy = timed_view("novel.proxy_build", lambda: nv.vdi_to_rgba_volume(
+        vdi, axcam, spec, num_slices=GRID), reps=1, warm=False)
+    _, img_x = timed_view("novel.any", lambda: nv.render_vdi_any(
+        vdi, axcam, spec, cam_x, w, h, num_slices=GRID, proxy=proxy))
+    _, ref_x = timed_view("novel.gather_x", lambda: render_vdi(
+        vdi, meta, cam_x, w, h, steps=NOVEL_GATHER_STEPS), reps=1,
+        warm=False)
+    psnr_gate("novel.any", img_psnr(img_x, ref_x), NOVEL_CROSS_DB,
+              "the gather renderer")
+    spec_p = slicer.make_spec(s["cam"], tuple(proxy.data.shape[-3:]),
+                              SliceMarchConfig(chunk=CHUNK))
+    same = nv.render_vdi_proxy(proxy, s["cam"], w, h, spec_p)
+    psnr_gate("novel.proxy_same_view", img_psnr(same, decode),
+              NOVEL_CROSS_DB, "the same-view decode")
+    del same, decode
+    if profile:
+        profile_frames("novel.any.profile", lambda i: nv.render_vdi_any(
+            vdi, axcam, spec, cam_x, w, h, num_slices=GRID, proxy=proxy))
+    _, exact = timed_view("novel.exact", lambda: nv.render_vdi_exact(
+        vdi, axcam, spec, cam_x, w, h), reps=1, warm=False)
+    if not bool(torch.isfinite(exact).all()):
+        raise AssertionError("the exact view is not finite")
+    psnr_gate("novel.proxy_vs_exact", img_psnr(img_x, exact),
+              NOVEL_CROSS_DB, "the exact renderer")
+    del proxy, exact
+    torch.cuda.empty_cache()
+
+    # the batch: 8 cameras of one regime, one call
+    yaws = [-0.2 + 0.4 * i / (NOVEL_BATCH - 1) for i in range(NOVEL_BATCH)]
+    bcams = [orbit(s["cam"], y) for y in yaws]
+    batch = nv.stack_cameras(bcams)
+    ms_b, out = timed_view("novel.batch", lambda: nv.render_vdi_batch(
+        vdi, axcam, spec, batch, w, h, tier="sweep", num_slices=GRID,
+        axis_sign=regime), reps=1)
+    gap = max(float((out[i] - sweep(c)).abs().max())
+              for i, c in enumerate(bcams))
+    log("novel.batch_vs_single_max_abs", f"{gap:.3e} (bound {BATCH_GATE}; "
+        f"{ms_b / NOVEL_BATCH:.3f} ms a view)")
+    if not gap <= BATCH_GATE:
+        raise AssertionError(f"render_vdi_batch differs from the single "
+                             f"renders by {gap}")
+    launches = kernels.launches()
+    log("novel.views_launches", json.dumps(launches))
+    require_only(launches, (), "the novel views")
+    return launches
+
+
+def run_preshaded(dev, s, profile=False):
+    """Phase 13 (b): the pre-shaded march on the frame's 512^3 field.
+    `shade_volume_ao` (2 GiB out), `raycast_mxu` of it at 1280 x 720
+    >= 24 dB from the gather AO render (512 steps); `generate_vdi_mxu`
+    of it under ``fold="auto"`` (K2 seeds, K1 folds: both launched),
+    then K1 and K2 held against their plain versions on this march's
+    own chunks (start counts and K2's counts exact, colour and depth
+    within 1e-6); the pre-shaded pyramid on the card skips the chunks
+    it skips on the CPU. Returns (launch counts, the shaded volume)."""
+    import torch
+
+    from scenery_insitu_tpu_torch import kernels
+    from scenery_insitu_tpu_torch.config import (RenderConfig,
+                                                 SliceMarchConfig, VDIConfig)
+    from scenery_insitu_tpu_torch.core.transfer import for_dataset
+    from scenery_insitu_tpu_torch.core.volume import Volume
+    from scenery_insitu_tpu_torch.ops import ao
+    from scenery_insitu_tpu_torch.ops import cuda_march as cm
+    from scenery_insitu_tpu_torch.ops import cuda_seg as cs
+    from scenery_insitu_tpu_torch.ops import occupancy as occ
+    from scenery_insitu_tpu_torch.ops import slicer
+    from scenery_insitu_tpu_torch.ops import supersegments as ss
+    from scenery_insitu_tpu_torch.ops.raycast import raycast
+
+    w, h = NOVEL_W, NOVEL_H
+    tf = for_dataset("gray_scott", device=dev)
+    vol = Volume.centered(s["v"], extent=2.0)
+    cam = s["cam"]
+    white = (1.0, 1.0, 1.0, 1.0)
+    _, shaded = timed_view("preshaded.shade", lambda: ao.shade_volume_ao(
+        vol, tf, AO_RADIUS, AO_STRENGTH), reps=1, warm=False)
+    log("preshaded.bytes", f"{shaded.data.numel() * 4} (radius "
+        f"{AO_RADIUS}, strength {AO_STRENGTH})")
+    spec = slicer.make_spec(cam, (GRID,) * 3, SliceMarchConfig(chunk=CHUNK))
+    log("preshaded.spec", spec)
+    kernels.reset_launches()
+    _, img = timed_view("preshaded.raycast_mxu", lambda: slicer.raycast_mxu(
+        shaded, None, cam, w, h, spec, background=white).image)
+    _, ref = timed_view("preshaded.gather_ao", lambda: raycast(
+        vol, tf, cam, w, h, RenderConfig(max_steps=AO_GATHER_STEPS,
+                                         background=white),
+        ao_field=ao.ao_field_volume(vol, tf, AO_RADIUS, AO_STRENGTH)).image,
+        reps=1, warm=False)
+    psnr_gate("preshaded.raycast_mxu", img_psnr(img, ref), AO_DB,
+              "the gather AO render")
+    del img, ref
+    if profile:
+        profile_frames("preshaded.profile", lambda i: slicer.raycast_mxu(
+            shaded, None, cam, w, h, spec))
+
+    vcfg = VDIConfig(max_supersegments=K, adaptive_mode="histogram",
+                     histogram_bins=BINS)
+    _, (vdi, _, axcam) = timed_view(
+        "preshaded.generate", lambda: slicer.generate_vdi_mxu(
+            shaded, None, cam, spec, vcfg), reps=1)
+    launches = kernels.launches()
+    log("preshaded.launches", json.dumps(launches))
+    require_only(launches, ("seg_fold_compact", "count_multi"),
+                 "the pre-shaded VDI march")
+    check_vdi("preshaded.vdi", vdi, (K, 4, spec.nj, spec.ni),
+              (K, 2, spec.nj, spec.ni))
+
+    # K2 and K1 on this march's own chunks, against their plain versions
+    volp = slicer.permute_volume(shaded, spec)
+    pyr = occ.pyramid_from_volume(shaded, None, spec, volp=volp)
+    gate = pyr.gate(spec)
+    chunks = []
+
+    def keep(carry, rgba, sk0, sk1):
+        chunks.append((rgba.clone(), sk0.clone(), sk1.clone()))
+        return carry
+
+    slicer.slice_march(shaded, None, axcam, spec, keep, None, occupancy=gate,
+                       volp=volp, shaded_compact=True)
+    del volp
+    nj, ni = spec.nj, spec.ni
+    tvec = ss.threshold_candidates(BINS, device=dev)
+    init_c = lambda: cm.init_count_multi_packed(BINS, nj, ni, device=dev)
+    got_c = count_chunks(cm.count_multi_chunk, init_c(), chunks, tvec)
+    want_c = count_chunks(cm.count_multi_chunk_plain, init_c(), chunks, tvec)
+    count_err = check_counts("preshaded.count_chunks", got_c, want_c)
+    thr = ss.pick_threshold(got_c[0], tvec, K)
+    if not torch.equal(thr, ss.pick_threshold(want_c[0], tvec, K)):
+        raise AssertionError("preshaded: the thresholds differ")
+    length = axcam.ray_lengths().contiguous()
+    init = lambda: cs.init_seg_packed(K, nj, ni, device=dev)
+    kern = fold_chunks(cs.fold_chunk_packed, init(), chunks, thr, length)
+    plain = fold_chunks(cs.fold_chunk_packed_plain, init(), chunks, thr,
+                        length)
+    torch.cuda.synchronize()
+    fold_err = packed_err(kern, plain)
+    check("preshaded.seg_fold_chunks", fold_err, 1e-6)
+    if not torch.equal(kern[2][0], plain[2][0]):
+        raise AssertionError("preshaded: K1's start counts differ")
+    log("preshaded.chunks", f"{len(chunks)} folded, {int(pyr.chunks.sum())}"
+        f" of {pyr.chunks.numel()} live")
+    del chunks, kern, plain
+
+    # the pyramid on the card skips what it skips on the CPU
+    cpu_pyr = occ.pyramid_from_volume(
+        Volume(shaded.data.cpu(), shaded.origin.cpu(), shaded.spacing.cpu()),
+        None, spec)
+    if not torch.equal(pyr.chunks.cpu(), cpu_pyr.chunks) or \
+            not torch.equal(pyr.tiles.cpu(), cpu_pyr.tiles):
+        raise AssertionError("preshaded: the pyramid gates differ between "
+                             "the card and the CPU")
+    log("preshaded.pyramid", f"{int((~cpu_pyr.chunks).sum())} of "
+        f"{cpu_pyr.chunks.numel()} chunks skipped on both")
+    return launches, dict(count_err=count_err, fold_err=fold_err)
+
+
+def run_ao_dist(dev, s):
+    """Phase 13 (c): AO on phase 4's 8 ranks, the frame schedule:
+    `distributed_plain_step_mxu` with ``ao_strength`` on (every rank
+    pre-shaded on its radius-deep halo) against the single-device
+    pre-shaded render at rtol 1e-4, atol 2e-5, early exit off in both
+    (as the reference's parity tests render). No kernel."""
+    import torch
+
+    from scenery_insitu_tpu_torch import kernels
+    from scenery_insitu_tpu_torch.config import RenderConfig, SliceMarchConfig
+    from scenery_insitu_tpu_torch.core.transfer import for_dataset
+    from scenery_insitu_tpu_torch.core.volume import Volume
+    from scenery_insitu_tpu_torch.ops import ao, slicer
+    from scenery_insitu_tpu_torch.parallel import pipeline as dp
+    from scenery_insitu_tpu_torch.parallel.mesh import make_mesh, shard_volume
+
+    tf = for_dataset("gray_scott", device=dev)
+    vol = Volume.centered(s["v"], extent=2.0)
+    cam = s["cam"]
+    spec = slicer.make_spec(cam, (GRID,) * 3, SliceMarchConfig(chunk=CHUNK),
+                            multiple_of=RANKS)
+    mesh = make_mesh(RANKS, device=dev)
+    # early exit off in both: each rank saturates on its own, so the
+    # composite of early-exited fragments is not the single march's
+    rc = RenderConfig(ao_strength=AO_STRENGTH, ao_radius=AO_RADIUS,
+                      early_exit_alpha=1.1)
+    step = dp.distributed_plain_step_mxu(mesh, tf, spec, rc)
+    slabs = shard_volume(vol.data, mesh)
+    kernels.reset_launches()
+    _, (img, _) = timed_view("ao_dist", lambda: step(
+        slabs, vol.origin, vol.spacing, cam))
+    launches = kernels.launches()
+    require_only(launches, (), "the 8-rank AO step")
+    del slabs
+    shaded = ao.shade_volume_ao(vol, tf, AO_RADIUS, AO_STRENGTH)
+    ref = slicer.render_slices(shaded, None, slicer.make_axis_camera(
+        shaded, cam, spec), spec, early_exit_alpha=1.1).image
+    del shaded
+    diff = (img - ref).abs()
+    over = diff - (AO_DIST_ATOL + AO_DIST_RTOL * ref.abs())
+    log("ao_dist.max_abs_diff", f"{float(diff.max()):.3e} (rtol "
+        f"{AO_DIST_RTOL}, atol {AO_DIST_ATOL}; worst margin "
+        f"{float(over.max()):.3e})")
+    if float(over.max()) > 0.0:
+        raise AssertionError("ao_dist: the 8-rank AO step differs from the "
+                             "single-device pre-shaded render")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def check_convert(dev, s):
+    """Phase 13 (d): `vdi_convert` on the card's VDI: the NDC round trip
+    (finite depths within 1e-3, the +inf pattern exact), the reference
+    layouts' round trips exact, `validate_vdi` clean (world and NDC);
+    and the three goldens of the novel-view slice through the port on
+    the card within the golden test's 3.0: ``novel_view`` (the gather
+    renderer), ``vdi_decode`` (the same-view decode of the golden VDI),
+    ``reference_frame`` (the slice march in the Vulkan frame)."""
+    import numpy as np
+    import torch
+
+    from scenery_insitu_tpu_torch.config import (CompositeConfig,
+                                                 SliceMarchConfig, VDIConfig)
+    from scenery_insitu_tpu_torch.core.camera import Camera
+    from scenery_insitu_tpu_torch.core.transfer import for_dataset
+    from scenery_insitu_tpu_torch.core.vdi import VDI, render_vdi_same_view
+    from scenery_insitu_tpu_torch.core.volume import procedural_volume
+    from scenery_insitu_tpu_torch.ops import slicer
+    from scenery_insitu_tpu_torch.ops import vdi_convert as vc
+    from scenery_insitu_tpu_torch.ops.composite import composite_vdis
+    from scenery_insitu_tpu_torch.ops.vdi_render import render_vdi
+    from scenery_insitu_tpu_torch.utils.image import load_png, to_display
+
+    vdi, meta = s["vdi"], s["meta"]
+    ndc = vc.depths_to_ndc(vdi, meta)
+    back = vc.depths_from_ndc(ndc, meta)
+    fin = torch.isfinite(vdi.depth)
+    if not torch.equal(fin, torch.isfinite(back.depth)):
+        raise AssertionError("convert: the NDC round trip moved +inf")
+    err = float((back.depth[fin] - vdi.depth[fin]).abs().max())
+    log("convert.ndc_roundtrip_max_abs", f"{err:.3e} (bound 1e-3)")
+    if not err <= 1e-3:
+        raise AssertionError("convert: the NDC round trip drifted")
+    color, depth = vc.pack_reference_layout(vdi)
+    rt = vc.unpack_reference_layout(color, depth, device=dev)
+    live = fin[:, 0]
+    if not (torch.equal(rt.color[:, :, :][live[:, None].expand_as(
+            rt.color)], vdi.color[live[:, None].expand_as(vdi.color)])
+            and torch.equal(rt.depth[live[:, None].expand_as(rt.depth)],
+                            vdi.depth[live[:, None].expand_as(vdi.depth)])
+            and bool(torch.isinf(rt.depth[:, 0][~live]).all())):
+        raise AssertionError("convert: the reference layout's round trip")
+    packed = vc.pack_3layer(vdi)
+    if not np.array_equal(vc.pack_3layer(vc.unpack_3layer(packed,
+                                                          device=dev)),
+                          packed):
+        raise AssertionError("convert: the 3-layer round trip")
+    for name, v, nd in (("world", vdi, False), ("ndc", ndc, True)):
+        rep = vc.validate_vdi(v, ndc=nd)
+        log(f"convert.validate_{name}", json.dumps(rep))
+        bad = {k: n for k, n in rep.items() if k != "live_slots" and n}
+        if bad or not rep["live_slots"]:
+            raise AssertionError(f"convert: validate_vdi ({name}) {bad}")
+
+    g = GOLDEN
+    vol = procedural_volume(g["grid"], kind="blobs", seed=g["seed"],
+                            device=dev)
+    tf = for_dataset("procedural", device=dev)
+    cam = Camera.create(g["eye"], fov_y_deg=50.0, near=0.3, far=20.0,
+                        device=dev)
+    cam2 = Camera.create(GOLDEN_NOVEL_EYE, fov_y_deg=50.0, near=0.3,
+                         far=20.0, device=dev)
+    white = (1.0, 1.0, 1.0, 1.0)
+    spec = slicer.make_spec(cam, tuple(vol.data.shape),
+                            SliceMarchConfig(matmul_dtype="f32", fold="xla"))
+    gv, gmeta, _ = slicer.generate_vdi_mxu(vol, tf, cam, spec, VDIConfig(
+        max_supersegments=g["k"], adaptive_mode="histogram",
+        histogram_bins=8))
+    comp = composite_vdis(gv.color[None], gv.depth[None],
+                          CompositeConfig(max_output_supersegments=g["k"]))
+    gvdi = VDI(comp.color, comp.depth)
+    images = {
+        "novel_view": (render_vdi(gvdi, gmeta, cam2, g["w"], g["h"],
+                                  steps=g["steps"], background=white), 2.2),
+        "vdi_decode": (render_vdi_same_view(gvdi, background=white), 2.2),
+        "reference_frame": (vc.to_reference_frame(slicer.raycast_mxu(
+            vol, tf, cam, g["w"], g["h"], spec, background=white).image),
+            1.0)}
+    root = os.path.dirname(os.path.abspath(__file__))
+    for name, (img, gamma) in images.items():
+        want = load_png(os.path.join(root, "tests", "golden",
+                                     f"golden_{name}.png")).astype("float32")
+        got = to_display(img.cpu().numpy(), gamma).astype("float32")
+        gap = float(abs(got - want).max())
+        log(f"golden_{name}.max_8bit_diff", f"{gap:.1f} (bar {GOLDEN_BAR})")
+        if not gap <= GOLDEN_BAR:
+            raise AssertionError(f"golden {name}: max 8-bit difference "
+                                 f"{gap} > {GOLDEN_BAR}")
+
+
+def run_phase13(dev, done, profile=False):
+    """Phase 13 (a)-(d); returns the launch counts of each path."""
+    import torch
+
+    t13 = time.perf_counter()
+    s = novel_state(dev)
+    done("phase13.state")
+    views = run_novel_views(dev, s, profile)
+    torch.cuda.empty_cache()
+    done("phase13.a")
+    shaded_launches, shaded_errs = run_preshaded(dev, s, profile)
+    torch.cuda.empty_cache()
+    done("phase13.b")
+    dist = run_ao_dist(dev, s)
+    done("phase13.c")
+    check_convert(dev, s)
+    log("phase13.wall_s", f"{time.perf_counter() - t13:.1f} (the novel "
+        f"views and the pre-shaded march)")
+    return dict(state=s["launches"], views=views, preshaded=shaded_launches,
+                ao_dist=dist, errs=shaded_errs)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -5840,6 +6333,10 @@ def main(argv=None) -> int:
                     help="run the build and phase 12 only (the gather "
                          "engine and the plain images), then exit without "
                          "the kernel table")
+    ap.add_argument("--phase13-only", action="store_true",
+                    help="run the build and phase 13 only (the VDI's novel "
+                         "views, the pre-shaded march and its AO), then "
+                         "exit without the kernel table")
     ap.add_argument("--events-compare", action="append", default=[],
                     metavar="NAME=PATH",
                     help="another design of csrc/fold_chunk.cu (the same C "
@@ -5876,6 +6373,12 @@ def main(argv=None) -> int:
         run_phase12(dev, phase_done, args.profile)
         phase_done("phase12")
         log("phase12_only", "done (no kernel table: run without flags for "
+            "it)")
+        return 0
+    if args.phase13_only:
+        run_phase13(dev, phase_done, args.profile)
+        phase_done("phase13")
+        log("phase13_only", "done (no kernel table: run without flags for "
             "it)")
         return 0
     if args.phase11_only:
@@ -5983,6 +6486,9 @@ def main(argv=None) -> int:
     p12 = run_phase12(dev, phase_done, args.profile)
     torch.cuda.empty_cache()
     phase_done("phase12")
+    p13 = run_phase13(dev, phase_done, args.profile)
+    torch.cuda.empty_cache()
+    phase_done("phase13")
     n_frames = WARMUP_FRAMES + TIMED_FRAMES
 
     table = [
@@ -6179,6 +6685,17 @@ def main(argv=None) -> int:
             "gather_dist": p12["dist"][name],
             **{f"session_{m}": v[name]
                for m, v in p12["sessions"].items()}}
+        # phase 13: the default frames that made the VDI, its novel
+        # views, the pre-shaded VDI march and the 8-rank AO step
+        row["phase13_launches"] = {
+            "default_frames": p13["state"][name],
+            "novel_views": p13["views"][name],
+            "preshaded_vdi": p13["preshaded"][name],
+            "ao_dist": p13["ao_dist"][name]}
+        if name == "seg_fold_compact":
+            row["preshaded_max_abs_err"] = p13["errs"]["fold_err"]
+        if name == "count_multi":
+            row["preshaded_max_abs_err"] = p13["errs"]["count_err"]
         if name == "resegment_sorted":
             # on the 8-rank gather step's 128-slot, 720 x 160 streams
             err, ms, b, by = p12["gather_k4"]

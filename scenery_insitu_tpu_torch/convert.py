@@ -9,6 +9,7 @@ imports JAX.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Mapping
 
 import numpy as np
@@ -19,6 +20,7 @@ from scenery_insitu_tpu_torch.core.vdi import VDI, VDIMetadata
 from scenery_insitu_tpu_torch.device import resolve_device
 from scenery_insitu_tpu_torch.ops.delta import DeltaRecord, ReuseState
 from scenery_insitu_tpu_torch.ops.occupancy import FieldRanges
+from scenery_insitu_tpu_torch.ops.slicer import AxisCamera, AxisSpec
 from scenery_insitu_tpu_torch.ops.supersegments import ThresholdState
 from scenery_insitu_tpu_torch.sim.grayscott import GrayScott, GrayScottParams
 
@@ -121,6 +123,20 @@ def delta_record(rec) -> DeltaRecord:
         vals[k] = int(vals[k])
     vals["scale"] = tuple(float(x) for x in vals["scale"])
     return DeltaRecord(**vals)
+
+
+def axis_spec(spec) -> AxisSpec:
+    """The static slice-march spec, field by field (a host value)."""
+    names = [f.name for f in dataclasses.fields(AxisSpec)]
+    return AxisSpec(**dict(zip(names, _fields(spec, names))))
+
+
+def axis_camera(axcam, device=None) -> AxisCamera:
+    """The virtual axis camera: eye_uvw, view, proj, u_grid, v_grid, zp,
+    w0, dwm, far (f32)."""
+    dev = resolve_device(device)
+    return AxisCamera(*(_tensor(x, np.float32, dev) for x in
+                        _fields(axcam, AxisCamera._fields)))
 
 
 _META_DTYPES = {"window_dims": np.int32, "index": np.int32,

@@ -19,6 +19,7 @@ import torch
 
 from scenery_insitu_tpu_torch.device import resolve_device
 
+LUT_SIZE = 256
 MAX_KNOTS = 16
 
 
@@ -174,6 +175,15 @@ def colormap_polyline(name: str) -> Tuple[np.ndarray, np.ndarray]:
     else:
         raise ValueError(f"unknown colormap {name!r}")
     return xs, rgb
+
+
+def colormap_lut(name: str, n: int = LUT_SIZE) -> np.ndarray:
+    """Dense f32[n, 3] sampling of a built-in colormap (host-side users:
+    particle splat colour tables, previews)."""
+    xs, rgb = colormap_polyline(name)
+    x = np.linspace(0.0, 1.0, n, dtype=np.float32)
+    return np.stack([np.interp(x, xs, rgb[:, c]) for c in range(3)],
+                    -1).astype(np.float32)
 
 
 # Per-dataset transfer functions: (alpha control points or ramp, colormap),

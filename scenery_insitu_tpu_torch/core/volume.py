@@ -5,6 +5,7 @@ order. Values are normalized to [0, 1]."""
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple, Tuple
 
 import numpy as np
@@ -72,6 +73,38 @@ class Volume(NamedTuple):
         """World position [..., 3] (x, y, z) -> continuous voxel coords
         [..., 3] (x, y, z), voxel centres at integer + 0.5."""
         return (p - self.origin) / self.spacing
+
+
+def load_raw(path: str, dims_xyz: Tuple[int, int, int],
+             is16bit: bool = False, extent: float = 2.0,
+             device=None) -> Volume:
+    """Load a raw binary volume file (x fastest, 8- or 16-bit unsigned),
+    normalized to [0, 1] and centred as `Volume.centered` places it."""
+    dev = resolve_device(device)
+    w, h, d = dims_xyz
+    dtype = np.uint16 if is16bit else np.uint8
+    raw = np.fromfile(path, dtype=dtype, count=w * h * d).reshape(d, h, w)
+    data = raw.astype(np.float32) / float(np.iinfo(dtype).max)
+    return Volume.centered(data, extent, device=dev)
+
+
+# Dimensions (x, y, z) of the named datasets, so raw files load by name.
+DATASET_DIMS_XYZ = {
+    "kingsnake": (1024, 1024, 795),
+    "beechnut": (1024, 1024, 1546),
+    "simulation": (2048, 2048, 1920),
+    "rayleigh_taylor": (1024, 1024, 1024),
+    "microscopy": (1024, 1024, 1040),
+    "rotstrat": (4096, 4096, 4096),
+}
+
+
+def load_dataset(name: str, data_dir: str, extent: float = 2.0,
+                 device=None) -> Volume:
+    """A named dataset's 16-bit raw file ``<data_dir>/<name>.raw``."""
+    dims = DATASET_DIMS_XYZ[name.lower()]
+    path = os.path.join(data_dir, f"{name}.raw")
+    return load_raw(path, dims, is16bit=True, extent=extent, device=device)
 
 
 def procedural_volume(size: int = 128, seed: int = 0, kind: str = "blobs",

@@ -3,8 +3,10 @@ computed once a frame as a volume, a separable edge-clamped box blur of
 the per-voxel opacity (three cumulative-sum passes, one an axis), and
 each sample is shaded by ``1 - occlusion``. The gather raycaster samples
 the field trilinearly beside the value volume
-(``ops/raycast.raycast(..., ao_field=...)``). Off by default
-(``RenderConfig.ao_strength = 0``)."""
+(``ops/raycast.raycast(..., ao_field=...)``); the slice march renders
+`shade_volume_ao`'s pre-shaded volume, the TF and the occlusion baked
+into premultiplied RGBA. Off by default (``RenderConfig.ao_strength =
+0``)."""
 
 from __future__ import annotations
 
@@ -57,9 +59,14 @@ def ao_field_volume(vol: Volume, tf: TransferFunction, radius: int = 4,
 
 def shade_volume_ao(vol: Volume, tf: TransferFunction, radius: int = 4,
                     strength: float = 0.8) -> Volume:
-    """The pre-shaded RGBA volume with the TF and AO baked in, which the
-    slice march renders without a transfer function: the pre-shaded
-    march is not ported yet (ROADMAP A6)."""
-    raise NotImplementedError(
-        "shade_volume_ao and the pre-shaded slice march (the slice-march "
-        "AO) are not ported yet (ROADMAP A6)")
+    """The premultiplied RGBA volume with the TF and AO baked in
+    (``f32[4, D, H, W]``, alpha encoded per nominal step: the pre-shaded
+    convention of ``ops/slicer.slice_march``). The slice march renders it
+    without a transfer function: ``render_slices(shaded, None, ...)``,
+    ``raycast_mxu(shaded, None, ...)``."""
+    rgb, alpha = tf(torch.clamp(vol.data, 0.0, 1.0))   # [D,H,W,3], [D,H,W]
+    occ = occlusion_field(alpha, radius, strength)
+    rgb = rgb * (1.0 - occ)[..., None]
+    rgba = torch.cat([(rgb * alpha[..., None]).movedim(-1, 0),
+                      alpha[None]], dim=0)
+    return Volume(rgba, vol.origin, vol.spacing)

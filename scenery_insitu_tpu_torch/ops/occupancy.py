@@ -149,8 +149,13 @@ def _tile_bands(nv: int, nt: int):
             for t in range(nt)]
 
 
-def _gates(tf, lo, hi, alpha_eps: float):
-    """(chunks, tiles) gates from cell ranges of a scalar volume."""
+def _gates(tf, lo, hi, pre_shaded: bool, alpha_eps: float):
+    """(chunks, tiles) gates from cell ranges. A scalar volume pushes the
+    range through the TF's conservative alpha bound; a pre-shaded volume
+    gates on its stored alpha directly."""
+    if pre_shaded:
+        tiles = hi > alpha_eps
+        return torch.any(tiles, dim=1), tiles
     cl = lambda x: torch.clamp(x, 0.0, 1.0)
     tiles = tf.max_alpha_in(cl(lo), cl(hi)) > alpha_eps
     chunks = tf.max_alpha_in(cl(torch.amin(lo, dim=1)),
@@ -163,15 +168,15 @@ def pyramid_from_volume(vol, tf, spec, volp: Optional[torch.Tensor] = None,
     """Build the pyramid in one pass over the march-layout copy.
     ``volp`` (the unpadded ``slicer.permute_volume`` output) shares the
     frame's one permuted copy; chunk boundaries come from the shared
-    ``slicer._pad_to_chunks``."""
+    ``slicer._pad_to_chunks``. A pre-shaded RGBA volume ranges its
+    alpha plane (``tf`` may be None)."""
     from scenery_insitu_tpu_torch.ops import slicer
 
-    if vol.data.dim() != 3:
-        raise NotImplementedError(
-            "pre-shaded RGBA volumes are a later slice of the port "
-            "(ROADMAP queue A6)")
     if volp is None:
         volp = slicer.permute_volume(vol, spec)
+    pre_shaded = vol.data.dim() == 4
+    if pre_shaded:
+        volp = volp[:, 3]                                  # alpha plane
     volp, nchunks = slicer._pad_to_chunks(volp, spec.chunk)
     nv = volp.shape[1]
     nt = resolved_tiles(spec, nv)
@@ -182,7 +187,7 @@ def pyramid_from_volume(vol, tf, spec, volp: Optional[torch.Tensor] = None,
         his.append(torch.amax(band, dim=1).to(torch.float32))
     lo = torch.stack(los, dim=1)                           # [nchunks, nt]
     hi = torch.stack(his, dim=1)
-    chunks, tiles = _gates(tf, lo, hi, alpha_eps)
+    chunks, tiles = _gates(tf, lo, hi, pre_shaded, alpha_eps)
     return OccupancyPyramid(lo, hi, chunks, tiles)
 
 
@@ -256,7 +261,7 @@ def pyramid_from_ranges(ranges: FieldRanges, vol, tf, spec,
     if spec.render_dtype == "bf16":
         lo = lo - torch.abs(lo) * _BF16_EPS
         hi = hi + torch.abs(hi) * _BF16_EPS
-    chunks, tiles = _gates(tf, lo, hi, alpha_eps)
+    chunks, tiles = _gates(tf, lo, hi, False, alpha_eps)
     return OccupancyPyramid(lo, hi, chunks, tiles)
 
 

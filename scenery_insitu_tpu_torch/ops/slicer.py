@@ -194,18 +194,18 @@ class AxisCamera(NamedTuple):
 
 
 def permute_volume(vol: Volume, spec: AxisSpec) -> torch.Tensor:
-    """Volume data -> contiguous march layout ``[S, Nv, Nu]``, flipped so
-    the marched slice index ascends front to back; bf16 when
-    ``spec.render_dtype == "bf16"``."""
+    """Volume data -> contiguous march layout ``[S, (ch,) Nv, Nu]``,
+    flipped so the marched slice index ascends front to back; bf16 when
+    ``spec.render_dtype == "bf16"``. The leading channel dim of a
+    pre-shaded RGBA volume (``f32[4, D, H, W]``) moves behind the slice
+    dim, so the march slices chunks on dim 0 either way."""
     data = vol.data
-    if data.dim() != 3:
-        raise NotImplementedError(
-            "pre-shaded RGBA volumes are a later slice of the port "
-            "(ROADMAP queue A6)")
     if spec.render_dtype == "bf16" and data.dtype == torch.float32:
         data = data.to(torch.bfloat16)
-    volp = data.permute({2: (0, 1, 2), 1: (1, 0, 2),
-                         0: (2, 0, 1)}[spec.axis])
+    nd = data.dim()
+    dims = [nd - 3 + p for p in {2: (0, 1, 2), 1: (1, 0, 2),
+                                  0: (2, 0, 1)}[spec.axis]]
+    volp = data.permute([dims[0]] + list(range(nd - 3)) + dims[1:])
     if spec.sign < 0:
         volp = torch.flip(volp, dims=(0,))
     return volp.contiguous()
@@ -353,7 +353,13 @@ def _interp_matrix(pos: torch.Tensor, origin, spacing, n: int,
     """Banded bilinear interpolation weights of world positions ``pos
     [C, M]`` against voxel rows 0..n-1 -> ``[C, M, n]``. Clamp-to-edge
     inside the volume extent, zero outside; ``bounds`` (lo, hi) further
-    restricts to the half-open world interval a rank owns."""
+    restricts to the half-open world interval a rank owns.
+    ``origin``/``spacing`` may be per-chunk ``[C]`` tensors (the
+    novel-view renderers resample planes whose grids scale per plane)."""
+    if isinstance(origin, torch.Tensor) and origin.dim():
+        origin = origin.reshape(-1, 1)
+    if isinstance(spacing, torch.Tensor) and spacing.dim():
+        spacing = spacing.reshape(-1, 1)
     x = (pos - origin) / spacing - 0.5
     valid = (x >= -0.5) & (x <= n - 0.5)
     if bounds is not None:
@@ -509,7 +515,18 @@ def slice_march(vol: Volume, tf: TransferFunction, axcam: AxisCamera,
     ``step_scale`` rescales the opacity correction's reference step
     (``nominal_step(vol, step_scale)``): a volume pooled 2^l-fold
     marches with ``step_scale = 2^-l`` so a coarse slice takes the
-    opacity of the fine slices it replaces."""
+    opacity of the fine slices it replaces.
+
+    A pre-shaded volume (``vol.data f32[4, D, H, W]``: premultiplied
+    RGBA, alpha encoded for a ``nominal_step(vol)``-long traversal, as
+    ``ops/ao.shade_volume_ao`` and the novel-view proxy make it) marches
+    with ``tf=None``: each slice resamples the stored channels, and the
+    opacity is corrected for the ray's step with the premultiplied rgb
+    scaled alike. ``raw=True`` feeds a transfer-function kernel and
+    raises on it."""
+    pre_shaded = vol.data.dim() == 4
+    if raw and pre_shaded:
+        _no_raw_pre_shaded()
     occ_tiles = None
     if isinstance(occupancy, tuple):
         occupancy, occ_tiles = occupancy
@@ -556,6 +573,17 @@ def slice_march(vol: Volume, tf: TransferFunction, axcam: AxisCamera,
 
     def rows_rgba(wv_r, slices, wu, keep_r, ratio_r):
         """Resample + shade one block of output rows ([C, 4, B, Ni])."""
+        if pre_shaded:
+            # stored premultiplied RGBA, alpha encoded per nominal step
+            val = torch.matmul(torch.matmul(wv_r[:, None], slices),
+                               wu.transpose(1, 2)[:, None])
+            a_res = torch.clamp(val[:, 3], 0.0, 1.0 - 1e-6)
+            a_res = torch.where(keep_r, a_res, 0.0)
+            alpha = adjust_opacity(a_res, ratio_r[None])
+            # premultiplied rgb scales with its alpha's re-correction
+            scale = alpha / torch.clamp(a_res, min=1e-6)
+            return torch.cat([torch.clamp(val[:, :3], 0.0, 1.0)
+                              * scale[:, None], alpha[:, None]], dim=1)
         val = torch.bmm(torch.bmm(wv_r, slices), wu.transpose(1, 2))
         val = torch.clamp(val, 0.0, 1.0)
         rgb, alpha = tf(val)                    # [C,B,Ni,3], [C,B,Ni]
@@ -632,6 +660,11 @@ def slice_march(vol: Volume, tf: TransferFunction, axcam: AxisCamera,
         else:
             carry = skip(carry, ci)
     return carry
+
+
+def _no_raw_pre_shaded():
+    raise ValueError("raw slice_march feeds a transfer-function kernel; "
+                     "pre-shaded volumes have no TF")
 
 
 # ------------------------------------------------------- plain-image render
@@ -910,6 +943,8 @@ def _fused_march(march, vol, tf, axcam, spec, threshold, k,
     ``-1`` planes, and folded by one launch of kernel B6
     (``fused_stream``: ~839 MB of buffer at 512 slices of 640 x 640).
     Returns the fold state."""
+    if vol.data.dim() == 4:
+        _no_raw_pre_shaded()
     nj, ni, c = spec.nj, spec.ni, spec.chunk
     dev = vol.data.device
     length = axcam.ray_lengths()

@@ -101,7 +101,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, NamedTuple, Optional, Tuple
+from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -197,9 +197,10 @@ def _rank_units(slabs: torch.Tensor, rows, r: int, origin: torch.Tensor,
     assembled.
 
     Even slab: a z march (``spec.axis == 2``) marches the rank's own
-    slices, no bounds; an x or y march has z as its v axis: the slab
-    with its halo rows for seam-exact bilinear, and half-open ownership
-    so every sample belongs to exactly one rank; the last rank's bound
+    slices (``rows[r]`` when given: its `_shaded_rows` slab), no
+    bounds; an x or y march has z as its v axis: the slab with its halo
+    rows for seam-exact bilinear, and half-open ownership so every
+    sample belongs to exactly one rank; the last rank's bound
     reaches one slice past the global top, which the volume-extent mask
     still caps. A planned band is owned the same way, through
     ``w_bounds`` on a z march (its pad slices shade nothing). Bricks:
@@ -230,7 +231,8 @@ def _rank_units(slabs: torch.Tensor, rows, r: int, origin: torch.Tensor,
                          None)
         return _Decomp([unit], unit.vol, gmax, dims)
     if z_march:
-        vol = Volume(slabs[r], _shifted(origin, r * dn * dz), spacing)
+        own = slabs[r] if rows is None else rows[r]
+        vol = Volume(own, _shifted(origin, r * dn * dz), spacing)
         unit = _Unit(vol, None, None)
     else:
         vol = Volume(rows[r], _shifted(origin, (r * dn - 1) * dz), spacing)
@@ -620,6 +622,38 @@ def _global_meta(dec: _Decomp, axcam, spec, origin):
     return slicer._vdi_meta(dec.ref, axcam, spec.ni, spec.nj)._replace(
         volume_dims=torch.tensor(dec.dims, dtype=torch.float32,
                                  device=origin.device))
+
+
+def _shaded_rows(slabs: torch.Tensor, spec: slicer.AxisSpec, origin,
+                 spacing, shade: Callable, shade_halo: int, plan=None):
+    """`_frame_rows` with a per-rank volume shader: every rank's slab (or
+    ``plan`` band) is extended by ``shade_halo + 1`` neighbour slices a
+    side, shaded, and trimmed to the rows its march reads (the bare slab
+    on a z march, the band padded to ``max(plan)`` on a planned one, one
+    halo slice a side on an x/y march). A shader whose neighbourhood is
+    at most ``shade_halo`` slices deep (the AO blur of that radius) so
+    sees real neighbour slices and matches the single-device shading
+    seam for seam. The shader may add a leading channel dim (scalar ->
+    pre-shaded RGBA). Returns the rank-stacked rows ``[n, (ch,) rows, H,
+    W]``, which `_rank_units` places as it places `_frame_rows`'."""
+    n, dn = slabs.shape[:2]
+    dz = spacing[2]
+    hr = shade_halo + 1
+    if plan is None:
+        ext = halo_exchange_z(slabs, h=hr)
+        starts, depth = [r * dn for r in range(n)], dn
+    else:
+        ext = reslab_z(slabs, plan, h=hr)
+        starts = [sum(plan[:r]) for r in range(n)]
+        depth = max(plan)
+    lo, hi = (hr, hr + depth) if spec.axis == 2 else (hr - 1,
+                                                      hr + depth + 1)
+    out = []
+    for r in range(n):
+        data = shade(Volume(ext[r], _shifted(origin, (starts[r] - hr) * dz),
+                            spacing)).data
+        out.append(data[..., lo:hi, :, :])
+    return torch.stack(out)
 
 
 def _halo_for(slabs: torch.Tensor, spec: slicer.AxisSpec):
@@ -1468,29 +1502,41 @@ def distributed_plain_step_mxu(mesh: Mesh, tf: TransferFunction,
     composited) and ``rebalance`` with ``plan``; ``topology`` runs the
     two-level composite: as on the VDI steps. ``bricks`` and
     ``comp_cfg.temporal_reuse`` go on the ledger inert.
-    ``cfg.ao_strength > 0`` needs the pre-shaded march and raises
-    (ROADMAP A6)."""
+
+    ``cfg.ao_strength > 0``: every rank pre-shades its slab (or band)
+    with the TF and the occlusion (``ops/ao.shade_volume_ao``) on a halo
+    ``ao_radius + 1`` slices deep (`_shaded_rows`), and marches the
+    pre-shaded volume without a TF: seam-exact against the single-device
+    pre-shaded render. A plan's bands must then be at least
+    ``ao_radius + 1`` slices deep."""
     cfg = cfg or RenderConfig()
     comp_cfg = comp_cfg or CompositeConfig()
     _, n, topo = resolve_mesh_topology(mesh, topology)
     if spec.ni % n:
         raise ValueError(f"intermediate width {spec.ni} not divisible by "
                          f"mesh size {n}")
-    if cfg.ao_strength > 0.0:
-        raise NotImplementedError(
-            "ambient occlusion on the slice march needs shade_volume_ao "
-            "and the pre-shaded march, not ported yet (ROADMAP A6)")
+    ao_on = cfg.ao_strength > 0.0
     waves = _resolve_waves(comp_cfg, n, spec.ni)
-    plan = _resolve_plan(comp_cfg, n, plan)
+    plan = _resolve_plan(comp_cfg, n, plan,
+                         min_halo=cfg.ao_radius + 1 if ao_on else 1)
     _bricks_inert(bricks, "the plain-image MXU step")
     _resolve_reuse(comp_cfg, supported=False, where="the plain-image MXU step")
     _plain_build_markers(n, spec.nj, spec.ni, comp_cfg, topo, waves,
                          marched=True)
     bg = (0.0, 0.0, 0.0, 0.0)
+    # the ranks march the pre-shaded volume without a TF
+    tf_r = None if ao_on else tf
+    if ao_on:
+        shade = lambda v: _ao.shade_volume_ao(v, tf, cfg.ao_radius,
+                                              cfg.ao_strength)
 
     def step(vol_data, origin, spacing, cam: Camera):
         slabs = _check_sharded(vol_data, mesh)
-        rows = _frame_rows(slabs, spec, plan)
+        if ao_on:
+            rows = _shaded_rows(slabs, spec, origin, spacing, shade,
+                                cfg.ao_radius, plan)
+        else:
+            rows = _frame_rows(slabs, spec, plan)
         units, axcams = [], []
         for r in range(n):
             dec = _rank_units(slabs, rows, r, origin, spacing, spec, plan)
@@ -1502,13 +1548,13 @@ def distributed_plain_step_mxu(mesh: Mesh, tf: TransferFunction,
 
         def render(u, axcam, spec_u, **kw):
             return slicer.render_slices(
-                u.vol, tf, axcam, spec_u, cfg.early_exit_alpha,
+                u.vol, tf_r, axcam, spec_u, cfg.early_exit_alpha,
                 v_bounds=u.v_bounds, step_scale=cfg.step_scale,
                 w_bounds=u.w_bounds, **kw)
 
         if waves:
             volps = [slicer.permute_volume(u.vol, spec) for u in units]
-            occs = [slicer.occupancy_for(u.vol, tf, spec, volp=vp)
+            occs = [slicer.occupancy_for(u.vol, tf_r, spec, volp=vp)
                     for u, vp in zip(units, volps)]
 
             def march_wave(w):

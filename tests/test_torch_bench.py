@@ -9,6 +9,7 @@ import torch
 
 from scenery_insitu_tpu_torch import bench
 from scenery_insitu_tpu_torch.entry import entry
+from tests.test_torch_pipeline import one_torch_thread  # noqa: F401
 
 
 def test_bench_prints_one_json_line(monkeypatch, capsys):

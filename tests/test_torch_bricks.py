@@ -32,7 +32,7 @@ from scenery_insitu_tpu_torch.parallel import bricks as tbk
 from scenery_insitu_tpu_torch.parallel import mesh as tmesh
 from scenery_insitu_tpu_torch.parallel import pipeline as tpipe
 from scenery_insitu_tpu_torch.runtime import session as tses
-from tests.test_torch_pipeline import np_
+from tests.test_torch_pipeline import np_, one_torch_thread  # noqa: F401
 from tests.test_torch_rebalance import (CPU, D, EYES, GATE, N, REGIMES,
                                         MovingSim, assert_frames_close,
                                         assert_meta_global,

@@ -22,7 +22,8 @@ from scenery_insitu_tpu_torch import config as tcfg
 from scenery_insitu_tpu_torch.ops import composite as tcomp
 from scenery_insitu_tpu_torch.ops import cuda_composite as tcc
 from tests.test_torch_kernels import sorted_stream
-from tests.test_torch_pipeline import _vdi_stack, np_
+from tests.test_torch_pipeline import (  # noqa: F401
+    _vdi_stack, np_, one_torch_thread)
 
 ATOL = 1e-6
 

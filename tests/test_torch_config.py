@@ -16,6 +16,7 @@ from scenery_insitu_tpu import config as jcfg
 from scenery_insitu_tpu import obs as jobs
 from scenery_insitu_tpu_torch import config as tcfg
 from scenery_insitu_tpu_torch import obs as tobs
+from tests.test_torch_pipeline import one_torch_thread  # noqa: F401
 
 SECTIONS = [f.name for f in dataclasses.fields(jcfg.FrameworkConfig)]
 

@@ -25,6 +25,7 @@ from scenery_insitu_tpu_torch.core import transfer as ttf
 from scenery_insitu_tpu_torch.core import volume as tvol
 from scenery_insitu_tpu_torch.ops import sampling as tsamp
 from scenery_insitu_tpu_torch.ops import slicer as tsl
+from tests.test_torch_pipeline import one_torch_thread  # noqa: F401
 
 # the package re-exports a function of the same name over the module
 jraycast = importlib.import_module("scenery_insitu_tpu.ops.raycast")

@@ -50,7 +50,7 @@ from scenery_insitu_tpu_torch.parallel import mesh as tmesh
 from scenery_insitu_tpu_torch.parallel import pipeline as tpipe
 from scenery_insitu_tpu_torch.parallel.bricks import BrickMap
 from scenery_insitu_tpu_torch.runtime.session import InSituSession
-from tests.test_torch_pipeline import np_
+from tests.test_torch_pipeline import np_, one_torch_thread  # noqa: F401
 
 CPU = "cpu"
 N = 8

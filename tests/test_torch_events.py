@@ -35,6 +35,7 @@ import torch
 from scenery_insitu_tpu_torch import convert
 from scenery_insitu_tpu_torch.benchmarks import fold_microbench as tfm
 from scenery_insitu_tpu_torch.ops import cuda_march as cm
+from tests.test_torch_pipeline import one_torch_thread  # noqa: F401
 
 CPU = "cpu"
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -46,16 +47,6 @@ _spec.loader.exec_module(rfm)
 
 H, W = 8, 40
 STREAMS = ("micro", "seeded", "all_close", "cap")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """Thousands of small torch operations: one thread each, so the
-    suite's other workers do not wait on each other's pools."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def stream(kind, c, k):

@@ -33,7 +33,8 @@ from scenery_insitu_tpu_torch.ops import slicer as tsl
 from scenery_insitu_tpu_torch.parallel import pipeline as tdist
 from scenery_insitu_tpu_torch.sim import grayscott as tgs
 from tests.test_torch_parallel import N, _args, _setup
-from tests.test_torch_pipeline import _gs_state, assert_vdi_close, np_
+from tests.test_torch_pipeline import (  # noqa: F401
+    _gs_state, assert_vdi_close, np_, one_torch_thread)
 
 CPU = "cpu"
 FOLDS = ("pallas", "pallas_fused", "fused_stream")

@@ -27,6 +27,7 @@ from scenery_insitu_tpu_torch.ops import cuda_march as cm
 from scenery_insitu_tpu_torch.ops import cuda_seg as cs
 from scenery_insitu_tpu_torch.ops import seg_fold as tsf
 from scenery_insitu_tpu_torch.ops import supersegments as tss
+from tests.test_torch_pipeline import one_torch_thread  # noqa: F401
 
 CPU = "cpu"
 

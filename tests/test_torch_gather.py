@@ -55,25 +55,13 @@ from scenery_insitu_tpu_torch.parallel import pipeline as tpipe
 from scenery_insitu_tpu_torch.parallel import topology as ttopo
 from scenery_insitu_tpu_torch.utils.image import psnr, to_display
 from tests.golden import make_golden as mg
-from tests.test_torch_pipeline import np_
+from tests.test_torch_pipeline import np_, one_torch_thread  # noqa: F401
 
 CPU = "cpu"
 ATOL = 1e-5
 N = 4
 W, H, STEPS = 32, 24, 40           # the distributed steps' image
 EYE = (0.3, 0.2, 4.0)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The port's CPU runs here are loops of small operations: with the
-    suite's workers sharing the host, torch's intra-op threads would
-    oversubscribe it and every parallel region would wait on them. One
-    thread for this module's tests, restored after."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def t_(x):
@@ -249,8 +237,12 @@ def test_ao_fields(golden_scene):
             np_(tao.occlusion_field(t_(alpha), r, 0.9)),
             np.asarray(jax.jit(lambda a: jao.occlusion_field(a, r, 0.9))(
                 jnp.asarray(alpha))), rtol=0, atol=1e-6)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        tao.shade_volume_ao(s["vol"], s["tf"])
+    got = tao.shade_volume_ao(s["vol"], s["tf"], 3, 0.7)
+    want = jax.jit(lambda v: jao.shade_volume_ao(v, s["jtf"], 3, 0.7))(
+        s["jvol"])
+    assert tuple(got.data.shape) == (4,) + tuple(s["vol"].data.shape)
+    np.testing.assert_allclose(np_(got.data), np.asarray(want.data),
+                               rtol=0, atol=1e-6)
 
 
 # ------------------------------------------------------- VDI generation

@@ -22,6 +22,7 @@ from scenery_insitu_tpu_torch.core import camera as tcam
 from scenery_insitu_tpu_torch.core import vdi as tvdi
 from scenery_insitu_tpu_torch.io import vdi_io as tio
 from scenery_insitu_tpu_torch.utils import image as timg
+from tests.test_torch_pipeline import one_torch_thread  # noqa: F401
 
 CODECS = ["none", "zlib", "lzma", "zstd"]
 

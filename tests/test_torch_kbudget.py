@@ -45,7 +45,7 @@ from scenery_insitu_tpu_torch.ops import supersegments as tss
 from scenery_insitu_tpu_torch.parallel import mesh as tmesh
 from scenery_insitu_tpu_torch.parallel import pipeline as tpipe
 from scenery_insitu_tpu_torch.parallel import topology as ttopo
-from tests.test_torch_pipeline import np_
+from tests.test_torch_pipeline import np_, one_torch_thread  # noqa: F401
 
 CPU = "cpu"
 N = 4

@@ -43,6 +43,7 @@ from tests.test_torch_rebalance import (CPU, D, EYES, GATE, HW, N, REGIMES,
                                         port_slabs, run_jax, run_port,
                                         run_sessions, scene_data,
                                         session_overrides)
+from tests.test_torch_pipeline import one_torch_thread  # noqa: F401
 
 EMPTY_L2 = (0, 0, 0, 0, 0, 0, 2, 0)      # brick 6 (rows 24..27) is empty
 UNIFORM_L1 = (1,) * N

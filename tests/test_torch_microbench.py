@@ -36,6 +36,7 @@ from scenery_insitu_tpu.ops import supersegments as jss
 from scenery_insitu_tpu_torch import convert
 from scenery_insitu_tpu_torch.benchmarks import fold_microbench as tfm
 from scenery_insitu_tpu_torch.ops import cuda_march as cm
+from tests.test_torch_pipeline import one_torch_thread  # noqa: F401
 
 CPU = "cpu"
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -48,18 +49,6 @@ _spec.loader.exec_module(rfm)
 H, W = 16, 128
 REF_KEYS = {"variant", "ms_per_march", "compile_s", "grid", "hw", "k",
             "chunk", "platform"}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """The marches here are thousands of small torch operations; with the
-    suite's other workers on the same cores, each one's thread pool
-    spends most of its time waiting for the others (the main test took
-    minutes instead of seconds). One thread each, restored after."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def np_(x):

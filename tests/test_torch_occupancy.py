@@ -41,6 +41,7 @@ from scenery_insitu_tpu_torch.ops import occupancy as tocc
 from scenery_insitu_tpu_torch.ops import slicer as tsl
 from scenery_insitu_tpu_torch.sim import cuda_stencil as cst
 from scenery_insitu_tpu_torch.sim import grayscott as tgs
+from tests.test_torch_pipeline import one_torch_thread  # noqa: F401
 
 CPU = "cpu"
 

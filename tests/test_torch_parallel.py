@@ -32,7 +32,8 @@ from scenery_insitu_tpu_torch.core.vdi import render_vdi_same_view
 from scenery_insitu_tpu_torch.ops import slicer as tsl
 from scenery_insitu_tpu_torch.parallel import mesh as tmesh
 from scenery_insitu_tpu_torch.parallel import pipeline as tpipe
-from tests.test_torch_pipeline import assert_vdi_close, np_
+from tests.test_torch_pipeline import (  # noqa: F401
+    assert_vdi_close, np_, one_torch_thread)
 
 CPU = "cpu"
 N = 4

@@ -35,6 +35,20 @@ CPU = "cpu"
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread for a module's tests, restored after. The port's
+    CPU runs are loops of small operations: with the suite's workers
+    sharing the host, torch's intra-op threads oversubscribe it and
+    every parallel region waits on them (a brick step's port runs took
+    100 times as long in the 6-worker suite as alone). Every port test
+    file that runs the port imports this fixture."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def np_(x):
     return convert.to_numpy(x)
 

@@ -44,6 +44,7 @@ from scenery_insitu_tpu_torch.core import transfer as ttf
 from scenery_insitu_tpu_torch.core import volume as tvol
 from scenery_insitu_tpu_torch.io import vdi_io as tio
 from scenery_insitu_tpu_torch.models import pipelines as tpipes
+from scenery_insitu_tpu_torch.ops import ao as tao
 from scenery_insitu_tpu_torch.ops import composite as tcomp
 from scenery_insitu_tpu_torch.ops import slicer as tsl
 from scenery_insitu_tpu_torch.parallel import bricks as tbricks
@@ -56,7 +57,7 @@ from scenery_insitu_tpu_torch.utils.image import (decode_png, load_png, psnr,
                                                   to_display)
 from tests.golden import make_golden as mg
 from tests.test_torch_gather import golden_gap, t_
-from tests.test_torch_pipeline import np_
+from tests.test_torch_pipeline import np_, one_torch_thread  # noqa: F401
 from tests.test_torch_session import _capture, jax_session, port_session
 
 CPU = "cpu"
@@ -64,18 +65,6 @@ ATOL = 1e-5
 N = 4
 W, H, STEPS = 32, 24, 40
 BG = (1.0, 0.2, 0.1, 1.0)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The port's CPU runs here are loops of small operations: with the
-    suite's workers sharing the host, torch's intra-op threads would
-    oversubscribe it and every parallel region would wait on them. One
-    thread for this module's tests, restored after."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def assert_image_close(got, want, atol=ATOL):
@@ -346,7 +335,9 @@ def test_distributed_plain_step_mxu_matches_reference(name, dist):
 def test_plain_schedules_knobs_and_ao(dist):
     """Inside the port the ring and the waves equal the all_to_all frame
     bit for bit; bricks and reuse are inert on the ledger; the mxu plain
-    AO needs the pre-shaded march and raises naming A6."""
+    AO (each rank pre-shaded on its radius-deep halo) equals the
+    single-device pre-shaded render at the reference test's bar, under
+    the ring waves too."""
     d = dist
     cam, _ = _cams("a2a")
     spec = tsl.make_spec(cam, d["vol"].data.shape, tcfg.SliceMarchConfig(
@@ -377,9 +368,17 @@ def test_plain_schedules_knobs_and_ao(dist):
               comp_cfg=tcfg.CompositeConfig(temporal_reuse="ranges"))
         comps = [e["component"] for e in tobs.ledger()]
         assert "bricks.partition" in comps and "delta.reuse" in comps
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        tpipe.distributed_plain_step_mxu(
-            d["mesh"], d["tf"], spec, tcfg.RenderConfig(ao_strength=0.5))
+    rc_ao = tcfg.RenderConfig(ao_strength=0.9, ao_radius=2)
+    ao_img, _ = tpipe.distributed_plain_step_mxu(d["mesh"], d["tf"], spec,
+                                                 rc_ao)(*args)
+    shaded = tao.shade_volume_ao(d["vol"], d["tf"], 2, 0.9)
+    ref = tsl.render_slices(shaded, None, tsl.make_axis_camera(
+        shaded, cam, spec), spec)
+    torch.testing.assert_close(ao_img, ref.image, rtol=1e-4, atol=2e-5)
+    got, _ = tpipe.distributed_plain_step_mxu(
+        d["mesh"], d["tf"], spec, rc_ao, tcfg.CompositeConfig(
+            exchange="ring", schedule="waves", wave_tiles=2))(*args)
+    torch.testing.assert_close(got, ao_img, rtol=0, atol=0)
     assert [tpipe._out_block_index(None, r) for r in range(4)] == \
         [0, 1, 2, 3]
     topo = ttopo.Topology(2, 2, "hosts", "ranks")

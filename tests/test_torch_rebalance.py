@@ -49,7 +49,7 @@ from scenery_insitu_tpu_torch.ops import slicer as tsl
 from scenery_insitu_tpu_torch.parallel import mesh as tmesh
 from scenery_insitu_tpu_torch.parallel import pipeline as tpipe
 from scenery_insitu_tpu_torch.runtime import session as tses
-from tests.test_torch_pipeline import np_
+from tests.test_torch_pipeline import np_, one_torch_thread  # noqa: F401
 
 CPU = "cpu"
 N, D, HW = 8, 32, 16

@@ -35,6 +35,7 @@ from scenery_insitu_tpu_torch import kernels
 from scenery_insitu_tpu_torch.ops import cuda_composite as tcc
 from tests.test_torch_composite import assert_slots_close
 from tests.test_torch_kernels import midpoint_stream, sorted_stream
+from tests.test_torch_pipeline import one_torch_thread  # noqa: F401
 
 EMPTY_ALPHA = np.float32(1e-4)
 GAP_EPS = 1e-4

@@ -25,7 +25,8 @@ from scenery_insitu_tpu_torch import obs as tobs
 from scenery_insitu_tpu_torch.ops import composite as tcomp
 from scenery_insitu_tpu_torch.parallel import pipeline as tpipe
 from tests.test_torch_parallel import EYES, N, _args, _check_meta, _setup
-from tests.test_torch_pipeline import assert_vdi_close, np_
+from tests.test_torch_pipeline import (  # noqa: F401
+    assert_vdi_close, np_, one_torch_thread)
 
 RTOL, ATOL = 1e-4, 1e-5
 K, K_OUT = 10, 16

@@ -26,6 +26,7 @@ from scenery_insitu_tpu_torch.obs import slo as tslo
 from scenery_insitu_tpu_torch.runtime import delivery as tdel
 from scenery_insitu_tpu_torch.runtime import failsafe as tfs
 from scenery_insitu_tpu_torch.runtime import timers as ttim
+from tests.test_torch_pipeline import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # (timers, obs, slo, failsafe, delivery, config) of each package

@@ -48,7 +48,8 @@ from scenery_insitu_tpu_torch.parallel.pipeline import (
 from scenery_insitu_tpu_torch.runtime import checkpoint as tck
 from scenery_insitu_tpu_torch.runtime import session as tses
 from scenery_insitu_tpu_torch.sim import grayscott as tgs
-from tests.test_torch_pipeline import assert_vdi_close, np_
+from tests.test_torch_pipeline import (  # noqa: F401
+    assert_vdi_close, np_, one_torch_thread)
 
 CPU = "cpu"
 GRID = 16

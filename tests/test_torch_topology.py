@@ -47,7 +47,7 @@ from scenery_insitu_tpu_torch.parallel import mesh as tmesh
 from scenery_insitu_tpu_torch.parallel import pipeline as tpipe
 from scenery_insitu_tpu_torch.parallel import topology as ttop
 from scenery_insitu_tpu_torch.runtime import checkpoint as tck
-from tests.test_torch_pipeline import np_
+from tests.test_torch_pipeline import np_, one_torch_thread  # noqa: F401
 from tests.test_torch_session import (_capture, assert_payloads_close,
                                       assert_payloads_equal, jax_session,
                                       port_session)

@@ -35,7 +35,8 @@ from scenery_insitu_tpu_torch.parallel import mesh as tmesh
 from scenery_insitu_tpu_torch.parallel import pipeline as tpipe
 from scenery_insitu_tpu_torch.runtime import session as tses
 from tests.test_torch_parallel import EYES, N, _args, _check_meta, _setup
-from tests.test_torch_pipeline import assert_vdi_close, np_
+from tests.test_torch_pipeline import (  # noqa: F401
+    assert_vdi_close, np_, one_torch_thread)
 from tests.test_torch_session import (_capture, assert_payloads_close,
                                       jax_session, port_session)
 

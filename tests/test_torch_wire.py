@@ -32,7 +32,7 @@ from scenery_insitu_tpu_torch.ops import composite as tcomp
 from scenery_insitu_tpu_torch.ops import wire as twire
 from scenery_insitu_tpu_torch.parallel import pipeline as tpipe
 from tests.test_torch_parallel import EYES, _args, _setup
-from tests.test_torch_pipeline import np_
+from tests.test_torch_pipeline import np_, one_torch_thread  # noqa: F401
 
 LOSSY = ("bf16", "qpack8")
 RTOL, ATOL = 1e-6, 1e-7

@@ -3,14 +3,16 @@
 single-chip frame, the distributed sort-last frame, the fold
 microbenchmark, the in-situ session, the sort-last exchange schedules,
 the render decomposition, the two-level composite, the K budgets
-and fragment reuse, the gather engine with the plain images, and the
-VDI's novel views with the pre-shaded (ambient-occlusion) march.
+and fragment reuse, the gather engine with the plain images, the
+VDI's novel views with the pre-shaded (ambient-occlusion) march, and the
+particle and hybrid workloads.
 
     python3 chip_smoke.py               # the whole run (needs one card)
     python3 chip_smoke.py --profile     # + device time by kernel
     python3 chip_smoke.py --phase11-only  # phase 4's frame and phase 11
     python3 chip_smoke.py --phase12-only  # the build and phase 12
     python3 chip_smoke.py --phase13-only  # the build and phase 13
+    python3 chip_smoke.py --phase14-only  # the build and phase 14
     python3 chip_smoke.py --k4-compare old=OTHER/resegment.cu \
         --k2-compare old=OTHER/count_multi.cu \
         --events-compare old=OTHER/fold_chunk.cu  # + designs in turns
@@ -325,6 +327,31 @@ and prints no result):
    ``reference_frame`` through the port on the card within 3.0. Each
    view is timed (ms a view, CUDA events and the host clock);
    ``--profile`` adds the device operations of a view.
+14. the particle and hybrid workloads at the full width of the
+   reference's BASELINE Configs 3-5 (``benchmarks/configs_bench.py``: 5
+   sim steps a frame, K = 16 into 16 output slots, 1280 x 720), each a
+   session with a warm frame (its seed included) and 3 timed frames
+   (host clock), the launch counts set to 0 before the warm frame and
+   read after the timed ones: (a) Config 3, the vortex session at 256^3
+   over 4 ranks (mxu, temporal; K1, K2 and K4 launched), the flow's
+   spectral divergence below 1e-4 of max|rfft(u_x)|, and a 32^3 session
+   on the card >= 60 dB from the CPU's; (b) Config 4, the Lennard-Jones
+   session of 1,000,000 particles over 8 ranks (histogram; no kernel
+   launched), the sim and the splat timed apart, the force pass's peak
+   memory, the energy drift over the frames below 2 %, the 8-rank
+   sort-first splat against the single-device splat (depth within
+   1e-6, >= 99.9 % of the pixels within 1e-5), and a 2,048-particle
+   session against the CPU's (states within 1e-4, splats at that bar);
+   (c) Config 5, the hybrid session at 256^3 with 500,000 tracers over
+   8 ranks (temporal; K1, K2 and K4 launched), K1 against its plain
+   version on one rank's chunks of the frame's march at its carried
+   maps and K4 on the frame's composite streams, the distributed image
+   >= 35 dB from ``hybrid_vortex_frame_step``'s at the same state, one
+   frame each of the ring (within 1e-6), bf16 and qpack8 (>= 40 dB, not
+   equal), tile waves (within 1e-5), plan p1 (>= 35 dB) and a 2 x 4
+   topology (within 1e-6) against the frame schedule, and a 32^3 hybrid
+   session >= 60 dB from the CPU's. ``phase14.wall_s`` prints its
+   seconds.
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -6299,6 +6326,445 @@ def run_phase13(dev, done, profile=False):
                 ao_dist=dist, errs=shaded_errs)
 
 
+
+# ------------------------------------------------------------- phase 14
+
+
+# the reference's BASELINE Configs 3-5 at full width
+# (benchmarks/configs_bench.py:36-42,73-91): 5 sim steps a frame, K = 16
+# into 16 output slots, the 1280 x 720 display
+P14_STEPS = 5
+P14_W, P14_H = 1280, 720
+VORTEX_GRID, VORTEX_RANKS = 256, 4
+LJ_PARTICLES, LJ_RANKS = 1_000_000, 8
+HYBRID_GRID, HYBRID_TRACERS, HYBRID_RANKS = 256, 500_000, 8
+P14_WARM, P14_TIMED = 1, 3
+# the bars: the reference tests' (tests/test_sims_extra.py,
+# tests/test_hybrid.py, tests/test_splat.py) and phases 8-10's
+DIV_BAR = 1e-4              # spectral divergence / max |rfft(u_x)|
+ENERGY_DRIFT = 0.02         # test_lj_energy_conservation
+SPLAT_DEPTH, SPLAT_IMAGE, SPLAT_AGREE = 1e-6, 1e-5, 0.999
+HYBRID_DB = 35.0            # the distributed hybrid against one device
+SMALL_DB = 60.0             # a small grid, the card against the CPU
+HYBRID_KERNELS = ("seg_fold_compact", "count_multi", "resegment_sorted")
+
+
+def p14_config(kind, grid=0, ranks=1, particles=0, mode="temporal",
+               **extra):
+    """One of the reference's Configs 3-5 as a session configuration
+    (``benchmarks/configs_bench.py``'s overrides)."""
+    from scenery_insitu_tpu_torch.config import FrameworkConfig
+
+    over = [f"sim.kind={kind}", f"mesh.num_devices={ranks}",
+            f"sim.steps_per_frame={P14_STEPS}", f"vdi.max_supersegments={K}",
+            f"vdi.adaptive_mode={mode}",
+            f"composite.max_output_supersegments={K}",
+            f"render.width={P14_W}", f"render.height={P14_H}"]
+    if kind == "vortex":
+        over.append("slicer.engine=mxu")
+    if grid:
+        over.append(f"sim.grid=[{grid},{grid},{grid}]")
+    if particles:
+        over.append(f"sim.num_particles={particles}")
+    over += [f"{k}={v}" for k, v in extra.items()]
+    return FrameworkConfig().with_overrides(*over)
+
+
+def p14_session(prefix, dev, cfg, kernel_names, before=None):
+    """A session of ``cfg`` on the card (``before(session)`` called once
+    it is built): the launch counts set to 0, a warm frame (its seed
+    included) and the timed frames (host clock, synchronised), the
+    counts read after and each kernel of ``kernel_names`` required, no
+    other. Returns (session, ms a frame, launches, last payload)."""
+    from scenery_insitu_tpu_torch import kernels
+    from scenery_insitu_tpu_torch.runtime.session import InSituSession
+
+    t0 = time.perf_counter()
+    sess = InSituSession(cfg, device=dev)
+    log(f"{prefix}.build_s", f"{time.perf_counter() - t0:.2f} (the sim's "
+        f"init and the session)")
+    if before is not None:
+        before(sess)
+    kernels.reset_launches()
+    timed_run(sess, P14_WARM)
+    before = phase_stats(sess.timers)
+    ms, last = timed_run(sess, P14_TIMED)
+    launches = kernels.launches()
+    log(f"{prefix}.launches", json.dumps(launches))
+    require_only(launches, kernel_names, prefix)
+    log(f"{prefix}.ms_per_frame", f"{ms:.3f} (host clock, mean of "
+        f"{P14_TIMED} after {P14_WARM} warm frame, "
+        f"{P14_STEPS} sim steps a frame)")
+    log_phase_stats(prefix, sess.timers, before)
+    return sess, ms, launches, last
+
+
+def small_sessions(prefix, dev, cfg, frames=1):
+    """The same session on the card and the CPU: (cuda session, its
+    payloads, cpu session, its payloads)."""
+    from scenery_insitu_tpu_torch.runtime.session import InSituSession
+
+    out = []
+    for d in (dev, "cpu"):
+        got = {}
+        sess = InSituSession(cfg, sinks=[capture_into(got)], device=d)
+        sess.run(frames)
+        out += [sess, got]
+    return out
+
+
+def card_cpu_gate(prefix, a, b, bar=SMALL_DB):
+    """Two host images of the same small frame, the card's and the
+    CPU's: at least ``bar`` dB apart."""
+    import numpy as np
+
+    from scenery_insitu_tpu_torch.utils.image import psnr
+
+    db = psnr(a, b)
+    diff = np.abs(a - b)
+    log(f"{prefix}", f"psnr_db={db:.2f} (bar {bar}) max_abs_diff="
+        f"{float(diff.max()):.3e} mean_abs_diff={float(diff.mean()):.3e}")
+    if not db >= bar:
+        raise AssertionError(f"{prefix}: the card differs from the CPU "
+                             f"({db:.2f} dB < {bar})")
+
+
+def run_vortex_session(dev):
+    """Phase 14 (a): Config 3, the vortex session at 256^3 over 4 ranks
+    (mxu, temporal; K2 seeds, K1 folds, K4 composites every rank), its
+    ms a frame and launches; the flow's spectral divergence after its
+    last step against the reference test's bar (f64 FFT of the f32
+    flow); a 32^3 vortex session on the card against the CPU (fold
+    ``pallas_seg`` on both, 3 frames, >= 60 dB)."""
+    import torch
+
+    from scenery_insitu_tpu_torch.core.vdi import VDI, render_vdi_same_view
+    from scenery_insitu_tpu_torch.sim import vortex as vx
+
+    sess, ms, launches, last = p14_session(
+        "vortex", dev, p14_config("vortex", VORTEX_GRID, VORTEX_RANKS),
+        HYBRID_KERNELS)
+    check_vdi("vortex.vdi", VDI(torch.from_numpy(last["vdi_color"]),
+                                torch.from_numpy(last["vdi_depth"])),
+              tuple(last["vdi_color"].shape), tuple(last["vdi_depth"].shape))
+    u = sess.sim.state.u.double()
+    kz, ky, kx = (k.double() for k in vx._grad_axes(u.shape[1:],
+                                                    device=u.device))
+    uh = [torch.fft.rfftn(u[i]) for i in range(3)]
+    div = float((kx * uh[0] + ky * uh[1] + kz * uh[2]).abs().max())
+    scale = float(uh[0].abs().max()) + 1e-9
+    log("vortex.divergence", f"{div / scale:.3e} of max|rfft(u_x)| (bar "
+        f"{DIV_BAR:.0e}) after {(P14_WARM + P14_TIMED) * P14_STEPS} steps")
+    if not div / scale < DIV_BAR:
+        raise AssertionError("vortex: the flow is not divergence-free")
+    del sess, u, uh
+    torch.cuda.empty_cache()
+    cs, cg, ps, pg = small_sessions("small_vortex", dev, p14_config(
+        "vortex", 32, VORTEX_RANKS, **{"slicer.fold": "pallas_seg"}), 3)
+    for i in range(3):
+        imgs = [render_vdi_same_view(VDI(torch.from_numpy(g[i]["vdi_color"]),
+                                         torch.from_numpy(g[i]["vdi_depth"])))
+                .numpy() for g in (cg, pg)]
+        card_cpu_gate(f"small_vortex.frame{i}", *imgs)
+    return dict(ms=ms, launches=launches)
+
+
+def run_lj_session(dev):
+    """Phase 14 (b): Config 4, the Lennard-Jones session of 1,000,000
+    particles over 8 ranks (histogram mode; no kernel on this path), its
+    ms a frame, the sim (5 steps) and the splat timed apart, the force
+    pass's peak memory, the energy drift over the frames against the
+    reference test's 2 %; the 8-rank sort-first splat against the
+    single-device splat of the same particles (depth within 1e-6, >=
+    99.9 % of the pixels within 1e-5); a 2,048-particle session on the
+    card against the CPU (the states after a frame within 1e-4, and the
+    CPU's splat of the card's state at the bar above, depth relative)."""
+    import torch
+
+    from scenery_insitu_tpu_torch.ops.splat import (speed_colors,
+                                                    splat_particles)
+    from scenery_insitu_tpu_torch.parallel.particles import shard_particles
+    from scenery_insitu_tpu_torch.sim import particles as pt
+
+    cfg = p14_config("lennard_jones", ranks=LJ_RANKS,
+                     particles=LJ_PARTICLES, mode="histogram")
+
+    def energy(sim):
+        _, pot = pt.lj_forces(sim.state.pos, sim.state.box, sim.params,
+                              sim.spec)
+        return float(pt.kinetic_energy(sim.state)) + float(pot)
+
+    e = []
+    sess, ms, launches, last = p14_session(
+        "lj", dev, cfg, (), before=lambda s: e.append(energy(s.sim)))
+    e0 = e[0]
+    sim = sess.sim
+    log("lj.cells", f"ncell={sim.spec.ncell} capacity={sim.spec.capacity} "
+        f"box={float(sim.state.box):.4f} candidates_a_particle="
+        f"{27 * sim.spec.capacity}")
+    e1 = energy(sim)
+    drift = abs(e1 - e0) / abs(e0)
+    frames = P14_WARM + P14_TIMED
+    log("lj.energy_drift", f"{drift:.4e} (bar {ENERGY_DRIFT}) over "
+        f"{frames * P14_STEPS} steps: {e0:.6e} -> {e1:.6e}")
+    if not drift < ENERGY_DRIFT:
+        raise AssertionError("lj: the energy drifts")
+    # the sim and the splat apart, on the session's own state and step
+    st0 = sim.state
+    sim_ms = median_ms(lambda _: sim.advance(P14_STEPS), 3)
+    sim.state = st0
+    centered = sim.pos - sim.state.box / 2.0
+    pos8 = shard_particles(centered, sess.mesh)
+    vel8 = shard_particles(sim.vel, sess.mesh)
+    splat_ms = median_ms(lambda _: sess._step(pos8, vel8, sess.camera), 3)
+    log("lj.parts_ms", f"sim={sim_ms:.3f} ({P14_STEPS} steps, "
+        f"{P14_STEPS + 1} force passes) splat={splat_ms:.3f} (8 ranks, "
+        f"{P14_W}x{P14_H}, depth-min composite included); CUDA events")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    pt.lj_forces(sim.state.pos, sim.state.box, sim.params, sim.spec)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    log("lj.force_pass_peak_bytes", f"{peak} ({peak / 2**30:.3f} GiB "
+        f"above the {base / 2**30:.3f} GiB held; blocks of "
+        f"{pt.FORCE_BLOCK_ENTRIES // (27 * sim.spec.capacity)} particles)")
+    out8 = sess._step(pos8, vel8, sess.camera)
+    one = splat_particles(centered, speed_colors(sim.vel),
+                          cfg.sim.particle_radius, sess.camera, P14_W, P14_H)
+    splat_agree("lj.sort_first", out8, one)
+    del pos8, vel8, out8, one, sess, sim, st0, centered
+    torch.cuda.empty_cache()
+
+    small = p14_config("lennard_jones", ranks=LJ_RANKS, particles=2048,
+                       mode="histogram")
+    cs, cg, ps, pg = small_sessions("small_lj", dev, small)
+    err = float((cs.sim.pos.cpu() - ps.sim.pos).abs().max())
+    log("small_lj.state_max_abs_diff", f"{err:.3e} (bar 1e-4)")
+    if not err <= 1e-4:
+        raise AssertionError("small_lj: the card's state differs")
+    cpu_step = ps._step
+    mesh = ps.mesh
+    centered = cs.sim.pos.cpu() - cs.sim.state.box.cpu() / 2.0
+    cpu_cam = type(cs.camera)(*(x.cpu() for x in cs.camera))
+    want = cpu_step(shard_particles(centered, mesh),
+                    shard_particles(cs.sim.vel.cpu(), mesh), cpu_cam)
+    got = cs._step(shard_particles(centered.to(dev), cs.mesh),
+                   shard_particles(cs.sim.vel, cs.mesh), cs.camera)
+    splat_agree("small_lj.splat", got, want, relative=True)
+    return dict(ms=ms, launches=launches, sim_ms=sim_ms, splat_ms=splat_ms,
+                peak_bytes=peak, drift=drift)
+
+
+def splat_agree(prefix, got, want, relative=False):
+    """The reference test's bar: the same pixels covered, depth within
+    1e-6 (``relative``: of the depth, as the CPU tests hold the port to
+    the reference, where two devices' arithmetic differs by ulps), >=
+    99.9 % of the pixels within 1e-5."""
+    import torch
+
+    gd, wd = got.depth.cpu(), want.depth.cpu()
+    live = torch.isfinite(wd)
+    if not torch.equal(torch.isfinite(gd), live):
+        raise AssertionError(f"{prefix}: the covered pixels differ")
+    diff = (gd[live] - wd[live]).abs()
+    if relative:
+        diff = diff / wd[live].abs()
+    derr = float(diff.max()) if live.any() else 0.0
+    agree = float(torch.isclose(got.image.cpu(), want.image.cpu(),
+                                atol=SPLAT_IMAGE, rtol=0).all(0)
+                  .float().mean())
+    log(f"{prefix}", f"covered={int(live.sum())} depth_max_"
+        f"{'rel' if relative else 'abs'}_diff={derr:.3e} (bar "
+        f"{SPLAT_DEPTH}) pixels_within_{SPLAT_IMAGE}="
+        f"{agree:.6f} (bar {SPLAT_AGREE})")
+    if not (derr <= SPLAT_DEPTH and agree >= SPLAT_AGREE):
+        raise AssertionError(f"{prefix}: the splats differ")
+    if not bool(live.any()):
+        raise AssertionError(f"{prefix}: no particle is in view")
+
+
+def run_hybrid_session(dev):
+    """Phase 14 (c): Config 5, the hybrid session at 256^3 with 500,000
+    tracers over 8 ranks (temporal: K2 seeds, K1 folds, K4 composites),
+    its ms a frame and launches; K1 against its plain version on one
+    rank's chunks of the frame's march at its carried thresholds, and K4
+    on the frame's composite streams; the distributed hybrid image
+    against ``hybrid_vortex_frame_step``'s at the same state (histogram
+    thresholds in both, >= 35 dB); one frame each of the ring, bf16,
+    qpack8, tile waves, plan p1 and a 2 x 4 topology against the frame
+    schedule (lossless ones within 1e-6, the waves 1e-5, the lossy
+    wires >= 40 dB and not equal, the plan >= 35 dB); a 32^3 hybrid
+    session (2,048 tracers, 4 ranks) on the card against the CPU."""
+    import dataclasses
+
+    import torch
+
+    from scenery_insitu_tpu_torch.config import TopologyConfig, VDIConfig
+    from scenery_insitu_tpu_torch.core.volume import Volume
+    from scenery_insitu_tpu_torch.models.pipelines import (
+        hybrid_vortex_frame_step)
+    from scenery_insitu_tpu_torch.ops import cuda_seg as cs
+    from scenery_insitu_tpu_torch.ops import occupancy as occ
+    from scenery_insitu_tpu_torch.ops import slicer
+    from scenery_insitu_tpu_torch.parallel import pipeline as dp
+    from scenery_insitu_tpu_torch.parallel.mesh import shard_volume
+    from scenery_insitu_tpu_torch.parallel.particles import shard_particles
+    from scenery_insitu_tpu_torch.parallel.topology import make_topology_mesh
+    from scenery_insitu_tpu_torch.sim import vortex as vx
+
+    cfg = p14_config("hybrid", HYBRID_GRID, HYBRID_RANKS, HYBRID_TRACERS)
+    sess, ms, launches, last = p14_session("hybrid", dev, cfg,
+                                           HYBRID_KERNELS)
+    if not (last["image"].shape == (4, P14_H, P14_W)
+            and bool(torch.isfinite(torch.from_numpy(last["image"])).all())):
+        raise AssertionError("hybrid: the image is not finite or of the "
+                             "wrong shape")
+    (key,) = [k for k in sess._mxu_steps]
+    _, _, spec = sess._mxu_steps[key]
+    thr = sess._mxu_thr[key]
+    log("hybrid.spec", spec)
+    tf, cam, mesh = sess.tf, sess.camera, sess.mesh
+    origin, spacing = sess._origin, sess._spacing
+    field = sess.sim.field
+    slabs = shard_volume(field, mesh)
+    n = HYBRID_RANKS
+    rows = dp._frame_rows(slabs, spec)
+    frames = [dp._RankFrame(slabs, rows, r, origin, spacing, cam, spec, tf)
+              for r in range(n)]
+    # K1 on rank n/2's chunks at its carried maps
+    r = n // 2
+    fr, unit = frames[r], frames[r].dec.units[0]
+    chunks = []
+
+    def keep(carry, rgba, sk0, sk1):
+        chunks.append((rgba.clone(), sk0.clone(), sk1.clone()))
+        return carry
+
+    _, march = slicer._frame_march(unit.vol, tf, cam, spec,
+                                   v_bounds=unit.v_bounds,
+                                   occupancy=fr.pyrs[0], axcam=fr.axcam,
+                                   volp=fr.volps[0], w_bounds=unit.w_bounds)
+    march(keep, None, shaded_compact=True)
+    rthr = dp._rank_thr(thr, r, spec.nj).thr.contiguous()
+    length = fr.axcam.ray_lengths().contiguous()
+    init = lambda: cs.init_seg_packed(K, spec.nj, spec.ni, device=dev)
+    kern = fold_chunks(cs.fold_chunk_packed, init(), chunks, rthr, length)
+    plain = fold_chunks(cs.fold_chunk_packed_plain, init(), chunks, rthr,
+                        length)
+    torch.cuda.synchronize()
+    k1_err = packed_err(kern, plain)
+    check("hybrid.seg_fold_chunks", k1_err, 1e-6)
+    if not torch.equal(kern[2][0], plain[2][0]):
+        raise AssertionError("hybrid: K1's start counts differ")
+    log("hybrid.k1_chunks", f"{len(chunks)} chunks of rank {r}")
+    del chunks, kern, plain
+    # K4 on the frame's composite streams
+    colors, depths, _ = dp._frame_schedule(frames, cam, spec, tf, cfg.vdi,
+                                           thr, spec.nj, None, None)
+    _, streams = exchange_parts("hybrid", dp, colors, depths, cfg.composite)
+    k4_err = check_k4_on("hybrid.resegment", streams)
+    del colors, depths, streams, frames, rows
+    torch.cuda.empty_cache()
+
+    # the distributed hybrid against the single-chip hybrid frame step
+    vh = dataclasses.replace(cfg.vdi, adaptive_mode="histogram")
+    radius = cfg.sim.particle_radius * sess._vox
+    world = vx.tracers_to_world(sess.sim.tracers, origin, spacing)
+    vel = vx.tracer_velocities(sess.sim.flow.u, sess.sim.tracers)
+
+    def dist_image(ccfg, mesh=mesh, plan=None, topology=None):
+        step = dp.distributed_hybrid_step_mxu(
+            mesh, tf, spec, vh, ccfg, radius=radius, stamp=5, plan=plan,
+            topology=topology)
+        img, _ = step(shard_volume(field, mesh), origin, spacing,
+                      shard_particles(world, mesh),
+                      shard_particles(vel, mesh), cam)
+        return img
+
+    frame_img = dist_image(cfg.composite)
+    axcam = slicer.make_axis_camera(Volume(field, origin, spacing), cam,
+                                    spec)
+    shown = slicer.warp_to_camera(frame_img, axcam, spec, cam, P14_W, P14_H)
+    single = hybrid_vortex_frame_step(
+        P14_W, P14_H, tuple(field.shape), key[1:], sim_steps=0, vdi_cfg=vh,
+        tf=tf, radius=radius, stamp=5, slicer_cfg=cfg.slicer, device=dev)
+    one, _, _ = single(sess.sim.flow.u, sess.sim.tracers, cam.eye)
+    db = img_psnr(shown, one)
+    log("hybrid.vs_single", f"{db:.2f} dB (bar {HYBRID_DB}) against "
+        f"hybrid_vortex_frame_step at the same state")
+    if not db >= HYBRID_DB:
+        raise AssertionError("hybrid: the distributed image differs from "
+                             "the single-chip frame step")
+    del shown, one
+    # the other schedules, one frame each, against the frame schedule
+    profile = torch.cat([occ.z_live_profile(x, tf, nzb=occ._cap_divisor(
+        slabs.shape[1], 32)) for x in slabs]).cpu().numpy()
+    p1 = occ.slice_plan(profile, HYBRID_GRID, n, min_depth=4, quantum=4)
+    log("hybrid.p1_plan", list(p1))
+    topo = TopologyConfig(num_hosts=2)
+    from scenery_insitu_tpu_torch.config import MeshConfig
+    mesh2, _ = make_topology_mesh(topo, MeshConfig(num_devices=n),
+                                  device=dev)
+    cc = cfg.composite
+    runs = {
+        "ring": (dict(exchange="ring"), {}, ("max", 1e-6)),
+        "bf16": (dict(wire="bf16"), {}, ("db", 40.0)),
+        "qpack8": (dict(exchange="ring", wire="qpack8"), {}, ("db", 40.0)),
+        "waves": (dict(schedule="waves",
+                       wave_tiles=wave_tiles_for(spec.ni, n)), {},
+                  ("max", 1e-5)),
+        # a plan cuts supersegments where the even split does not (phase
+        # 9), and a particle inside a slab sees its traversed fraction,
+        # so the image is held at the hybrid bar of two composites of
+        # one frame
+        "plan_p1": (dict(rebalance="occupancy"), dict(plan=p1),
+                    ("db", HYBRID_DB)),
+        "hier_2x4": ({}, dict(mesh=mesh2, topology=topo), ("max", 1e-6)),
+    }
+    for name, (knobs, kw, (kind, bar)) in runs.items():
+        img = dist_image(dataclasses.replace(cc, **knobs), **kw)
+        if kind == "max":
+            err = float((img - frame_img).abs().max())
+            log(f"hybrid.{name}", f"max_abs_diff={err:.3e} (bar {bar})")
+            ok = err <= bar
+        else:
+            db = img_psnr(img, frame_img)
+            same = bool(torch.equal(img, frame_img))
+            log(f"hybrid.{name}", f"{db:.2f} dB (bar {bar}) equal={same}")
+            ok = db >= bar and (name == "plan_p1" or not same)
+        if not ok:
+            raise AssertionError(f"hybrid: the {name} frame misses its bar")
+    del sess, slabs, frame_img, world, vel
+    torch.cuda.empty_cache()
+    cs_, cg, ps, pg = small_sessions("small_hybrid", dev, p14_config(
+        "hybrid", 32, 4, 2048, **{"slicer.fold": "pallas_seg"}), 2)
+    for i in range(2):
+        card_cpu_gate(f"small_hybrid.frame{i}", cg[i]["image"],
+                      pg[i]["image"])
+    return dict(ms=ms, launches=launches, k1_err=k1_err, k4_err=k4_err)
+
+
+def run_phase14(dev, done):
+    """Phase 14 (a)-(c); returns each session's launch counts and the
+    K1 and K4 checks on the hybrid frame."""
+    import torch
+
+    t14 = time.perf_counter()
+    vortex = run_vortex_session(dev)
+    torch.cuda.empty_cache()
+    done("phase14.a")
+    lj = run_lj_session(dev)
+    torch.cuda.empty_cache()
+    done("phase14.b")
+    hybrid = run_hybrid_session(dev)
+    torch.cuda.empty_cache()
+    done("phase14.c")
+    log("phase14.wall_s", f"{time.perf_counter() - t14:.1f} (the particle "
+        f"and hybrid workloads)")
+    return dict(vortex=vortex, lj=lj, hybrid=hybrid)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -6337,6 +6803,11 @@ def main(argv=None) -> int:
                     help="run the build and phase 13 only (the VDI's novel "
                          "views, the pre-shaded march and its AO), then "
                          "exit without the kernel table")
+    ap.add_argument("--phase14-only", action="store_true",
+                    help="run the build and phase 14 only (the vortex, "
+                         "Lennard-Jones and hybrid sessions of the "
+                         "reference's Configs 3-5), then exit without the "
+                         "kernel table")
     ap.add_argument("--events-compare", action="append", default=[],
                     metavar="NAME=PATH",
                     help="another design of csrc/fold_chunk.cu (the same C "
@@ -6379,6 +6850,12 @@ def main(argv=None) -> int:
         run_phase13(dev, phase_done, args.profile)
         phase_done("phase13")
         log("phase13_only", "done (no kernel table: run without flags for "
+            "it)")
+        return 0
+    if args.phase14_only:
+        run_phase14(dev, phase_done)
+        phase_done("phase14")
+        log("phase14_only", "done (no kernel table: run without flags for "
             "it)")
         return 0
     if args.phase11_only:
@@ -6489,6 +6966,8 @@ def main(argv=None) -> int:
     p13 = run_phase13(dev, phase_done, args.profile)
     torch.cuda.empty_cache()
     phase_done("phase13")
+    p14 = run_phase14(dev, phase_done)
+    phase_done("phase14")
     n_frames = WARMUP_FRAMES + TIMED_FRAMES
 
     table = [
@@ -6505,7 +6984,7 @@ def main(argv=None) -> int:
              replaces="scenery_insitu_tpu/ops/pallas_seg.py:237",
              launches=launches["seg_fold_compact"],
              max_abs_err=max(fold[16]["seg"]["err"], fold[1]["seg"]["err"],
-                             fold["frame"]["err"]),
+                             fold["frame"]["err"], p14["hybrid"]["k1_err"]),
              ms=fold[16]["seg"]["ms"],
              plain_ms=fold[16]["seg"]["plain_ms"],
              bound_ms=fold[16]["seg"]["bound_ms"],
@@ -6547,7 +7026,8 @@ def main(argv=None) -> int:
                              + [exch[c]["k4_err"] for c in
                                 ("c2_ring_cap", "c7_ring_waves")]
                              + [decomp["brick_stream"]["err"]]
-                             + [hier[c]["k4_err"] for c in ("h1", "h6")]),
+                             + [hier[c]["k4_err"] for c in ("h1", "h6")]
+                             + [p14["hybrid"]["k4_err"]]),
              ms=reseg["frame_block"]["ms"],
              plain_ms=reseg["frame_block"]["plain_ms"],
              bound_ms=reseg["frame_block"]["bound_ms"],
@@ -6692,6 +7172,15 @@ def main(argv=None) -> int:
             "novel_views": p13["views"][name],
             "preshaded_vdi": p13["preshaded"][name],
             "ao_dist": p13["ao_dist"][name]}
+        # phase 14: the vortex, Lennard-Jones and hybrid sessions (each
+        # its warm frame, seed included, and its timed frames)
+        row["phase14_launches"] = {
+            f"{c}_session": p14[c]["launches"].get(name, 0)
+            for c in ("vortex", "lj", "hybrid")}
+        if name == "seg_fold_compact":
+            row["hybrid_max_abs_err"] = p14["hybrid"]["k1_err"]
+        if name == "resegment_sorted":
+            row["hybrid_max_abs_err"] = p14["hybrid"]["k4_err"]
         if name == "seg_fold_compact":
             row["preshaded_max_abs_err"] = p13["errs"]["fold_err"]
         if name == "count_multi":

@@ -23,6 +23,9 @@ from scenery_insitu_tpu_torch.ops.occupancy import FieldRanges
 from scenery_insitu_tpu_torch.ops.slicer import AxisCamera, AxisSpec
 from scenery_insitu_tpu_torch.ops.supersegments import ThresholdState
 from scenery_insitu_tpu_torch.sim.grayscott import GrayScott, GrayScottParams
+from scenery_insitu_tpu_torch.sim.particles import (CellSpec, LJParams,
+                                                    ParticleState, SHOParams)
+from scenery_insitu_tpu_torch.sim.vortex import VortexFlow, VortexParams
 
 
 def _fields(value, names):
@@ -46,6 +49,51 @@ def gray_scott(u, v, params, device=None) -> GrayScott:
                           _fields(params, GrayScottParams._fields)))
     return GrayScott(_tensor(u, np.float32, dev),
                      _tensor(v, np.float32, dev), p)
+
+
+def vortex_params(params, device=None) -> VortexParams:
+    """``params``: viscosity, dt."""
+    dev = resolve_device(device)
+    return VortexParams(*(_tensor(x, np.float32, dev) for x in
+                          _fields(params, VortexParams._fields)))
+
+
+def vortex_flow(u, params, device=None) -> VortexFlow:
+    """The velocity ``u f32[3, D, H, W]`` (voxel units) and its params."""
+    dev = resolve_device(device)
+    return VortexFlow(_tensor(u, np.float32, dev),
+                      vortex_params(params, dev))
+
+
+def tracers(pos, device=None) -> torch.Tensor:
+    """Tracer positions ``f32[N, 3]`` in voxel coordinates (x, y, z)."""
+    return _tensor(pos, np.float32, resolve_device(device))
+
+
+def particle_state(state, device=None) -> ParticleState:
+    """``pos, vel f32[N, 3]`` and the box side ``box f32[]``."""
+    dev = resolve_device(device)
+    return ParticleState(*(_tensor(x, np.float32, dev) for x in
+                           _fields(state, ParticleState._fields)))
+
+
+def sho_params(params, device=None) -> SHOParams:
+    """``params``: omega2, dt."""
+    dev = resolve_device(device)
+    return SHOParams(*(_tensor(x, np.float32, dev) for x in
+                       _fields(params, SHOParams._fields)))
+
+
+def lj_params(params, device=None) -> LJParams:
+    """``params``: epsilon, sigma, cutoff, dt."""
+    dev = resolve_device(device)
+    return LJParams(*(_tensor(x, np.float32, dev) for x in
+                      _fields(params, LJParams._fields)))
+
+
+def cell_spec(spec) -> CellSpec:
+    """The static cell-list geometry (host ints)."""
+    return CellSpec(*(int(x) for x in _fields(spec, CellSpec._fields)))
 
 
 def transfer_function(tf, device=None) -> TransferFunction:

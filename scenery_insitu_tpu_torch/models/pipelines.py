@@ -1,5 +1,7 @@
-"""The single-chip in-situ frame: Gray-Scott advance -> VDI generation
-(the slice march, or the gather engine's ray march) -> composite."""
+"""The single-chip in-situ frames: Gray-Scott advance -> VDI generation
+(the slice march, or the gather engine's ray march) -> composite; the
+hybrid vortex frame (the flow's VDI with its tracers splatted into it);
+and the Lennard-Jones particle frame."""
 
 from __future__ import annotations
 
@@ -19,8 +21,12 @@ from scenery_insitu_tpu_torch.device import resolve_device
 from scenery_insitu_tpu_torch.ops import occupancy as occupancy_mod
 from scenery_insitu_tpu_torch.ops import slicer
 from scenery_insitu_tpu_torch.ops.composite import composite_vdis
+from scenery_insitu_tpu_torch.ops.hybrid import composite_vdi_with_particles
+from scenery_insitu_tpu_torch.ops.splat import speed_colors, splat_particles
 from scenery_insitu_tpu_torch.ops.vdi_gen import generate_vdi
 from scenery_insitu_tpu_torch.sim import grayscott as gs
+from scenery_insitu_tpu_torch.sim import particles as pt
+from scenery_insitu_tpu_torch.sim import vortex
 
 
 def resolve_occupancy_cfg(slicer_cfg: SliceMarchConfig,
@@ -169,4 +175,82 @@ def grayscott_vdi_frame_step(sim_steps: int = 5,
 
         frame_step.init_threshold = init_threshold
     frame_step.spec = spec
+    return frame_step
+
+
+def hybrid_vortex_frame_step(width: int, height: int, grid_shape, axis_sign,
+                             sim_steps: int = 3,
+                             vdi_cfg: Optional[VDIConfig] = None,
+                             tf: Optional[TransferFunction] = None,
+                             radius: float = 0.02, stamp: int = 5,
+                             colormap: str = "jet", fov_y_deg: float = 50.0,
+                             slicer_cfg: Optional[SliceMarchConfig] = None,
+                             background=(0.0, 0.0, 0.0, 0.0), device=None):
+    """Single-chip hybrid frame step (the reference's BASELINE Config 5):
+    the vortex-ring flow advanced in situ, its vorticity rendered as a
+    VDI on the slice march (kernels K2 and K1 on a card), passive
+    tracers advected through the same flow and splatted as opaque
+    spheres onto the same virtual-camera rays, merged by depth
+    (``ops/hybrid.py``) and warped to the display camera.
+
+    Returns ``fn(u_flow, tracer_pos, eye) -> (image [4, H, W], u',
+    pos')``; ``tracer_pos`` is in voxel coordinates
+    (``vortex.seed_tracers``). ``axis_sign`` is the march regime of the
+    eyes (``slicer.choose_axis``). ``device=None`` means CUDA."""
+    dev = resolve_device(device)
+    tf = tf or for_dataset("hybrid", device=dev)
+    vdi_cfg = vdi_cfg or VDIConfig(max_supersegments=8, adaptive_iters=2)
+    params = vortex.VortexParams.create(device=dev)
+    spec = slicer.make_spec(
+        Camera.create((0.0, 0.6, 3.0), fov_y_deg=fov_y_deg, device=dev),
+        tuple(grid_shape), slicer_cfg, axis_sign=axis_sign)
+
+    def frame_step(u_flow, tracer_pos, eye):
+        flow = vortex.VortexFlow(u_flow, params)
+        for _ in range(sim_steps):
+            tracer_pos = vortex.advect_tracers(flow.u, tracer_pos, params.dt)
+            flow = vortex.step(flow)
+        vol = Volume.centered(flow.field, extent=2.0)
+        cam = Camera.create(eye, fov_y_deg=fov_y_deg, near=0.5, far=20.0,
+                            device=dev)
+        vdi, _, axcam = slicer.generate_vdi_mxu(vol, tf, cam, spec, vdi_cfg)
+        vel = vortex.tracer_velocities(flow.u, tracer_pos)
+        world = vortex.tracers_to_world(tracer_pos, vol.origin, vol.spacing)
+        sp = splat_particles(world, speed_colors(vel, colormap), radius,
+                             None, spec.ni, spec.nj, stamp, view=axcam.view,
+                             proj=axcam.proj)
+        inter = composite_vdi_with_particles(vdi, sp)
+        img = slicer.warp_to_camera(inter, axcam, spec, cam, width, height,
+                                    background)
+        return img, flow.u, tracer_pos
+
+    frame_step.spec = spec
+    return frame_step
+
+
+def lj_particle_frame_step(width: int, height: int, params: pt.LJParams,
+                           spec: pt.CellSpec, sim_steps: int = 5,
+                           radius: float = 0.35, stamp: int = 9,
+                           colormap: str = "jet", fov_y_deg: float = 50.0,
+                           device=None):
+    """Single-chip in-situ particle frame step: Lennard-Jones advance ->
+    speed-coloured sphere splatting. Returns ``fn(pos, vel, box, eye) ->
+    (image, depth, pos, vel)``. ``params``/``spec`` come from
+    ``particles.lj_init`` (or keep box / ncell >= cutoff * sigma, else
+    in-range pairs drop out of the 27-cell neighbourhood).
+    ``device=None`` means CUDA; the camera lies on it."""
+    dev = resolve_device(device)
+
+    def frame_step(pos, vel, box, eye):
+        state = pt.lj_multi_step(pt.ParticleState(pos, vel, box), params,
+                                 spec, sim_steps)
+        cam = Camera.create(eye, target=(0.0, 0.0, 0.0),
+                            fov_y_deg=fov_y_deg, near=0.5, far=100.0,
+                            device=dev)
+        # the box centred on the origin for viewing
+        centered = state.pos - state.box / 2.0
+        out = splat_particles(centered, speed_colors(state.vel, colormap),
+                              radius, cam, width, height, stamp)
+        return out.image, out.depth, state.pos, state.vel
+
     return frame_step

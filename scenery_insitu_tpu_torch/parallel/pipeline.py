@@ -90,6 +90,12 @@ Two knobs of ``CompositeConfig`` act on the march, as in the reference
                 ``reuse_tol``) marches nothing and feeds the carried
                 fragment to the exchange, its threshold maps held.
 
+The hybrid frame (`distributed_hybrid_step_mxu`) runs the VDI half of
+these steps, then splats the rank-sharded tracers sort-first
+(``parallel/particles.sort_first_splat``) on the shared virtual camera
+and inserts the particle layer into every rank's composited column block
+(``ops/hybrid.py``).
+
 A frame therefore runs in two passes: every rank's frame state (one
 pyramid a rank, built when the spec skips empty space or a knob needs
 it), the targets and the dirty bits (one copy to the host a frame),
@@ -1199,6 +1205,112 @@ def distributed_initial_reuse_mxu(mesh: Mesh, tf: TransferFunction,
                                       spec.nj, spec.ni, n=n)
 
     return seed
+
+
+
+# ------------------------------------------------------ the hybrid frame
+
+
+def distributed_hybrid_step_mxu(mesh: Mesh, tf: TransferFunction,
+                                spec: slicer.AxisSpec,
+                                vdi_cfg: Optional[VDIConfig] = None,
+                                comp_cfg: Optional[CompositeConfig] = None,
+                                radius: float = 0.02, stamp: int = 5,
+                                colormap: str = "jet",
+                                temporal: bool = False, plan=None,
+                                bricks=None, topology=None):
+    """Distributed hybrid volume + particle frame (the reference's
+    BASELINE Config 5): the z-sharded volume through the sort-last slice
+    march VDI chain, the N-sharded tracers through the sort-first splat
+    (`parallel.particles.sort_first_splat` on the virtual camera's
+    rays), and the particle layer depth-inserted into every rank's
+    composited column block (``ops/hybrid.py``).
+
+    Returns ``f(vol_data, origin, spacing, tracer_world, tracer_vel, cam)
+    -> (image f32[4, nj, ni], meta)``: the image on the intermediate grid
+    (every rank's block side by side; warp it to the display camera with
+    ``slicer.warp_to_camera``), ``vol_data`` the slabs of `shard_volume`
+    and the tracers the rank shards of
+    ``parallel.particles.shard_particles``. ``temporal=True`` threads the
+    carried per-rank threshold maps as `distributed_vdi_step_mxu_temporal`
+    does (seed with `distributed_initial_threshold_mxu`): ``f(..., cam,
+    thr) -> ((image, meta), thr')``.
+
+    ``comp_cfg`` takes every exchange, wire and schedule of the VDI
+    steps (under ``schedule="waves"`` the VDI half runs in tile waves and
+    the particles insert into the assembled blocks), ``plan`` a render
+    plan, ``topology`` the two-level composite (rank r's block is
+    `_out_block_index`'s). A brick map and fragment reuse go on the
+    ledger inert: the hybrid frame re-splats its particles every frame."""
+    from scenery_insitu_tpu_torch.ops.hybrid import (
+        composite_vdi_with_particles)
+    from scenery_insitu_tpu_torch.ops.splat import SplatOutput
+    from scenery_insitu_tpu_torch.parallel.particles import (
+        _check_particles, sort_first_splat)
+
+    vdi_cfg = vdi_cfg or VDIConfig()
+    comp_cfg = comp_cfg or CompositeConfig()
+    _, n, topo = resolve_mesh_topology(mesh, topology)
+    if spec.ni % n:
+        raise ValueError(f"intermediate width {spec.ni} not divisible by "
+                         f"mesh size {n}")
+    waves = _resolve_waves(comp_cfg, n, spec.ni)
+    plan = _resolve_plan(comp_cfg, n, plan)
+    _bricks_inert(bricks, "the hybrid step")
+    _resolve_reuse(comp_cfg, supported=False, where="the hybrid step")
+    _exchange_build_markers(n, vdi_cfg.max_supersegments, spec.nj, spec.ni,
+                            comp_cfg, topo, waves)
+    wb = spec.ni // n
+
+    def body(data, origin, spacing, tr_pos, tr_vel, cam, thr):
+        slabs = _check_sharded(data, mesh)
+        rows = _frame_rows(slabs, spec, plan)
+        frames = [_RankFrame(slabs, rows, r, origin, spacing, cam, spec, tf,
+                             plan) for r in range(n)]
+        del rows
+        if waves:
+            vdi, meta, thr2, _ = _waves_frame(frames, origin, cam, spec, tf,
+                                              vdi_cfg, comp_cfg, n, thr,
+                                              topo)
+            blocks = [VDI(vdi.color[..., j * wb:(j + 1) * wb],
+                          vdi.depth[..., j * wb:(j + 1) * wb])
+                      for j in range(n)]
+        else:
+            color, depth, thr2 = _frame_schedule(frames, cam, spec, tf,
+                                                 vdi_cfg, thr, spec.nj,
+                                                 None, None)
+            meta = _global_meta(frames[0].dec, frames[0].axcam, spec,
+                                origin)
+            blocks = _composite_exchanged(color, depth, n, comp_cfg, topo)
+            del color, depth
+        # the sort-first particle pass on the shared virtual camera's rays
+        axcam = frames[0].axcam
+        sp = sort_first_splat(_check_particles(tr_pos, mesh),
+                              _check_particles(tr_vel, mesh), spec.ni,
+                              spec.nj, radius, stamp, colormap,
+                              view=axcam.view, proj=axcam.proj)
+        out = [None] * n
+        for r in range(n):
+            # rank r's column block of the particle layer
+            b = _out_block_index(topo, r)
+            cols = slice(b * wb, (b + 1) * wb)
+            out[b] = composite_vdi_with_particles(
+                blocks[b], SplatOutput(sp.image[..., cols],
+                                       sp.depth[..., cols]))
+        return torch.cat(out, dim=-1), meta, thr2
+
+    if temporal:
+        def step(vol_data, origin, spacing, tr_pos, tr_vel, cam: Camera,
+                 thr: ss.ThresholdState):
+            img, meta, thr2 = body(vol_data, origin, spacing, tr_pos,
+                                   tr_vel, cam, thr)
+            return (img, meta), thr2
+    else:
+        def step(vol_data, origin, spacing, tr_pos, tr_vel, cam: Camera):
+            img, meta, _ = body(vol_data, origin, spacing, tr_pos, tr_vel,
+                                cam, None)
+            return img, meta
+    return step
 
 
 # ------------------------------------------------------ the gather engine

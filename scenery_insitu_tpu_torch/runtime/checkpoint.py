@@ -4,10 +4,14 @@ in-situ run can stop and resume bit for bit.
 
 Format (the reference's ``runtime/checkpoint.py``): one ``.npz`` with a
 ``__header__`` JSON entry and the arrays ``sim/<name>``,
-``camera/<field>``, ``tf/<field>`` and ``thr/<axis>_<sign>/<field>``. A
-checkpoint written by either package loads in the other: this is how a
-JAX session's state carries over into the port. Arrays are copied to the
-host on save and placed on the session's device on load.
+``camera/<field>``, ``tf/<field>`` and ``thr/<axis>_<sign>/<field>``
+(``thr/hybrid_<axis>_<sign>/<field>`` in the hybrid mode). The sim
+arrays are the sim's state: ``u``, ``v`` (Gray-Scott), ``u`` (vortex),
+``pos``, ``vel``, ``box`` (the particle sims), ``u``, ``tracers``
+(hybrid). A checkpoint written by either package loads in the other:
+this is how a JAX session's state carries over into the port. Arrays
+are copied to the host on save and placed on the session's device on
+load.
 """
 
 from __future__ import annotations
@@ -32,9 +36,35 @@ _CAMERA_FIELDS = ("eye", "target", "up", "fov_y", "near", "far")
 
 def _sim_arrays(sim) -> dict:
     """The state arrays of a sim adapter."""
-    if sim.kind == "gray_scott":
+    kind = sim.kind
+    if kind == "gray_scott":
         return {"u": sim.state.u, "v": sim.state.v}
-    raise ValueError(f"unknown sim kind {sim.kind!r}")
+    if kind == "vortex":
+        return {"u": sim.state.u}
+    if kind in ("lennard_jones", "sho"):
+        return {"pos": sim.state.pos, "vel": sim.state.vel,
+                "box": sim.state.box}
+    if kind == "hybrid":
+        return {"u": sim.flow.u, "tracers": sim.tracers}
+    raise ValueError(f"unknown sim kind {kind!r}")
+
+
+def _restore_sim(sim, a: dict) -> None:
+    """Put the state arrays ``a`` (tensors on the session's device) into
+    a sim adapter."""
+    kind = sim.kind
+    if kind == "gray_scott":
+        sim.state = sim.state._replace(u=a["u"], v=a["v"])
+    elif kind == "vortex":
+        sim.state = sim.state._replace(u=a["u"])
+    elif kind in ("lennard_jones", "sho"):
+        sim.state = sim.state._replace(pos=a["pos"], vel=a["vel"],
+                                       box=a["box"])
+    elif kind == "hybrid":
+        sim.flow = sim.flow._replace(u=a["u"])
+        sim.tracers = a["tracers"]
+    else:
+        raise ValueError(f"unknown sim kind {kind!r}")
 
 
 def _thr_tag(regime) -> str:
@@ -114,8 +144,7 @@ def load_session(sess: "InSituSession", path: str) -> None:
                     f"sim array {k!r} shape {sim_arrays[k].shape} does "
                     f"not match session {tuple(cur.shape)} — same config "
                     "required")
-        sess.sim.state = sess.sim.state._replace(
-            u=place(sim_arrays["u"]), v=place(sim_arrays["v"]))
+        _restore_sim(sess.sim, {k: place(v) for k, v in sim_arrays.items()})
         sess.camera = Camera(*(place(z[f"camera/{n}"])
                                for n in _CAMERA_FIELDS))
         tf_fields = type(sess.tf)._fields
@@ -143,7 +172,7 @@ def load_session(sess: "InSituSession", path: str) -> None:
             state = ThresholdState(*(place(z[f"{tag}/{f}"])
                                      for f in ThresholdState._fields))
             expect = _thr_shape(sess, regime)
-            if tuple(state.thr.shape) != expect:
+            if expect is not None and tuple(state.thr.shape) != expect:
                 raise ValueError(
                     f"threshold state for regime {regime} has shape "
                     f"{tuple(state.thr.shape)}, session expects {expect} "
@@ -159,10 +188,15 @@ def load_session(sess: "InSituSession", path: str) -> None:
 
 
 def _thr_shape(sess, regime):
-    """Expected [n*nj, ni] of a regime's rank-stacked threshold maps."""
+    """Expected [n*nj, ni] of a regime's rank-stacked threshold maps (a
+    hybrid key is ``("hybrid", axis, sign)``); None for a session without
+    a slice-march VDI pass."""
+    if sess.engine != "mxu" or sess.mode not in ("vdi", "hybrid"):
+        return None
     n = sess._n_ranks
+    axis_sign = tuple(regime[1:]) if regime[0] == "hybrid" else tuple(regime)
     spec = sess._slicer.make_spec(sess.camera, sess.sim.field.shape,
-                                  sess.cfg.slicer, axis_sign=tuple(regime),
+                                  sess.cfg.slicer, axis_sign=axis_sign,
                                   multiple_of=n)
     return (n * spec.nj, spec.ni)
 

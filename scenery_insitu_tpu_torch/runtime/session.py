@@ -4,7 +4,8 @@ generation, device-to-host delivery and sinks.
 The port of the reference's ``runtime/session.py``. Each frame advances
 the sim, dispatches the distributed step over the session's in-process
 rank mesh (``parallel/pipeline.py``; one rank is the single-card frame),
-and hands the result to the sinks. Four modes, as the reference's
+and hands the result to the sinks. The volume sims (``sim.kind``
+``gray_scott`` or ``vortex``) render in four modes, as the reference's
 (``slicer.engine``, where "auto" is the slice march on every device, and
 ``runtime.generate_vdis``):
 
@@ -18,8 +19,21 @@ and hands the result to the sinks. Four modes, as the reference's
   camera, which blends ``render.background``;
 - plain images on the gather engine: one ``distributed_plain_step``.
 
+Two more modes follow from the sim, as in the reference:
+
+- ``particles`` (``sim.kind`` ``lennard_jones`` or ``sho``): the
+  sort-first sphere render of ``parallel/particles.
+  distributed_particle_step`` at the render width and height, the
+  particles sharded over the ranks (a hierarchical topology is inert
+  there and goes on the ledger);
+- ``hybrid`` (``sim.kind`` ``hybrid``: the vortex flow and its tracers):
+  the regime's ``distributed_hybrid_step_mxu`` on the slice march, with
+  carried thresholds under ``adaptive_mode="temporal"`` keyed
+  ``("hybrid", axis, sign)``, warped to the display camera.
+
 A VDI payload is ``{"vdi_color", "vdi_depth", "frame", "meta"}``, a
-plain one ``{"image", "frame", "meta"}``: the PNG sink writes the image
+plain or hybrid one ``{"image", "frame", "meta"}``, a particle one
+``{"image", "depth", "frame", "meta"}``: the PNG sink writes the image
 as it is, the VDI sinks pass it by, the checkpoint sink saves the
 session as in any mode. The loop
 keeps ``runtime.pipeline_depth`` frames in flight: a frame's VDI is
@@ -29,14 +43,13 @@ once ``pipeline_depth`` newer frames are in flight. Per-phase spans
 (sim, dispatch, fetch, sinks) feed the recorder's timers and the SLO
 engine.
 
-Runs standalone with the built-in Gray-Scott sim, or with a caller's sim
+Runs standalone with a built-in sim, or with a caller's volume sim
 adapter (anything with ``kind``, ``advance(n)`` and ``.field``).
 
 The reference's other session features are later slices of the port and
 raise ``NotImplementedError`` naming their ROADMAP row: frame blocks in
-one launch (``runtime.scan_frames > 1``, A3/A7), the other sims (A10),
-steering (A11), and the telemetry collector, device profiles and cost
-snapshots (A12).
+one launch (``runtime.scan_frames > 1``, A3/A7), steering (A11), and the
+telemetry collector, device profiles and cost snapshots (A12).
 
 ``composite.k_budget="occupancy"`` re-targets every rank's adaptive
 threshold in the steps themselves. ``composite.temporal_reuse="ranges"``
@@ -94,17 +107,21 @@ from scenery_insitu_tpu_torch.core.transfer import (TransferFunction,
                                                     for_dataset)
 from scenery_insitu_tpu_torch.core.vdi import VDI, VDIMetadata
 from scenery_insitu_tpu_torch.device import resolve_device
+from scenery_insitu_tpu_torch.core.volume import Volume
 from scenery_insitu_tpu_torch.ops import slicer as _slicer
+from scenery_insitu_tpu_torch.ops.splat import SplatOutput
 from scenery_insitu_tpu_torch.parallel.mesh import Mesh, shard_volume
+from scenery_insitu_tpu_torch.parallel.particles import shard_particles
 from scenery_insitu_tpu_torch.parallel.topology import (
     make_topology_mesh, resolve_mesh_topology)
 from scenery_insitu_tpu_torch.runtime.failsafe import SinkGuard
 from scenery_insitu_tpu_torch.sim import grayscott as gs
+from scenery_insitu_tpu_torch.sim import particles as pt
+from scenery_insitu_tpu_torch.sim import vortex as vx
 
 Sink = Callable[[int, dict], None]
 
-# the reference's other built-in sims
-_OTHER_SIMS = ("vortex", "lennard_jones", "sho", "hybrid")
+_PARTICLE_SIMS = ("lennard_jones", "sho")
 
 
 def _unported(what: str, row: str):
@@ -118,8 +135,6 @@ def check_ported(cfg: FrameworkConfig) -> None:
         _unported(f"runtime.scan_frames={cfg.runtime.scan_frames} (frame "
                   "blocks in one launch)", "A3/A7: a CUDA graph after A3")
     _slicer.resolve_engine(cfg.slicer.engine)
-    if cfg.sim.kind in _OTHER_SIMS:
-        _unported(f"sim.kind={cfg.sim.kind!r}", "A10")
     if cfg.obs.collector:
         _unported("obs.collector (the fleet telemetry side-channel)",
                   "A12")
@@ -168,10 +183,12 @@ def advance_camera_and_index(sess) -> None:
 
 
 class VolumeSimAdapter:
-    """Facade over the built-in volume sim: ``kind``, ``state``,
+    """Facade over the built-in volume sims: ``kind``, ``state``,
     ``advance(n)`` and ``field``. Gray-Scott advances through
     ``gs.multi_step_fast`` (kernel K3 on a card) with
-    ``sim.fused_stencil``, else through the roll formulation."""
+    ``sim.fused_stencil``, else through the roll formulation; the vortex
+    flow (``sim/vortex.py``) with ``sim.dt`` as its time step renders
+    its normalised vorticity."""
 
     def __init__(self, cfg: FrameworkConfig, seed: int = 0, device=None):
         kind = cfg.sim.kind
@@ -181,8 +198,11 @@ class VolumeSimAdapter:
                                                   device=device)
             self._advance = (gs.multi_step_fast if cfg.sim.fused_stencil
                              else gs.multi_step)
-        elif kind in _OTHER_SIMS:
-            _unported(f"sim.kind={kind!r}", "A10")
+        elif kind == "vortex":
+            self.state = vx.VortexFlow.init_ring(
+                tuple(cfg.sim.grid),
+                vx.VortexParams.create(dt=cfg.sim.dt, device=device))
+            self._advance = vx.multi_step
         else:
             raise ValueError(f"unknown volume sim kind {cfg.sim.kind!r}")
 
@@ -192,6 +212,70 @@ class VolumeSimAdapter:
     @property
     def field(self) -> torch.Tensor:
         return self.state.field
+
+
+class ParticleSimAdapter:
+    """Facade over the built-in particle sims (``lennard_jones``, the MD
+    workload rendered as spheres, and ``sho``, the reference's oscillator
+    toy): ``kind``, ``state``, its ``params`` (and for Lennard-Jones the
+    cell list's ``spec``), ``advance(n)``, ``pos`` and ``vel``. The state
+    is drawn from ``seed`` (``sim.num_particles`` particles)."""
+
+    def __init__(self, cfg: FrameworkConfig, seed: int = 0, device=None):
+        kind = cfg.sim.kind
+        self.kind = kind
+        n = cfg.sim.num_particles
+        self.spec = None
+        if kind == "lennard_jones":
+            self.state, self.params, self.spec = pt.lj_init(
+                n, seed=seed, device=device)
+        elif kind == "sho":
+            self.state, self.params = pt.sho_init(n, seed=seed,
+                                                  device=device)
+        else:
+            raise ValueError(f"unknown particle sim kind {kind!r}")
+
+    def advance(self, n: int) -> None:
+        if self.kind == "lennard_jones":
+            self.state = pt.lj_multi_step(self.state, self.params,
+                                          self.spec, n)
+        else:
+            self.state = pt.sho_multi_step(self.state, self.params, n)
+
+    @property
+    def pos(self) -> torch.Tensor:
+        return self.state.pos
+
+    @property
+    def vel(self) -> torch.Tensor:
+        return self.state.vel
+
+
+class HybridSimAdapter:
+    """The vortex flow and its passive tracers for the hybrid mode (the
+    reference's BASELINE Config 5): ``flow``, ``tracers`` (voxel
+    coordinates, ``sim.num_particles`` of them seeded from ``seed``),
+    ``advance(n)`` (each step advects the tracers through the current
+    flow, then steps the flow) and the flow's ``field``."""
+
+    def __init__(self, cfg: FrameworkConfig, seed: int = 0, device=None):
+        grid = tuple(cfg.sim.grid)
+        self.kind = "hybrid"
+        self.flow = vx.VortexFlow.init_ring(
+            grid, vx.VortexParams.create(dt=cfg.sim.dt, device=device))
+        self.tracers = vx.seed_tracers(grid, cfg.sim.num_particles,
+                                       seed=seed, device=device)
+
+    def advance(self, n: int) -> None:
+        flow, pos = self.flow, self.tracers
+        for _ in range(n):
+            pos = vx.advect_tracers(flow.u, pos, flow.params.dt)
+            flow = vx.step(flow)
+        self.flow, self.tracers = flow, pos
+
+    @property
+    def field(self) -> torch.Tensor:
+        return self.flow.field
 
 
 class _HostCopy(NamedTuple):
@@ -215,6 +299,8 @@ class InSituSession:
         self.cfg = cfg or FrameworkConfig()
         self.log = log or (lambda s: None)
         check_ported(self.cfg)
+        particles = (isinstance(sim, ParticleSimAdapter)
+                     or (sim is None and self.cfg.sim.kind in _PARTICLE_SIMS))
         if mesh is not None:
             if device is not None and \
                     resolve_device(device) != mesh.device:
@@ -223,9 +309,18 @@ class InSituSession:
             self.mesh = mesh
         else:
             # mesh.num_devices ranks in-process on the one device (0 is
-            # one rank), two-level under a hierarchical topology
-            self.mesh, _ = make_topology_mesh(self.cfg.topology,
-                                              self.cfg.mesh, device=device)
+            # one rank), two-level under a hierarchical topology. A
+            # particle session composites sort-first: it has no
+            # two-level sort-last composite, so a hierarchy is inert
+            topo_cfg = self.cfg.topology
+            if particles and topo_cfg.num_hosts > 1:
+                _obs.degrade(
+                    "topology.hier", f"num_hosts={topo_cfg.num_hosts}",
+                    "flat", "particle sessions composite sort-first — "
+                    "no two-level sort-last composite to run", warn=False)
+                topo_cfg = None
+            self.mesh, _ = make_topology_mesh(topo_cfg, self.cfg.mesh,
+                                              device=device)
         self.device = self.mesh.device
         # the flat axis view and the total rank count every mesh consumer
         # uses; a flat mesh ignores the topology, as the reference's does
@@ -243,8 +338,14 @@ class InSituSession:
         _obs.set_recorder(self.obs)
         from scenery_insitu_tpu_torch.obs.slo import SLOEngine
         self.slo = SLOEngine(self.cfg.slo, recorder=self.obs)
-        self.sim = sim if sim is not None else VolumeSimAdapter(
-            self.cfg, device=self.device)
+        if sim is not None:
+            self.sim = sim
+        elif particles:
+            self.sim = ParticleSimAdapter(self.cfg, device=self.device)
+        elif self.cfg.sim.kind == "hybrid":
+            self.sim = HybridSimAdapter(self.cfg, device=self.device)
+        else:
+            self.sim = VolumeSimAdapter(self.cfg, device=self.device)
         self.tf = tf or for_dataset(
             self.cfg.sim.kind if self.cfg.runtime.dataset == "procedural"
             else self.cfg.runtime.dataset, device=self.device)
@@ -289,15 +390,22 @@ class InSituSession:
         self.engine = _slicer.resolve_engine(self.cfg.slicer.engine)
         self._build_steps()
 
-        # world placement: sim grid centered, largest side = 2 world units
-        d, h, w = (tuple(self.cfg.sim.grid) if sim is None
-                   else tuple(int(x) for x in self.sim.field.shape))
-        check_brick_count(self.cfg.composite, d)
-        vox = 2.0 / max(d, h, w)
+        # world placement: sim grid centered, largest side = 2 world
+        # units; a particle step centres the box [0, box) itself
+        if self.mode == "particles":
+            d = h = w = 1
+            vox = 1.0
+            self._origin = torch.zeros(3, dtype=torch.float32,
+                                       device=self.device)
+        else:
+            d, h, w = (tuple(self.cfg.sim.grid) if sim is None
+                       else tuple(int(x) for x in self.sim.field.shape))
+            check_brick_count(self.cfg.composite, d)
+            vox = 2.0 / max(d, h, w)
+            self._origin = torch.tensor(
+                [-w * vox / 2, -h * vox / 2, -d * vox / 2],
+                dtype=torch.float32, device=self.device)
         self._vox = vox
-        self._origin = torch.tensor(
-            [-w * vox / 2, -h * vox / 2, -d * vox / 2],
-            dtype=torch.float32, device=self.device)
         self._spacing = torch.full((3,), vox, dtype=torch.float32,
                                    device=self.device)
         # device -> host copies: a side stream and pinned host buffers,
@@ -318,7 +426,20 @@ class InSituSession:
         r, cc = self.cfg.render, self.cfg.composite
         self.mode = "vdi" if self.cfg.runtime.generate_vdis else "plain"
         self._step = None
-        if self.engine == "gather" and self.mode == "vdi":
+        if isinstance(self.sim, ParticleSimAdapter):
+            # sort-first sphere rendering
+            from scenery_insitu_tpu_torch.parallel.particles import (
+                distributed_particle_step)
+            self.mode = "particles"
+            self._step = distributed_particle_step(
+                self.mesh, r.width, r.height,
+                radius=self.cfg.sim.particle_radius)
+        elif isinstance(self.sim, HybridSimAdapter):
+            # the particle layer shares the slice march's virtual camera
+            # rays, so the hybrid mode runs that engine whatever the knob
+            self.mode = "hybrid"
+            self.engine = "mxu"
+        elif self.engine == "gather" and self.mode == "vdi":
             from scenery_insitu_tpu_torch.parallel.pipeline import (
                 distributed_vdi_step)
             self._step = distributed_vdi_step(
@@ -334,12 +455,18 @@ class InSituSession:
                 topology=self.cfg.topology)
         self._temporal = (self.cfg.vdi.adaptive
                           and self.cfg.vdi.adaptive_mode == "temporal"
-                          and self.mode == "vdi" and self.engine == "mxu")
+                          and self.mode in ("vdi", "hybrid")
+                          and self.engine == "mxu")
         # fragment reuse rides the slice march's slab and plan VDI
-        # steps; the other builders (a brick map's, gather, plain)
-        # ledger the inert knob (delta.reuse) and take no carry
+        # steps; the other builders (a brick map's, gather, plain,
+        # hybrid) ledger the inert knob (delta.reuse) and take no carry,
+        # and a particle session marches no fragment at all
         self._reuse = (cc.temporal_reuse == "ranges" and self.mode == "vdi"
                        and self.engine == "mxu" and self._bricks is None)
+        if cc.temporal_reuse == "ranges" and self.mode == "particles":
+            _obs.degrade("delta.reuse", "ranges", "off",
+                         "particle sessions march no volume fragments",
+                         warn=False)
         if (self.cfg.vdi.adaptive and self.cfg.vdi.adaptive_mode ==
                 "temporal" and not self._temporal and self.mode == "vdi"):
             raise ValueError(
@@ -357,7 +484,8 @@ class InSituSession:
 
     def render_frame(self):
         """Advance the sim and dispatch one frame's step; returns its
-        device VDI, or its plain image."""
+        device VDI, its plain or hybrid image, or its particle
+        ``SplatOutput``."""
         if self.steering is not None:
             _unported("steering endpoints", "A11")
         self._maybe_replan()
@@ -366,15 +494,27 @@ class InSituSession:
             self.sim.advance(self.cfg.sim.steps_per_frame)
         with self.obs.span("dispatch", frame=self.frame_index,
                            mode=self.mode, engine=self.engine):
-            field = shard_volume(self.sim.field, self.mesh)
-            if self._step is not None:
+            if self.mode == "particles":
+                centered = self.sim.pos - self.sim.state.box / 2.0
+                out = self._step(shard_particles(centered, self.mesh),
+                                 shard_particles(self.sim.vel, self.mesh),
+                                 self.camera)
+                meta = self.frame_metadata(self.frame_index)
+            elif self.mode == "hybrid":
+                out, meta = self._hybrid_dispatch()
+                meta = meta._replace(index=torch.tensor(
+                    self.frame_index, dtype=torch.int32))
+            elif self._step is not None:
+                field = shard_volume(self.sim.field, self.mesh)
                 out = self._step(field, self._origin, self._spacing,
                                  self.camera)
                 meta = self.frame_metadata(self.frame_index)
             elif self.mode == "plain":
-                out = self._plain_mxu_dispatch(field)
+                out = self._plain_mxu_dispatch(
+                    shard_volume(self.sim.field, self.mesh))
                 meta = self.frame_metadata(self.frame_index)
             else:
+                field = shard_volume(self.sim.field, self.mesh)
                 out, meta = self._mxu_step()(field, self._origin,
                                              self._spacing, self.camera)
                 # a host scalar: no copy to the device on the dispatch
@@ -469,9 +609,12 @@ class InSituSession:
     @staticmethod
     def _leaves(out) -> Dict[str, torch.Tensor]:
         """A frame's device tensors by payload key: a VDI's colour and
-        depth, or a plain image."""
+        depth, a particle frame's image and depth, or a plain (or
+        hybrid) image."""
         if isinstance(out, VDI):
             return {"vdi_color": out.color, "vdi_depth": out.depth}
+        if isinstance(out, SplatOutput):
+            return {"image": out.image, "depth": out.depth}
         return {"image": out}
 
     def _start_host_copy(self, out, done: Optional[torch.cuda.Event]
@@ -616,8 +759,8 @@ class InSituSession:
         synthetic camera on that regime's axis. The camera, the carried
         thresholds and the regime tracker are restored; the sim, frame
         index and sinks are never touched. Returns {(axis, sign):
-        seconds}; {} on the gather engine, whose one step has no
-        regime."""
+        seconds}; {} on the gather engine and in the particle mode, whose
+        one step has no regime."""
         if regimes is None:
             regimes = [(a, s) for a in (0, 1, 2) for s in (1, -1)]
         cam0 = self.camera
@@ -635,12 +778,15 @@ class InSituSession:
                 self.camera = cam
                 t0 = time.perf_counter()
                 with self.obs.span("prewarm", regime=str(regime)):
-                    field = shard_volume(self.sim.field, self.mesh)
-                    if self.mode == "plain":
-                        self._plain_mxu_dispatch(field)
+                    if self.mode == "hybrid":
+                        self._hybrid_dispatch()
+                    elif self.mode == "plain":
+                        self._plain_mxu_dispatch(
+                            shard_volume(self.sim.field, self.mesh))
                     else:
-                        self._mxu_step()(field, self._origin,
-                                         self._spacing, cam)
+                        self._mxu_step()(shard_volume(self.sim.field,
+                                                      self.mesh),
+                                         self._origin, self._spacing, cam)
                     done = self._record_done()
                     if done is not None:
                         done.synchronize()
@@ -654,6 +800,62 @@ class InSituSession:
             elif hasattr(self, "_last_regime_key"):
                 del self._last_regime_key
         return times
+
+    def _hybrid_dispatch(self):
+        """One distributed hybrid frame: the regime's
+        ``distributed_hybrid_step_mxu`` (built once a regime, key
+        ``("hybrid", axis, sign)``; spheres of ``sim.particle_radius``
+        voxels) on the flow's field and the tracers' world positions and
+        velocities, with the regime's carried thresholds in temporal
+        mode (seeded on first use), warped to the display camera, which
+        blends ``render.background``. Returns (image, meta)."""
+        from scenery_insitu_tpu_torch.parallel.pipeline import (
+            distributed_hybrid_step_mxu, distributed_initial_threshold_mxu)
+
+        regime = self._slicer.choose_axis(self.camera)
+        key = ("hybrid",) + regime
+        if self._temporal:
+            self._enter_regime(key)
+        entry = self._mxu_steps.get(key)
+        if entry is None:
+            self.obs.count("compile_step")
+            self.obs.event("compile", frame=self.frame_index,
+                           what="hybrid_step", regime=str(regime))
+            spec = self._slicer.make_spec(
+                self.camera, self.sim.field.shape, self.cfg.slicer,
+                axis_sign=regime, multiple_of=self._n_ranks)
+            step = distributed_hybrid_step_mxu(
+                self.mesh, self.tf, spec, self.cfg.vdi, self.cfg.composite,
+                radius=self.cfg.sim.particle_radius * self._vox, stamp=5,
+                temporal=self._temporal, plan=self._plan,
+                bricks=self._bricks, topology=self.cfg.topology)
+            seed = (distributed_initial_threshold_mxu(
+                        self.mesh, self.tf, spec, self.cfg.vdi,
+                        plan=self._plan)
+                    if self._temporal else None)
+            entry = (step, seed, spec)
+            self._mxu_steps[key] = entry
+        step, seed, spec = entry
+        field = self.sim.field
+        flow, tracers = self.sim.flow, self.sim.tracers
+        args = (shard_volume(field, self.mesh), self._origin, self._spacing,
+                shard_particles(vx.tracers_to_world(
+                    tracers, self._origin, self._spacing), self.mesh),
+                shard_particles(vx.tracer_velocities(flow.u, tracers),
+                                self.mesh), self.camera)
+        if self._temporal:
+            thr = self._mxu_thr.get(key)
+            if thr is None:
+                thr = seed(*args[:3], self.camera)
+            (img, meta), self._mxu_thr[key] = step(*args, thr)
+        else:
+            img, meta = step(*args)
+        r = self.cfg.render
+        axcam = self._slicer.make_axis_camera(
+            Volume(field, self._origin, self._spacing), self.camera, spec)
+        return self._slicer.warp_to_camera(img, axcam, spec, self.camera,
+                                           r.width, r.height,
+                                           r.background), meta
 
     def _plain_mxu_dispatch(self, field: torch.Tensor) -> torch.Tensor:
         """One plain frame on the slice march: the regime's
@@ -831,9 +1033,11 @@ class InSituSession:
         # that rank marches
         lod_on = (self.cfg.lod.enabled and cc.rebalance == "bricks"
                   and self.mode == "vdi")
-        if n == 1 and not lod_on:
+        if self.mode == "particles" or (n == 1 and not lod_on):
             _obs.degrade("occupancy.rebalance", "occupancy", "even",
-                         "single-rank mesh has one band", warn=False)
+                         ("single-rank mesh has one band" if n == 1 else
+                          f"mode {self.mode!r} renders no volume field to "
+                          "rebalance"), warn=False)
             return
         if cc.rebalance == "bricks" and self.mode != "vdi":
             # only the VDI builders march a brick map: replanning would
@@ -956,7 +1160,8 @@ class InSituSession:
         placement; call before the camera advances."""
         camera = camera if camera is not None else self.camera
         r = self.cfg.render
-        shape = np.asarray(self.sim.field.shape)
+        shape = (np.asarray(self.sim.field.shape) if self.mode != "particles"
+                 else np.zeros(3, np.int32))
         return VDIMetadata.create(
             projection=projection_matrix(camera, r.width, r.height),
             view=view_matrix(camera),

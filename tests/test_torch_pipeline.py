@@ -29,6 +29,8 @@ from scenery_insitu_tpu_torch.models import pipelines as tpipe
 from scenery_insitu_tpu_torch.ops import composite as tcomp
 from scenery_insitu_tpu_torch.ops import slicer as tsl
 from scenery_insitu_tpu_torch.sim import grayscott as tgs
+from scenery_insitu_tpu_torch.sim import particles as tpt
+from scenery_insitu_tpu_torch.sim import vortex as tvx
 from tests.golden import make_golden as mg
 
 CPU = "cpu"
@@ -349,6 +351,12 @@ def test_entry_points_without_cuda_raise(monkeypatch):
         lambda: tcam.Camera.create((0.0, 0.0, 3.0)),
         lambda: ttf.for_dataset("gray_scott"),
         lambda: convert.vdi((np.zeros((1, 4, 2, 2)), np.zeros((1, 2, 2, 2)))),
+        # the particle and hybrid workloads
+        lambda: tpipe.hybrid_vortex_frame_step(16, 16, (16,) * 3, (2, -1)),
+        lambda: tpipe.lj_particle_frame_step(16, 16, None, None),
+        lambda: tvx.VortexFlow.init_ring((8, 8, 8)),
+        lambda: tpt.lj_init(8),
+        lambda: tpt.sho_init(8),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -356,14 +364,37 @@ def test_entry_points_without_cuda_raise(monkeypatch):
 
 
 def test_package_imports_no_jax():
-    """Importing the port and every submodule loads neither JAX nor any
-    module of the JAX package."""
+    """Importing the port, every submodule and ``chip_smoke.py`` loads
+    neither JAX nor any module of the JAX package, and no import
+    statement of theirs (those inside functions too, which an import
+    does not run) names one."""
+    import ast
+    import glob
+
+    files = glob.glob(os.path.join(ROOT, "scenery_insitu_tpu_torch", "**",
+                                   "*.py"), recursive=True)
+    files.append(os.path.join(ROOT, "chip_smoke.py"))
+    banned = ("jax", "scenery_insitu_tpu")
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                mods = [node.module or ""]
+            else:
+                continue
+            for m in mods:
+                assert m.split(".")[0] not in banned, (path, m)
+    assert len(files) >= 40, files
     code = (
         "import pkgutil, sys\n"
         "import scenery_insitu_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
         "p.__name__ + '.')]\n"
         "for n in names: __import__(n)\n"
+        "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'scenery_insitu_tpu' or m.startswith('scenery_insitu_tpu.')]"
         "\n"

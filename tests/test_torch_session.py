@@ -372,10 +372,21 @@ UNPORTED = {
         "render.height": "24", "render.max_steps": "32",
         "obs.enabled": "true"}),
         {"compile_step": 0, "frames_eager_dispatch": 1}),
-    "vortex": (_raises_with(**{"sim.kind": "vortex"}), "A10"),
-    "lennard_jones": (_raises_with(**{"sim.kind": "lennard_jones"}), "A10"),
-    "sho": (_raises_with(**{"sim.kind": "sho"}), "A10"),
-    "hybrid": (_raises_with(**{"sim.kind": "hybrid"}), "A10"),
+    # ported since (A10): the vortex session renders VDIs on the slice
+    # march, the particle sims sort-first spheres (no regime step), the
+    # hybrid session its regime's hybrid step
+    "vortex": (_runs_with(**{"sim.kind": "vortex", "obs.enabled": "true"}),
+               {"compile_step": 1, "frames_eager_dispatch": 1}),
+    "lennard_jones": (_runs_with(**{
+        "sim.kind": "lennard_jones", "sim.num_particles": "64",
+        "obs.enabled": "true"}),
+        {"compile_step": 0, "frames_eager_dispatch": 1}),
+    "sho": (_runs_with(**{"sim.kind": "sho", "sim.num_particles": "64",
+                          "obs.enabled": "true"}),
+            {"compile_step": 0, "frames_eager_dispatch": 1}),
+    "hybrid": (_runs_with(**{"sim.kind": "hybrid", "sim.num_particles": "64",
+                             "obs.enabled": "true"}),
+               {"compile_step": 1, "frames_eager_dispatch": 1}),
     # ported since (A8b, item 4): a one-rank session runs its frame and
     # ledgers the inert knob, as the reference's does
     "rebalance_occupancy": (_runs_with(

@@ -535,8 +535,14 @@ def test_session_hier_checkpoint_roundtrip(sessions, tmp_path):
 
 
 def test_session_particles_hier_raise_naming_their_row():
-    """Particle sessions are A10's: a hierarchy request there raises
-    naming that row, as every other particle session does."""
-    with pytest.raises(NotImplementedError, match="A10"):
-        port_session(N, "temporal", state=False, **{
-            "sim.kind": "lennard_jones", "topology.num_hosts": "2"})
+    """Particle sessions (ported since, A10) composite sort-first: a
+    hierarchy request is inert on the ledger and the flat mesh renders,
+    as the reference's ``test_session_particles_hier_inert_ledger``
+    holds."""
+    tobs.clear_ledger()
+    sess = port_session(N, "temporal", state=False, **{
+        "sim.kind": "lennard_jones", "sim.num_particles": "64",
+        "topology.num_hosts": "2"})
+    assert sess.mesh.axis_names == ("ranks",) and sess.mesh.n == N
+    assert any(e["component"] == "topology.hier" for e in tobs.ledger())
+    sess.run(1)

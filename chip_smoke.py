@@ -4,8 +4,9 @@ single-chip frame, the distributed sort-last frame, the fold
 microbenchmark, the in-situ session, the sort-last exchange schedules,
 the render decomposition, the two-level composite, the K budgets
 and fragment reuse, the gather engine with the plain images, the
-VDI's novel views with the pre-shaded (ambient-occlusion) march, and the
-particle and hybrid workloads.
+VDI's novel views with the pre-shaded (ambient-occlusion) march, the
+particle and hybrid workloads, and the externally driven multi-grid
+scene with in-process steering and the example twins.
 
     python3 chip_smoke.py               # the whole run (needs one card)
     python3 chip_smoke.py --profile     # + device time by kernel
@@ -13,6 +14,7 @@ particle and hybrid workloads.
     python3 chip_smoke.py --phase12-only  # the build and phase 12
     python3 chip_smoke.py --phase13-only  # the build and phase 13
     python3 chip_smoke.py --phase14-only  # the build and phase 14
+    python3 chip_smoke.py --phase15-only  # the build and phase 15
     python3 chip_smoke.py --k4-compare old=OTHER/resegment.cu \
         --k2-compare old=OTHER/count_multi.cu \
         --events-compare old=OTHER/fold_chunk.cu  # + designs in turns
@@ -351,6 +353,30 @@ and prints no result):
    equal), tile waves (within 1e-5), plan p1 (>= 35 dB) and a 2 x 4
    topology (within 1e-6) against the frame schedule, and a 32^3 hybrid
    session >= 60 dB from the CPU's. ``phase14.wall_s`` prints its
+   seconds.
+15. the externally driven multi-grid scene, steering and the example
+   twins: (a) phase 4's 512^3 field after its frames cut OpenFPM-style
+   into 6 grids (z slabs of 150, 190 and 172 slices, the middle one cut
+   in x at 97, 133, 141 and 141 columns; 1-voxel ghosts on every inner
+   face), pushed as host arrays through ``SceneSession.update_data`` on
+   a z-marching camera (x is the march's u axis: the x cuts exercise
+   ``u_bounds``) in phase 3's temporal configuration at 1280 x 720, 4
+   frames each after an ``update_grid`` of every grid (host clock; K1,
+   K2 and K4 launched, no other kernel), frame 0's image >= 30 dB from
+   the single-volume ``generate_vdi_mxu`` of the assembled field
+   (``tests/test_scene.py``'s bar), K1 against its plain version on
+   grid 2's chunks at its carried maps and K4 on the frame's 6-grid
+   sorted stream (thresholds and live slots exact, colour and depth
+   within 1e-6); (b) the ``gray_scott`` scenario at 512^3 through
+   ``scenarios.run_steered`` for 13 frames (TF updates at 4, 8 and 12;
+   frame 8's TF has the knots of the session's start TF: 3 updates, 2
+   reuses, 2 step builds, as the reference counts), checkpointed right
+   after frame 12's message, and a session built with that TF from the
+   checkpoint rendering frame 12 within 1e-6 of the frame on the
+   restored steps;
+   (c) the example twins ``volume_from_file`` (with ``--store-vdis``)
+   and ``ao_render`` at their default sizes, every PNG non-blank and
+   every VDI finite with a live slot. ``phase15.wall_s`` prints its
    seconds.
 
 The line before the last is the JSON kernel table; the last line is
@@ -6765,6 +6791,387 @@ def run_phase14(dev, done):
     return dict(vortex=vortex, lj=lj, hybrid=hybrid)
 
 
+# ------------------------------------------------------------- phase 15
+
+
+# the scene: phase 4's 512^3 field cut OpenFPM-style into three uneven z
+# slabs, the middle one cut unevenly in x (6 grids, non-power-of-two
+# extents), 1-voxel ghosts on every inner face; 4 frames, every grid
+# pushed from the host each frame
+P15_Z_CUTS = (150, 340)
+P15_X_CUTS = (97, 230, 371)
+P15_FRAMES = 4
+P15_K1_GRID = 2             # the middle slab's x piece [97, 230)
+SCENE_DB = 30.0             # tests/test_scene.py's bar against one volume
+# steering: the gray_scott scenario's 13 frames. Its TF updates at frames
+# 4, 8 and 12 send the second, the first and the second message; the
+# first has the knots of for_dataset("gray_scott"), the session's own
+# start TF, so frames 8 and 12 restore steps: the reference's session
+# counts the same
+STEER_FRAMES = 13
+STEER_COUNTS = {"tf_updates": 3, "tf_steps_reused": 2, "build_steps": 2}
+STEER_GATE = 1e-6
+P15_FOLD = "auto"           # pallas_seg (K1) on the card
+
+
+def phase4_field(dev):
+    """Phase 4's Gray-Scott field after its sim steps (the seeded init,
+    then WARMUP_FRAMES + TIMED_FRAMES advances of SIM_STEPS), on the
+    host."""
+    from scenery_insitu_tpu_torch.sim import grayscott as gs
+
+    st = gs.GrayScott.init((GRID,) * 3, seed=SEED, device=dev)
+    for _ in range(WARMUP_FRAMES + TIMED_FRAMES):
+        st = gs.multi_step_fast(st, SIM_STEPS)
+    return st.v.cpu().numpy()
+
+
+def scene_grids(field):
+    """The host field cut into the scene's grids: (grids, origins,
+    ghost_lo, ghost_hi, boxes), each grid a contiguous numpy copy with
+    its ghosts, placed as ``Volume.centered(field, 2.0)`` places the
+    whole."""
+    import numpy as np
+
+    d, h, w = field.shape
+    sp = 2.0 / max(d, h, w)
+    origin = np.asarray([-w * sp / 2, -h * sp / 2, -d * sp / 2], np.float32)
+    zs = (0,) + P15_Z_CUTS + (d,)
+    boxes = []
+    for j, (z0, z1) in enumerate(zip(zs[:-1], zs[1:])):
+        xs = (0,) + P15_X_CUTS + (w,) if j == 1 else (0, w)
+        boxes += [(z0, z1, x0, x1) for x0, x1 in zip(xs[:-1], xs[1:])]
+    grids, origins, glo, ghi = [], [], [], []
+    for z0, z1, x0, x1 in boxes:
+        gz0, gz1 = int(z0 > 0), int(z1 < d)
+        gx0, gx1 = int(x0 > 0), int(x1 < w)
+        grids.append(np.ascontiguousarray(
+            field[z0 - gz0:z1 + gz1, :, x0 - gx0:x1 + gx1]))
+        origins.append(origin + np.asarray(
+            [(x0 - gx0) * sp, 0.0, (z0 - gz0) * sp], np.float32))
+        glo.append((gx0, 0, gz0))
+        ghi.append((gx1, 0, gz1))
+    return grids, origins, glo, ghi, boxes, np.full(3, sp, np.float32)
+
+
+def p15_config(**extra):
+    """The flagship frame (K, bins, chunk, temporal thresholds, phase 4's
+    composite) as a session configuration at 1280 x 720."""
+    from scenery_insitu_tpu_torch.config import FrameworkConfig
+
+    over = {"slicer.engine": "mxu", "slicer.chunk": str(CHUNK),
+            "slicer.fold": P15_FOLD,
+            "vdi.max_supersegments": str(K), "vdi.adaptive_iters": "2",
+            "vdi.adaptive_mode": "temporal",
+            "vdi.histogram_bins": str(BINS),
+            "composite.max_output_supersegments": str(K_OUT),
+            "composite.adaptive_iters": str(COMP_ITERS),
+            "render.width": str(P14_W), "render.height": str(P14_H),
+            "runtime.dataset": "gray_scott"}
+    over.update(extra)
+    return FrameworkConfig().with_overrides(
+        *(f"{k}={v}" for k, v in over.items()))
+
+
+def run_scene(dev, field, dist_ms=None):
+    """Phase 15 (a): the 6-grid scene through ``SceneSession`` on a
+    z-marching camera: ``update_data`` from the host, then 4 frames each
+    after an ``update_grid`` of every grid (host clock; K1, K2 and K4
+    launched, no other kernel); frame 0's image against the single-volume
+    ``generate_vdi_mxu`` of the assembled field (>= 30 dB); K1 against its
+    plain version on grid 2's chunks (the x cut's u ownership) at its
+    carried maps, and K4 on the frame's 6-grid sorted stream.
+    ``dist_ms``: phase 4's ms a frame, logged beside (None: not run)."""
+    import dataclasses
+
+    import torch
+
+    from scenery_insitu_tpu_torch import kernels
+    from scenery_insitu_tpu_torch.core.camera import Camera
+    from scenery_insitu_tpu_torch.core.vdi import VDI, render_vdi_same_view
+    from scenery_insitu_tpu_torch.core.volume import Volume
+    from scenery_insitu_tpu_torch.ops import cuda_seg as cs
+    from scenery_insitu_tpu_torch.ops import slicer
+    from scenery_insitu_tpu_torch.ops import supersegments as ss
+    from scenery_insitu_tpu_torch.ops.composite import sort_stream
+    from scenery_insitu_tpu_torch.runtime.scene_session import SceneSession
+
+    grids, origins, glo, ghi, boxes, sp = scene_grids(field)
+    log("scene.grids", json.dumps([
+        dict(z=[z0, z1], x=[x0, x1], shape=list(g.shape), ghost_lo=lo,
+             ghost_hi=hi) for (z0, z1, x0, x1), g, lo, hi
+        in zip(boxes, grids, glo, ghi)]))
+    cam = Camera.create(BASE_EYE, fov_y_deg=50.0, near=0.5, far=20.0,
+                        device=dev)
+    cfg = p15_config()
+    sess = SceneSession(cfg, camera=cam, device=dev)
+    t0 = time.perf_counter()
+    sess.update_data(0, grids, origins, sp, glo, ghi)
+    torch.cuda.synchronize()
+    log("scene.update_data_s", f"{time.perf_counter() - t0:.3f} (6 host "
+        f"grids, {sum(g.nbytes for g in grids) / 1e6:.1f} MB, to the card)")
+    kernels.reset_launches()
+    wall, payloads = [], []
+    for _ in range(P15_FRAMES):
+        torch.cuda.synchronize()
+        h0 = time.perf_counter()
+        for gid, g in enumerate(grids):
+            sess.update_grid(0, gid, g)
+        payloads.append(sess.render_frame())
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - h0) * 1e3)
+    launches = kernels.launches()
+    log("scene.launches", json.dumps(launches))
+    require_only(launches, HYBRID_KERNELS, "the scene frames")
+    ms = sum(wall[1:]) / (len(wall) - 1)
+    log("scene.ms_per_frame", f"{ms:.3f} (host clock, mean of frames 1-"
+        f"{P15_FRAMES - 1}, each with 6 update_grid pushes from the host; "
+        f"frame 0 with the seed {wall[0]:.3f}; phase 4's 8-rank frame "
+        f"{'not run' if dist_ms is None else f'{dist_ms:.3f}'} ms)")
+    (key,) = list(sess._steps)
+    regime = key[0]
+    spec = slicer.make_spec(cam, (GRID,) * 3, cfg.slicer, axis_sign=regime)
+    log("scene.spec", f"{spec} regime={regime}")
+    if (spec.axis, spec.u_axis) != (2, 0):
+        raise AssertionError("scene: the camera does not march z with x "
+                             "as its u axis")
+    p0 = payloads[0]
+    got = VDI(torch.from_numpy(p0["vdi_color"]),
+              torch.from_numpy(p0["vdi_depth"]))
+    check_vdi("scene.frame0", got, (K_OUT, 4, spec.nj, spec.ni),
+              (K_OUT, 2, spec.nj, spec.ni))
+    tf = sess.tf
+    vol = Volume.centered(torch.from_numpy(field).to(dev), extent=2.0)
+    hcfg = dataclasses.replace(cfg.vdi, adaptive_mode="histogram")
+    one, _, _ = slicer.generate_vdi_mxu(vol, tf, cam, spec, hcfg)
+    db = image_psnr(render_vdi_same_view(got),
+                    render_vdi_same_view(VDI(one.color.cpu(),
+                                             one.depth.cpu())))
+    log("scene.vs_single_volume_db", f"{db:.2f} (bar {SCENE_DB}; frame 0 "
+        f"against generate_vdi_mxu of the assembled field, histogram "
+        f"thresholds, the same eye)")
+    if not db >= SCENE_DB:
+        raise AssertionError("scene: frame 0 differs from the single "
+                             "volume")
+    del vol, one
+
+    # K1 on grid 2's chunks at its carried maps
+    thr = sess._thr[key]
+    lo, hi = sess.scene.global_bounds()
+    marches = sess.scene._march_grids(spec, lo, hi)
+    vol_g, ub, vb = marches[P15_K1_GRID]
+    chunks = []
+
+    def keep(carry, rgba, sk0, sk1):
+        chunks.append((rgba.clone(), sk0.clone(), sk1.clone()))
+        return carry
+
+    axcam, march = slicer._frame_march(vol_g, tf, cam, spec, lo, hi, ub, vb)
+    march(keep, None, shaded_compact=True)
+    rthr = thr.thr[P15_K1_GRID].contiguous()
+    length = axcam.ray_lengths().contiguous()
+    init = lambda: cs.init_seg_packed(K, spec.nj, spec.ni, device=dev)
+    kern = fold_chunks(cs.fold_chunk_packed, init(), chunks, rthr, length)
+    plain = fold_chunks(cs.fold_chunk_packed_plain, init(), chunks, rthr,
+                        length)
+    torch.cuda.synchronize()
+    k1_err = packed_err(kern, plain)
+    check("scene.seg_fold_chunks", k1_err, 1e-6)
+    if not torch.equal(kern[2][0], plain[2][0]):
+        raise AssertionError("scene: K1's start counts differ")
+    log("scene.k1_chunks", f"{len(chunks)} chunks of grid {P15_K1_GRID} "
+        f"(u bounds {float(ub[0]):.5f}..{float(ub[1]):.5f})")
+    del chunks, kern, plain
+    # K4 on the frame's 6-grid stream, sorted as the composite sorts it
+    colors, depths = [], []
+    for i, (vg, ugb, vgb) in enumerate(marches):
+        state = ss.ThresholdState(*(f[i] for f in thr))
+        vdi, _, _, _ = slicer.generate_vdi_mxu_temporal(
+            vg, tf, cam, spec, state, cfg.vdi, box_min=lo, box_max=hi,
+            u_bounds=ugb, v_bounds=vgb)
+        colors.append(vdi.color)
+        depths.append(vdi.depth)
+    g = len(colors)
+    sc, sd = sort_stream(torch.stack(colors).reshape(g * K, 4, spec.nj,
+                                                     spec.ni),
+                         torch.stack(depths).reshape(g * K, 2, spec.nj,
+                                                     spec.ni))
+    del colors, depths, marches
+    k4_err = check_k4_on("scene.resegment", [(sc, sd)])
+    del sc, sd, sess
+    torch.cuda.empty_cache()
+    return dict(ms=ms, launches=launches, k1_err=k1_err, k4_err=k4_err,
+                db=db)
+
+
+def run_steering(dev):
+    """Phase 15 (b): the ``gray_scott`` scenario at 512^3 and 1280 x 720
+    through ``scenarios.run_steered`` for 13 frames (its TF schedule: a
+    new TF at frame 4, the session's own start TF at 8, frame 4's again
+    at 12): the counters 3 updates, 2 reuses, 2 step builds
+    (``STEER_COUNTS``); the session checkpointed
+    right after frame 12's steering message, and a session built with
+    that TF from the checkpoint's state renders frame 12 within 1e-6 of
+    the frame on the restored steps."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from scenery_insitu_tpu_torch import kernels, scenarios
+    from scenery_insitu_tpu_torch.runtime.checkpoint import (load_session,
+                                                             save_session)
+    from scenery_insitu_tpu_torch.runtime.streaming import tf_from_message
+
+    scn = scenarios.get("gray_scott")
+    over = (f"sim.grid=[{GRID},{GRID},{GRID}]",
+            f"sim.steps_per_frame={SIM_STEPS}", "sim.fused_stencil=true",
+            f"vdi.max_supersegments={K}", "vdi.adaptive_mode=temporal",
+            f"vdi.histogram_bins={BINS}",
+            f"composite.max_output_supersegments={K}", "slicer.engine=mxu",
+            f"slicer.chunk={CHUNK}", f"slicer.fold={P15_FOLD}",
+            f"render.width={P14_W}",
+            f"render.height={P14_H}", "obs.enabled=true")
+    last = STEER_FRAMES - 1
+    msg = scn.steering(None, last)
+    frames = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_steer_") as tmp:
+        path = os.path.join(tmp, "steered.npz")
+        sess = scenarios.make_session("gray_scott", extra_overrides=over,
+                                      device=dev,
+                                      sinks=[capture_into(frames)])
+
+        def checkpoint(m):
+            # behind the TF handler: the new TF is in, the frame not yet
+            if sess.frame_index == last:
+                save_session(sess, path)
+
+        sess.on_steer.append(checkpoint)
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scenarios.run_steered(sess, scn, STEER_FRAMES)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernels.launches()
+        log("steer.launches", json.dumps(launches))
+        require_only(launches, FRAME_KERNELS, "the steered scenario")
+        c = sess.obs.counters
+        counts = {k: int(c.get(k, 0)) for k in ("tf_updates",
+                                                "tf_steps_reused",
+                                                "build_steps")}
+        log("steer.counters", f"{json.dumps(counts)} over {STEER_FRAMES} "
+            f"frames ({wall / STEER_FRAMES * 1e3:.3f} ms a frame, host "
+            f"clock, sinks included)")
+        if counts != STEER_COUNTS:
+            raise AssertionError(f"steering: counters {counts}")
+        fresh_frames = {}
+        fresh = scenarios.make_session(
+            "gray_scott", extra_overrides=over, device=dev,
+            tf=tf_from_message(msg, device=dev),
+            sinks=[capture_into(fresh_frames)])
+        load_session(fresh, path)
+        if fresh.frame_index != last or fresh.obs.counters.get(
+                "build_steps", 0) != 1:
+            raise AssertionError("steering: the checkpoint did not resume "
+                                 "frame 12 under the steered TF")
+        scenarios.run_steered(fresh, dataclasses.replace(scn, steering=None),
+                              1)
+    got, want = frames[last], fresh_frames[last]
+    err = max(max_abs(torch.from_numpy(got[k]), torch.from_numpy(want[k]))
+              for k in ("vdi_color", "vdi_depth"))
+    same = all(np.array_equal(got[k], want[k]) for k in ("vdi_color",
+                                                          "vdi_depth"))
+    log("steer.restored_vs_fresh", f"max_abs_diff={err:.3e} (bar "
+        f"{STEER_GATE:.0e}) bit_exact={same}; frame {last} on the restored "
+        f"steps against a session built with that TF from the checkpoint")
+    if not err <= STEER_GATE:
+        raise AssertionError("steering: the restored steps' frame differs "
+                             "from a fresh session's")
+    del sess, fresh
+    torch.cuda.empty_cache()
+    return dict(launches=launches, counts=counts, err=err)
+
+
+def run_twins(dev):
+    """Phase 15 (c): the example twins at their default sizes on the
+    card: ``volume_from_file`` (96^3, 5 views at 512 x 512, with
+    ``--store-vdis``) and ``ao_render`` (96^3, 480 x 360, 192 steps);
+    every PNG non-blank, every VDI finite with a live slot."""
+    import glob
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from scenery_insitu_tpu_torch import kernels
+    from scenery_insitu_tpu_torch.examples import ao_render, volume_from_file
+    from scenery_insitu_tpu_torch.io.vdi_io import load_vdi
+    from scenery_insitu_tpu_torch.utils.image import load_png
+
+    def non_blank(path):
+        img = load_png(path)
+        rgb = img[..., :3].reshape(-1, 3)
+        if not (rgb != rgb[0]).any():
+            raise AssertionError(f"twins: {os.path.basename(path)} is blank")
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_twins_") as tmp:
+        for name, main_fn, args, pngs in (
+                ("volume_from_file", volume_from_file.main,
+                 ["--out", os.path.join(tmp, "vff"), "--store-vdis"], 5),
+                ("ao_render", ao_render.main,
+                 ["--out", os.path.join(tmp, "ao")], 4)):
+            kernels.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if main_fn(args) != 0:
+                raise AssertionError(f"twins: {name} failed")
+            torch.cuda.synchronize()
+            files = sorted(glob.glob(os.path.join(args[1], "*.png")))
+            if len(files) != pngs:
+                raise AssertionError(f"twins: {name} wrote {len(files)} "
+                                     f"PNGs, expected {pngs}")
+            for f in files:
+                non_blank(f)
+            for f in sorted(glob.glob(os.path.join(args[1], "*.npz"))):
+                vdi, _ = load_vdi(f)
+                if not (np.isfinite(vdi.color).all()
+                        and np.isfinite(vdi.depth[:, 0]).any()):
+                    raise AssertionError(f"twins: {f} is not finite or "
+                                         f"has no live slot")
+            out[name] = kernels.launches()
+            log(f"twins.{name}", f"{time.perf_counter() - t0:.2f} s, "
+                f"{len(files)} PNGs non-blank, launches "
+                f"{json.dumps(out[name])}")
+    return out
+
+
+def run_phase15(dev, done, field=None, dist_ms=None):
+    """Phase 15 (a)-(c); ``field`` is phase 4's host field (made here
+    when None), ``dist_ms`` phase 4's ms a frame. Returns each part's
+    launch counts and the K1 and K4 checks on the scene frame."""
+    import torch
+
+    t15 = time.perf_counter()
+    if field is None:
+        field = phase4_field(dev)
+        torch.cuda.empty_cache()
+        done("phase15.field")
+    scene = run_scene(dev, field, dist_ms)
+    del field
+    done("phase15.a")
+    steer = run_steering(dev)
+    done("phase15.b")
+    twins = run_twins(dev)
+    torch.cuda.empty_cache()
+    done("phase15.c")
+    log("phase15.wall_s", f"{time.perf_counter() - t15:.1f} (the multi-"
+        f"grid scene, steering and the example twins)")
+    return dict(scene=scene, steer=steer, twins=twins)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -6807,6 +7214,11 @@ def main(argv=None) -> int:
                     help="run the build and phase 14 only (the vortex, "
                          "Lennard-Jones and hybrid sessions of the "
                          "reference's Configs 3-5), then exit without the "
+                         "kernel table")
+    ap.add_argument("--phase15-only", action="store_true",
+                    help="run the build and phase 15 only (the multi-grid "
+                         "scene session, steering with the scenario zoo "
+                         "and the example twins), then exit without the "
                          "kernel table")
     ap.add_argument("--events-compare", action="append", default=[],
                     metavar="NAME=PATH",
@@ -6858,6 +7270,12 @@ def main(argv=None) -> int:
         log("phase14_only", "done (no kernel table: run without flags for "
             "it)")
         return 0
+    if args.phase15_only:
+        run_phase15(dev, phase_done)
+        phase_done("phase15")
+        log("phase15_only", "done (no kernel table: run without flags for "
+            "it)")
+        return 0
     if args.phase11_only:
         dist_ref = run_dist_frame(dev, args.profile)[3]
         phase_done("phase4")
@@ -6894,6 +7312,8 @@ def main(argv=None) -> int:
     dist_launches, rc, rd, dist_ref = run_dist_frame(dev, args.profile)
     reseg = check_resegment(dev, rc, rd, k4_compare)
     del rc, rd
+    # phase 15's scene: phase 4's field after its frames, on the host
+    scene_field = dist_ref["v"].cpu().numpy()
     torch.cuda.empty_cache()
     check_small_dist(dev)
     phase_done("phase4")
@@ -6955,6 +7375,7 @@ def main(argv=None) -> int:
     phase_done("phase10")
     t11 = time.perf_counter()
     p11 = run_phase11(dev, dist_ref, phase_done, args.profile)
+    dist_ms = dist_ref["ms"]
     del dist_ref
     torch.cuda.empty_cache()
     log("phase11.wall_s", f"{time.perf_counter() - t11:.1f} (K budgets and "
@@ -6968,6 +7389,9 @@ def main(argv=None) -> int:
     phase_done("phase13")
     p14 = run_phase14(dev, phase_done)
     phase_done("phase14")
+    p15 = run_phase15(dev, phase_done, scene_field, dist_ms)
+    del scene_field
+    phase_done("phase15")
     n_frames = WARMUP_FRAMES + TIMED_FRAMES
 
     table = [
@@ -6984,7 +7408,8 @@ def main(argv=None) -> int:
              replaces="scenery_insitu_tpu/ops/pallas_seg.py:237",
              launches=launches["seg_fold_compact"],
              max_abs_err=max(fold[16]["seg"]["err"], fold[1]["seg"]["err"],
-                             fold["frame"]["err"], p14["hybrid"]["k1_err"]),
+                             fold["frame"]["err"], p14["hybrid"]["k1_err"],
+                             p15["scene"]["k1_err"]),
              ms=fold[16]["seg"]["ms"],
              plain_ms=fold[16]["seg"]["plain_ms"],
              bound_ms=fold[16]["seg"]["bound_ms"],
@@ -7027,7 +7452,8 @@ def main(argv=None) -> int:
                                 ("c2_ring_cap", "c7_ring_waves")]
                              + [decomp["brick_stream"]["err"]]
                              + [hier[c]["k4_err"] for c in ("h1", "h6")]
-                             + [p14["hybrid"]["k4_err"]]),
+                             + [p14["hybrid"]["k4_err"],
+                                p15["scene"]["k4_err"]]),
              ms=reseg["frame_block"]["ms"],
              plain_ms=reseg["frame_block"]["plain_ms"],
              bound_ms=reseg["frame_block"]["bound_ms"],
@@ -7177,6 +7603,17 @@ def main(argv=None) -> int:
         row["phase14_launches"] = {
             f"{c}_session": p14[c]["launches"].get(name, 0)
             for c in ("vortex", "lj", "hybrid")}
+        # phase 15: the 6-grid scene's 4 frames, the steered scenario's
+        # 13 and the two example twins' runs
+        row["phase15_launches"] = {
+            "scene": p15["scene"]["launches"].get(name, 0),
+            "steered": p15["steer"]["launches"].get(name, 0),
+            **{f"twin_{t}": v.get(name, 0)
+               for t, v in p15["twins"].items()}}
+        if name == "seg_fold_compact":
+            row["scene_max_abs_err"] = p15["scene"]["k1_err"]
+        if name == "resegment_sorted":
+            row["scene_max_abs_err"] = p15["scene"]["k4_err"]
         if name == "seg_fold_compact":
             row["hybrid_max_abs_err"] = p14["hybrid"]["k1_err"]
         if name == "resegment_sorted":

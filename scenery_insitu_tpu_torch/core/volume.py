@@ -35,8 +35,13 @@ class Volume(NamedTuple):
     def create(cls, data, origin=(0.0, 0.0, 0.0), spacing=(1.0, 1.0, 1.0),
                device=None) -> "Volume":
         data = _field(data, device)
-        f32 = lambda v: torch.as_tensor(np.asarray(v, np.float32),
-                                        device=data.device)
+
+        def f32(v):
+            if isinstance(v, torch.Tensor):
+                return v.to(data.device, torch.float32)
+            return torch.as_tensor(np.asarray(v, np.float32),
+                                   device=data.device)
+
         return cls(data, f32(origin), f32(spacing))
 
     @classmethod

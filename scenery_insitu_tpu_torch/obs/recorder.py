@@ -114,6 +114,10 @@ _LEDGER_REGISTRY: Dict[str, str] = {
     "occupancy.replan": "the render z-plan changed from fetched live "
                         "fractions; the affected steps recompile on the "
                         "new band split",
+    "scenario.tf_update": "a steered transfer function not seen before "
+                          "rebuilt the compiled steps (a repeated TF "
+                          "restores its cached steps instead — the "
+                          "recompile-or-reuse contract)",
     "session.sink": "a frame/tile sink or on_steer callback failed "
                     "max_sink_failures consecutive times and is "
                     "quarantined (disabled) for the rest of the run",
@@ -185,6 +189,9 @@ _COUNTER_REGISTRY: Dict[str, str] = {
     "sinks_quarantined": "a sink was disabled after repeated "
                          "consecutive failures",
     "slo_breaches": "the live SLO engine recorded one budget breach",
+    "tf_steps_reused": "a steered transfer function restored its cached "
+                       "compiled steps",
+    "tf_updates": "a steered transfer-function update was applied",
     "tiles_delivered": "one column-block tile payload went to the tile "
                        "sinks (from the session or the delivery worker)",
     "wave_schedule_builds": "a tile-wave overlap schedule was built",

@@ -465,8 +465,9 @@ def _tile_hits(occ_tiles, axcam, spec, local_w0, s_total, nchunks, nv, ov,
 def slice_march(vol: Volume, tf: TransferFunction, axcam: AxisCamera,
                 spec: AxisSpec, consume: Callable, carry0, occupancy=None,
                 shaded_compact: bool = False,
-                volp: Optional[torch.Tensor] = None, v_bounds=None,
-                raw: bool = False, raw_full_skip: bool = False,
+                volp: Optional[torch.Tensor] = None, u_bounds=None,
+                v_bounds=None, raw: bool = False,
+                raw_full_skip: bool = False,
                 w_bounds=None, step_scale: float = 1.0):
     """The chunked slice march. Calls ``consume(carry, rgba [C,4,Nj,Ni],
     t0 [C,Nj,Ni], t1 [C,Nj,Ni]) -> carry`` for each chunk of slices,
@@ -488,7 +489,8 @@ def slice_march(vol: Volume, tf: TransferFunction, axcam: AxisCamera,
     ``raw=True`` feeds the resampled VALUE planes instead, unshaded:
     ``consume(carry, val [C,Nj,Ni], sk [C])`` with the value clipped to
     [0, 1] and ``-1`` where a sample is dead (outside the volume or
-    ``v_bounds``, or a dropped slice), and the per-slice depth ratios —
+    ``u_bounds``/``v_bounds``, or a dropped slice), and the per-slice
+    depth ratios —
     the feed of the fused kernels B5/B6, which shade themselves. A
     skipped chunk feeds one ``-1`` plane with its first slice's ratio;
     ``raw_full_skip=True`` feeds a whole chunk of ``-1`` planes with
@@ -501,10 +503,12 @@ def slice_march(vol: Volume, tf: TransferFunction, axcam: AxisCamera,
     kept full, NVIDIA H100 80GB HBM3 at 700 W), ~0.04 ms a flagship
     frame.
 
-    ``v_bounds`` (lo, hi): the half-open world interval of the in-plane
-    v axis this volume owns; samples outside it are transparent. A rank
-    of the distributed step whose slab is cut across v owns its rows
-    only, so every sample belongs to exactly one rank.
+    ``u_bounds``/``v_bounds`` (lo, hi): the half-open world interval of
+    the in-plane u/v axis this volume owns; samples outside it are
+    transparent. A rank of the distributed step whose slab is cut across
+    v owns its rows only, and a grid of a multi-grid scene
+    (``core/scene.py``) cut across u or v its columns or rows only, so
+    every sample belongs to exactly one of them.
 
     ``w_bounds`` (lo, hi): the open world interval of the march axis
     this volume owns; slices whose plane lies outside it are dead. A
@@ -605,7 +609,7 @@ def slice_march(vol: Volume, tf: TransferFunction, axcam: AxisCamera,
 
         pos_u = eu + (axcam.u_grid[None, :] - eu) * sk[:, None]   # [C, Ni]
         pos_v = ev + (axcam.v_grid[None, :] - ev) * sk[:, None]   # [C, Nj]
-        wu = _interp_matrix(pos_u, ou, su, nu)                    # [C,Ni,Nu]
+        wu = _interp_matrix(pos_u, ou, su, nu, u_bounds)          # [C,Ni,Nu]
         wv = _interp_matrix(pos_v, ov, sv, nv, v_bounds)          # [C,Nj,Nv]
         inside = ((wv.sum(-1) > 0.0)[:, :, None]
                   & (wu.sum(-1) > 0.0)[:, None, :])
@@ -708,7 +712,8 @@ def hittable_mask(vol: Volume, axcam: AxisCamera,
 
 def render_slices(vol: Volume, tf: TransferFunction, axcam: AxisCamera,
                   spec: AxisSpec, early_exit_alpha: float = 0.999,
-                  v_bounds=None, step_scale: float = 1.0, occupancy=None,
+                  u_bounds=None, v_bounds=None, step_scale: float = 1.0,
+                  occupancy=None,
                   volp: Optional[torch.Tensor] = None,
                   w_bounds=None):
     """The plain image on the intermediate grid: front-to-back
@@ -717,9 +722,8 @@ def render_slices(vol: Volume, tf: TransferFunction, axcam: AxisCamera,
     ``RaycastOutput``. Skips provably empty chunks (``occupancy``: see
     `_frame_march`; None builds the gate from ``volp``). A pixel stops
     accumulating once its alpha reaches ``early_exit_alpha``.
-    ``v_bounds``, ``w_bounds``, ``step_scale``: see `slice_march` (the
-    port's march has no u bounds: ranks own rows and slices, never
-    columns).
+    ``u_bounds``, ``v_bounds``, ``w_bounds``, ``step_scale``: see
+    `slice_march`.
 
     Each chunk composites in parallel over its slices: slice s
     contributes ``rgba_s * prod_{s' < s}(1 - alpha_s')``, and the
@@ -755,8 +759,9 @@ def render_slices(vol: Volume, tf: TransferFunction, axcam: AxisCamera,
         volp = permute_volume(vol, spec)
     occ = _resolve_occupancy(vol, tf, spec, occupancy, volp)
     acc, first_t = slice_march(vol, tf, axcam, spec, consume, (acc0, t_0),
-                               occupancy=occ, volp=volp, v_bounds=v_bounds,
-                               w_bounds=w_bounds, step_scale=step_scale)
+                               occupancy=occ, volp=volp, u_bounds=u_bounds,
+                               v_bounds=v_bounds, w_bounds=w_bounds,
+                               step_scale=step_scale)
     return RaycastOutput(acc, first_t)
 
 
@@ -903,16 +908,17 @@ def _resolve_occupancy(vol: Volume, tf: TransferFunction, spec: AxisSpec,
 
 
 def _frame_march(vol: Volume, tf: TransferFunction, cam: Camera,
-                 spec: AxisSpec, box_min=None, box_max=None, v_bounds=None,
-                 occupancy=None, axcam: Optional[AxisCamera] = None,
+                 spec: AxisSpec, box_min=None, box_max=None, u_bounds=None,
+                 v_bounds=None, occupancy=None,
+                 axcam: Optional[AxisCamera] = None,
                  volp: Optional[torch.Tensor] = None, w_bounds=None,
                  step_scale: float = 1.0):
     """The frame's virtual camera and its march over one permuted copy
     and one occupancy gate: returns (axcam, march) with ``march(consume,
     carry0, **options)`` a `slice_march` of this frame (options:
     ``shaded_compact``, ``raw``, ``raw_full_skip``).
-    ``box_min``/``box_max``: see `make_axis_camera`; ``v_bounds``: see
-    `slice_march`. ``occupancy``: a caller's
+    ``box_min``/``box_max``: see `make_axis_camera`; ``u_bounds``/
+    ``v_bounds``: see `slice_march`. ``occupancy``: a caller's
     ``ops/occupancy.OccupancyPyramid`` for this volume and spec (built
     once a frame, for example from the sim's field ranges), whose gate
     replaces the pyramid built here from the permuted copy, or a gate
@@ -928,9 +934,9 @@ def _frame_march(vol: Volume, tf: TransferFunction, cam: Camera,
 
     def march(consume, carry0, **options):
         return slice_march(vol, tf, axcam, spec, consume, carry0,
-                           occupancy=occ, volp=volp, v_bounds=v_bounds,
-                           w_bounds=w_bounds, step_scale=step_scale,
-                           **options)
+                           occupancy=occ, volp=volp, u_bounds=u_bounds,
+                           v_bounds=v_bounds, w_bounds=w_bounds,
+                           step_scale=step_scale, **options)
 
     return axcam, march
 
@@ -1039,8 +1045,9 @@ def _write_march(march, vol, tf, axcam, spec, threshold, k, count: bool,
 def generate_vdi_mxu(vol: Volume, tf: TransferFunction, cam: Camera,
                      spec: AxisSpec, cfg: Optional[VDIConfig] = None,
                      box_min: Optional[torch.Tensor] = None,
-                     box_max: Optional[torch.Tensor] = None, v_bounds=None,
-                     occupancy=None, axcam: Optional[AxisCamera] = None,
+                     box_max: Optional[torch.Tensor] = None, u_bounds=None,
+                     v_bounds=None, occupancy=None,
+                     axcam: Optional[AxisCamera] = None,
                      volp: Optional[torch.Tensor] = None, w_bounds=None,
                      step_scale: float = 1.0, k_target=None
                      ) -> Tuple[VDI, VDIMetadata, AxisCamera]:
@@ -1048,9 +1055,9 @@ def generate_vdi_mxu(vol: Volume, tf: TransferFunction, cam: Camera,
     ``cfg.adaptive_mode`` "histogram" (one counting march over all
     candidates), "search" (``adaptive_iters`` counting marches) or fixed
     (``adaptive=False``). ``adaptive_mode="temporal"`` carries state:
-    use `generate_vdi_mxu_temporal`. ``box_min``/``box_max``/``v_bounds``
-    are a distributed rank's: see `make_axis_camera` and
-    `slice_march`; ``occupancy``, ``axcam`` and ``volp``: see
+    use `generate_vdi_mxu_temporal`. ``box_min``/``box_max``/
+    ``u_bounds``/``v_bounds`` are a distributed rank's or a scene
+    grid's: see `make_axis_camera` and `slice_march`; ``occupancy``, ``axcam`` and ``volp``: see
     `_frame_march` (a caller's ``axcam`` replaces the box); ``w_bounds``
     and ``step_scale`` (a brick pooled 2^l-fold marches with
     ``step_scale = 2^-l`` on the fine camera with ``dwm * 2^l``): see
@@ -1069,8 +1076,8 @@ def generate_vdi_mxu(vol: Volume, tf: TransferFunction, cam: Camera,
             "call generate_vdi_mxu_temporal(..., threshold=...) instead "
             "(seed the state with initial_threshold())")
     axcam, march = _frame_march(vol, tf, cam, spec, box_min, box_max,
-                                v_bounds, occupancy, axcam, volp, w_bounds,
-                                step_scale)
+                                u_bounds, v_bounds, occupancy, axcam, volp,
+                                w_bounds, step_scale)
     if cfg.adaptive and cfg.adaptive_mode == "histogram":
         threshold = _histogram_threshold(march, cfg, kt, nj, ni, spec.fold,
                                          dev)
@@ -1095,16 +1102,18 @@ def generate_vdi_mxu(vol: Volume, tf: TransferFunction, cam: Camera,
 def initial_threshold(vol: Volume, tf: TransferFunction, cam: Camera,
                       spec: AxisSpec, cfg: Optional[VDIConfig] = None,
                       box_min: Optional[torch.Tensor] = None,
-                      box_max: Optional[torch.Tensor] = None, v_bounds=None,
-                      occupancy=None, axcam: Optional[AxisCamera] = None,
+                      box_max: Optional[torch.Tensor] = None, u_bounds=None,
+                      v_bounds=None, occupancy=None,
+                      axcam: Optional[AxisCamera] = None,
                       volp: Optional[torch.Tensor] = None, w_bounds=None,
                       step_scale: float = 1.0) -> ss.ThresholdState:
     """Seed state of the temporal threshold controller ([nj, ni] maps):
     one histogram counting march on the current scene. The other
     arguments: see `generate_vdi_mxu`."""
     cfg = cfg or VDIConfig()
-    _, march = _frame_march(vol, tf, cam, spec, box_min, box_max, v_bounds,
-                            occupancy, axcam, volp, w_bounds, step_scale)
+    _, march = _frame_march(vol, tf, cam, spec, box_min, box_max, u_bounds,
+                            v_bounds, occupancy, axcam, volp, w_bounds,
+                            step_scale)
     thr = _histogram_threshold(march, cfg, cfg.max_supersegments, spec.nj,
                                spec.ni, spec.fold, vol.data.device)
     return ss.init_threshold_state(thr, cfg.thr_min, cfg.thr_max)
@@ -1116,7 +1125,7 @@ def generate_vdi_mxu_temporal(vol: Volume, tf: TransferFunction,
                               cfg: Optional[VDIConfig] = None,
                               box_min: Optional[torch.Tensor] = None,
                               box_max: Optional[torch.Tensor] = None,
-                              v_bounds=None, occupancy=None,
+                              u_bounds=None, v_bounds=None, occupancy=None,
                               axcam: Optional[AxisCamera] = None,
                               volp: Optional[torch.Tensor] = None,
                               w_bounds=None, step_scale: float = 1.0,
@@ -1128,15 +1137,15 @@ def generate_vdi_mxu_temporal(vol: Volume, tf: TransferFunction,
     with `initial_threshold`); the write march yields the true per-pixel
     segment count, and ``update_threshold`` bisects the map toward the
     target band for the next frame. Returns (vdi, meta, axcam,
-    next_threshold). ``box_min``/``box_max``/``v_bounds``/``occupancy``/
-    ``axcam``/``volp``/``w_bounds``/``step_scale``: see
+    next_threshold). ``box_min``/``box_max``/``u_bounds``/``v_bounds``/
+    ``occupancy``/``axcam``/``volp``/``w_bounds``/``step_scale``: see
     `generate_vdi_mxu`; the controller bisects toward ``k_target``
     instead of K when it is given."""
     cfg = cfg or VDIConfig()
     k = cfg.max_supersegments
     axcam, march = _frame_march(vol, tf, cam, spec, box_min, box_max,
-                                v_bounds, occupancy, axcam, volp, w_bounds,
-                                step_scale)
+                                u_bounds, v_bounds, occupancy, axcam, volp,
+                                w_bounds, step_scale)
     color, depth, count = _write_march(march, vol, tf, axcam, spec,
                                        threshold.thr, k, count=True,
                                        step_scale=step_scale)

@@ -46,10 +46,20 @@ engine.
 Runs standalone with a built-in sim, or with a caller's volume sim
 adapter (anything with ``kind``, ``advance(n)`` and ``.field``).
 
+Steering: ``steer_session`` applies one message of the steering protocol
+(``runtime/streaming.py``): a ``camera`` message moves the camera, any
+other goes to the ``on_steer`` callbacks behind the sink guard. A ``tf``
+message swaps the transfer function; the steps built for the outgoing
+TF are kept under its identity (``_tf_fingerprint``), and a TF seen
+before restores its steps instead of rebuilding them (``_tf_invalidate``;
+the ``tf_updates`` and ``tf_steps_reused`` counters). The scenario zoo
+(``scenarios/``) drives this consumer in-process.
+
 The reference's other session features are later slices of the port and
 raise ``NotImplementedError`` naming their ROADMAP row: frame blocks in
-one launch (``runtime.scan_frames > 1``, A3/A7), steering (A11), and the
-telemetry collector, device profiles and cost snapshots (A12).
+one launch (``runtime.scan_frames > 1``, A3/A7), steering endpoints over
+sockets (A11), and the telemetry collector, device profiles and cost
+snapshots (A12).
 
 ``composite.k_budget="occupancy"`` re-targets every rank's adaptive
 threshold in the steps themselves. ``composite.temporal_reuse="ranges"``
@@ -138,6 +148,65 @@ def check_ported(cfg: FrameworkConfig) -> None:
     if cfg.obs.collector:
         _unported("obs.collector (the fleet telemetry side-channel)",
                   "A12")
+
+
+def steer_session(sess, msg: dict) -> None:
+    """Apply ONE steering-protocol message to ``sess``: a camera update
+    in place, any other kind to the ``on_steer`` callbacks. The scenario
+    zoo's in-process hooks route through this consumer, as a network
+    viewer's messages will (ROADMAP A11).
+
+    The callbacks run behind the session's SinkGuard: an exception in
+    one must not kill the run — a callback failing
+    ``fault.max_sink_failures`` consecutive times is quarantined on the
+    ``session.sink`` ledger."""
+    from scenery_insitu_tpu_torch.runtime.streaming import apply_steering
+
+    sess.camera, other = apply_steering(sess.camera, msg)
+    for kind_msg in other.values():
+        sess._sink_guard.run(sess.on_steer, kind_msg,
+                             kind="on_steer callback")
+
+
+def drain_steering(sess) -> None:
+    """Apply the pending messages of the session's steering endpoint
+    (``sess.steering``). Endpoints are sockets, ROADMAP A11: a session
+    with one set raises."""
+    if sess.steering is None:
+        return
+    _unported("steering endpoints", "A11")
+
+
+def apply_tf_steering(sess, msg: dict, invalidate) -> None:
+    """Shared handler of ``tf`` steering messages (the reference's
+    updateVis TF path, DistributedVolumeRenderer.kt:747-774): swap
+    ``sess.tf`` (built on the session's device) and call
+    ``invalidate()`` to drop or swap the steps built with the old TF.
+    A malformed payload is logged and IGNORED — a buggy viewer must not
+    be able to kill an in-situ run mid-simulation."""
+    if msg.get("type") != "tf":
+        return
+    from scenery_insitu_tpu_torch.runtime.streaming import tf_from_message
+
+    try:
+        tf = tf_from_message(msg, device=sess.device)
+    except Exception as e:
+        sess.log(f"ignoring malformed tf steering message: {e!r}")
+        return
+    sess.tf = tf
+    invalidate()
+
+
+def _tf_fingerprint(tf: TransferFunction) -> str:
+    """Content identity of a TransferFunction (a sha1 over its knot
+    tensors' bytes): the key of the steered-TF step cache, so two
+    messages describing the same polyline map to the same steps."""
+    import hashlib
+
+    h = hashlib.sha1()
+    for leaf in tf:
+        h.update(leaf.detach().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def regime_camera(cam0: Camera, regime) -> Camera:
@@ -377,6 +446,10 @@ class InSituSession:
         self.steering = None   # steering endpoints are ROADMAP A11
         self.on_steer: List[Callable[[dict], None]] = [
             self._apply_tf_message]
+        # steered-TF recompile-or-reuse: the step sets built for a TF,
+        # stashed under (its fingerprint, the decomposition) when the TF
+        # is steered away, restored when it returns (_tf_invalidate)
+        self._step_cache = {}
         self._pending_meta = {}  # frame index -> VDIMetadata at dispatch
         self._slicer = _slicer
         # the render decomposition: the planned band depths (None = the
@@ -423,6 +496,7 @@ class InSituSession:
         self._mxu_steps = {}   # regime key -> distributed step
         self._mxu_thr = {}     # regime key -> temporal threshold state
         self._mxu_reuse = {}   # regime key -> fragment reuse carry
+        self._tf_key = _tf_fingerprint(self.tf)
         r, cc = self.cfg.render, self.cfg.composite
         self.mode = "vdi" if self.cfg.runtime.generate_vdis else "plain"
         self._step = None
@@ -476,9 +550,46 @@ class InSituSession:
                 "there")
 
     def _apply_tf_message(self, msg: dict) -> None:
-        """'tf' steering messages are ROADMAP A11."""
-        if msg.get("type") == "tf":
-            _unported("transfer-function steering messages", "A11")
+        """'tf' steering: swap the TF and rebuild or restore the steps
+        (`apply_tf_steering`, `_tf_invalidate`)."""
+        apply_tf_steering(self, msg, self._tf_invalidate)
+
+    def _tf_invalidate(self) -> None:
+        """Steered-TF recompile-or-reuse keyed on the TF's identity: the
+        outgoing TF's steps are stashed under its fingerprint and the
+        render decomposition, and a steered TF seen before (same knots,
+        same decomposition) restores them instead of rebuilding — a TF
+        schedule cycling through k looks builds k step sets, not one an
+        update. The carried thresholds and reuse carry re-seed either
+        way (they track the scene under the OLD TF)."""
+        if self.cfg.lod.enabled:
+            # the level planner's TF-straddle gate depends on the TF: the
+            # replan re-runs before the next march, so a brick whose
+            # range straddles a NEW opacity edge refines on that frame
+            self._plan_frame = None
+        old_key = (self._tf_key,) + self._decomp_key()
+        self._step_cache[old_key] = (self._mxu_steps, self._step)
+        while len(self._step_cache) > 8:        # bound the kept step sets
+            self._step_cache.pop(next(iter(self._step_cache)))
+        new_fp = _tf_fingerprint(self.tf)
+        self.obs.count("tf_updates")
+        entry = self._step_cache.get((new_fp,) + self._decomp_key())
+        if entry is not None:
+            self._mxu_steps, self._step = entry
+            self._mxu_thr = {}
+            self._mxu_reuse = {}
+            self._tf_key = new_fp
+            self.obs.count("tf_steps_reused")
+            self.obs.event("tf_update", frame=self.frame_index,
+                           reused=True, key=new_fp)
+            return
+        self.obs.event("tf_update", frame=self.frame_index, reused=False,
+                       key=new_fp)
+        _obs.degrade("scenario.tf_update", "compiled steps", "recompile",
+                     "a steered transfer function not seen before "
+                     "rebuilds the compiled steps (TF knots are "
+                     "compile-time constants)", warn=False)
+        self._build_steps()
 
     # ------------------------------------------------------------- frames
 
@@ -486,8 +597,7 @@ class InSituSession:
         """Advance the sim and dispatch one frame's step; returns its
         device VDI, its plain or hybrid image, or its particle
         ``SplatOutput``."""
-        if self.steering is not None:
-            _unported("steering endpoints", "A11")
+        drain_steering(self)
         self._maybe_replan()
         with self.obs.span("sim", frame=self.frame_index,
                            kind=self.sim.kind):

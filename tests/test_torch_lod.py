@@ -17,7 +17,10 @@ uniform level-1 map holds 28 dB on the smooth field as
 build bit for bit; a rank owning no brick runs through the tile waves
 with and without levels. The session's level replan matches the
 reference's session (the same owners, levels and frames), and
-``lod.enabled`` without bricks is inert on the ledger."""
+``lod.enabled`` without bricks is inert on the ledger. A steered TF
+update clears the plan clock, and the next replan brings every brick
+that straddles a new opacity edge back to level 0, with the reference's
+levels before and after."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -28,6 +31,7 @@ from scenery_insitu_tpu import config as jcfg
 from scenery_insitu_tpu.core import transfer as jtf
 from scenery_insitu_tpu.parallel import lod as jlod
 from scenery_insitu_tpu.parallel import mesh as jmesh
+from scenery_insitu_tpu.runtime import session as jses
 from scenery_insitu_tpu_torch import config as tcfg
 from scenery_insitu_tpu_torch import obs as tobs
 from scenery_insitu_tpu_torch.core import transfer as ttf
@@ -315,3 +319,64 @@ def test_session_lod_inert_without_bricks_on_the_ledger():
     sess.run(1)
     assert sess._bricks is None
     assert any(e["component"] == "lod.inert" for e in tobs.ledger())
+
+
+class _SkewedSim:
+    """The reference test's static field: value 0.6 in slices 1..7 of
+    32, zero elsewhere (numpy; wrapped for either package)."""
+
+    kind = "skewed"
+
+    def __init__(self, wrap):
+        data = np.zeros((D, HW, HW), np.float32)
+        data[1:8] = 0.6
+        self.field = wrap(data)
+
+    def advance(self, n):
+        pass
+
+
+LOD_STEER_OVER = ("composite.rebalance=bricks",
+                  "composite.rebalance_period=2",
+                  "composite.rebalance_bricks=8", "render.width=32",
+                  "render.height=32", "slicer.engine=mxu",
+                  "slicer.matmul_dtype=f32", "obs.enabled=true",
+                  "lod.enabled=true", "lod.error_px=1000",
+                  f"mesh.num_devices={N}")
+STEERED_TF = {"type": "tf", "points": [[0.0, 0.8], [0.01, 0.0], [1.0, 0.0]]}
+
+
+def test_session_lod_tf_straddle_after_steered_update():
+    """A steered TF update moves the opacity edges; the very next replan
+    re-runs the level gate under the NEW TF (the update clears the plan
+    clock), so bricks now straddling an edge are back at level 0 before
+    the next marched frame — the levels before and after the update are
+    the reference's session's."""
+    levels = {}
+    for name, pkg, ses, wrap, kw in (
+            ("jax", jcfg, jses, jnp.asarray, {}),
+            ("port", tcfg, tses, torch.from_numpy, {"device": CPU})):
+        sess = ses.InSituSession(
+            pkg.FrameworkConfig().with_overrides(*LOD_STEER_OVER),
+            sim=_SkewedSim(wrap), **kw)
+        for _ in range(3):
+            sess.render_frame()
+        before = tuple(sess._bricks.level)
+        # the new TF's opacity lives at 0.0..0.01 only: the 0.6 slabs go
+        # transparent and their bricks' ranges [0, 0.6] straddle 0.01
+        sess._apply_tf_message(dict(STEERED_TF))
+        assert sess._plan_frame is None                  # forced replan
+        sess.render_frame()
+        levels[name] = (before, tuple(sess._bricks.level))
+    assert levels["port"] == levels["jax"]
+    assert max(levels["port"][0]) > 0
+    edges = ttf.opacity_edges(sess.tf)
+    lo, hi = sess._replan_ranges()
+    lo_b = tlod.per_brick(lo, sess._bricks.nbricks, "min")
+    hi_b = tlod.per_brick(hi, sess._bricks.nbricks, "max")
+    straddled = 0
+    for i, lvl in enumerate(sess._bricks.level):
+        if any(lo_b[i] - 1e-4 < e < hi_b[i] + 1e-4 for e in edges):
+            straddled += 1
+            assert lvl == 0, (i, lo_b[i], hi_b[i], edges)
+    assert straddled

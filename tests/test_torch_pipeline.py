@@ -21,13 +21,16 @@ from scenery_insitu_tpu.ops import composite as jcomp
 from scenery_insitu_tpu.sim import grayscott as jgs
 from scenery_insitu_tpu_torch import config as tcfg
 from scenery_insitu_tpu_torch import convert
+from scenery_insitu_tpu_torch import scenarios as tscenarios
 from scenery_insitu_tpu_torch.core import camera as tcam
+from scenery_insitu_tpu_torch.core import scene as tscene
 from scenery_insitu_tpu_torch.core import transfer as ttf
 from scenery_insitu_tpu_torch.core import volume as tvol
 from scenery_insitu_tpu_torch.core.vdi import VDI, render_vdi_same_view
 from scenery_insitu_tpu_torch.models import pipelines as tpipe
 from scenery_insitu_tpu_torch.ops import composite as tcomp
 from scenery_insitu_tpu_torch.ops import slicer as tsl
+from scenery_insitu_tpu_torch.runtime import scene_session as tscene_session
 from scenery_insitu_tpu_torch.sim import grayscott as tgs
 from scenery_insitu_tpu_torch.sim import particles as tpt
 from scenery_insitu_tpu_torch.sim import vortex as tvx
@@ -357,6 +360,11 @@ def test_entry_points_without_cuda_raise(monkeypatch):
         lambda: tvx.VortexFlow.init_ring((8, 8, 8)),
         lambda: tpt.lj_init(8),
         lambda: tpt.sho_init(8),
+        # the multi-grid scene, its session and the scenario zoo
+        lambda: tscene.MultiGridScene(),
+        lambda: tscene_session.SceneSession(),
+        lambda: tscenarios.make_session(
+            "gray_scott", extra_overrides=("sim.grid=[8,8,8]",)),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -352,9 +352,12 @@ def _steering():
 
 
 def _tf_message():
-    sess = port_session(1, "temporal", state=False)
+    sess = port_session(1, "temporal", state=False,
+                        **{"obs.enabled": "true"})
     for cb in sess.on_steer:
-        cb({"type": "tf"})
+        cb({"type": "tf", "points": [[0.0, 0.0], [1.0, 0.5]]})
+    sess.run(1)
+    return sess
 
 
 UNPORTED = {
@@ -415,7 +418,10 @@ UNPORTED = {
     "device_snapshot": (lambda: port_session(
         1, "temporal", state=False).device_snapshot(), "A12"),
     "steering": (_steering, "A11"),
-    "tf_steering": (_tf_message, "A11"),
+    # ported since (A10c): a steered TF rebuilds the session's steps
+    # (the TF was not seen before) and the frame runs on them
+    "tf_steering": (_tf_message, {"tf_updates": 1, "tf_steps_reused": 0,
+                                  "build_steps": 2}),
 }
 
 

@@ -5,8 +5,10 @@ microbenchmark, the in-situ session, the sort-last exchange schedules,
 the render decomposition, the two-level composite, the K budgets
 and fragment reuse, the gather engine with the plain images, the
 VDI's novel views with the pre-shaded (ambient-occlusion) march, the
-particle and hybrid workloads, and the externally driven multi-grid
-scene with in-process steering and the example twins.
+particle and hybrid workloads, the externally driven multi-grid
+scene with in-process steering and the example twins, and bf16
+resampling with the system's edges (the VDI stream, the serving tier,
+the head node and the H.264 movie).
 
     python3 chip_smoke.py               # the whole run (needs one card)
     python3 chip_smoke.py --profile     # + device time by kernel
@@ -15,6 +17,7 @@ scene with in-process steering and the example twins.
     python3 chip_smoke.py --phase13-only  # the build and phase 13
     python3 chip_smoke.py --phase14-only  # the build and phase 14
     python3 chip_smoke.py --phase15-only  # the build and phase 15
+    python3 chip_smoke.py --phase16-only  # the build and phase 16
     python3 chip_smoke.py --k4-compare old=OTHER/resegment.cu \
         --k2-compare old=OTHER/count_multi.cu \
         --events-compare old=OTHER/fold_chunk.cu  # + designs in turns
@@ -378,6 +381,40 @@ and prints no result):
    and ``ao_render`` at their default sizes, every PNG non-blank and
    every VDI finite with a live slot. ``phase15.wall_s`` prints its
    seconds.
+
+16. bf16 resampling and the edges: (a) phase 3's frames (the seeded
+   init, its seed, 2 warm-up and 6 timed frames) with the resampling
+   products in bf16 (the card's default) and in f32, each
+   timed, the bf16 image >= 40 dB from the f32's and its launch counts
+   equal to the f32 run's and phase 3's, K1 against its plain version
+   on the bf16 frame's chunks (within 1e-5, start counts exact), one
+   chunk's bf16 product against the CPU's plain form (within 1e-5 of
+   its largest value; both products timed against the f32 pair) and the
+   viewer's proxy (``vdi_novel.vdi_to_rgba_volume`` marched across
+   regimes) in bf16 >= 40 dB from f32; then the main path: phase 7's
+   session (512^3, temporal) and the same over phase 4's 8 ranks, 3
+   frames each, their launch counts set to 0 before and read after (K3,
+   K2, K1 and K4), the 1-rank session's frames to the I_PCM H.264 sink
+   and a P-frame publisher without a socket, the 8-rank session's to
+   another; (b) the serving tier (``ViewerServer.without_sockets``, its
+   messages through ``handle``) on the session's last 2 VDIs at 128 x
+   96 and on its last at the VDI's own width (640 x 480): each tier a
+   full bucket of 16 viewers, ms a batch and a viewer, the answers
+   against independent single-camera ``render_vdi_batch`` renders
+   (exact and proxy within 1e-5, wire within one u8 step; every answer
+   at 128 x 96, 2 a tier at 640 x 480), the unchanged cameras answered
+   again from the cache with no render, and the device operations of a
+   view; (c) the head node's depth-min composite of 8
+   rank images (phase 4's field in 8 z slabs, each ``raycast_mxu`` at
+   1280 x 720) equal to ``ops/composite.composite_depth_min`` on the
+   card bit for bit; (d) the stream's encoding of the sessions' VDIs:
+   the last frame in f32 with zlib decoded bit for bit, the qpack8
+   P-frame records decoded to the frames' codes bit for bit, bytes a
+   frame against the codec's model, encode ms; (e) the H.264 stream's size equal to the I_PCM
+   layout's; (f) where pyzmq and msgpack are installed, the loopback
+   session frame -> ``VDIPublisher`` -> ``VDISubscriber`` (bit for bit)
+   -> ``ViewerServer`` -> ``ViewerClient``, else a line saying it was not
+   run and why. ``phase16.wall_s`` prints its seconds.
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -1582,7 +1619,10 @@ def capture_chunks(dev, u, v, eye):
 # ------------------------------------------------------------- phase 3
 
 
-def frame_config(device, fold="auto", occupancy=None):
+def frame_config(device, fold="auto", occupancy=None, mm="bf16"):
+    """Phase 3's frame step settings; ``mm`` the resampling products'
+    dtype (bf16 resolves to f32 on the CPU, so a card frame held against
+    the CPU's passes f32 on both sides)."""
     from scenery_insitu_tpu_torch.config import (CompositeConfig,
                                                  SliceMarchConfig, VDIConfig)
 
@@ -1592,7 +1632,7 @@ def frame_config(device, fold="auto", occupancy=None):
                           adaptive_mode="temporal", histogram_bins=BINS),
         comp_cfg=CompositeConfig(max_output_supersegments=K,
                                  adaptive_iters=2),
-        slicer_cfg=SliceMarchConfig(fold=fold, chunk=CHUNK),
+        slicer_cfg=SliceMarchConfig(fold=fold, chunk=CHUNK, matmul_dtype=mm),
         device=device)
 
 
@@ -1880,7 +1920,7 @@ def check_small_frame(dev, fold="pallas_seg", occupancy=None):
     for name, d in (("cuda", dev), ("cpu", "cpu")):
         step = grayscott_vdi_frame_step(
             grid_shape=(n,) * 3, axis_sign=axis_sign,
-            **frame_config(d, fold=fold, occupancy=occupancy))
+            **frame_config(d, fold=fold, occupancy=occupancy, mm="f32"))
         u, v = st.u.to(d), st.v.to(d)
         thr = step.init_threshold(u, v, orbit(base, 0.1).eye.to(d))
         imgs = []
@@ -1911,13 +1951,14 @@ BASE_EYE = (0.0, 0.6, 3.0)
 
 
 def dist_steps(dev, n, grid, base_eye, fold="auto", plan=None, bricks=None,
-               topology=None, **comp):
+               topology=None, mm="bf16", **comp):
     """The distributed temporal step of an ``n``-rank mesh on ``dev``
     for a ``grid``^3 volume, in the march regime of ``base_eye``, with
     the composite settings ``comp`` (exchange, wire, schedule,
     rebalance, ...), the render decomposition ``plan`` or ``bricks``,
-    and a ``TopologyConfig`` (None: the flat mesh): (mesh, spec, tf,
-    configs, seed, step, camera(i))."""
+    and a ``TopologyConfig`` (None: the flat mesh), resampling in ``mm``
+    (f32 where the card's step is held against the CPU's): (mesh, spec,
+    tf, configs, seed, step, camera(i))."""
     from scenery_insitu_tpu_torch.config import (CompositeConfig,
                                                  MeshConfig,
                                                  SliceMarchConfig, VDIConfig)
@@ -1934,7 +1975,8 @@ def dist_steps(dev, n, grid, base_eye, fold="auto", plan=None, bricks=None,
     vcfg = VDIConfig(max_supersegments=K, adaptive_mode="temporal",
                      histogram_bins=BINS)
     spec = slicer.make_spec(base, (grid,) * 3,
-                            SliceMarchConfig(fold=fold, chunk=CHUNK),
+                            SliceMarchConfig(fold=fold, chunk=CHUNK,
+                                             matmul_dtype=mm),
                             axis_sign=slicer.choose_axis(base),
                             multiple_of=n)
     if comp.get("schedule") == "waves":
@@ -2354,7 +2396,7 @@ def check_small_dist(dev):
         outs = {}
         for name, d in (("cuda", dev), ("cpu", "cpu")):
             mesh, spec, _, _, seed, step, camera = dist_steps(
-                d, SMALL_RANKS, n, eye, fold="pallas_seg")
+                d, SMALL_RANKS, n, eye, fold="pallas_seg", mm="f32")
             data = shard_volume(v0.to(d), mesh)
             origin, spacing = box.origin.to(d), box.spacing.to(d)
             thr = seed(data, origin, spacing, camera(-1))
@@ -2801,7 +2843,7 @@ def check_small_exchange(dev):
             outs = {}
             for dname, d in (("cuda", dev), ("cpu", "cpu")):
                 mesh, spec, _, (_, ccfg), seed, step, camera = dist_steps(
-                    d, SMALL_RANKS, n, eye, fold="pallas_seg",
+                    d, SMALL_RANKS, n, eye, fold="pallas_seg", mm="f32",
                     **exchange_comp(ex, wire, sched, slots))
                 data = shard_volume(v0.to(d), mesh)
                 origin, spacing = box.origin.to(d), box.spacing.to(d)
@@ -3464,8 +3506,9 @@ def run_microbench(dev):
 # ------------------------------------------------------------- phase 7
 
 
-def session_config(grid, ranks=0, depth=1, fold="auto"):
-    """Phase 3's frame as a session configuration."""
+def session_config(grid, ranks=0, depth=1, fold="auto", mm="bf16"):
+    """Phase 3's frame as a session configuration (``mm`` as in
+    `frame_config`)."""
     from scenery_insitu_tpu_torch.config import FrameworkConfig
 
     return FrameworkConfig().with_overrides(
@@ -3476,6 +3519,7 @@ def session_config(grid, ranks=0, depth=1, fold="auto"):
         f"composite.max_output_supersegments={K}",
         "composite.adaptive_iters=2", "slicer.engine=mxu",
         f"slicer.chunk={CHUNK}", "slicer.scale=1.25", f"slicer.fold={fold}",
+        f"slicer.matmul_dtype={mm}",
         f"mesh.num_devices={ranks}", f"runtime.pipeline_depth={depth}",
         "runtime.dataset=gray_scott")
 
@@ -3721,7 +3765,7 @@ def check_small_session(dev):
     for name, d in (("cuda", dev), ("cpu", "cpu")):
         got = {}
         sess = session(d, session_config(n, ranks=SMALL_RANKS,
-                                         fold="pallas_seg"),
+                                         fold="pallas_seg", mm="f32"),
                        [capture_into(got)])
         kernels.reset_launches()
         sess.run(frames)
@@ -4110,7 +4154,7 @@ def check_small_decomp(dev):
             for dname, d in (("cuda", dev), ("cpu", "cpu")):
                 mesh, spec, _, _, seed, step, camera = dist_steps(
                     d, SMALL_RANKS, n, eye, fold="pallas_seg", plan=plan,
-                    bricks=bricks, rebalance=rebalance, **comp)
+                    bricks=bricks, rebalance=rebalance, mm="f32", **comp)
                 data = shard_volume(v0.to(d), mesh)
                 origin, spacing = box.origin.to(d), box.spacing.to(d)
                 thr = seed(data, origin, spacing, camera(-1))
@@ -4499,7 +4543,7 @@ def check_small_hier(dev):
             outs = {}
             for dname, d in (("cuda", dev), ("cpu", "cpu")):
                 mesh, _, _, _, seed, step, camera = dist_steps(
-                    d, SMALL_RANKS, n, eye, fold="pallas_seg",
+                    d, SMALL_RANKS, n, eye, fold="pallas_seg", mm="f32",
                     topology=hier_topology(2, dcn),
                     **hier_comp(ex, sched, None))
                 data = shard_volume(v0.to(d), mesh)
@@ -6486,7 +6530,8 @@ def run_vortex_session(dev):
     del sess, u, uh
     torch.cuda.empty_cache()
     cs, cg, ps, pg = small_sessions("small_vortex", dev, p14_config(
-        "vortex", 32, VORTEX_RANKS, **{"slicer.fold": "pallas_seg"}), 3)
+        "vortex", 32, VORTEX_RANKS, **{"slicer.fold": "pallas_seg",
+                                       "slicer.matmul_dtype": "f32"}), 3)
     for i in range(3):
         imgs = [render_vdi_same_view(VDI(torch.from_numpy(g[i]["vdi_color"]),
                                          torch.from_numpy(g[i]["vdi_depth"])))
@@ -6764,7 +6809,8 @@ def run_hybrid_session(dev):
     del sess, slabs, frame_img, world, vel
     torch.cuda.empty_cache()
     cs_, cg, ps, pg = small_sessions("small_hybrid", dev, p14_config(
-        "hybrid", 32, 4, 2048, **{"slicer.fold": "pallas_seg"}), 2)
+        "hybrid", 32, 4, 2048, **{"slicer.fold": "pallas_seg",
+                                  "slicer.matmul_dtype": "f32"}), 2)
     for i in range(2):
         card_cpu_gate(f"small_hybrid.frame{i}", cg[i]["image"],
                       pg[i]["image"])
@@ -7172,6 +7218,677 @@ def run_phase15(dev, done, field=None, dist_ms=None):
     return dict(scene=scene, steer=steer, twins=twins)
 
 
+# ------------------------------------------------------------ phase 16
+
+# phase 16's bars, stated before its first run: bf16 against f32 (the
+# frame and the viewer's proxy) at the reference's lossy-wire bar; the
+# bf16 product against the CPU's plain form, relative to its largest
+# value; a served answer against its single-camera render
+P16_DB = 40.0
+P16_PRODUCT_RTOL = 1e-5
+P16_SERVE_ATOL = 1e-5
+P16_VIEWERS = 16            # one full bucket (ServeConfig.batch_size)
+P16_YAWS = tuple(-0.3 + 0.6 * i / (P16_VIEWERS - 1)
+                 for i in range(P16_VIEWERS))
+P16_FRAMES = 3              # frames of each phase 16 session
+P16_SERVED = 2              # VDI frames served at ServeConfig's size
+P16_FULL_CHECKED = 2        # answers a tier checked at the VDI's width
+P16_IFRAME = 4              # the stream's P-frame codec I period
+P16_PRODUCT_CALL = 8        # the march's product call whose operands
+#                             phase 16 (a) holds against the CPU
+
+
+def p16_frames(dev, mm):
+    """Phase 3's frame run in ``mm`` (the init, its seed, the warm-up
+    and timed frames with phase 3's eyes): (ms, launches, VDI, u, v,
+    step, eye)."""
+    import torch
+
+    from scenery_insitu_tpu_torch import kernels
+    from scenery_insitu_tpu_torch.core.camera import Camera, orbit
+    from scenery_insitu_tpu_torch.core.vdi import VDI
+    from scenery_insitu_tpu_torch.models.pipelines import \
+        grayscott_vdi_frame_step
+    from scenery_insitu_tpu_torch.ops import slicer
+    from scenery_insitu_tpu_torch.sim import grayscott as gs
+
+    base = Camera.create(BASE_EYE, fov_y_deg=50.0, near=0.5, far=20.0,
+                         device=dev)
+    step = grayscott_vdi_frame_step(grid_shape=(GRID,) * 3,
+                                    axis_sign=slicer.choose_axis(base),
+                                    **frame_config(dev, mm=mm))
+    if step.spec.matmul_dtype != mm:
+        raise AssertionError(f"the card's spec resolved {mm} to "
+                             f"{step.spec.matmul_dtype}")
+    st = gs.GrayScott.init((GRID,) * 3, seed=SEED, device=dev)
+    u, v = st.u, st.v
+    eye = lambda i: orbit(base, yaw_of(i)).eye
+    kernels.reset_launches()
+    thr = step.init_threshold(u, v, eye(-1))
+    ms, (color, depth, u, v, thr) = timed_frames(
+        f"bf16.frame_{mm}", lambda s, i: step(s[2], s[3], eye(i), s[4]),
+        (None, None, u, v, thr), WARMUP_FRAMES, TIMED_FRAMES)
+    launches = kernels.launches()
+    log(f"bf16.frame_{mm}.launches", json.dumps(launches))
+    require_only(launches, FRAME_KERNELS, f"the {mm} frame")
+    return ms, launches, VDI(color, depth), u, v, step, eye
+
+
+def p16_product(dev, u, v, eye):
+    """One chunk's resampling operands of the bf16 march (the
+    `slicer.resample_product` call P16_PRODUCT_CALL of a march on the
+    frame's field, or its last): the card's bf16 product against the
+    CPU's plain
+    form (relative to the largest value), both products' ms on the card
+    and the f32 pair's."""
+    import torch
+
+    from scenery_insitu_tpu_torch.config import SliceMarchConfig
+    from scenery_insitu_tpu_torch.core.camera import Camera
+    from scenery_insitu_tpu_torch.core.transfer import for_dataset
+    from scenery_insitu_tpu_torch.core.volume import Volume
+    from scenery_insitu_tpu_torch.ops import slicer
+
+    vol = Volume.centered(v, extent=2.0)
+    cam = Camera.create(eye, fov_y_deg=50.0, near=0.5, far=20.0, device=dev)
+    spec = slicer.make_spec(cam, tuple(v.shape),
+                            SliceMarchConfig(chunk=CHUNK))
+    product, calls = slicer.resample_product, []
+
+    def spy(wv, slices, wu, mm="f32"):
+        if len(calls) <= P16_PRODUCT_CALL:
+            calls.append((wv, slices, wu, mm))
+        return product(wv, slices, wu, mm)
+
+    slicer.resample_product = spy
+    try:
+        slicer.raycast_mxu(vol, for_dataset("gray_scott", device=dev), cam,
+                           64, 64, spec)
+    finally:
+        slicer.resample_product = product
+    wv, slices, wu, mm = calls[-1]
+    if mm != "bf16":
+        raise AssertionError(f"the card's march resampled in {mm}")
+    got = product(wv, slices, wu, "bf16")
+    want = product(wv.cpu(), slices.cpu(), wu.cpu(), "bf16")
+    err = float((got.cpu() - want).abs().max() / want.abs().max())
+    log("bf16.product_shapes", f"wv {tuple(wv.shape)} slices "
+        f"{tuple(slices.shape)} wu {tuple(wu.shape)}")
+    check("bf16.product_vs_cpu_rel", err, P16_PRODUCT_RTOL)
+    ms = {m: median_ms(lambda _: product(wv, slices, wu, m), 10)
+          for m in ("bf16", "f32", "bf16", "f32")}
+    c, b, y = wv.shape
+    x, i = slices.shape[-1], wu.shape[1]
+    log("bf16.product_ms", f"bf16 {ms['bf16']:.4f} (bf16 x bf16 -> f32, "
+        f"then f32 x bf16-rounded), f32 {ms['f32']:.4f}; {c} planes of "
+        f"[{b} x {y}] @ [{y} x {x}] @ [{x} x {i}]")
+    return dict(err=err, ms=ms["bf16"], f32_ms=ms["f32"])
+
+
+def p16_proxy(dev, vdi, u, v, spec, eye):
+    """The viewer's proxy (`vdi_novel.vdi_to_rgba_volume`, marched by
+    `render_vdi_proxy` across regimes) of the bf16 frame's VDI, built
+    and marched in bf16 and in f32: the bf16 view >= P16_DB from the
+    f32's."""
+    import dataclasses
+
+    import torch
+
+    from scenery_insitu_tpu_torch.config import SliceMarchConfig
+    from scenery_insitu_tpu_torch.core.camera import Camera
+    from scenery_insitu_tpu_torch.core.volume import Volume
+    from scenery_insitu_tpu_torch.ops import slicer
+    from scenery_insitu_tpu_torch.ops import vdi_novel as nv
+
+    vol = Volume.centered(v, extent=2.0)
+    cam = Camera.create(eye, fov_y_deg=50.0, near=0.5, far=20.0, device=dev)
+    axcam = slicer.make_axis_camera(vol, cam, spec)
+    cam_x = Camera.create(NOVEL_CROSS_EYE, fov_y_deg=50.0, near=0.5,
+                          far=20.0, device=dev)
+    views = {}
+    for mm in ("bf16", "f32"):
+        sp = dataclasses.replace(spec, matmul_dtype=mm)
+        proxy = nv.vdi_to_rgba_volume(vdi, axcam, sp, num_slices=GRID)
+        spec_x = slicer.make_spec(cam_x, tuple(proxy.data.shape[-3:]),
+                                  SliceMarchConfig(chunk=CHUNK,
+                                                   matmul_dtype=mm))
+        ms, views[mm] = timed_view(f"bf16.proxy_{mm}", lambda: (
+            nv.render_vdi_proxy(proxy, cam_x, NOVEL_W, NOVEL_H, spec_x)),
+            reps=2)
+        del proxy
+        torch.cuda.empty_cache()
+    db = img_psnr(views["bf16"], views["f32"])
+    psnr_gate("bf16.proxy", db, P16_DB, "the f32 proxy's view")
+    return db
+
+
+def run_bf16(dev, phase3_launches=None):
+    """Phase 16 (a): phase 3's default frame (bf16 on the card) and the
+    same frames in f32, each timed; the bf16 image >= P16_DB from the
+    f32's; the bf16 frames' launches equal the f32 frames' and phase
+    3's; K1 against its plain version on the bf16 frame's chunks; the
+    bf16 product against the CPU's plain form on one chunk's operands;
+    the viewer's proxy in bf16 >= P16_DB from f32."""
+    import torch
+
+    from scenery_insitu_tpu_torch.core.vdi import render_vdi_same_view
+    from scenery_insitu_tpu_torch.ops import cuda_seg as cs
+
+    runs = {mm: p16_frames(dev, mm) for mm in ("bf16", "f32")}
+    (ms, launches, vdi, u, v, step, eye) = runs["bf16"]
+    f32_ms, f32_launches = runs["f32"][:2]
+    db = img_psnr(render_vdi_same_view(vdi),
+                  render_vdi_same_view(runs["f32"][2]))
+    log("bf16.frame_ms", f"bf16 {ms:.3f}, f32 {f32_ms:.3f} (x"
+        f"{f32_ms / ms:.3f}; CUDA events, median of {TIMED_FRAMES})")
+    psnr_gate("bf16.frame", db, P16_DB, "the f32 frame")
+    want = dict(f32=f32_launches)
+    if phase3_launches is not None:
+        want["phase 3"] = phase3_launches
+    for name, other in want.items():
+        if {k: launches.get(k, 0) for k in FRAME_KERNELS} != \
+                {k: other.get(k, 0) for k in FRAME_KERNELS}:
+            raise AssertionError(f"the bf16 frames launched {launches}, "
+                                 f"the {name} frames {other}")
+    del runs
+    torch.cuda.empty_cache()
+    last = eye(WARMUP_FRAMES + TIMED_FRAMES - 1)
+    cap = capture_chunks(dev, u, v, last)
+    init = lambda: cs.init_seg_packed(K, *cap["thr"].shape, device=dev)
+    kern = fold_chunks(cs.fold_chunk_packed, init(), cap["chunks"],
+                       cap["thr"], cap["length"])
+    plain = fold_chunks(cs.fold_chunk_packed_plain, init(), cap["chunks"],
+                        cap["thr"], cap["length"])
+    torch.cuda.synchronize()
+    k1_err = packed_err(kern, plain)
+    check("bf16.seg_fold_frame_chunks", k1_err, 1e-5)
+    if not torch.equal(kern[2][0], plain[2][0]):
+        raise AssertionError("bf16: K1's start counts differ from the "
+                             "plain version's")
+    del cap, kern, plain
+    torch.cuda.empty_cache()
+    product = p16_product(dev, u, v, last)
+    proxy_db = p16_proxy(dev, vdi, u, v, step.spec, last)
+    return dict(ms=ms, f32_ms=f32_ms, db=db, launches=launches,
+                f32_launches=f32_launches, k1_err=k1_err, product=product,
+                proxy_db=proxy_db)
+
+
+def run_p16_sessions(dev, h264_path):
+    """Phase 16's main path: phase 7's session (512^3, temporal, one
+    rank) and the same on phase 4's 8-rank mesh, P16_FRAMES frames each,
+    the launch counts set to 0 before both and read after. The 1-rank
+    session's frames go to a capture sink, the I_PCM H.264 movie sink
+    (`video_sink(codec="h264_ipcm")`) and a publisher without a socket
+    (qpack8 with the P-frame codec); the 8-rank session's to another.
+    Returns (launches, payloads, publishers, ms a frame with the
+    sinks)."""
+    from scenery_insitu_tpu_torch import kernels
+    from scenery_insitu_tpu_torch.config import DeltaConfig
+    from scenery_insitu_tpu_torch.runtime import streaming as stm
+
+    pubs = {"qpack8_delta": stm.VDIPublisher(
+                None, codec="zlib", precision="qpack8",
+                delta=DeltaConfig(enabled=True, iframe_period=P16_IFRAME)),
+            "qpack8_delta_8rank": stm.VDIPublisher(
+                None, codec="zlib", precision="qpack8",
+                delta=DeltaConfig(enabled=True, iframe_period=P16_IFRAME))}
+    payloads = {}
+    movie = stm.video_sink(h264_path, codec="h264_ipcm")
+    enc = collections.defaultdict(float)
+    sinks = [capture_into(payloads), timed_sink(enc, "h264", movie)] + [
+        timed_sink(enc, "qpack8_delta", stm.stream_sink(pubs["qpack8_delta"]))]
+    kernels.reset_launches()
+    ms = {}
+    for name, cfg, sk in (
+            ("session", session_config(GRID), sinks),
+            ("session_8rank", session_config(GRID, ranks=RANKS),
+             [timed_sink(enc, "qpack8_delta_8rank",
+                        stm.stream_sink(pubs["qpack8_delta_8rank"]))])):
+        sess = session(dev, cfg, sk)
+        ms[name], _ = timed_run(sess, P16_FRAMES)
+        log(f"p16.{name}.ms_per_frame", f"{ms[name]:.3f} (host clock, "
+            f"mean of {P16_FRAMES} frames with their sinks, the first "
+            f"seeding)")
+        del sess
+    movie.release()
+    log("p16.encode_ms", json.dumps({n: round(t * 1e3 / P16_FRAMES, 3)
+                                     for n, t in enc.items()}) +
+        " (host clock, mean a frame: each sink's encode and, for the "
+        "movie, the same-view decode of the VDI)")
+    launches = kernels.launches()
+    log("p16.launches", json.dumps(launches))
+    require_only(launches, DIST_KERNELS, "phase 16's sessions")
+    return launches, payloads, pubs, ms
+
+
+def p16_request(srv, viewers, tier, seq):
+    """Each viewer ``(ident, camera)`` sends its camera of ``tier``
+    through the server's `handle`, as `pump_clients` hands it a parsed
+    message."""
+    from scenery_insitu_tpu_torch.runtime.streaming import \
+        make_camera_message
+
+    for ident, cam in viewers:
+        srv.handle(ident, dict(make_camera_message(cam), seq=seq,
+                               tier=tier))
+
+
+def p16_single(srv, tier, cam):
+    """The independent single-camera `render_vdi_batch` render of one
+    answer, on the server's adopted frame (its proxy and spec)."""
+    from scenery_insitu_tpu_torch.ops import slicer
+    from scenery_insitu_tpu_torch.ops import vdi_novel as nv
+
+    f, w, h = srv.frame, srv.cfg.width, srv.cfg.height
+    one = nv.stack_cameras([cam])
+    if tier == "exact":
+        return nv.render_vdi_batch(f["vdi"], f["axcam0"], f["spec0"], one,
+                                   w, h, tier="exact")[0]
+    proxy = srv._ensure_proxy()
+    spec_new = srv._spec_new_for(slicer.choose_axis(cam),
+                                 tuple(proxy.data.shape[-3:]))
+    return nv.render_vdi_batch(None, None, f["spec0"], one, w, h,
+                               tier="proxy", proxy=proxy,
+                               spec_new=spec_new)[0]
+
+
+def p16_device_ops(fn):
+    """Device operations (kernels, copies, fills) of one ``fn()``, from
+    torch.profiler; None where the trace holds no device rows."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(e.count for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA)
+    return n or None
+
+
+def p16_serve_frame(srv, vdi, meta, cam0, tag, checked):
+    """One adopted VDI frame served to a full bucket on each tier: the
+    batch's ms (host clock, the answers on the host) and a viewer's,
+    ``checked`` answers a tier against their single renders (exact and
+    proxy within P16_SERVE_ATOL, wire within one u8 step), then the same
+    cameras answered again from the cache with no render."""
+    import numpy as np
+    import torch
+
+    from scenery_insitu_tpu_torch.core.camera import orbit
+
+    srv.adopt(vdi, meta)
+    out = {}
+    for tier in ("exact", "proxy", "wire"):
+        srv.outbox.clear()
+        viewers = [(b"%s%s%02d" % (tag.encode(), tier.encode(), i),
+                    orbit(cam0, y)) for i, y in enumerate(P16_YAWS)]
+        p16_request(srv, viewers, tier, 1)
+        batches = srv.stats["batches"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        answered = srv.answer_pending()
+        ms = (time.perf_counter() - t0) * 1e3
+        if answered != P16_VIEWERS or \
+                srv.stats["batches"] != batches + 1:
+            raise AssertionError(f"serve {tier}: {answered} answers in "
+                                 f"{srv.stats['batches'] - batches} "
+                                 f"batches")
+        gap = 0.0
+        for k in range(checked):
+            fields, blob = srv.outbox[k][1:]
+            one = p16_single(srv, tier, viewers[k][1]).cpu().numpy()
+            if tier == "wire":
+                want = np.clip(np.round(one * 255.0), 0,
+                               255).astype(np.uint8)
+                got = np.frombuffer(blob, np.uint8).reshape(want.shape)
+                g = float(np.abs(got.astype(np.int16)
+                                 - want.astype(np.int16)).max())
+                if g > 1.0:
+                    raise AssertionError(f"serve wire answer {k} is {g} "
+                                         f"u8 steps from its render")
+            else:
+                got = np.frombuffer(blob, np.float32).reshape(one.shape)
+                g = float(np.abs(got - one).max())
+                if not g <= P16_SERVE_ATOL:
+                    raise AssertionError(f"serve {tier} answer {k} is "
+                                         f"{g} from its render")
+            gap = max(gap, g)
+        srv.outbox.clear()
+        p16_request(srv, viewers, tier, 2)
+        t0 = time.perf_counter()
+        cached = srv.answer_pending()
+        cache_ms = (time.perf_counter() - t0) * 1e3
+        if cached != P16_VIEWERS or srv.stats["batches"] != batches + 1 \
+                or not all(f["cached"] for _, f, _ in srv.outbox):
+            raise AssertionError(f"serve {tier}: the unchanged cameras "
+                                 f"were not all served from the cache")
+        out[tier] = dict(ms=ms, view_ms=ms / P16_VIEWERS, gap=gap,
+                         cache_ms=cache_ms)
+    return out
+
+
+def run_serve(dev, payloads):
+    """Phase 16 (b): the serving tier on the session's VDIs (512^3,
+    temporal), through `ViewerServer.without_sockets`: P16_SERVED frames
+    at ServeConfig's 128 x 96 (every answer checked) and one at the
+    VDI's own width (P16_FULL_CHECKED answers a tier checked), each tier
+    a full bucket of P16_VIEWERS cameras, the cache re-serving them; the
+    device operations of a view on the exact and proxy tiers (phase 13
+    prints a view's with --profile)."""
+    from scenery_insitu_tpu_torch.config import FrameworkConfig
+    from scenery_insitu_tpu_torch.core.camera import Camera
+    from scenery_insitu_tpu_torch.core.vdi import VDI
+    from scenery_insitu_tpu_torch.serve import ViewerServer
+
+    frames = sorted(payloads)
+    cam0 = Camera.create(BASE_EYE, fov_y_deg=50.0, near=0.5, far=20.0,
+                         device=dev)
+    ni = int(payloads[frames[0]]["vdi_color"].shape[-1])
+    sizes = {"serve": (128, 96), "serve_full": (ni, ni * 3 // 4)}
+    out = {}
+    for prefix, (w, h) in sizes.items():
+        cfg = FrameworkConfig().with_overrides(f"serve.width={w}",
+                                               f"serve.height={h}")
+        srv = ViewerServer.without_sockets(cfg, device=dev)
+        served = frames[-P16_SERVED:] if prefix == "serve" else frames[-1:]
+        for f in served:
+            p = payloads[f]
+            res = p16_serve_frame(
+                srv, VDI(p["vdi_color"], p["vdi_depth"]), p["meta"], cam0,
+                prefix,
+                P16_VIEWERS if prefix == "serve" else P16_FULL_CHECKED)
+            for tier, r in res.items():
+                log(f"{prefix}_{tier}.frame{f}", f"{r['ms']:.3f} ms a batch "
+                    f"of {P16_VIEWERS}, {r['view_ms']:.3f} a viewer, "
+                    f"{w} x {h} (host clock, answers on the host); largest "
+                    f"gap to single renders {r['gap']:.3e}; cache "
+                    f"{r['cache_ms']:.3f} ms for all {P16_VIEWERS}")
+            out[prefix] = res
+        log(f"{prefix}.num_slices", srv.frame["num_slices"])
+        if prefix == "serve":
+            from scenery_insitu_tpu_torch.core.camera import orbit
+
+            for tier in ("exact", "proxy"):
+                view = p16_device_ops(lambda: p16_single(
+                    srv, tier, orbit(cam0, P16_YAWS[0])))
+                log(f"serve_{tier}.device_ops", f"{view} a view "
+                    f"(torch.profiler; a batch renders its views one "
+                    f"by one, {P16_VIEWERS} x that)")
+        log(f"{prefix}.stats", json.dumps(srv.stats))
+        srv.close()
+    return out
+
+
+def run_head(dev, field):
+    """Phase 16 (c): the head node's depth-min composite of 8 rank
+    images: phase 4's field cut into RANKS z slabs, each rendered by
+    `slicer.raycast_mxu` at 1280 x 720 (image and first-hit depth), the
+    head's numpy composite (`runtime/head.depth_min_composite_np`) equal
+    to `ops/composite.composite_depth_min` on the card bit for bit."""
+    import numpy as np
+    import torch
+
+    from scenery_insitu_tpu_torch.config import SliceMarchConfig
+    from scenery_insitu_tpu_torch.core.camera import Camera
+    from scenery_insitu_tpu_torch.core.transfer import for_dataset
+    from scenery_insitu_tpu_torch.core.volume import Volume
+    from scenery_insitu_tpu_torch.ops import slicer
+    from scenery_insitu_tpu_torch.ops.composite import composite_depth_min
+    from scenery_insitu_tpu_torch.runtime.head import depth_min_composite_np
+
+    v = torch.as_tensor(field).to(dev)
+    box = Volume.centered(v, extent=2.0)
+    tf = for_dataset("gray_scott", device=dev)
+    cam = Camera.create(BASE_EYE, fov_y_deg=50.0, near=0.5, far=20.0,
+                        device=dev)
+    d = v.shape[0] // RANKS
+    imgs, deps = [], []
+    for r in range(RANKS):
+        slab = v[r * d:(r + 1) * d].contiguous()
+        origin = box.origin.clone()
+        origin[2] = origin[2] + r * d * box.spacing[2]
+        vol = Volume(slab, origin, box.spacing)
+        spec = slicer.make_spec(cam, tuple(slab.shape),
+                                SliceMarchConfig(chunk=CHUNK))
+        out = slicer.raycast_mxu(vol, tf, cam, GATHER_W, GATHER_H, spec)
+        imgs.append(out.image)
+        deps.append(out.depth)
+    himgs = [x.cpu().numpy() for x in imgs]
+    hdeps = [x.cpu().numpy() for x in deps]
+    t0 = time.perf_counter()
+    img, dep = depth_min_composite_np(himgs, hdeps)
+    head_ms = (time.perf_counter() - t0) * 1e3
+    stack_i, stack_d = torch.stack(imgs), torch.stack(deps)
+    dev_ms = median_ms(lambda _: composite_depth_min(stack_i, stack_d), 5)
+    want_i, want_d = (x.cpu().numpy()
+                      for x in composite_depth_min(stack_i, stack_d))
+    if not (np.array_equal(img, want_i) and np.array_equal(dep, want_d)):
+        raise AssertionError("the head's composite differs from "
+                             "composite_depth_min")
+    live = float(np.isfinite(dep).mean())
+    if not live > 0.0 or not float(img[3].max()) > 0.0:
+        raise AssertionError("the head's composite is empty")
+    log("head.composite", f"bit for bit composite_depth_min over {RANKS} "
+        f"rank images {GATHER_W} x {GATHER_H}; head (numpy) "
+        f"{head_ms:.3f} ms, card {dev_ms:.3f} ms; pixels with a hit "
+        f"{live:.3f}")
+    return dict(head_ms=head_ms, dev_ms=dev_ms)
+
+
+def run_stream(pubs, payloads):
+    """Phase 16 (d): the stream's encoding of the sessions' VDIs through
+    `VDIPublisher(None)` (the encode path, its header fields and blobs),
+    decoded back: the last frame in f32 with zlib bit for bit (its
+    encode timed), the qpack8 P-frame streams' records (`ops/delta`) to
+    the frames' codes bit for bit; bytes a frame against `ops/delta.
+    modeled_delta_traffic` at the run's SKIP and P shares; the encode ms
+    of the P-frame publishers from the sessions' sinks."""
+    import numpy as np
+
+    from scenery_insitu_tpu_torch.core.vdi import VDI
+    from scenery_insitu_tpu_torch.io.vdi_io import (decompress,
+                                                    unpack_delta_payload)
+    from scenery_insitu_tpu_torch.ops import delta as dl
+    from scenery_insitu_tpu_torch.ops.wire import qpack8_quantize_np
+    from scenery_insitu_tpu_torch.runtime.streaming import VDIPublisher
+
+    frames = sorted(payloads)
+    last = payloads[frames[-1]]
+    pub = VDIPublisher(None, codec="zlib")
+    t0 = time.perf_counter()
+    pub.publish(VDI(last["vdi_color"], last["vdi_depth"]), last["meta"])
+    f32_ms = (time.perf_counter() - t0) * 1e3
+    fields, cb, db = pub.outbox[0]
+    color = np.frombuffer(decompress(cb, fields["codec"]), np.float32)
+    depth = np.frombuffer(decompress(db, fields["codec"]), np.float32)
+    if not (np.array_equal(color, np.asarray(last["vdi_color"]).ravel())
+            and np.array_equal(depth,
+                               np.asarray(last["vdi_depth"]).ravel())):
+        raise AssertionError("stream f32: the frame does not decode bit "
+                             "for bit")
+    out = {"f32": len(cb) + len(db), "f32_ms": f32_ms}
+    for name in ("qpack8_delta", "qpack8_delta_8rank"):
+        pub = pubs[name]
+        dec = dl.DeltaDecoder()
+        modes = collections.Counter()
+        changed = slots = 0
+        for i, (fields, cb, db) in enumerate(pub.outbox):
+            dh = fields["delta"]
+            cshape, dshape = fields["color_shape"], fields["depth_shape"]
+            craw = decompress(cb, fields["codec"]) if cb else b""
+            draw = decompress(db, fields["codec"]) if db else b""
+            cp, dp_ = unpack_delta_payload(dh, craw, draw, tuple(cshape),
+                                           tuple(dshape))
+            got = dec.apply(-1, dh["mode"], dh["gen"], dh["base"], cp, dp_,
+                            tuple(fields["qscale"]))
+            if got is None:
+                raise AssertionError(f"stream {name}: a record without "
+                                     f"its base")
+            if name == "qpack8_delta":
+                p = payloads[frames[i]]
+                cc, dd, _, _ = qpack8_quantize_np(
+                    np.asarray(p["vdi_color"]), np.asarray(p["vdi_depth"]))
+                if not (np.array_equal(got[0], cc)
+                        and np.array_equal(got[1], dd)):
+                    raise AssertionError(f"stream {name}: frame "
+                                         f"{frames[i]}'s codes differ")
+            modes[dh["mode"]] += 1
+            if dh["mode"] == "P":
+                changed += dh["c_n"]
+                slots += int(np.prod(cshape))
+        n = len(pub.outbox)
+        k, h, w = pub.outbox[0][0]["color_shape"]      # packed RGBA
+        model = dl.modeled_delta_traffic(
+            k, h, w, skip_frac=modes["SKIP"] / n, p_frac=modes["P"] / n,
+            residual_frac=changed / slots if slots else 0.0,
+            iframe_period=P16_IFRAME)
+        st = pub.delta_stats
+        log(f"stream.{name}", f"modes {dict(modes)}; wire "
+            f"{st['bytes_wire'] / n:.0f} B a frame (records' code "
+            f"bytes) against the model's "
+            f"{model['delta_bytes_per_frame']:.0f} of "
+            f"{model['qpack8_bytes_per_frame']}; after zlib "
+            f"{sum(len(cb) + len(db) for _, cb, db in pub.outbox) / n:.0f}"
+            f" B a frame; stats {json.dumps(st)}")
+        out[name] = dict(modes=dict(modes), model=model)
+    log("stream.f32", f"{out['f32']} B a frame after zlib (K={K}, bit "
+        f"for bit), its encode {f32_ms:.3f} ms on the host")
+    return out
+
+
+def run_h264(path, payloads):
+    """Phase 16 (e): the session's I_PCM H.264 stream: its size equal to
+    `io/h264.ipcm_stream_bytes` for the frames' decoded images."""
+    from scenery_insitu_tpu_torch.io.h264 import ipcm_stream_bytes
+
+    p = payloads[min(payloads)]
+    h, w = p["vdi_color"].shape[-2:]
+    want = ipcm_stream_bytes(int(w) & ~1, int(h) & ~1, len(payloads))
+    got = os.path.getsize(path)
+    log("h264.stream_bytes", f"{got} (the I_PCM layout's {want}; "
+        f"{len(payloads)} frames of {w} x {h})")
+    if got != want:
+        raise AssertionError(f"the H.264 stream holds {got} bytes, the "
+                             f"I_PCM layout {want}")
+    return got
+
+
+def run_sockets(dev, payloads):
+    """Phase 16 (f), where pyzmq and msgpack are installed: the sockets
+    in one process, session frames -> `VDIPublisher` -> `VDISubscriber`
+    (bit for bit, f32 with zlib) -> `ViewerServer` -> `ViewerClient`
+    (one answer a tier)."""
+    import importlib.util
+
+    missing = [m for m in ("zmq", "msgpack")
+               if importlib.util.find_spec(m) is None]
+    if missing:
+        log("sockets", f"not run: {', '.join(missing)} not installed on "
+            f"this machine (the loopback needs them; every other part of "
+            f"phase 16 ran)")
+        return None
+    import numpy as np
+
+    from scenery_insitu_tpu_torch.config import FrameworkConfig
+    from scenery_insitu_tpu_torch.core.camera import Camera, orbit
+    from scenery_insitu_tpu_torch.core.vdi import VDI
+    from scenery_insitu_tpu_torch.runtime import streaming as stm
+    from scenery_insitu_tpu_torch.serve import (ViewerClient, ViewerFrame,
+                                                ViewerServer)
+
+    f = max(payloads)
+    p = payloads[f]
+    pub = stm.VDIPublisher("tcp://127.0.0.1:0", codec="zlib")
+    sub = stm.VDISubscriber(pub.endpoint)
+    srv = ViewerServer(FrameworkConfig(), connect=pub.endpoint,
+                       bind="tcp://127.0.0.1:0", device=dev)
+    clients = [ViewerClient(srv.endpoint, tier=t)
+               for t in ("exact", "proxy", "wire")]
+    try:
+        deadline = time.monotonic() + 30
+        got = None
+        while time.monotonic() < deadline and (got is None
+                                               or srv.frame is None):
+            pub.publish(VDI(p["vdi_color"], p["vdi_depth"]), p["meta"])
+            got = sub.receive(timeout_ms=100) if got is None else got
+            srv.pump_stream(timeout_ms=100)
+        if got is None or srv.frame is None:
+            raise AssertionError("sockets: no frame crossed the loopback")
+        if not (np.array_equal(got[0].color, np.asarray(p["vdi_color"]))
+                and np.array_equal(got[0].depth,
+                                   np.asarray(p["vdi_depth"]))):
+            raise AssertionError("sockets: the subscriber's VDI differs")
+        cam = orbit(Camera.create(BASE_EYE, fov_y_deg=50.0, near=0.5,
+                                  far=20.0, device=dev), 0.1)
+        for c in clients:
+            c.request(cam)
+        while time.monotonic() < deadline and \
+                any(c.last is None for c in clients):
+            srv.run_once(timeout_ms=10)
+            for c in clients:
+                c.poll(timeout_ms=0)
+        if not all(isinstance(c.last, ViewerFrame) for c in clients):
+            raise AssertionError("sockets: a viewer got no answer")
+        log("sockets", f"loopback frame {f}: subscriber bit for bit, "
+            f"answers {[(c.last.tier, c.last.wire_bytes) for c in clients]}")
+        return True
+    finally:
+        for c in clients:
+            c.close()
+        srv.close()
+        sub.close()
+        pub.close()
+
+
+def run_phase16(dev, done, phase3_launches=None, field=None):
+    """Phase 16 (a)-(f); ``phase3_launches`` are phase 3's counts (None:
+    the bf16 frames are held to the f32 frames' alone), ``field``
+    phase 4's host field (made here when None). Returns each part's
+    summary and the main path's launch counts."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    t16 = time.perf_counter()
+    bf16 = run_bf16(dev, phase3_launches)
+    torch.cuda.empty_cache()
+    done("phase16.a")
+    tmp = tempfile.mkdtemp(prefix="p16_")
+    try:
+        launches, payloads, pubs, ms = run_p16_sessions(
+            dev, os.path.join(tmp, "session.h264"))
+        torch.cuda.empty_cache()
+        done("phase16.sessions")
+        serve = run_serve(dev, payloads)
+        torch.cuda.empty_cache()
+        done("phase16.b")
+        if field is None:
+            field = phase4_field(dev)
+        head = run_head(dev, field)
+        del field
+        torch.cuda.empty_cache()
+        done("phase16.c")
+        stream = run_stream(pubs, payloads)
+        done("phase16.d")
+        h264 = run_h264(os.path.join(tmp, "session.h264"), payloads)
+        done("phase16.e")
+        sockets = run_sockets(dev, payloads)
+        done("phase16.f")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log("phase16.wall_s", f"{time.perf_counter() - t16:.1f} (bf16 "
+        f"resampling, the serving tier, the head node, the stream, H.264 "
+        f"and the sockets)")
+    return dict(bf16=bf16, launches=launches, session_ms=ms, serve=serve,
+                head=head, stream=stream, h264=h264, sockets=sockets)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -7220,6 +7937,11 @@ def main(argv=None) -> int:
                          "scene session, steering with the scenario zoo "
                          "and the example twins), then exit without the "
                          "kernel table")
+    ap.add_argument("--phase16-only", action="store_true",
+                    help="run the build and phase 16 only (bf16 "
+                         "resampling, the serving tier, the head node, the "
+                         "stream, H.264 and the sockets), then exit "
+                         "without the kernel table")
     ap.add_argument("--events-compare", action="append", default=[],
                     metavar="NAME=PATH",
                     help="another design of csrc/fold_chunk.cu (the same C "
@@ -7274,6 +7996,12 @@ def main(argv=None) -> int:
         run_phase15(dev, phase_done)
         phase_done("phase15")
         log("phase15_only", "done (no kernel table: run without flags for "
+            "it)")
+        return 0
+    if args.phase16_only:
+        run_phase16(dev, phase_done)
+        phase_done("phase16")
+        log("phase16_only", "done (no kernel table: run without flags for "
             "it)")
         return 0
     if args.phase11_only:
@@ -7390,8 +8118,10 @@ def main(argv=None) -> int:
     p14 = run_phase14(dev, phase_done)
     phase_done("phase14")
     p15 = run_phase15(dev, phase_done, scene_field, dist_ms)
-    del scene_field
     phase_done("phase15")
+    p16 = run_phase16(dev, phase_done, launches, scene_field)
+    del scene_field
+    phase_done("phase16")
     n_frames = WARMUP_FRAMES + TIMED_FRAMES
 
     table = [
@@ -7409,7 +8139,8 @@ def main(argv=None) -> int:
              launches=launches["seg_fold_compact"],
              max_abs_err=max(fold[16]["seg"]["err"], fold[1]["seg"]["err"],
                              fold["frame"]["err"], p14["hybrid"]["k1_err"],
-                             p15["scene"]["k1_err"]),
+                             p15["scene"]["k1_err"],
+                             p16["bf16"]["k1_err"]),
              ms=fold[16]["seg"]["ms"],
              plain_ms=fold[16]["seg"]["plain_ms"],
              bound_ms=fold[16]["seg"]["bound_ms"],
@@ -7610,6 +8341,14 @@ def main(argv=None) -> int:
             "steered": p15["steer"]["launches"].get(name, 0),
             **{f"twin_{t}": v.get(name, 0)
                for t, v in p15["twins"].items()}}
+        # phase 16: the bf16 and f32 frames (a), and the main path's two
+        # sessions (phase 7's, and over phase 4's 8 ranks)
+        row["phase16_launches"] = {
+            "bf16_frames": p16["bf16"]["launches"].get(name, 0),
+            "f32_frames": p16["bf16"]["f32_launches"].get(name, 0),
+            "sessions": p16["launches"].get(name, 0)}
+        if name == "seg_fold_compact":
+            row["bf16_max_abs_err"] = p16["bf16"]["k1_err"]
         if name == "seg_fold_compact":
             row["scene_max_abs_err"] = p15["scene"]["k1_err"]
         if name == "resegment_sorted":

@@ -21,8 +21,10 @@ CUDA device they raise unless the caller asks for ``device="cpu"``.
 
 import torch
 
-# The slice march resamples every slice with two f32 matmuls; TF32 would
-# round their operands to 10 mantissa bits and break f32 parity with the
-# reference (and the plain versions the kernels are held against).
+# The slice march resamples every slice with two matmuls, f32 or (on the
+# card, ``matmul_dtype="bf16"``) bf16 operands with f32 accumulation and
+# an f32 second product; TF32 would round the f32 operands to 10 mantissa
+# bits and break parity with the reference (and the plain versions the
+# kernels are held against).
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

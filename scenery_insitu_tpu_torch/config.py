@@ -75,9 +75,9 @@ class SliceMarchConfig:
     scale: float = 1.25
     # slices folded per chunk
     chunk: int = 16
-    # resampling matmul operand dtype; this port resamples in f32 (bf16 is
-    # ROADMAP queue A1), so make_spec resolves "bf16" to "f32" as the
-    # reference does off the TPU
+    # resampling matmul operand dtype: make_spec resolves "bf16" to bf16
+    # on a CUDA device (f32 accumulation) and to "f32" on the CPU, as the
+    # reference does on and off the TPU
     matmul_dtype: str = "bf16"
     # storage dtype of the marched volume copy
     render_dtype: str = "f32"
@@ -374,7 +374,8 @@ class SLOConfig:
 @dataclass(frozen=True)
 class FaultConfig:
     """Failure-isolation knobs; the session reads ``max_sink_failures``
-    (``runtime/failsafe.SinkGuard``), the stream knobs are ROADMAP A11's."""
+    (``runtime/failsafe.SinkGuard``), the stream endpoints the rest
+    (``runtime/streaming.py``, ``serve/``)."""
 
     heartbeat_period_s: float = 2.0
     liveness_timeout_s: float = 10.0
@@ -451,7 +452,7 @@ class DeliveryConfig:
 
 @dataclass(frozen=True)
 class ServeConfig:
-    """VDI edge-serving tier (ROADMAP A11)."""
+    """VDI edge-serving tier (``serve/``)."""
 
     bind: str = "tcp://*:6657"
     connect: str = "tcp://localhost:6655"
@@ -505,7 +506,7 @@ class ServeConfig:
 
 @dataclass(frozen=True)
 class StreamConfig:
-    """Steering / streaming endpoints (ROADMAP A11)."""
+    """Steering / streaming endpoints (``runtime/streaming.py``)."""
 
     steer_bind: str = "tcp://*:6655"
     steer_connect: str = "tcp://localhost:6655"

@@ -1,5 +1,6 @@
 """Standalone in-situ loop on the port: built-in Gray-Scott sim -> VDI frame
-over the session's rank mesh -> PNG frames (+ optional checkpoints).
+over the session's rank mesh -> PNG frames (+ optional ZMQ VDI stream,
+steering, movie, live video and checkpoints).
 
 The twin of the reference's ``examples/insitu_grayscott.py``:
 
@@ -8,10 +9,12 @@ The twin of the reference's ``examples/insitu_grayscott.py``:
     python -m scenery_insitu_tpu_torch.examples.insitu_grayscott \\
         --frames 3 --grid 16 --device cpu --checkpoint-every 2
     ... --resume out/ckpt_00004.npz                   # continue a run
+    ... --publish 'tcp://*:6655' --steer-bind 'tcp://*:6656'  # + stream
+    ... --movie out/run.h264 --live-udp 3337          # + video
 
-``--device`` defaults to CUDA. The reference's streaming options
-(``--publish``, ``--steer-bind``, ``--movie``, ``--live-udp``) are
-ROADMAP A11 and raise.
+``--device`` defaults to CUDA. ``--publish`` and ``--steer-bind`` need
+pyzmq and msgpack, ``--live-udp`` and a ``--movie`` path not ending in
+``.h264`` need cv2 (``.h264`` writes the I_PCM H.264 stream with numpy).
 """
 
 from __future__ import annotations
@@ -35,16 +38,18 @@ def main(argv=None) -> int:
                     "(see InSituSession.prewarm_regimes)")
     ap.add_argument("--checkpoint-every", type=int, default=0)
     ap.add_argument("--resume", default="", help="checkpoint to resume from")
-    for flag in ("--publish", "--steer-bind", "--movie"):
-        ap.add_argument(flag, default="", help="not ported (ROADMAP A11)")
+    ap.add_argument("--publish", default="",
+                    help="ZMQ bind address to stream VDIs (e.g. tcp://*:6655)")
+    ap.add_argument("--steer-bind", default="",
+                    help="ZMQ bind address accepting camera steering "
+                         "messages (runtime.streaming.SteeringPublisher)")
+    ap.add_argument("--movie", default="",
+                    help="also write a movie of the run (.h264: the I_PCM "
+                         "H.264 stream; else cv2's writer)")
     ap.add_argument("--live-udp", type=int, default=0,
-                    help="not ported (ROADMAP A11)")
+                    help="also stream frames live over UDP on this port "
+                         "(view with runtime.streaming.VideoReceiver)")
     args = ap.parse_args(argv)
-    for name in ("publish", "steer_bind", "movie", "live_udp"):
-        if getattr(args, name):
-            raise NotImplementedError(
-                f"--{name.replace('_', '-')} (VDI streaming, steering and "
-                f"video) is not ported yet (ROADMAP A11)")
 
     from scenery_insitu_tpu_torch.config import FrameworkConfig
     from scenery_insitu_tpu_torch.runtime.checkpoint import (checkpoint_sink,
@@ -57,7 +62,26 @@ def main(argv=None) -> int:
         f"sim.grid=[{g},{g},{g}]", f"mesh.num_devices={args.ranks}",
         "slicer.engine=mxu", "vdi.adaptive_mode=temporal",
         "runtime.dataset=gray_scott")
-    sess = InSituSession(cfg, sinks=[png_sink(args.out)], device=args.device)
+    sinks = [png_sink(args.out)]
+    movie = None
+    if args.publish:
+        from scenery_insitu_tpu_torch.runtime.streaming import (VDIPublisher,
+                                                                stream_sink)
+        sinks.append(stream_sink(VDIPublisher(args.publish)))
+    if args.movie:
+        from scenery_insitu_tpu_torch.runtime.streaming import video_sink
+        movie = video_sink(args.movie, codec="h264_ipcm"
+                           if args.movie.endswith(".h264") else "auto")
+        sinks.append(movie)
+    if args.live_udp:
+        from scenery_insitu_tpu_torch.runtime.streaming import (
+            VideoStreamer, live_video_sink)
+        sinks.append(live_video_sink(VideoStreamer(port=args.live_udp)))
+    sess = InSituSession(cfg, sinks=sinks, device=args.device)
+    if args.steer_bind:
+        from scenery_insitu_tpu_torch.runtime.streaming import (
+            SteeringEndpoint)
+        sess.steering = SteeringEndpoint(args.steer_bind)
     sess.orbit_rate = args.orbit
     if args.checkpoint_every:
         sess.sinks.append(checkpoint_sink(
@@ -68,7 +92,11 @@ def main(argv=None) -> int:
     if args.prewarm:
         times = sess.prewarm_regimes()
         print("prewarmed regimes:", {k: f"{v}s" for k, v in times.items()})
-    sess.run(args.frames)
+    try:
+        sess.run(args.frames)
+    finally:
+        if movie is not None:   # finalize the movie even on interrupt
+            movie.release()
     print(f"wrote {args.frames} frames to {args.out}/ "
           f"(engine={sess.engine}, mode={sess.mode}, "
           f"device={sess.device})")

@@ -2,7 +2,8 @@
 the reference's ``examples/volume_from_file.py`` (≅ the original
 VolumeFromFileExample.kt:69-1116). Loads a raw volume (or a procedural
 one), renders a view sweep on the slice march and optionally stores the
-views' VDIs.
+views' VDIs or publishes them over ZMQ (``--publish``; needs pyzmq and
+msgpack).
 
     python -m scenery_insitu_tpu_torch.examples.volume_from_file \\
         --out out/                                    # procedural, card
@@ -10,8 +11,7 @@ views' VDIs.
         --dataset Kingsnake --data-dir /data --out out/ --store-vdis
     ... --device cpu                                  # the plain versions
 
-``--device`` defaults to CUDA. ``--publish`` (streaming the VDIs) is
-ROADMAP A11 and raises.
+``--device`` defaults to CUDA.
 """
 
 from __future__ import annotations
@@ -32,14 +32,11 @@ def main(argv=None) -> int:
     ap.add_argument("--views", type=int, default=5)
     ap.add_argument("--store-vdis", action="store_true")
     ap.add_argument("--publish", default="",
-                    help="not ported (ROADMAP A11)")
+                    help="ZMQ bind address to stream generated VDIs")
     ap.add_argument("--k", type=int, default=16, help="max supersegments")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
     args = ap.parse_args(argv)
-    if args.publish:
-        raise NotImplementedError("--publish (VDI streaming) is not ported "
-                                  "yet (ROADMAP A11)")
 
     import numpy as np
     import torch
@@ -63,6 +60,10 @@ def main(argv=None) -> int:
 
     cam0 = Camera.create((0.0, 0.5, 3.0), fov_y_deg=50.0, near=0.3, far=20.0,
                          device=dev)
+    pub = None
+    if args.publish:
+        from scenery_insitu_tpu_torch.runtime.streaming import VDIPublisher
+        pub = VDIPublisher(args.publish)
     for i in range(args.views):
         cam = orbit(cam0, 2.0 * np.pi * i / max(args.views, 1) * 0.25)
         spec = slicer.make_spec(cam, tuple(vol.data.shape),
@@ -70,13 +71,19 @@ def main(argv=None) -> int:
         out = slicer.raycast_mxu(vol, tf, cam, args.width, args.height, spec)
         save_png(os.path.join(args.out, f"view{i:03d}.png"),
                  out.image.cpu().numpy())
-        if args.store_vdis:
+        if args.store_vdis or pub is not None:
             vdi, meta, _ = slicer.generate_vdi_mxu(
                 vol, tf, cam, spec,
                 VDIConfig(max_supersegments=args.k, adaptive_iters=4))
             meta = meta._replace(index=torch.tensor(i, dtype=torch.int32))
-            save_vdi(os.path.join(args.out, f"vdi{i:03d}.npz"), vdi, meta)
+            if args.store_vdis:
+                save_vdi(os.path.join(args.out, f"vdi{i:03d}.npz"), vdi,
+                         meta)
+            if pub is not None:
+                pub.publish(vdi, meta)
         print(f"view {i + 1}/{args.views} done")
+    if pub is not None:
+        pub.close()
     print(f"wrote {args.views} views to {args.out}/")
     return 0
 

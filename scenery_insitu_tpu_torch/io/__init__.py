@@ -1,1 +1,1 @@
-"""VDI artifacts and wire compression."""
+"""VDI artifacts, wire compression and the I_PCM H.264 writer."""

@@ -83,16 +83,22 @@ _LEDGER_REGISTRY: Dict[str, str] = {
                           "frame schedule runs (nothing to overlap)",
     "config.removed_key": "a removed config key was set and ignored "
                           "(deprecation note in the reason)",
+    "delivery.drain": "teardown drain of the async delivery queue timed "
+                      "out; undelivered frames were abandoned so "
+                      "shutdown could proceed",
+    "delivery.encode": "parallel per-tile encode requested together "
+                       "with temporal delta (stateful per-tile "
+                       "history); the publisher encodes serially",
+    "delivery.shed": "the bounded async delivery queue overflowed under "
+                     "overflow='drop_oldest'; the stalest undelivered "
+                     "frame was shed latest-wins",
     "delta.reuse": "temporal fragment reuse requested where no marched "
                    "VDI fragment can be carried (gather/hybrid/plain/"
                    "particle modes, scan blocks); every frame "
                    "re-marches",
-    "delivery.drain": "teardown drain of the async delivery queue timed "
-                      "out; undelivered frames were abandoned so "
-                      "shutdown could proceed",
-    "delivery.shed": "the bounded async delivery queue overflowed under "
-                     "overflow='drop_oldest'; the stalest undelivered "
-                     "frame was shed latest-wins",
+    "head.rank_down": "head node: a render rank went silent past "
+                      "stale_frames; frames composite without it "
+                      "(degraded flag) until it returns",
     "io.vdi_codec": "zstd codec unavailable; VDI IO degrades to stdlib "
                     "zlib",
     "lod.engine": "a multi-level brick map reached the gather engine, "
@@ -118,6 +124,16 @@ _LEDGER_REGISTRY: Dict[str, str] = {
                           "rebuilt the compiled steps (a repeated TF "
                           "restores its cached steps instead — the "
                           "recompile-or-reuse contract)",
+    "serve.client": "edge server: a malformed or oversized client "
+                    "message was dropped; the serve loop keeps going",
+    "serve.shed": "edge server admission control refused a viewer or "
+                  "camera request (max_viewers/queue_cap); the client "
+                  "got a typed shed answer, not an exception",
+    "serve.stale": "edge server answered from a VDI more than "
+                   "serve.staleness_frames behind the stream head; "
+                   "answers are stamped stale",
+    "serve.tier": "a client requested an unknown quality tier; the "
+                  "serve.default_tier renders instead",
     "session.sink": "a frame/tile sink or on_steer callback failed "
                     "max_sink_failures consecutive times and is "
                     "quarantined (disabled) for the rest of the run",
@@ -125,6 +141,21 @@ _LEDGER_REGISTRY: Dict[str, str] = {
                   "cross its configured budget (metric and quantile in "
                   "the reason); the run keeps going, the breach is the "
                   "signal",
+    "stream.delta_resync": "a temporal-delta P/SKIP record arrived "
+                           "without its base tile retained (an earlier "
+                           "message was lost); dropped while waiting "
+                           "for the next forced I-tile",
+    "stream.gap": "VDI stream continuity: a sequence gap, duplicate/"
+                  "reordered message, publisher restart, or a tile "
+                  "frame abandoned incomplete past the assembler window",
+    "stream.integrity": "a corrupt/truncated stream message failed "
+                        "checksum/size/shape validation and was dropped "
+                        "before decode",
+    "stream.liveness": "a stream endpoint saw no traffic past "
+                       "liveness_timeout_s and is reconnecting with "
+                       "bounded exponential backoff",
+    "stream.steering": "a malformed or oversized steering message was "
+                       "dropped; the drain keeps going",
     "topology.hier": "a hierarchical topology knob is inert on this "
                      "configuration (one host, or a mode with no "
                      "two-level composite); the flat single-level "
@@ -151,11 +182,6 @@ _COUNTER_REGISTRY: Dict[str, str] = {
     "delivery_frames_delivered": "the async delivery worker finished "
                                  "one frame's sinks (tiles in column "
                                  "order, then the frame sinks)",
-    "delta_bytes_saved": "wire bytes avoided by a temporal-delta "
-                         "(SKIP/P) record vs the full I-tile encoding",
-    "delta_march_skipped": "a rank's re-march was skipped because its "
-                           "occupancy range signature was unchanged",
-    "delta_tiles_skipped": "an unchanged tile shipped as a SKIP record",
     "delivery_frames_enqueued": "the render loop handed one fetched "
                                 "frame to the async delivery queue",
     "delivery_frames_inflight": "net frames inside the delivery plane "
@@ -163,10 +189,22 @@ _COUNTER_REGISTRY: Dict[str, str] = {
                                 "shed) — a gauge expressed as a counter",
     "delivery_sheds": "the bounded delivery queue dropped its oldest "
                       "undelivered frame (overflow='drop_oldest')",
+    "delta_bytes_saved": "wire bytes avoided by a temporal-delta "
+                         "(SKIP/P) record vs the full I-tile encoding",
+    "delta_march_skipped": "a rank's re-march was skipped because its "
+                           "occupancy range signature was unchanged",
+    "delta_tiles_skipped": "an unchanged tile shipped as a SKIP record",
     "flight_dumps": "the flight recorder dumped the last obs window "
                     "after an unhandled frame-loop exception",
+    "frames_abandoned": "the tile assembler abandoned a frame that "
+                        "stayed incomplete past its window",
     "frames_eager_dispatch": "a frame went through the eager per-frame "
                              "dispatch path",
+    "head_degraded_frames": "the head composited a frame with >= 1 rank "
+                            "missing (degraded flag set)",
+    "head_ranks_down": "head liveness marked a render rank silent",
+    "head_ranks_readmitted": "a silent render rank resumed and was "
+                             "readmitted to the composite",
     "hier_composite_builds": "a two-level hierarchical composite "
                              "schedule was built",
     "hier_plain_levels": "a plain (non-ring) allgather level of the "
@@ -185,10 +223,39 @@ _COUNTER_REGISTRY: Dict[str, str] = {
     "ring_exchange_builds": "a ring all-to-all exchange program was "
                             "built",
     "ring_steps_built": "one hop of a ring exchange was built",
+    "serve_answers": "the edge server sent one answer to a viewer",
+    "serve_batch_cameras": "cameras rendered inside batched serve "
+                           "dispatches (count = cameras)",
+    "serve_batches": "the edge server ran one batched render dispatch",
+    "serve_bytes_out": "bytes sent to viewers by the edge server",
+    "serve_cache_hits": "a viewer camera hit the camera-delta cache",
+    "serve_client_drops": "a malformed/oversized client message was "
+                          "dropped by the serve loop",
+    "serve_clients_evicted": "an idle viewer was evicted from the edge "
+                             "server",
+    "serve_frames_adopted": "the serve loop adopted a new VDI frame "
+                            "from the stream",
+    "serve_proxy_builds": "a planar-reprojection proxy renderer was "
+                          "built",
+    "serve_requests": "the edge server received one client camera "
+                      "request",
+    "serve_requests_coalesced": "duplicate per-frame camera requests "
+                                "were coalesced into one render",
+    "serve_sheds": "admission control refused a viewer or camera "
+                   "request",
+    "serve_stale_answers": "an answer was rendered from a VDI beyond "
+                           "the staleness budget (stamped stale)",
     "sink_failures": "a frame/tile sink or steering callback raised",
     "sinks_quarantined": "a sink was disabled after repeated "
                          "consecutive failures",
     "slo_breaches": "the live SLO engine recorded one budget breach",
+    "steering_drops": "a malformed steering message was dropped",
+    "stream_drops": "a stream message was dropped (integrity or "
+                    "continuity validation)",
+    "stream_gap_messages": "a sequence gap/duplicate/reorder was "
+                           "observed on a stream",
+    "stream_reconnects": "a stream endpoint reconnected after a "
+                         "liveness timeout",
     "tf_steps_reused": "a steered transfer function restored its cached "
                        "compiled steps",
     "tf_updates": "a steered transfer-function update was applied",

@@ -7,7 +7,8 @@ footprint. Every virtual-camera ray passes through the eye, so its
 crossing of slice ``w = z`` is a uniform scale-and-shift of the
 intermediate pixel grid, and resampling one slice onto the whole ray
 bundle is separable bilinear: two banded interpolation matrices applied
-as ``Wv @ slice @ Wu^T`` (two batched f32 matmuls). The slices are shaded
+as ``Wv @ slice @ Wu^T`` (`resample_product`: two batched matmuls, f32,
+or on the card bf16 operands with f32 accumulation). The slices are shaded
 by the transfer function, opacity-corrected for the per-ray inter-slice
 path length, and fed chunk by chunk, front to back, to a supersegment
 fold. The VDI lives on the virtual camera's grid and its metadata
@@ -121,6 +122,55 @@ def choose_axis(cam: Camera) -> Tuple[int, int]:
     return axis, (1 if d[axis] >= 0 else -1)
 
 
+def resolve_matmul_dtype(matmul_dtype: str, on_card: bool) -> str:
+    """The resampling products' operand dtype: ``bf16`` only on a CUDA
+    device, as the reference resamples in bf16 only on its accelerator
+    (``scenery_insitu_tpu/ops/slicer.py:152-155``)."""
+    return "bf16" if matmul_dtype == "bf16" and on_card else "f32"
+
+
+def resample_product(wv: torch.Tensor, slices: torch.Tensor,
+                     wu: torch.Tensor, matmul_dtype: str = "f32"
+                     ) -> torch.Tensor:
+    """The banded resampling product ``wv @ slices @ wu^T`` per chunk
+    plane: ``wv f32[C, B, Y]``, ``slices f32[C, Y, X]`` (or ``[C, D, Y,
+    X]``, D channels) and ``wu f32[C, I, X]`` -> ``f32[C, B, I]`` (or
+    ``[C, D, B, I]``).
+
+    ``bf16`` rounds the three operands to bf16 and accumulates in f32.
+    The reference's einsum (``preferred_element_type=f32``) lowers to two
+    products, ``wv @ slices`` first, whose f32 intermediate meets the
+    bf16 ``wu`` in the second (its jaxpr), so here too: on CUDA the first
+    product runs on bf16 operands with an f32 output (``aten::bmm.dtype``;
+    a torch without it raises, there is no quiet f32 run) and the second
+    in f32; on the CPU both are f32 products of the rounded operands.
+    ``f32`` is the plain f32 pair."""
+    if matmul_dtype == "bf16":
+        wv, slices, wu = (t.to(torch.bfloat16) for t in (wv, slices, wu))
+        if wv.is_cuda:
+            return _bf16_product_cuda(wv, slices, wu)
+        wv, slices, wu = wv.float(), slices.float(), wu.float()
+    wut = wu.transpose(1, 2)
+    if slices.dim() == 3:
+        return torch.bmm(torch.bmm(wv, slices), wut)
+    return torch.matmul(torch.matmul(wv[:, None], slices), wut[:, None])
+
+
+def _bf16_product_cuda(wv: torch.Tensor, slices: torch.Tensor,
+                       wu: torch.Tensor) -> torch.Tensor:
+    """`resample_product` on bf16 CUDA operands: the first product with
+    an f32 output, the second in f32 against the rounded ``wu``."""
+    wut = wu.float().transpose(1, 2)
+    if slices.dim() == 3:
+        first = torch.bmm(wv, slices, out_dtype=torch.float32)
+        return torch.bmm(first, wut)
+    c, d, y, x = slices.shape
+    b = wv.shape[1]
+    first = torch.bmm(wv[:, None].expand(c, d, b, y).reshape(c * d, b, y),
+                      slices.reshape(c * d, y, x), out_dtype=torch.float32)
+    return torch.matmul(first.reshape(c, d, b, x), wut[:, None])
+
+
 def make_spec(cam: Camera, vol_shape: Tuple[int, int, int],
               cfg: Optional[SliceMarchConfig] = None,
               axis_sign: Optional[Tuple[int, int]] = None,
@@ -129,8 +179,9 @@ def make_spec(cam: Camera, vol_shape: Tuple[int, int, int],
 
     ``multiple_of`` rounds the intermediate dims up to a multiple of it:
     the distributed step splits the width into one column block per
-    rank. The card is not a TPU, so the reference's off-TPU rules hold:
-    ``matmul_dtype`` resolves to f32 (bf16 resampling is a later PR) and
+    rank. The card takes the TPU's place in the reference's rules:
+    ``matmul_dtype="bf16"`` resolves to bf16 when the camera lies on a
+    CUDA device and to f32 on the CPU (`resample_product`), and
     ``occupancy_vtiles=-1`` to 0. ``fold="auto"`` resolves by the
     camera's device: ``pallas_seg`` (kernels K1/K2) on CUDA, ``xla`` on
     the CPU."""
@@ -142,9 +193,10 @@ def make_spec(cam: Camera, vol_shape: Tuple[int, int, int],
     rnd = lambda n: max(step, int(-(-int(n * cfg.scale) // step)) * step)
     ni = rnd(dims_xyz[u_axis])
     nj = rnd(dims_xyz[v_axis])
+    on_card = cam.eye.device.type == "cuda"
     fold = cfg.fold
     if fold == "auto":
-        fold = "pallas_seg" if cam.eye.device.type == "cuda" else "xla"
+        fold = "pallas_seg" if on_card else "xla"
     if fold not in FOLDS:
         raise ValueError(f"unknown fold schedule {fold!r} (expected 'auto', "
                          "'xla', 'pallas', 'seg', 'pallas_seg', "
@@ -155,7 +207,9 @@ def make_spec(cam: Camera, vol_shape: Tuple[int, int, int],
     if vt:
         vt = max(1, min(vt, dims_xyz[v_axis] // 2, nj // 2))
     return AxisSpec(axis=axis, sign=sign, ni=ni, nj=nj, chunk=cfg.chunk,
-                    matmul_dtype="f32", s_floor=cfg.s_floor,
+                    matmul_dtype=resolve_matmul_dtype(cfg.matmul_dtype,
+                                                      on_card),
+                    s_floor=cfg.s_floor,
                     skip_empty=cfg.skip_empty, fold=fold, vtiles=vt,
                     render_dtype=cfg.render_dtype)
 
@@ -547,6 +601,7 @@ def slice_march(vol: Volume, tf: TransferFunction, axcam: AxisCamera,
     ou, su, nu, ov, sv, nv = _axis_params(vol, spec)
     eu, ev, ew = axcam.eye_u, axcam.eye_v, axcam.eye_w
     dev = volp.device
+    mm = spec.matmul_dtype
 
     length = axcam.ray_lengths()                           # [Nj, Ni]
     ds = torch.abs(axcam.dwm) / axcam.zp                   # depth-ratio step
@@ -572,15 +627,14 @@ def slice_march(vol: Volume, tf: TransferFunction, axcam: AxisCamera,
     def rows_val(wv_r, slices, wu, keep_r, ratio_r):
         """Raw-mode block: resampled values ([C, B, Ni]) clipped to [0, 1]
         BEFORE the -1 sentinel is written where a sample is dead."""
-        val = torch.bmm(torch.bmm(wv_r, slices), wu.transpose(1, 2))
+        val = resample_product(wv_r, slices, wu, mm)
         return torch.where(keep_r, torch.clamp(val, 0.0, 1.0), -1.0)
 
     def rows_rgba(wv_r, slices, wu, keep_r, ratio_r):
         """Resample + shade one block of output rows ([C, 4, B, Ni])."""
         if pre_shaded:
             # stored premultiplied RGBA, alpha encoded per nominal step
-            val = torch.matmul(torch.matmul(wv_r[:, None], slices),
-                               wu.transpose(1, 2)[:, None])
+            val = resample_product(wv_r, slices, wu, mm)
             a_res = torch.clamp(val[:, 3], 0.0, 1.0 - 1e-6)
             a_res = torch.where(keep_r, a_res, 0.0)
             alpha = adjust_opacity(a_res, ratio_r[None])
@@ -588,8 +642,7 @@ def slice_march(vol: Volume, tf: TransferFunction, axcam: AxisCamera,
             scale = alpha / torch.clamp(a_res, min=1e-6)
             return torch.cat([torch.clamp(val[:, :3], 0.0, 1.0)
                               * scale[:, None], alpha[:, None]], dim=1)
-        val = torch.bmm(torch.bmm(wv_r, slices), wu.transpose(1, 2))
-        val = torch.clamp(val, 0.0, 1.0)
+        val = torch.clamp(resample_product(wv_r, slices, wu, mm), 0.0, 1.0)
         rgb, alpha = tf(val)                    # [C,B,Ni,3], [C,B,Ni]
         # outside-volume samples are transparent even where the transfer
         # function maps value 0 to nonzero alpha

@@ -41,6 +41,8 @@ from scenery_insitu_tpu_torch.ops.sampling import adjust_opacity
 from scenery_insitu_tpu_torch.ops.slicer import (AxisCamera, AxisSpec,
                                                  _interp_matrix,
                                                  make_axis_camera,
+                                                 resample_product,
+                                                 resolve_matmul_dtype,
                                                  warp_to_camera)
 
 # pixels of a row block of `render_vdi_exact` times its event count: the
@@ -60,15 +62,17 @@ def axis_spec_from_meta(meta: VDIMetadata, chunk: int = 16,
                         matmul_dtype: str = "bf16") -> AxisSpec:
     """The static AxisSpec of a slice-march VDI from its metadata alone:
     the virtual camera's forward axis is a volume axis (view row 2 is
-    -forward), and the grid is the window. ``matmul_dtype`` resolves to
-    f32, as `slicer.make_spec` resolves it (bf16 resampling is ROADMAP
-    A1)."""
+    -forward), and the grid is the window. ``matmul_dtype`` resolves as
+    `slicer.make_spec` resolves it: bf16 only when the metadata lies on
+    a CUDA device."""
     fwd = -meta.view[2, :3].detach().cpu().numpy()
     axis = int(np.argmax(np.abs(fwd)))
     sign = 1 if fwd[axis] >= 0 else -1
     wd = meta.window_dims.detach().cpu().numpy()
+    on_card = meta.view.device.type == "cuda"
     return AxisSpec(axis=axis, sign=sign, ni=int(wd[0]), nj=int(wd[1]),
-                    chunk=chunk, matmul_dtype="f32")
+                    chunk=chunk,
+                    matmul_dtype=resolve_matmul_dtype(matmul_dtype, on_card))
 
 
 def axis_camera_from_meta(meta: VDIMetadata, spec: AxisSpec) -> AxisCamera:
@@ -174,13 +178,14 @@ def _content_aabb(vdi: VDI, axcam0: AxisCamera, s_count: int):
 
 def _resample_planes(vdi: VDI, axcam0: AxisCamera, s0: torch.Tensor,
                      dt_ref: torch.Tensor, pos_u: torch.Tensor,
-                     pos_v: torch.Tensor) -> torch.Tensor:
+                     pos_v: torch.Tensor, matmul_dtype: str = "f32"
+                     ) -> torch.Tensor:
     """The per-plane step of both consumers: decode the VDI on its planes
     at depth ratios ``s0 [C]`` (step alpha for ``dt_ref``) and resample
     the decoded channels from each plane's uniform grid (the generating
     grid scaled about the eye by s0) onto the plane's sample positions
-    ``pos_u [C, M]``, ``pos_v [C, N]``. Returns ``[C, 5, N, M]`` (rgb,
-    alpha, dt_ref)."""
+    ``pos_u [C, M]``, ``pos_v [C, N]`` (`slicer.resample_product` in
+    ``matmul_dtype``). Returns ``[C, 5, N, M]`` (rgb, alpha, dt_ref)."""
     _, _, nj0, ni0 = vdi.color.shape
     length0 = axcam0.ray_lengths()
     t_at = s0[:, None, None] * length0[None]
@@ -193,8 +198,7 @@ def _resample_planes(vdi: VDI, axcam0: AxisCamera, s0: torch.Tensor,
     sv_org = ev0 + (axcam0.v_grid[0] - ev0) * s0
     wu = _interp_matrix(pos_u, su_org, du0 * s0, ni0)      # [C, M, Ni0]
     wv = _interp_matrix(pos_v, sv_org, dv0 * s0, nj0)      # [C, N, Nj0]
-    return torch.matmul(torch.matmul(wv[:, None], src),
-                        wu.transpose(1, 2)[:, None])
+    return resample_product(wv, src, wu, matmul_dtype)
 
 
 def vdi_to_rgba_volume(vdi: VDI, axcam0: AxisCamera, spec0: AxisSpec,
@@ -238,7 +242,7 @@ def vdi_to_rgba_volume(vdi: VDI, axcam0: AxisCamera, spec0: AxisSpec,
         s0 = torch.where(live, s0, 1.0)
         plane = _resample_planes(
             vdi, axcam0, s0, nominal, tu.expand(c, nu_t),
-            tv.expand(c, nv_t))[:, :4]                     # drop dt
+            tv.expand(c, nv_t), spec0.matmul_dtype)[:, :4]  # drop dt
         planes.append(plane * live[:, None, None, None].to(torch.float32))
     stack = torch.cat(planes)[:s_count]                    # [S, 4, v, u]
 
@@ -649,7 +653,8 @@ def render_vdi_mxu(vdi: VDI, axcam0: AxisCamera, spec0: AxisSpec,
         pos_v = evn + (axcam_n.v_grid[None, :] - evn) * sn[:, None]
         front = sn > spec_new.s_floor                      # before the eye
 
-        val = _resample_planes(vdi, axcam0, s0, dt0, pos_u, pos_v)
+        val = _resample_planes(vdi, axcam0, s0, dt0, pos_u, pos_v,
+                               spec_new.matmul_dtype)
         rgb = val[:, :3]
         a_res = torch.clamp(val[:, 3], 0.0, 1.0 - 1e-6)
         ratio = dtn[None] / torch.clamp(val[:, 4], min=1e-6)

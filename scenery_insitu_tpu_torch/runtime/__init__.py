@@ -1,2 +1,3 @@
 """The in-situ session loop, its failure isolation, async delivery,
-timers and checkpoints."""
+timers and checkpoints; the streaming and steering edges, the head node
+and the render benchmark tools."""

@@ -12,7 +12,7 @@ the stalest undelivered frame latest-wins and mints a ``delivery.shed``
 ledger row, a ``delivery_sheds`` counter bump and a ``delivery_shed``
 event. ``drain()`` empties the queue on teardown and on the session's
 crash paths. A copy of the reference's ``runtime/delivery.py``, with its
-own copy of the collector's ``lineage`` instant.
+own copies of the collector's ``lineage`` instant and ``trace_ctx``.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ from __future__ import annotations
 import threading
 import time
 from collections import deque
-from typing import List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 from scenery_insitu_tpu_torch import obs as _obs
 
@@ -30,6 +30,14 @@ _SHED_REASON = ("bounded delivery queue overflowed with overflow="
 _DRAIN_REASON = ("teardown drain timed out with frames still queued; "
                  "remaining jobs were abandoned so shutdown could "
                  "proceed")
+
+
+def trace_ctx(frame: int, src: int) -> Dict[str, Any]:
+    """The wire trace context: frame id, origin rank, origin wall clock.
+    Senders embed it under the ``"tc"`` header key; decoders that predate
+    it ignore unknown keys (the reference's ``obs/collector.trace_ctx``)."""
+    return {"frame": int(frame), "src": int(src),
+            "t": round(time.time(), 6)}
 
 
 def lineage(stage: str, role: str, frame: Optional[int],

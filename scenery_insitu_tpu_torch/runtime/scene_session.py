@@ -91,7 +91,7 @@ class SceneSession:
                 recorder=self.obs, slo=self.slo, log=self.log)
         self.frame_index = 0
         self.orbit_rate = 0.0
-        self.steering = None   # steering endpoints are ROADMAP A11
+        self.steering = None   # optional streaming.SteeringEndpoint
         self.on_steer: List[Callable[[dict], None]] = []
         self._slicer = _slicer
         self.engine = _slicer.resolve_engine(self.cfg.slicer.engine)

@@ -53,13 +53,14 @@ message swaps the transfer function; the steps built for the outgoing
 TF are kept under its identity (``_tf_fingerprint``), and a TF seen
 before restores its steps instead of rebuilding them (``_tf_invalidate``;
 the ``tf_updates`` and ``tf_steps_reused`` counters). The scenario zoo
-(``scenarios/``) drives this consumer in-process.
+(``scenarios/``) drives this consumer in-process; a viewer's messages
+reach it through ``sess.steering`` (a ``runtime/streaming.
+SteeringEndpoint``), drained at the top of every frame.
 
 The reference's other session features are later slices of the port and
 raise ``NotImplementedError`` naming their ROADMAP row: frame blocks in
-one launch (``runtime.scan_frames > 1``, A3/A7), steering endpoints over
-sockets (A11), and the telemetry collector, device profiles and cost
-snapshots (A12).
+one launch (``runtime.scan_frames > 1``, A3/A7), and the telemetry
+collector, device profiles and cost snapshots (A12).
 
 ``composite.k_budget="occupancy"`` re-targets every rank's adaptive
 threshold in the steps themselves. ``composite.temporal_reuse="ranges"``
@@ -152,9 +153,9 @@ def check_ported(cfg: FrameworkConfig) -> None:
 
 def steer_session(sess, msg: dict) -> None:
     """Apply ONE steering-protocol message to ``sess``: a camera update
-    in place, any other kind to the ``on_steer`` callbacks. The scenario
-    zoo's in-process hooks route through this consumer, as a network
-    viewer's messages will (ROADMAP A11).
+    in place, any other kind to the ``on_steer`` callbacks. The socket
+    drain (`drain_steering`) and the scenario zoo's in-process hooks
+    route through this same consumer.
 
     The callbacks run behind the session's SinkGuard: an exception in
     one must not kill the run — a callback failing
@@ -169,12 +170,15 @@ def steer_session(sess, msg: dict) -> None:
 
 
 def drain_steering(sess) -> None:
-    """Apply the pending messages of the session's steering endpoint
-    (``sess.steering``). Endpoints are sockets, ROADMAP A11: a session
-    with one set raises."""
+    """Apply all pending messages of the session's steering endpoint
+    (``sess.steering``, anything with ``drain()`` yielding message
+    dicts). Shared by InSituSession and SceneSession so the steering
+    protocol has ONE consumer (`steer_session`)."""
     if sess.steering is None:
         return
-    _unported("steering endpoints", "A11")
+    with sess.obs.span("steer", frame=sess.frame_index):
+        for msg in sess.steering.drain():
+            steer_session(sess, msg)
 
 
 def apply_tf_steering(sess, msg: dict, invalidate) -> None:
@@ -443,7 +447,7 @@ class InSituSession:
                 log=self.log)
         self.frame_index = 0
         self.orbit_rate = 0.0  # radians/frame camera sweep
-        self.steering = None   # steering endpoints are ROADMAP A11
+        self.steering = None   # optional streaming.SteeringEndpoint
         self.on_steer: List[Callable[[dict], None]] = [
             self._apply_tf_message]
         # steered-TF recompile-or-reuse: the step sets built for a TF,

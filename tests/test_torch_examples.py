@@ -3,7 +3,7 @@
 same arguments (the views' PNG pixels within one 8-bit level of the
 reference's image written by the reference's ``save_png``, the stored
 VDIs within 1e-5 with their metadata), and ``ao_render``'s four images
-finite and non-empty. ``--publish`` raises naming its ROADMAP row."""
+finite and non-empty. ``--publish`` streams the views' VDIs."""
 
 import glob
 import os
@@ -78,7 +78,49 @@ def test_ao_render_writes_four_images(tmp_path):
     assert not np.array_equal(imgs["mxu_ao"], imgs["mxu_plain"])
 
 
-def test_volume_from_file_publish_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="A11"):
-        volume_from_file.main(["--out", str(tmp_path), "--publish",
-                               "tcp://localhost:5555", "--device", "cpu"])
+def test_volume_from_file_publish_raises(tmp_path, monkeypatch):
+    """``--publish`` raised before the sockets were ported (A11); it now
+    publishes each view's VDI, which the reference's subscriber decodes
+    to the stored ``.npz`` VDI of the same view."""
+    pytest.importorskip("zmq")
+    from scenery_insitu_tpu.runtime import streaming as jst
+    from scenery_insitu_tpu_torch.io.vdi_io import load_vdi
+    from scenery_insitu_tpu_torch.runtime import streaming as tst
+
+    sent = []
+
+    class _Tee:
+        """The publisher's socket, keeping each message it sends."""
+
+        def __init__(self, sock):
+            self.sock = sock
+
+        def send_multipart(self, parts):
+            sent.append([bytes(p) for p in parts])
+            self.sock.send_multipart(parts)
+
+        def close(self, linger=0):
+            self.sock.close(linger=linger)
+
+    class _Capture(tst.VDIPublisher):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.sock = _Tee(self.sock)
+
+    monkeypatch.setattr(tst, "VDIPublisher", _Capture)
+    out = str(tmp_path / "pub")
+    assert volume_from_file.main(
+        ["--out", out, "--views", "2", "--width", "24", "--height", "24",
+         "--k", "4", "--store-vdis", "--publish", "tcp://127.0.0.1:0",
+         "--device", "cpu"]) == 0
+    sub = jst.VDISubscriber("tcp://127.0.0.1:1")
+    try:
+        assert len(sent) == 2
+        for i, parts in enumerate(sent):
+            vdi, meta, _ = sub._decode(parts)
+            want, _ = load_vdi(os.path.join(out, f"vdi{i:03d}.npz"))
+            assert int(np.asarray(meta.index)) == i
+            np.testing.assert_array_equal(np.asarray(vdi.color), want.color)
+            np.testing.assert_array_equal(np.asarray(vdi.depth), want.depth)
+    finally:
+        sub.close()

@@ -345,10 +345,30 @@ def _runs_with(n=1, mode="temporal", **extra):
     return run
 
 
+class _Endpoint:
+    """A steering endpoint's drain (``runtime/streaming.
+    SteeringEndpoint``) without its socket."""
+
+    def __init__(self, *msgs):
+        self.msgs = list(msgs)
+
+    def drain(self):
+        msgs, self.msgs = self.msgs, []
+        yield from msgs
+
+
 def _steering():
-    sess = port_session(1, "temporal", state=False)
-    sess.steering = object()
+    sess = port_session(1, "temporal", state=False,
+                        **{"obs.enabled": "true"})
+    sess.orbit_rate = 0.0
+    sess.steering = _Endpoint({"type": "camera", "eye": [0.0, 0.0, 9.0]},
+                              {"type": "record"})
+    seen = []
+    sess.on_steer.append(seen.append)
     sess.run(1)
+    assert sess.camera.eye.tolist() == [0.0, 0.0, 9.0]
+    assert seen == [{"type": "record"}] and not sess.steering.msgs
+    return sess
 
 
 def _tf_message():
@@ -417,7 +437,9 @@ UNPORTED = {
         1, profile_dir="prof"), "A12"),
     "device_snapshot": (lambda: port_session(
         1, "temporal", state=False).device_snapshot(), "A12"),
-    "steering": (_steering, "A11"),
+    # ported since (A11): the session drains its steering endpoint at
+    # the top of the frame (camera applied, other kinds to on_steer)
+    "steering": (_steering, {"tf_updates": 0}),
     # ported since (A10c): a steered TF rebuilds the session's steps
     # (the TF was not seen before) and the frame runs on them
     "tf_steering": (_tf_message, {"tf_updates": 1, "tf_steps_reused": 0,
@@ -470,8 +492,15 @@ def test_example_twin_writes_pngs_and_checkpoint(tmp_path, capsys):
                            os.path.join(out, "ckpt_00002.npz")]) == 0
     assert "resumed at frame 2" in capsys.readouterr().out
     assert os.path.exists(os.path.join(out, "frame00002.png"))
-    with pytest.raises(NotImplementedError, match="A11"):
-        ex.main(args + ["--publish", "tcp://*:6655"])
+    # the streaming flags (ported since, A11): an I_PCM movie of the
+    # frames, at the size its layout gives
+    from scenery_insitu_tpu_torch.io.h264 import ipcm_stream_bytes
+
+    movie = os.path.join(out, "run.h264")
+    assert ex.main(args + ["--frames", "2", "--movie", movie]) == 0
+    h, w = np.asarray(Image.open(os.path.join(out, "frame00000.png"))
+                      ).shape[:2]
+    assert os.path.getsize(movie) == ipcm_stream_bytes(w & ~1, h & ~1, 2)
 
 
 def test_init_state_flips_only_the_zero_candidate():

@@ -6,9 +6,10 @@ the render decomposition, the two-level composite, the K budgets
 and fragment reuse, the gather engine with the plain images, the
 VDI's novel views with the pre-shaded (ambient-occlusion) march, the
 particle and hybrid workloads, the externally driven multi-grid
-scene with in-process steering and the example twins, and bf16
+scene with in-process steering and the example twins, bf16
 resampling with the system's edges (the VDI stream, the serving tier,
-the head node and the H.264 movie).
+the head node and the H.264 movie), and the multi-process fleet (the
+process mesh, the two-level composite's host path, the host gathers).
 
     python3 chip_smoke.py               # the whole run (needs one card)
     python3 chip_smoke.py --profile     # + device time by kernel
@@ -18,6 +19,7 @@ the head node and the H.264 movie).
     python3 chip_smoke.py --phase14-only  # the build and phase 14
     python3 chip_smoke.py --phase15-only  # the build and phase 15
     python3 chip_smoke.py --phase16-only  # the build and phase 16
+    python3 chip_smoke.py --phase17-only  # the build and phase 17
     python3 chip_smoke.py --k4-compare old=OTHER/resegment.cu \
         --k2-compare old=OTHER/count_multi.cu \
         --events-compare old=OTHER/fold_chunk.cu  # + designs in turns
@@ -415,6 +417,31 @@ and prints no result):
    session frame -> ``VDIPublisher`` -> ``VDISubscriber`` (bit for bit)
    -> ``ViewerServer`` -> ``ViewerClient``, else a line saying it was not
    run and why. ``phase16.wall_s`` prints its seconds.
+
+17. the multi-process fleet: two worker processes of
+   ``testing/multiproc.run_multiproc``, all on the card, over gloo
+   (NCCL refuses two ranks on one card; a CUDA tensor crosses through a
+   counted host copy), each holding 4 of phase 4's 8 ranks. The parent
+   first runs the in-process references on phase 4's field: the 8-rank
+   seed and 3 temporal frames, and phase 12's 8-rank gather step (1280
+   x 720, 256 steps); then writes the field once to a temporary
+   workdir, from which each worker reads only its own slabs. (a) the
+   process mesh: the seed and the 3 frames, every frame's column blocks
+   equal to the in-process frame bit for bit, and the last frame put
+   together on process 0 by the host gather bit for bit, each process's
+   K1, K2 and K4 launches half the in-process run's; the ms a frame
+   (CUDA events in each process, the host clock on the head) and the
+   bytes through the host copies; (b) the two-level composite's host
+   path of the gather step, 2 hosts x 4 ranks, f32 tiles over loopback
+   with codec none, the head's merge (K4, once a tile, at the head
+   only) bit for bit against the in-process step, the DCN bytes
+   measured beside those modelled, the head's merge ms; (c) the host
+   gathers and the obs merge across the two processes with both ranks'
+   spans, then the lost host (host 1 publishes nothing: the frame
+   degraded, ``multihost.host_down`` on the ledger); (d) the scaling
+   twin (``benchmarks/scaling_bench --mode hosts``) at 1 and 2 hosts.
+   The workers' launches come back through the workdir into the kernel
+   table's ``phase17_launches``. ``phase17.wall_s`` prints its seconds.
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -1951,14 +1978,15 @@ BASE_EYE = (0.0, 0.6, 3.0)
 
 
 def dist_steps(dev, n, grid, base_eye, fold="auto", plan=None, bricks=None,
-               topology=None, mm="bf16", **comp):
+               topology=None, mm="bf16", mesh=None, **comp):
     """The distributed temporal step of an ``n``-rank mesh on ``dev``
     for a ``grid``^3 volume, in the march regime of ``base_eye``, with
     the composite settings ``comp`` (exchange, wire, schedule,
     rebalance, ...), the render decomposition ``plan`` or ``bricks``,
     and a ``TopologyConfig`` (None: the flat mesh), resampling in ``mm``
-    (f32 where the card's step is held against the CPU's): (mesh, spec,
-    tf, configs, seed, step, camera(i))."""
+    (f32 where the card's step is held against the CPU's); ``mesh``
+    (an n-rank process mesh) in place of the in-process one: (mesh,
+    spec, tf, configs, seed, step, camera(i))."""
     from scenery_insitu_tpu_torch.config import (CompositeConfig,
                                                  MeshConfig,
                                                  SliceMarchConfig, VDIConfig)
@@ -1968,8 +1996,9 @@ def dist_steps(dev, n, grid, base_eye, fold="auto", plan=None, bricks=None,
     from scenery_insitu_tpu_torch.parallel import pipeline as dp
     from scenery_insitu_tpu_torch.parallel.topology import make_topology_mesh
 
-    mesh, _ = make_topology_mesh(topology, MeshConfig(num_devices=n),
-                                 device=dev)
+    if mesh is None:
+        mesh, _ = make_topology_mesh(topology, MeshConfig(num_devices=n),
+                                     device=dev)
     base = Camera.create(base_eye, fov_y_deg=50.0, near=0.5, far=20.0,
                          device=dev)
     vcfg = VDIConfig(max_supersegments=K, adaptive_mode="temporal",
@@ -7889,6 +7918,349 @@ def run_phase16(dev, done, phase3_launches=None, field=None):
                 head=head, stream=stream, h264=h264, sockets=sockets)
 
 
+# ------------------------------------------------------------ phase 17
+
+P17_PROCS = 2               # the fleet: 2 processes x RANKS / 2 ranks
+P17_FRAMES = 3              # (a): temporal frames after the seed
+P17_SMALL = 32              # (c): the lost-host drill's grid (64^2 image)
+P17_DROP_MS = 3000          # (c): the head's wait for the silent host
+P17_SCALING_FRAMES = 5      # (d): timed frames a fleet
+P17_KERNELS = ("seg_fold_compact", "count_multi", "resegment_sorted")
+
+
+def p17_worker(ctx):
+    """Phase 17's fleet worker (an entry of ``testing/multiproc.py``):
+    one of P17_PROCS processes on gloo, holding RANKS / P17_PROCS ranks,
+    all on one card. (a) the process mesh: the threshold seed and
+    P17_FRAMES temporal frames of phase 4's step on this process's slabs
+    of the field in the workdir (each frame's column block to a file,
+    the last frame put together on process 0 by the host gather); (b)
+    one host-path frame of phase 12's gather step, f32 tiles over
+    loopback, merged at the head; (c) the gathers, the obs merge and the
+    lost-host drill. The launches, times and bytes of each go to
+    ``p17_<pid>.json``."""
+    import numpy as np
+    import torch
+
+    from scenery_insitu_tpu_torch import kernels, obs
+    from scenery_insitu_tpu_torch.config import CompositeConfig, VDIConfig
+    from scenery_insitu_tpu_torch.core.vdi import VDI
+    from scenery_insitu_tpu_torch.core.volume import Volume
+    from scenery_insitu_tpu_torch.parallel import hier
+    from scenery_insitu_tpu_torch.parallel import multihost as mh
+
+    wd, pid, nproc = ctx.workdir, ctx.process_id, ctx.num_processes
+    dev = torch.device(ctx.device)
+    with open(os.path.join(wd, "p17.json")) as f:
+        cfg = json.load(f)
+    rec = obs.Recorder(enabled=True, rank=pid)
+    obs.set_recorder(rec)
+    field = np.load(os.path.join(wd, "field.npy"), mmap_mode="r")
+    grid = field.shape[0]
+    origin = torch.tensor(cfg["origin"], device=dev)
+    spacing = torch.tensor(cfg["spacing"], device=dev)
+    mesh = mh.global_mesh(ctx.ranks_per_proc, dev)
+    _, _, tf, _, seed, step, camera = dist_steps(dev, mesh.n, grid,
+                                                 BASE_EYE, mesh=mesh)
+    dn = grid // mesh.n
+    lo = mesh.first_rank * dn
+    slabs = mh.shard_global(np.ascontiguousarray(
+        field[lo:lo + mesh.n_local * dn]), mesh)
+    cuda = dev.type == "cuda"
+    out = {}
+
+    # (a) the process mesh
+    kernels.reset_launches()
+    mh.reset_wire_bytes()
+    thr = seed(slabs, origin, spacing, camera(-1))
+    ms, wall = [], []
+    for i in range(cfg["frames"]):
+        mh.barrier("p17a")
+        if cuda:
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+        h0 = time.perf_counter()
+        (vdi, _), thr = step(slabs, origin, spacing, camera(i), thr)
+        if cuda:
+            b.record()
+            b.synchronize()
+            ms.append(a.elapsed_time(b))
+        wall.append((time.perf_counter() - h0) * 1e3)
+        for part in ("color", "depth"):
+            np.save(os.path.join(wd, f"a_{pid}_{i}_{part}.npy"),
+                    getattr(vdi, part).cpu().numpy())
+    out["a"] = dict(launches=kernels.launches(), ms=ms, wall_ms=wall,
+                    wire=mh.wire_bytes())
+    t0 = time.perf_counter()
+    whole = mh.gather_vdi_compressed(vdi, codec="none")
+    out["a"]["gather_ms"] = (time.perf_counter() - t0) * 1e3
+    if pid == 0:
+        np.save(os.path.join(wd, "a_whole_color.npy"), whole[0])
+        np.save(os.path.join(wd, "a_whole_depth.npy"), whole[1])
+    del whole, vdi, thr, slabs
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # (b) the host path of phase 12's gather step
+    kernels.reset_launches()
+    hp = hier.run_host_path(
+        pid, nproc, field, tf, camera(0), origin, spacing, cfg["gw"],
+        cfg["gh"], gather_vdi_cfg(), CompositeConfig(
+            max_output_supersegments=K_OUT, adaptive_iters=COMP_ITERS),
+        mesh.n_local, dev, max_steps=cfg["gsteps"], codec="none")
+    out["b"] = dict(launches=kernels.launches(), sent=hp["sent"],
+                    step_ms=hp["step_ms"])
+    if pid == 0:
+        c, d, degraded = hp["frames"][0]
+        np.save(os.path.join(wd, "b_color.npy"), c)
+        np.save(os.path.join(wd, "b_depth.npy"), d)
+        out["b"].update(ms=hp["ms"], merge_ms=hp["merge_ms"],
+                        received=hp["received"], degraded=degraded)
+    del hp
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # (c) the gathers and the obs merge across the processes, then the
+    # lost host: process 1 publishes nothing
+    with rec.span("p17_rank_work", frame=pid):
+        pass
+    wp = 8
+    color = torch.full((2, 4, 4, wp), float(pid + 1), device=dev)
+    depth = torch.stack([torch.full((2, 4, wp), 0.1 * (pid + 1)),
+                         torch.full((2, 4, wp), 0.2 * (pid + 1))],
+                        dim=1).to(dev)
+    tiles = mh.gather_vdi_tiles(VDI(color, depth), codec="zlib")
+    tiles = None if tiles is None else list(tiles)
+    whole = mh.gather_vdi_compressed(VDI(color, depth), codec="zlib")
+    merged = mh.gather_obs_events(rec)
+    f = grid // P17_SMALL
+    small = np.ascontiguousarray(field[::f, ::f, ::f])
+    box = Volume.centered(torch.from_numpy(small), extent=2.0)
+    hp = hier.run_host_path(
+        pid, nproc, small, tf, camera(0), box.origin.to(dev),
+        box.spacing.to(dev), 2 * P17_SMALL, 2 * P17_SMALL,
+        VDIConfig(max_supersegments=4, adaptive_iters=2),
+        CompositeConfig(max_output_supersegments=6, adaptive_iters=2),
+        mesh.n_local, dev, max_steps=64, silent=(1,),
+        timeout_ms=P17_DROP_MS)
+    if pid == 0:
+        out["c"] = dict(
+            tiles_ok=([t[0] for t in tiles] == [wp * p for p in
+                                                range(nproc)]
+                      and all(np.all(t[1] == p + 1)
+                              for p, t in enumerate(tiles))),
+            whole_ok=bool(whole[0].shape == (2, 4, 4, wp * nproc)),
+            span_ranks=sorted({e.get("rank") for e in merged
+                               if e.get("name") == "p17_rank_work"}),
+            dcn_spans=sorted({e.get("name") for e in merged
+                              if str(e.get("name", "")).startswith("dcn")}),
+            drill_degraded=bool(hp["frames"][0][2]),
+            drill_blocks=hp["frames"][0][0] is not None,
+            host_down="multihost.host_down" in [
+                e["component"] for e in obs.ledger()],
+            transport_ledgered="multihost.transport" in [
+                e["component"] for e in obs.ledger()])
+    with open(os.path.join(wd, f"p17_{pid}.json"), "w") as fp:
+        json.dump(out, fp)
+
+
+def p17_same(prefix, got_c, got_d, want_c, want_d):
+    """Bit for bit: colours, live slots and live depths; raises."""
+    import numpy as np
+
+    same = (got_c.shape == want_c.shape
+            and np.array_equal(got_c, want_c)
+            and np.array_equal(np.isinf(got_d), np.isinf(want_d))
+            and np.array_equal(got_d[np.isfinite(want_d)],
+                               want_d[np.isfinite(want_d)]))
+    if not same:
+        gap = (float(np.abs(got_c - want_c).max())
+               if got_c.shape == want_c.shape else math.inf)
+        raise AssertionError(f"{prefix}: the fleet's frame differs from "
+                             f"the in-process one (colour gap {gap})")
+    log(f"{prefix}.bitwise", f"equal ({got_c.shape[0]} slots, "
+        f"{got_c.shape[2]} x {got_c.shape[3]})")
+
+
+def p17_launch_gates(ref_launches, res, ranks):
+    """(a): each process launched K1, K2 and K4, half as often as the
+    in-process run of all the ranks; (b): K4 only at the head, once a
+    tile it merged."""
+    for p, r in enumerate(res):
+        la = r["a"]["launches"]
+        for name in P17_KERNELS:
+            if la[name] <= 0 or 2 * la[name] != ref_launches[name]:
+                raise AssertionError(
+                    f"p17a: process {p} launched {name} {la[name]} "
+                    f"times, the in-process run {ref_launches[name]}")
+    k4 = [r["b"]["launches"]["resegment_sorted"] for r in res]
+    if k4 != [ranks] + [0] * (len(res) - 1):
+        raise AssertionError(f"p17b: K4 launches by process {k4}; the "
+                             f"head merges {ranks} tiles")
+
+
+def run_phase17(dev, done, field=None, gw=None, gh=None, gsteps=None):
+    """Phase 17 (a)-(d): the multi-process fleet, two processes on the
+    card over gloo. ``field`` is phase 4's host field (made here when
+    None); ``gw``, ``gh``, ``gsteps`` phase 12's gather configuration
+    (None: its full size). Returns the launch counts of the in-process
+    references and of each worker's (a) and (b)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from scenery_insitu_tpu_torch import kernels
+    from scenery_insitu_tpu_torch.benchmarks import scaling_bench
+    from scenery_insitu_tpu_torch.config import CompositeConfig
+    from scenery_insitu_tpu_torch.core.volume import Volume
+    from scenery_insitu_tpu_torch.parallel import pipeline as dp
+    from scenery_insitu_tpu_torch.parallel.hier import modeled_dcn_traffic
+    from scenery_insitu_tpu_torch.parallel.mesh import shard_volume
+    from scenery_insitu_tpu_torch.testing import multiproc
+
+    t17 = time.perf_counter()
+    gw, gh, gsteps = gw or GATHER_W, gh or GATHER_H, gsteps or GATHER_STEPS
+    cuda = dev.type == "cuda"
+    if field is None:
+        field = phase4_field(dev)
+        done("phase17.field")
+    grid = field.shape[0]
+    ranks = RANKS // P17_PROCS
+    box = Volume.centered(torch.from_numpy(field), extent=2.0)
+    origin, spacing = box.origin.to(dev), box.spacing.to(dev)
+    log("p17.config", f"{P17_PROCS} processes x {ranks} ranks on {dev} "
+        f"over gloo (NCCL refuses two ranks on one card); (a) phase 4's "
+        f"step at {grid}^3, the seed and {P17_FRAMES} frames; (b) phase "
+        f"12's gather step {gw}x{gh}, {gsteps} steps, f32 tiles, codec "
+        f"none")
+
+    # the in-process references: phase 4's 8-rank mesh on the same field
+    mesh, _, tf, _, seed, step, camera = dist_steps(dev, RANKS, grid,
+                                                    BASE_EYE)
+    slabs = shard_volume(torch.from_numpy(field).to(dev), mesh)
+    kernels.reset_launches()
+    thr = seed(slabs, origin, spacing, camera(-1))
+    ref_a, ms = [], []
+    for i in range(P17_FRAMES):
+        h0 = time.perf_counter()
+        (vdi, _), thr = step(slabs, origin, spacing, camera(i), thr)
+        ref_a.append((vdi.color.cpu().numpy(), vdi.depth.cpu().numpy()))
+        ms.append((time.perf_counter() - h0) * 1e3)
+    ref_launches = kernels.launches()
+    log("p17a.in_process.launches", json.dumps(ref_launches))
+    log("p17a.in_process.ms_per_frame", f"{sorted(ms)[len(ms) // 2]:.3f} "
+        f"(one process, {RANKS} ranks in turn; host clock with the copy "
+        f"to the host)")
+    ccfg = CompositeConfig(max_output_supersegments=K_OUT,
+                           adaptive_iters=COMP_ITERS)
+    gstep = dp.distributed_vdi_step(mesh, tf, gw, gh, gather_vdi_cfg(), ccfg,
+                                    max_steps=gsteps)
+    h0 = time.perf_counter()
+    g = gstep(slabs, origin, spacing, camera(0))
+    ref_b = (g.color.cpu().numpy(), g.depth.cpu().numpy())
+    log("p17b.in_process.ms", f"{(time.perf_counter() - h0) * 1e3:.3f} "
+        f"(one frame, {RANKS} ranks in turn, host clock)")
+    del slabs, thr, vdi, g
+    if cuda:
+        torch.cuda.empty_cache()
+    done("phase17.references")
+
+    with tempfile.TemporaryDirectory(prefix="p17_") as wd:
+        np.save(os.path.join(wd, "field.npy"), field)
+        with open(os.path.join(wd, "p17.json"), "w") as f:
+            json.dump(dict(origin=origin.tolist(), spacing=spacing.tolist(),
+                           frames=P17_FRAMES, gw=gw, gh=gh, gsteps=gsteps),
+                      f)
+        h0 = time.perf_counter()
+        results = multiproc.run_multiproc(
+            "chip_smoke:p17_worker", P17_PROCS, ranks, workdir=wd,
+            timeout_s=600.0, device=dev)
+        log("p17.fleet_wall_s", f"{time.perf_counter() - h0:.1f} (two "
+            f"processes: start, (a), (b), (c))")
+        for r in results:
+            if not r.ok:
+                raise AssertionError(f"phase 17 worker {r.process_id} "
+                                     f"failed (rc {r.returncode}):\n"
+                                     f"{r.output[-6000:]}")
+        res = []
+        for p in range(P17_PROCS):
+            with open(os.path.join(wd, f"p17_{p}.json")) as f:
+                res.append(json.load(f))
+        load = lambda name: np.load(os.path.join(wd, name))
+
+        # (a): every frame's blocks side by side, and the head's gather
+        for i, (rc, rd) in enumerate(ref_a):
+            got = [np.concatenate([load(f"a_{p}_{i}_{part}.npy")
+                                   for p in range(P17_PROCS)], axis=-1)
+                   for part in ("color", "depth")]
+            p17_same(f"p17a.frame{i}", *got, rc, rd)
+        p17_same("p17a.gathered", load("a_whole_color.npy"),
+                 load("a_whole_depth.npy"), *ref_a[-1])
+        p17_launch_gates(ref_launches, res, ranks)
+        for p, r in enumerate(res):
+            log(f"p17a.p{p}.launches", json.dumps(r["a"]["launches"]))
+            t = sorted(r["a"]["ms"] or r["a"]["wall_ms"])
+            log(f"p17a.p{p}.ms_per_frame", f"{t[len(t) // 2]:.3f} "
+                f"(median of {P17_FRAMES}, "
+                f"{'CUDA events' if r['a']['ms'] else 'host clock'}; two "
+                f"processes time-slicing one card, not phase 4's ms)")
+            log(f"p17a.p{p}.wire_bytes", json.dumps(r["a"]["wire"]))
+        w = sorted(res[0]["a"]["wall_ms"])
+        log("p17a.head_wall_ms_per_frame", f"{w[len(w) // 2]:.3f} (host "
+            f"clock, the exchange's host copies included)")
+        log("p17a.gather_ms", f"{res[0]['a']['gather_ms']:.1f} (the last "
+            f"frame put together on process 0, codec none, the store)")
+
+        # (b): the host path against the flat step, K4 at the head
+        p17_same("p17b.frame", load("b_color.npy"), load("b_depth.npy"),
+                 *ref_b)
+        hb = res[0]["b"]
+        if hb["degraded"]:
+            raise AssertionError("p17b: the host-path frame is degraded")
+        model = modeled_dcn_traffic(P17_PROCS, ranks, K, gh, gw)
+        log("p17b.launches", json.dumps([r["b"]["launches"] for r in res]))
+        log("p17b.dcn_bytes", f"sent a host {[r['b']['sent'][0] for r in res]}"
+            f", received at the head {hb['received'][0]} (measured, every "
+            f"host's whole partial to the head); modelled "
+            f"{model['dcn_bytes_sent_per_host']} a host (the device "
+            f"path's ring, one column sub-block a rank)")
+        log("p17b.head_ms", f"{hb['ms'][0]:.1f} (barrier to assembled "
+            f"frame, host clock); merge {hb['merge_ms'][0]:.1f} ({ranks} "
+            f"tiles: upload, sort, K4, each waited for); steps "
+            f"{[round(r['b']['step_ms'][0], 1) for r in res]} (march, "
+            f"level 1 and publish, a host)")
+
+        # (c): the gathers, the obs merge, the lost host
+        c = res[0]["c"]
+        if not (c["tiles_ok"] and c["whole_ok"] and c["span_ranks"] ==
+                list(range(P17_PROCS)) and "dcn_allgather" in c["dcn_spans"]
+                and c["transport_ledgered"]):
+            raise AssertionError(f"p17c: the gathers or the obs merge: {c}")
+        if not (c["drill_degraded"] and c["drill_blocks"] and
+                c["host_down"]):
+            raise AssertionError(f"p17c: the lost-host drill: {c}")
+        log("p17c", f"gather_vdi_tiles in column order, both ranks' spans "
+            f"{c['span_ranks']} with {c['dcn_spans']}; host 1 silent: the "
+            f"frame degraded, multihost.host_down on the ledger")
+    done("phase17.abc")
+
+    # (d) the scaling twin at 1 and 2 hosts
+    sweep = scaling_bench.hosts_mode(max_hosts=2, ranks_per_host=2,
+                                     frames=P17_SCALING_FRAMES, device=dev)
+    for row in sweep["sweep"]:
+        if "error" in row:
+            raise AssertionError(f"p17d: {row}")
+        log(f"p17d.hosts{row['hosts']}", json.dumps(row))
+    done("phase17.d")
+    log("phase17.wall_s", f"{time.perf_counter() - t17:.1f} (the multi-"
+        f"process fleet)")
+    return dict(in_process=ref_launches,
+                fleet=[r["a"]["launches"] for r in res],
+                host_path=[r["b"]["launches"] for r in res])
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -7942,6 +8314,11 @@ def main(argv=None) -> int:
                          "resampling, the serving tier, the head node, the "
                          "stream, H.264 and the sockets), then exit "
                          "without the kernel table")
+    ap.add_argument("--phase17-only", action="store_true",
+                    help="run the build and phase 17 only (the "
+                         "multi-process fleet: the process mesh, the "
+                         "host path, the gathers and the scaling twin), "
+                         "then exit without the kernel table")
     ap.add_argument("--events-compare", action="append", default=[],
                     metavar="NAME=PATH",
                     help="another design of csrc/fold_chunk.cu (the same C "
@@ -8002,6 +8379,12 @@ def main(argv=None) -> int:
         run_phase16(dev, phase_done)
         phase_done("phase16")
         log("phase16_only", "done (no kernel table: run without flags for "
+            "it)")
+        return 0
+    if args.phase17_only:
+        run_phase17(dev, phase_done)
+        phase_done("phase17")
+        log("phase17_only", "done (no kernel table: run without flags for "
             "it)")
         return 0
     if args.phase11_only:
@@ -8120,8 +8503,12 @@ def main(argv=None) -> int:
     p15 = run_phase15(dev, phase_done, scene_field, dist_ms)
     phase_done("phase15")
     p16 = run_phase16(dev, phase_done, launches, scene_field)
-    del scene_field
+    torch.cuda.empty_cache()
     phase_done("phase16")
+    p17 = run_phase17(dev, phase_done, scene_field)
+    del scene_field
+    torch.cuda.empty_cache()
+    phase_done("phase17")
     n_frames = WARMUP_FRAMES + TIMED_FRAMES
 
     table = [
@@ -8347,6 +8734,15 @@ def main(argv=None) -> int:
             "bf16_frames": p16["bf16"]["launches"].get(name, 0),
             "f32_frames": p16["bf16"]["f32_launches"].get(name, 0),
             "sessions": p16["launches"].get(name, 0)}
+        # phase 17: the in-process seed and 3 frames on phase 4's field,
+        # each fleet process's share of them (half the ranks), and each
+        # process's host-path frame of the gather step (K4 at the head)
+        row["phase17_launches"] = {
+            "in_process": p17["in_process"].get(name, 0),
+            **{f"fleet_p{p}": v.get(name, 0)
+               for p, v in enumerate(p17["fleet"])},
+            **{f"host_path_p{p}": v.get(name, 0)
+               for p, v in enumerate(p17["host_path"])}}
         if name == "seg_fold_compact":
             row["bf16_max_abs_err"] = p16["bf16"]["k1_err"]
         if name == "seg_fold_compact":

@@ -107,6 +107,18 @@ _LEDGER_REGISTRY: Dict[str, str] = {
     "lod.inert": "lod.enabled is set but the session has no brick map "
                  "(composite.rebalance != bricks), so no per-brick "
                  "levels exist to plan; the replan is a no-op",
+    "multihost.connect": "multihost.initialize could not reach the "
+                         "coordinator on an attempt; retrying on the "
+                         "bounded backoff ladder instead of hanging "
+                         "the fleet silently",
+    "multihost.host_down": "hierarchical head assembly: a host's domain "
+                           "partial never arrived; the column block "
+                           "composites without its slab content "
+                           "(degraded), the frame still ships",
+    "multihost.transport": "host gathers route through the coordinator "
+                           "KV store because this backend cannot run "
+                           "cross-process device collectives (the "
+                           "multi-process CPU harness)",
     "obs.flight_recorder": "an unhandled exception tore down a frame "
                            "loop; the last unflushed obs window was "
                            "dumped best-effort to the configured "
@@ -177,6 +189,10 @@ _COUNTER_REGISTRY: Dict[str, str] = {
                           "a brick map",
     "build_steps": "the session (re)built its render step set",
     "compile_step": "one render step was built for a march regime",
+    "dcn_bytes_received": "bytes received over the inter-host DCN seam "
+                          "by the hierarchical composite",
+    "dcn_bytes_sent": "bytes sent over the inter-host DCN seam by the "
+                      "hierarchical composite",
     "dcn_hops_built": "one DCN ring hop of the hierarchical exchange "
                       "was built",
     "delivery_frames_delivered": "the async delivery worker finished "

@@ -5,8 +5,14 @@ device mesh. This port runs it on an in-process N-rank mesh on one
 device, the twin of the virtual CPU mesh the reference's tests use: a
 "sharded" volume is a rank-stacked tensor ``f32[n, D/n, H, W]`` (rank r
 holds z-slab r), a collective is a tensor operation across the rank
-axis, and every rank's work runs in turn on the mesh's device. A mesh
-spread over several cards, one process a card, is ROADMAP A8b item 9.
+axis, and every rank's work runs in turn on the mesh's device.
+
+A process mesh (``parallel/multihost.global_mesh``) spreads the same n
+ranks over a fleet of processes, ``n_local`` consecutive ranks a
+process: this process holds ranks ``[first_rank, first_rank + n_local)``
+as ``f32[n_local, D/n, H, W]`` and its collectives cross processes
+through ``torch.distributed``. The in-process mesh is the case of one
+process holding every rank.
 
 A mesh is flat (one ``ranks`` axis) or two-level, ``(hosts, ranks)``:
 ``num_hosts`` domains of ``domain_size`` ranks each
@@ -28,7 +34,7 @@ several cards would send the rows point to point.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Any, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -39,14 +45,30 @@ DEFAULT_AXIS = "ranks"
 
 
 class Mesh(NamedTuple):
-    """An in-process mesh of ``n`` ranks on one device: flat (one axis
+    """A mesh of ``n`` ranks: in-process on one device, flat (one axis
     name), or ``num_hosts`` domains of ``n / num_hosts`` ranks with the
-    axis names ``(hosts, ranks)``."""
+    axis names ``(hosts, ranks)``; or a flat process mesh, this
+    process's ``local_ranks`` ranks from global rank ``first_rank`` on
+    ``device``, over the process group ``group`` (None: the default
+    group)."""
 
     n: int
     device: torch.device
     axis_names: Tuple[str, ...] = (DEFAULT_AXIS,)
     num_hosts: int = 1
+    group: Any = None
+    first_rank: int = 0
+    local_ranks: int = 0           # 0: every rank, in this process
+
+    @property
+    def n_local(self) -> int:
+        """The ranks this process holds."""
+        return self.local_ranks or self.n
+
+    @property
+    def spans_processes(self) -> bool:
+        """Whether the ranks are spread over several processes."""
+        return self.n_local < self.n
 
     @property
     def hosts_axis(self) -> Optional[str]:
@@ -78,6 +100,9 @@ def make_mesh(n: int = 1, device=None,
 def shard_volume(data: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """Place a global volume ``f32[D, H, W]`` on the mesh, z-sharded:
     ``f32[n, D/n, H, W]`` on the mesh's device, rank r holding slab r."""
+    if mesh.spans_processes:
+        raise ValueError("a process mesh takes each process's own slabs "
+                         "(multihost.shard_global), not the global volume")
     d = data.shape[0]
     if d % mesh.n:
         raise ValueError(f"volume depth {d} not divisible by mesh size "
@@ -87,14 +112,19 @@ def shard_volume(data: torch.Tensor, mesh: Mesh) -> torch.Tensor:
         .contiguous()
 
 
-def halo_exchange_z(slabs: torch.Tensor, h: int = 1) -> torch.Tensor:
+def halo_exchange_z(slabs: torch.Tensor, h: int = 1,
+                    mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Pad every rank's z-slab with ``h`` neighbour slices on each side:
     ``f32[n, Dn, H, W] -> f32[n, Dn+2h, H, W]``.
 
     The edge ranks receive clamped copies of their own boundary slice,
     matching single-device clamp-to-edge sampling, so distributed
     trilinear interpolation is seam-exact. ``h`` may not exceed the slab
-    depth: a deeper halo would need slices from beyond the neighbour."""
+    depth: a deeper halo would need slices from beyond the neighbour.
+    On a process mesh (``mesh``) ``slabs`` is this process's
+    ``[n_local, Dn, H, W]``: the seam rows at a process boundary come
+    from the neighbouring process (one exchange each way), and the
+    clamped copies stay at the global edges."""
     dn = slabs.shape[1]
     if h > dn:
         raise ValueError(
@@ -102,8 +132,18 @@ def halo_exchange_z(slabs: torch.Tensor, h: int = 1) -> torch.Tensor:
             "holds fewer slices than the halo needs (use fewer ranks or a "
             "deeper slab)")
     reps = (1, h) + (1,) * (slabs.dim() - 2)
-    bottom = torch.cat([slabs[:1, :1].repeat(reps), slabs[:-1, -h:]])
-    top = torch.cat([slabs[1:, :h], slabs[-1:, -1:].repeat(reps)])
+    lo = slabs[:1, :1].repeat(reps)
+    hi = slabs[-1:, -1:].repeat(reps)
+    if mesh is not None and mesh.spans_processes:
+        from scenery_insitu_tpu_torch.parallel.multihost import (
+            neighbour_slices)
+
+        prev, nxt = neighbour_slices(slabs[0, :h], slabs[-1, -h:],
+                                     mesh.group)
+        lo = lo if prev is None else prev[None]
+        hi = hi if nxt is None else nxt[None]
+    bottom = torch.cat([lo, slabs[:-1, -h:]])
+    top = torch.cat([slabs[1:, :h], hi])
     return torch.cat([bottom, slabs, top], dim=1)
 
 

@@ -138,11 +138,45 @@ from scenery_insitu_tpu_torch.parallel.topology import resolve_mesh_topology
 
 def _check_sharded(data: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """A step's volume argument: the mesh's rank slabs ``[n, Dn, H, W]``
-    (`shard_volume`)."""
-    if data.dim() != 4 or data.shape[0] != mesh.n:
-        raise ValueError(f"expected the {mesh.n} rank slabs [n, D/n, H, W] "
+    (`shard_volume`), on a process mesh this process's ``[n_local, Dn,
+    H, W]`` (`multihost.shard_global`)."""
+    nl = mesh.n_local
+    if data.dim() != 4 or data.shape[0] != nl:
+        raise ValueError(f"expected the {nl} rank slabs [n, D/n, H, W] "
                          f"of shard_volume, got {tuple(data.shape)}")
     return data
+
+
+_PROCESS_SCOPE = ("on a process mesh the distributed steps run the frame "
+                  "schedule's all_to_all on the f32 wire over a flat mesh "
+                  "with even slabs; {what} across processes is ROADMAP A8b "
+                  "item 9, the rest")
+
+
+def _process_scope(mesh: Mesh, comp_cfg=None, plan=None, bricks=None,
+                   topology=None, builder: Optional[str] = None) -> None:
+    """Raise `NotImplementedError` for what a process mesh does not run
+    yet: any knob of ``comp_cfg`` off the reference smoke's path, a plan,
+    a brick map, a topology, or the ``builder`` named."""
+    if not mesh.spans_processes:
+        return
+    bad = [builder] if builder else []
+    if comp_cfg is not None:
+        for knob, want in (("exchange", "all_to_all"), ("wire", "f32"),
+                           ("schedule", "frame"), ("rebalance", "even"),
+                           ("k_budget", "static"), ("temporal_reuse", "off")):
+            got = getattr(comp_cfg, knob)
+            if got != want:
+                bad.append(f"{knob}={got!r}")
+    for name, knob in (("plan", plan), ("bricks", bricks),
+                       ("topology", topology)):
+        if knob is not None:
+            bad.append(name)
+    if mesh.num_hosts > 1:
+        bad.append("a two-level mesh")
+    if bad:
+        raise NotImplementedError(_PROCESS_SCOPE.format(
+            what=", ".join(bad)))
 
 
 class _Unit(NamedTuple):
@@ -175,9 +209,10 @@ def _shifted(origin: torch.Tensor, dz_offset) -> torch.Tensor:
 
 
 def _frame_rows(slabs: torch.Tensor, spec: slicer.AxisSpec, plan=None,
-                bricks: Optional[BrickMap] = None):
+                bricks: Optional[BrickMap] = None, mesh: Mesh = None):
     """The rows a frame's ranks march, assembled once a frame from the
-    even slabs ``[n, Dn, H, W]``: None (an even z march marches its own
+    even slabs ``[n, Dn, H, W]`` (this process's on a process ``mesh``):
+    None (an even z march marches its own
     slab), the halo-padded slabs (an even x/y march), the planned bands
     (`reslab_z`), or the brick sets by level ``{level: [n, slots, rows,
     H, W]}`` (`reslab_bricks`, `reslab_bricks_lod`). A z march needs no
@@ -193,12 +228,13 @@ def _frame_rows(slabs: torch.Tensor, spec: slicer.AxisSpec, plan=None,
         return reslab_bricks_lod(slabs, bricks, h=h)
     if plan is not None:
         return reslab_z(slabs, plan, h=h)
-    return _halo_for(slabs, spec)
+    return _halo_for(slabs, spec, mesh)
 
 
 def _rank_units(slabs: torch.Tensor, rows, r: int, origin: torch.Tensor,
                 spacing: torch.Tensor, spec: slicer.AxisSpec, plan=None,
-                bricks: Optional[BrickMap] = None) -> _Decomp:
+                bricks: Optional[BrickMap] = None, first: int = 0,
+                n_total: Optional[int] = None) -> _Decomp:
     """Rank r's march units of the frame whose rows `_frame_rows`
     assembled.
 
@@ -212,8 +248,12 @@ def _rank_units(slabs: torch.Tensor, rows, r: int, origin: torch.Tensor,
     ``w_bounds`` on a z march (its pad slices shade nothing). Bricks:
     one unit a slot, each owning its brick's world interval (the brick
     at the global top keeps the +dz slack on an x/y march, scaled by the
-    level's pitch); absent slots own an empty interval."""
-    n, dn, h, w = slabs.shape
+    level's pitch); absent slots own an empty interval. ``r`` is the
+    global rank; ``slabs`` and ``rows`` hold ranks ``first ..`` of
+    ``n_total`` (a process mesh's share; default: every rank)."""
+    _, dn, h, w = slabs.shape
+    n = n_total or slabs.shape[0]
+    loc = r - first
     dz = spacing[2]
     d = dn * n
     dims = (w, h, d)
@@ -228,20 +268,22 @@ def _rank_units(slabs: torch.Tensor, rows, r: int, origin: torch.Tensor,
         z_lo = origin[2] + float(g0) * dz
         z_hi = origin[2] + float(g0 + p_r) * dz
         if z_march:
-            vol = Volume(rows[r], _shifted(origin, float(g0) * dz), spacing)
+            vol = Volume(rows[loc], _shifted(origin, float(g0) * dz),
+                         spacing)
             unit = _Unit(vol, None, (z_lo, z_hi))
         else:
-            vol = Volume(rows[r], _shifted(origin, float(g0 - 1) * dz),
+            vol = Volume(rows[loc], _shifted(origin, float(g0 - 1) * dz),
                          spacing)
             unit = _Unit(vol, (z_lo, z_hi + dz if r == n - 1 else z_hi),
                          None)
         return _Decomp([unit], unit.vol, gmax, dims)
     if z_march:
-        own = slabs[r] if rows is None else rows[r]
+        own = slabs[loc] if rows is None else rows[loc]
         vol = Volume(own, _shifted(origin, r * dn * dz), spacing)
         unit = _Unit(vol, None, None)
     else:
-        vol = Volume(rows[r], _shifted(origin, (r * dn - 1) * dz), spacing)
+        vol = Volume(rows[loc], _shifted(origin, (r * dn - 1) * dz),
+                     spacing)
         z_lo = origin[2] + r * dn * dz
         z_hi = origin[2] + (r + 1) * dn * dz
         unit = _Unit(vol, (z_lo, z_hi + dz if r == n - 1 else z_hi), None)
@@ -398,12 +440,17 @@ def _ring_exchange_composite(color: torch.Tensor, depth: torch.Tensor,
 
 
 def _composite_exchanged(color: torch.Tensor, depth: torch.Tensor, n: int,
-                         cfg: CompositeConfig, topo=None) -> List[VDI]:
+                         cfg: CompositeConfig, topo=None,
+                         mesh: Optional[Mesh] = None) -> List[VDI]:
     """Exchange and composite of the rank-stacked fragments under
     ``cfg.exchange`` and ``cfg.wire``: every rank's composited column
     block, in column order. One rank takes the all_to_all path. A
     ``topo`` (a two-level `parallel.topology.Topology`) runs the
-    two-level composite (``parallel/hier.py``)."""
+    two-level composite (``parallel/hier.py``). On a process ``mesh``
+    the fragments are this process's ranks' and so are the blocks
+    returned (`_composite_exchanged_procs`)."""
+    if mesh is not None and mesh.spans_processes:
+        return _composite_exchanged_procs(color, depth, mesh, cfg)
     if topo is not None:
         from scenery_insitu_tpu_torch.parallel.hier import hier_composite_vdi
 
@@ -412,6 +459,32 @@ def _composite_exchanged(color: torch.Tensor, depth: torch.Tensor, n: int,
         return _ring_exchange_composite(color, depth, n, cfg)
     rc, rd = _exchange_vdi_columns(color, depth, n, cfg.wire)
     return [composite_vdis(rc[j], rd[j], cfg) for j in range(n)]
+
+
+def _composite_exchanged_procs(color: torch.Tensor, depth: torch.Tensor,
+                               mesh: Mesh, cfg: CompositeConfig
+                               ) -> List[VDI]:
+    """The all_to_all exchange and composite on a process mesh: this
+    process's ``n_local`` fragments (``color [n_local, K, 4, H, W]``,
+    ``depth [n_local, K, 2, H, W]``), colour and depth side by side in
+    one buffer, split into the n column blocks and sent in ONE
+    ``all_to_all_single`` (process q receives the blocks of its ranks
+    from every process, in source-rank order); each of this process's
+    ranks then composites its N·K-slot block (K4 on a card), as
+    `_exchange_vdi_columns` and `composite_vdis` do on one process.
+    Returns this process's ranks' blocks in column order."""
+    from scenery_insitu_tpu_torch.parallel.multihost import all_to_all
+
+    nl, k = color.shape[:2]
+    frag = torch.cat([color, depth], dim=2)             # [nl, K, 6, H, W]
+    parts = _exchange_columns(frag, mesh.n)       # [n_dst, nl_src, ...]
+    parts = parts.reshape((mesh.n // nl, nl) + tuple(parts.shape[1:]))
+    got = all_to_all(parts, mesh.group)  # [P_src, nl_dst, nl_src, ...]
+    out = []
+    for j in range(nl):
+        blk = got[:, j].reshape((mesh.n,) + tuple(got.shape[3:]))
+        out.append(composite_vdis(blk[:, :, :4], blk[:, :, 4:], cfg))
+    return out
 
 
 # -------------------------------------------------------- build markers
@@ -662,10 +735,11 @@ def _shaded_rows(slabs: torch.Tensor, spec: slicer.AxisSpec, origin,
     return torch.stack(out)
 
 
-def _halo_for(slabs: torch.Tensor, spec: slicer.AxisSpec):
+def _halo_for(slabs: torch.Tensor, spec: slicer.AxisSpec,
+              mesh: Optional[Mesh] = None):
     """The halo-padded slabs an x or y march reads; None for a z march,
     which needs none."""
-    return None if spec.axis == 2 else halo_exchange_z(slabs)
+    return None if spec.axis == 2 else halo_exchange_z(slabs, mesh=mesh)
 
 
 class _RankFrame:
@@ -679,11 +753,12 @@ class _RankFrame:
     reuse its ranges."""
 
     def __init__(self, slabs, halo, r, origin, spacing, cam, spec, tf,
-                 plan=None, bricks=None, pyramid: bool = False):
+                 plan=None, bricks=None, pyramid: bool = False,
+                 first: int = 0, n_total: Optional[int] = None):
         from scenery_insitu_tpu_torch.ops import occupancy as _occ
 
         self.dec = _rank_units(slabs, halo, r, origin, spacing, spec, plan,
-                               bricks)
+                               bricks, first, n_total)
         self.axcam = slicer.make_axis_camera(self.dec.ref, cam, spec,
                                              box_min=origin,
                                              box_max=self.dec.gmax)
@@ -1063,9 +1138,17 @@ def _build_mxu_step(mesh, tf, spec, vdi_cfg, comp_cfg, temporal: bool,
     reuse decision (one copy of the dirty bits to the host). Pass 2
     marches the dirty ranks only, on the frame schedule or in tile
     waves; a clean rank launches no march kernel. The exchange and
-    composite run as without reuse."""
+    composite run as without reuse.
+
+    On a process mesh (``multihost.global_mesh``) the step takes this
+    process's slabs, marches its ranks only, exchanges the column
+    blocks with one all_to_all across processes and returns this
+    process's contiguous column block, the meta of its first rank (rank
+    0's on process 0) and its ranks' rows of the threshold maps; only
+    the reference smoke's configuration runs there (`_process_scope`)."""
     vdi_cfg = vdi_cfg or VDIConfig()
     comp_cfg = comp_cfg or CompositeConfig()
+    _process_scope(mesh, comp_cfg, plan, bricks, topology)
     _, n, topo = resolve_mesh_topology(mesh, topology)
     if spec.ni % n:
         raise ValueError(f"intermediate width {spec.ni} not divisible by "
@@ -1080,14 +1163,17 @@ def _build_mxu_step(mesh, tf, spec, vdi_cfg, comp_cfg, temporal: bool,
     k = vdi_cfg.max_supersegments * (bricks.total_slots if bricks else 1)
     _exchange_build_markers(n, k, spec.nj, spec.ni, comp_cfg, topo, waves)
     rows_a_rank = spec.nj * (bricks.total_slots if bricks else 1)
+    first, nl = mesh.first_rank, mesh.n_local
 
     def body(data, origin, spacing, cam, thr, ru):
         slabs = _check_sharded(data, mesh)
-        rows = _frame_rows(slabs, spec, plan, bricks)
-        # pass 1: every rank's frame state, targets and dirty bits
+        rows = _frame_rows(slabs, spec, plan, bricks, mesh)
+        # pass 1: every rank's frame state, targets and dirty bits (this
+        # process's ranks on a process mesh)
         frames = [_RankFrame(slabs, rows, r, origin, spacing, cam, spec, tf,
-                             plan, bricks, pyramid=budget or reuse)
-                  for r in range(n)]
+                             plan, bricks, pyramid=budget or reuse,
+                             first=first, n_total=n)
+                  for r in range(first, first + nl)]
         del rows
         kts = _k_targets(frames, n, vdi_cfg, comp_cfg) if budget else None
         dec = None if ru is None else _reuse_decide(frames, cam, ru,
@@ -1104,7 +1190,7 @@ def _build_mxu_step(mesh, tf, spec, vdi_cfg, comp_cfg, temporal: bool,
         meta = _global_meta(frames[0].dec, frames[0].axcam, spec, origin)
         del frames
         ru2 = None if dec is None else _reuse_carry(dec, color, depth)
-        blocks = _composite_exchanged(color, depth, n, comp_cfg, topo)
+        blocks = _composite_exchanged(color, depth, n, comp_cfg, topo, mesh)
         del color, depth
         return VDI(torch.cat([b.color for b in blocks], dim=-1),
                    torch.cat([b.depth for b in blocks], dim=-1)), meta, \
@@ -1148,19 +1234,23 @@ def distributed_initial_threshold_mxu(mesh: Mesh, tf: TransferFunction,
     map: one map set a slot, row-stacked). Generation is
     topology-agnostic: on a two-level mesh the maps stack in flat rank
     order, as the step carries them. The seed builds no K budget: it
-    picks against K, as the reference's does."""
+    picks against K, as the reference's does. On a process mesh each
+    process seeds its own ranks and keeps their maps: the thresholds are
+    rank-local, no collective."""
     vdi_cfg = vdi_cfg or VDIConfig()
+    _process_scope(mesh, plan=plan, bricks=bricks)
     _, n, _ = resolve_mesh_topology(mesh)
     plan = _resolve_plan("occupancy", n, plan)
     bricks = _resolve_bricks("bricks", n, bricks)
+    first, nl = mesh.first_rank, mesh.n_local
 
     def seed(vol_data, origin, spacing, cam: Camera) -> ss.ThresholdState:
         slabs = _check_sharded(vol_data, mesh)
-        rows = _frame_rows(slabs, spec, plan, bricks)
+        rows = _frame_rows(slabs, spec, plan, bricks, mesh)
         states = []
-        for r in range(n):
+        for r in range(first, first + nl):
             dec = _rank_units(slabs, rows, r, origin, spacing, spec, plan,
-                              bricks)
+                              bricks, first, n)
             axcam = slicer.make_axis_camera(dec.ref, cam, spec,
                                             box_min=origin,
                                             box_max=dec.gmax)
@@ -1192,6 +1282,7 @@ def distributed_initial_reuse_mxu(mesh: Mesh, tf: TransferFunction,
 
     vdi_cfg = vdi_cfg or VDIConfig()
     comp_cfg = comp_cfg or CompositeConfig()
+    _process_scope(mesh, builder="distributed_initial_reuse_mxu")
     _, n, _ = resolve_mesh_topology(mesh)
     plan = _resolve_plan(comp_cfg, n, plan)
 
@@ -1250,6 +1341,7 @@ def distributed_hybrid_step_mxu(mesh: Mesh, tf: TransferFunction,
 
     vdi_cfg = vdi_cfg or VDIConfig()
     comp_cfg = comp_cfg or CompositeConfig()
+    _process_scope(mesh, builder="distributed_hybrid_step_mxu")
     _, n, topo = resolve_mesh_topology(mesh, topology)
     if spec.ni % n:
         raise ValueError(f"intermediate width {spec.ni} not divisible by "
@@ -1328,7 +1420,8 @@ def _bricks_inert(bricks, where: str) -> None:
 
 def _local_volume_and_clip(slabs: torch.Tensor, rows: torch.Tensor, r: int,
                            origin: torch.Tensor, spacing: torch.Tensor,
-                           plan=None):
+                           plan=None, first: int = 0,
+                           n_total: Optional[int] = None):
     """Rank r's halo-padded Volume for the gather engine, its own clip
     box and the GLOBAL sample box: ``(vol, clip_min, clip_max,
     sample_min, sample_max)``. ``rows`` holds every rank's rows with one
@@ -1337,11 +1430,16 @@ def _local_volume_and_clip(slabs: torch.Tensor, rows: torch.Tensor, r: int,
     unsampled). The clip boxes tile the global volume (rank r's top
     face and rank r+1's bottom face are the same f32 expression) and
     every rank ladders its samples on the global box, so the composite
-    equals the single-device frame whatever the decomposition."""
-    n, dn, h, w = slabs.shape
+    equals the single-device frame whatever the decomposition. ``r`` is
+    the global rank; ``slabs`` and ``rows`` hold ranks ``first ..`` of
+    ``n_total`` (a process mesh's, or a host's in the two-level host
+    path; default: every rank)."""
+    _, dn, h, w = slabs.shape
+    n = n_total or slabs.shape[0]
     dz = spacing[2]
     g0, depth = (r * dn, dn) if plan is None else (sum(plan[:r]), plan[r])
-    vol = Volume(rows[r], _shifted(origin, float(g0 - 1) * dz), spacing)
+    vol = Volume(rows[r - first], _shifted(origin, float(g0 - 1) * dz),
+                 spacing)
     gmax = origin + torch.tensor([w, h, dn * n], dtype=torch.float32,
                                  device=origin.device) * spacing
     z_lo = origin[2] + float(g0) * dz
@@ -1423,10 +1521,16 @@ def distributed_vdi_step(mesh: Mesh, tf: TransferFunction, width: int,
     frame), flat or two-level (``topology``, see
     `distributed_vdi_step_mxu`). The K budget and fragment reuse need
     the slice march's pyramid and carry: configured here they go on the
-    ledger inert, as the reference records them."""
+    ledger inert, as the reference records them. On a process mesh
+    (``multihost.global_mesh``) each process marches its own ranks, the
+    seam rows cross process boundaries, and the step returns this
+    process's contiguous column block (`_process_scope` says what runs
+    there)."""
     vdi_cfg = vdi_cfg or VDIConfig()
     comp_cfg = comp_cfg or CompositeConfig()
+    _process_scope(mesh, comp_cfg, plan, bricks, topology)
     _, n, topo = resolve_mesh_topology(mesh, topology)
+    first, nl = mesh.first_rank, mesh.n_local
     if width % n:
         raise ValueError(f"width {width} not divisible by mesh size {n}")
     waves = _resolve_waves(comp_cfg, n, width)
@@ -1452,16 +1556,16 @@ def distributed_vdi_step(mesh: Mesh, tf: TransferFunction, width: int,
         if bricks is not None:
             bands = reslab_bricks(slabs, bricks, h=1)
         else:
-            rows = (halo_exchange_z(slabs) if plan is None
+            rows = (halo_exchange_z(slabs, mesh=mesh) if plan is None
                     else reslab_z(slabs, plan, h=1))
         colors, depths = [], []
-        for r in range(n):
+        for r in range(first, first + nl):
             if bricks is not None:
                 units, gmax = _brick_clip_units(slabs, bands, r, origin,
                                                 spacing, bricks)
             else:
                 vol, cmin, cmax, _, gmax = _local_volume_and_clip(
-                    slabs, rows, r, origin, spacing, plan)
+                    slabs, rows, r, origin, spacing, plan, first, n)
                 units = [(vol, cmin, cmax)]
             cs, ds = [], []
             for unit in units:
@@ -1487,7 +1591,7 @@ def distributed_vdi_step(mesh: Mesh, tf: TransferFunction, width: int,
         if waves:
             return _composite_exchanged_waves(color, depth, n, comp_cfg,
                                               topo)
-        blocks = _composite_exchanged(color, depth, n, comp_cfg, topo)
+        blocks = _composite_exchanged(color, depth, n, comp_cfg, topo, mesh)
         return VDI(torch.cat([b.color for b in blocks], dim=-1),
                    torch.cat([b.depth for b in blocks], dim=-1))
 
@@ -1623,6 +1727,7 @@ def distributed_plain_step_mxu(mesh: Mesh, tf: TransferFunction,
     ``ao_radius + 1`` slices deep."""
     cfg = cfg or RenderConfig()
     comp_cfg = comp_cfg or CompositeConfig()
+    _process_scope(mesh, builder="distributed_plain_step_mxu")
     _, n, topo = resolve_mesh_topology(mesh, topology)
     if spec.ni % n:
         raise ValueError(f"intermediate width {spec.ni} not divisible by "
@@ -1712,6 +1817,7 @@ def distributed_plain_step(mesh: Mesh, tf: TransferFunction, width: int,
     single-device AO render."""
     cfg = cfg or RenderConfig(width=width, height=height)
     comp_cfg = comp_cfg or CompositeConfig()
+    _process_scope(mesh, builder="distributed_plain_step")
     _, n, topo = resolve_mesh_topology(mesh, topology)
     if width % n:
         raise ValueError(f"width {width} not divisible by mesh size {n}")

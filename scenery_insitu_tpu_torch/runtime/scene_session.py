@@ -34,6 +34,7 @@ from scenery_insitu_tpu_torch.core.transfer import (TransferFunction,
                                                     for_dataset)
 from scenery_insitu_tpu_torch.device import resolve_device
 from scenery_insitu_tpu_torch.ops import slicer as _slicer
+from scenery_insitu_tpu_torch.parallel import multihost
 from scenery_insitu_tpu_torch.runtime.failsafe import SinkGuard
 from scenery_insitu_tpu_torch.runtime.session import (
     _unported, advance_camera_and_index, apply_tf_steering, drain_steering,
@@ -61,7 +62,7 @@ class SceneSession:
         # the same recorder-wraps-timers layering as InSituSession (spans
         # feed the PhaseStats either way; events only when obs enabled)
         self.obs = _obs.Recorder.from_config(
-            self.cfg.obs, rank=0, log=self.log,
+            self.cfg.obs, rank=multihost.process_index(), log=self.log,
             window=self.cfg.runtime.stats_window)
         self.timers = self.obs.timers
         _obs.set_recorder(self.obs)

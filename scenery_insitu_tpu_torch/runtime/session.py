@@ -121,6 +121,7 @@ from scenery_insitu_tpu_torch.device import resolve_device
 from scenery_insitu_tpu_torch.core.volume import Volume
 from scenery_insitu_tpu_torch.ops import slicer as _slicer
 from scenery_insitu_tpu_torch.ops.splat import SplatOutput
+from scenery_insitu_tpu_torch.parallel import multihost
 from scenery_insitu_tpu_torch.parallel.mesh import Mesh, shard_volume
 from scenery_insitu_tpu_torch.parallel.particles import shard_particles
 from scenery_insitu_tpu_torch.parallel.topology import (
@@ -405,7 +406,7 @@ class InSituSession:
         # process slot whether enabled or not, so a finished session's
         # recorder stops absorbing this one's events
         self.obs = _obs.Recorder.from_config(
-            self.cfg.obs, rank=0, log=self.log,
+            self.cfg.obs, rank=multihost.process_index(), log=self.log,
             window=self.cfg.runtime.stats_window)
         self.timers = self.obs.timers
         _obs.set_recorder(self.obs)

@@ -30,12 +30,16 @@ from scenery_insitu_tpu_torch.core.vdi import VDI, render_vdi_same_view
 from scenery_insitu_tpu_torch.models import pipelines as tpipe
 from scenery_insitu_tpu_torch.ops import composite as tcomp
 from scenery_insitu_tpu_torch.ops import slicer as tsl
+from scenery_insitu_tpu_torch.parallel import hier as thier
+from scenery_insitu_tpu_torch.parallel import mesh as tmesh
+from scenery_insitu_tpu_torch.parallel import multihost as tmh
 from scenery_insitu_tpu_torch import serve as tserve
 from scenery_insitu_tpu_torch.runtime import scene_session as tscene_session
 from scenery_insitu_tpu_torch.serve import __main__ as tserve_main
 from scenery_insitu_tpu_torch.sim import grayscott as tgs
 from scenery_insitu_tpu_torch.sim import particles as tpt
 from scenery_insitu_tpu_torch.sim import vortex as tvx
+from scenery_insitu_tpu_torch.testing import multiproc as tmultiproc
 from tests.golden import make_golden as mg
 
 CPU = "cpu"
@@ -373,6 +377,14 @@ def test_entry_points_without_cuda_raise(monkeypatch):
         lambda: tserve_main.main(["--seconds", "0", "--connect",
                                   "tcp://127.0.0.1:1", "--bind",
                                   "tcp://127.0.0.1:0"]),
+        # the multi-process fleet: its entry points and the host path
+        lambda: tmh.initialize("127.0.0.1:1", 2, 1, timeout_s=1.0),
+        lambda: tmh.global_mesh(2),
+        lambda: thier.domain_partial_vdi_step(tmesh.make_mesh(2), None,
+                                              16, 16),
+        lambda: thier.merge_partial_blocks([(np.zeros((1, 4, 2, 2)),
+                                             np.zeros((1, 2, 2, 2)))]),
+        lambda: tmultiproc.run_multiproc("tests.x:y", 2),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -20,6 +20,7 @@ process mesh, the two-level composite's host path, the host gathers).
     python3 chip_smoke.py --phase15-only  # the build and phase 15
     python3 chip_smoke.py --phase16-only  # the build and phase 16
     python3 chip_smoke.py --phase17-only  # the build and phase 17
+    python3 chip_smoke.py --phase18-only  # the build and phase 18
     python3 chip_smoke.py --k4-compare old=OTHER/resegment.cu \
         --k2-compare old=OTHER/count_multi.cu \
         --events-compare old=OTHER/fold_chunk.cu  # + designs in turns
@@ -287,13 +288,13 @@ and prints no result):
 12. the gather engine and the plain images at the bench's gather
    configuration (1280 x 720, 256 samples a ray, K = 16, histogram
    with 16 bins): (a) the single-chip gather frame on the 512^3
-   Gray-Scott state with phase 3's oscillating eye, 1 warm-up and 3
+   Gray-Scott state with phase 3's oscillating eye, 1 warm-up and 2
    timed frames, K3 launched and no other kernel (the ray march and the
    one-rank composite launch none), the sim and the march timed apart,
    and 3 frames at 32^3 (96 x 72, 64 steps) against the CPU's plain
    versions; (b) the gather ``distributed_vdi_step`` on phase 4's
-   8-rank mesh and composite, from (a)'s final state, 1 warm-up and 2
-   timed frames, K4 8 a frame, its same-view image at least 25 dB from
+   8-rank mesh and composite, from (a)'s final state, 1 warm-up and 1
+   timed frame, K4 8 a frame, its same-view image at least 25 dB from
    the single-chip plain raycast at that state and eye (the reference's
    bar), K4 against its plain version on the step's own 128-slot,
    720 x 160 streams (rebuilt from the last frame's fragments, which
@@ -305,7 +306,7 @@ and prints no result):
    8 ranks, at least 28 and 32 dB from ``raycast`` and
    ``slicer.raycast_mxu``, launching no kernel; (d) phase 7's session
    over 8 ranks in the plain slice-march mode and the gather VDI mode,
-   a warm and 4 timed frames each with a PNG sink every 4, the first 2
+   a warm and 2 timed frames each with a PNG sink every 2, the first 2
    frames bit for bit against the hand-driven step, the plain PNG's
    pixels the payload's; (e) the committed golden images of the gather
    raycast, the slice-march plain render and the gather VDI's decode
@@ -442,6 +443,28 @@ and prints no result):
    twin (``benchmarks/scaling_bench --mode hosts``) at 1 and 2 hosts.
    The workers' launches come back through the workdir into the kernel
    table's ``phase17_launches``. ``phase17.wall_s`` prints its seconds.
+18. the external simulation's ingest, LZ4 and the lint with B10: first
+   /dev/shm's size (a ring that does not fit cuts the cube to the
+   largest power of two that does, on a line of its own). (a) the
+   port's demo producer (``ingest/native``, built with g++) publishes
+   4 frames of its travelling Gaussian (512^3, 512 MiB a slot, 3 slots)
+   while phase 4's 8-rank session renders 6 frames from
+   ``ShmVolumeSource`` (the counts set to 0 before, read after: K2, K1,
+   K4 and no K3), with the host-to-card ms and GB/s of each copy and
+   the frames consumed, skipped and dropped; then, the producer gone,
+   the session on a fresh source equals the same session fed the final
+   frame as a tensor through a plain adapter, bit for bit, 3 frames;
+   (b) 8 slab producers and a field producer of the same Gaussian:
+   ``ShmShardedVolumeSource`` on the 8-rank mesh equals the field bit
+   for bit and its session's 3 frames equal (a)'s; (c) phase 3's VDI
+   through ``pack_vdi_segments(codec="lz4")`` and an lz4 ``.npz``, bit
+   for bit, the ratio and MB/s each way; (d) ``python -m
+   scenery_insitu_tpu_torch.tools.lint --fail-on-stale`` exits 0, B10
+   (``tests/torch_lint_fixtures/good_double.cu``) at 8 x 128 and 8192 x
+   8192 equals its plain version bit for bit with NaN and +-0 tiles, a
+   height of 8196 raises, B10's ms with the stream kept full beside its
+   bound, its plain version and the torch pair ``x * 2``, ``amax``.
+   ``phase18.wall_s`` prints its seconds.
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -531,6 +554,7 @@ SESSION_EVERY = 4
 SESSION_ORBIT = 0.05
 # each timed path's median ms a frame (CUDA events, host clock), by prefix
 FRAME_MS = {}
+PHASE3_VDI = {}             # phase 3's last timed VDI on the host (18 c)
 # the session's ms a frame (host clock), by prefix
 SESSION_MS = {}
 
@@ -1728,6 +1752,9 @@ def run_frame(dev, profile=False, fold="auto", prefix="frame",
     ev.sort()
     wall.sort()
     FRAME_MS[prefix] = (ev[len(ev) // 2], wall[len(wall) // 2])
+    if prefix == "frame":
+        PHASE3_VDI.update(color=color.cpu().numpy(),
+                          depth=depth.cpu().numpy())
     log(f"{prefix}.ms_per_frame", f"{ev[len(ev) // 2]:.3f} (median of "
         f"{TIMED_FRAMES}, CUDA events; host clock {wall[len(wall) // 2]:.3f})")
 
@@ -5358,9 +5385,12 @@ def run_phase11(dev, ref0, done, profile=False):
 # samples a ray; the temporal mode is the slice march's, so histogram
 # (bench.py:252-260)
 GATHER_W, GATHER_H, GATHER_STEPS = 1280, 720, 256
-GATHER_TIMED = 3
-GATHER_DIST_TIMED = 2
-GATHER_SESSION_TIMED = 4
+# timed frames: cut from 3, 2 and 4 (with the sessions' PNGs every 4)
+# when phase 18 came, to keep the whole run near its length before
+GATHER_TIMED = 2
+GATHER_DIST_TIMED = 1
+GATHER_SESSION_TIMED = 2
+GATHER_SESSION_EVERY = 2
 # the reference's bars against the single-chip plain renders
 # (tests/test_parallel.py:77-107, :206-236)
 GATHER_VDI_DB, PLAIN_DB, PLAIN_MXU_DB = 25.0, 28.0, 32.0
@@ -5438,7 +5468,7 @@ def run_gather_frame(dev, profile=False):
     """Phase 12 (a): the single-chip gather frame at the bench's gather
     configuration (512^3 Gray-Scott, 10 sim steps, 1280 x 720, 256
     steps, K = 16, histogram with 16 bins), phase 3's oscillating eye: 1
-    warm-up and 3 timed frames with the launch counts read from that run
+    warm-up and 2 timed frames with the launch counts read from that run
     (K3 only: the march and its composite launch no kernel), the sim and
     the march timed apart, then the frame against the CPU's plain
     versions on a 32^3 grid. Returns the launch counts and the final
@@ -5548,7 +5578,7 @@ def run_gather_dist(dev, state, profile=False):
     """Phase 12 (b) and (c) on phase 4's 8-rank mesh at the gather
     configuration, from phase 12 (a)'s final state: (b) the gather
     `distributed_vdi_step` (phase 4's composite: K_out 16, a 6-step
-    search), 1 warm-up and 2 timed frames, K4 once per rank and frame,
+    search), 1 warm-up and 1 timed frame, K4 once per rank and frame,
     its same-view image >= 25 dB from the single-chip plain raycast at
     that state and eye; (c) `distributed_plain_step` (>= 28 dB from the
     raycast) and `distributed_plain_step_mxu` warped to the display
@@ -5769,7 +5799,7 @@ def check_small_gather_dist(dev):
 def run_gather_sessions(dev):
     """Phase 12 (d): phase 7's session over 8 ranks in the plain
     slice-march mode and the gather VDI mode (1280 x 720; 256 steps), a
-    warm frame and 4 timed frames each with a PNG sink every 4 frames,
+    warm frame and 2 timed frames each with a PNG sink every 2 frames,
     the first 2 frames bit for bit against the hand-driven step and the
     PNG equal to the plain payload's display pixels. Returns each
     mode's launch counts."""
@@ -5802,7 +5832,8 @@ def run_gather_sessions(dev):
         out = tempfile.mkdtemp(prefix="chip_smoke_gather_")
         try:
             frames = {}
-            sess = session(dev, cfg, [png_sink(out, every=SESSION_EVERY),
+            sess = session(dev, cfg, [png_sink(out,
+                                               every=GATHER_SESSION_EVERY),
                                       capture_into(frames)])
             st0 = sess.sim.state
             u0, v0, cam0 = st0.u.clone(), st0.v.clone(), sess.camera
@@ -5820,7 +5851,7 @@ def run_gather_sessions(dev):
             SESSION_MS[prefix] = ms
             log(f"{prefix}.ms_per_frame", f"{ms:.3f} (host clock, mean of "
                 f"{GATHER_SESSION_TIMED} frames after a warm one, a PNG "
-                f"every {SESSION_EVERY})")
+                f"every {GATHER_SESSION_EVERY})")
             log_phase_stats(prefix, sess.timers, before)
             if name == "gather_vdi":
                 require_only(launches, ("grayscott_fused",
@@ -8261,6 +8292,411 @@ def run_phase17(dev, done, field=None, gw=None, gh=None, gsteps=None):
                 host_path=[r["b"]["launches"] for r in res])
 
 
+# ------------------------------------------------------------- phase 18
+
+P18_GRID = 512              # the demo producer's field: 512 MiB a slot
+P18_SLOTS = 3               # the ring's slots (the demo producer's)
+P18_PRODUCED = 4            # frames each demo producer publishes
+P18_LIVE = 6                # session frames while the producer publishes
+P18_GATE = 3                # frames of each session on the static frame
+P18_WAIT_MS = 3000          # the live source's frame_timeout_ms
+P18_KERNELS = ("seg_fold_compact", "count_multi", "resegment_sorted")
+B10_SHAPES = ((8, 128), (8192, 8192))
+B10_BAD_H = 8196            # not a multiple of 8: the wrapper raises
+
+
+def load_b10():
+    """The B10 fixture module (``tests/torch_lint_fixtures/good_cuda.py``,
+    loaded by path): importing it registers its library with
+    ``kernels``, so the start's build compiles it with the others."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "tests", "torch_lint_fixtures", "good_cuda.py")
+    spec = importlib.util.spec_from_file_location("b10_good_cuda", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def p18_grid():
+    """Prints /dev/shm's size; returns the largest power-of-two cube, at
+    most P18_GRID, whose two rings (b: the 8 slab rings and the field's)
+    fit in what is free, with a tenth to spare."""
+    st = os.statvfs("/dev/shm")
+    free = st.f_bavail * st.f_frsize
+    log("p18.dev_shm", f"{st.f_blocks * st.f_frsize} B, {free} B free")
+    g = P18_GRID
+    while g > 16 and 2 * P18_SLOTS * g ** 3 * 4 * 1.1 > free:
+        g //= 2
+    if g != P18_GRID:
+        log("p18.cut", f"grid {g}^3 in place of {P18_GRID}^3: /dev/shm "
+            f"holds {free} B, two rings of {P18_GRID}^3 need "
+            f"{2 * P18_SLOTS * P18_GRID ** 3 * 4} B")
+    return g
+
+
+class PlainFrame:
+    """A sim adapter holding one field tensor: the ingest gate's
+    reference."""
+
+    kind = "external"
+
+    def __init__(self, field):
+        self.field = field
+
+    def advance(self, n):
+        pass
+
+
+def p18_session(dev, g, sim, sinks=()):
+    """Phase 4's 8-rank session (phase 7's settings) on an external
+    sim's ``g``^3 field."""
+    from scenery_insitu_tpu_torch.core.camera import Camera
+    from scenery_insitu_tpu_torch.runtime.session import InSituSession
+
+    cam = Camera.create(BASE_EYE, fov_y_deg=50.0, near=0.5, far=20.0,
+                        device=dev)
+    sess = InSituSession(session_config(g, ranks=RANKS), camera=cam,
+                         sim=sim, sinks=list(sinks), device=dev)
+    sess.orbit_rate = SESSION_ORBIT
+    return sess
+
+
+def p18_upload(prefix, src, nbytes):
+    """The source's host-to-card copies: ms each (host clock, with the
+    wait for the copy's event) and GB/s."""
+    ms = sorted(src.upload_ms)
+    med = ms[len(ms) // 2]
+    log(f"{prefix}.h2d_ms", f"{med:.3f} (median of {len(ms)}: "
+        f"{[round(x, 3) for x in src.upload_ms]}, host clock, {nbytes} B "
+        f"a frame)")
+    log(f"{prefix}.h2d_gbps", f"{nbytes / med / 1e6:.3f}")
+    return med
+
+
+def p18_vdi_ok(prefix, payload):
+    import numpy as np
+
+    c, d = payload["vdi_color"], payload["vdi_depth"]
+    live = np.isfinite(d[:, 0])
+    log(f"{prefix}.vdi", f"{c.shape} {d.shape}, live slots "
+        f"{int(live.sum())}")
+    if not (np.isfinite(c).all() and live.any()
+            and np.all(np.isfinite(d) | (d == np.inf))):
+        raise AssertionError(f"{prefix}: the VDI is not finite or has no "
+                             f"live slot")
+
+
+def run_ingest(dev, g, demo):
+    """Phase 18 (a): the demo producer publishes P18_PRODUCED frames of
+    its travelling Gaussian (``g``^3) while phase 4's 8-rank session
+    renders P18_LIVE frames from ``ShmVolumeSource`` (the counts set to
+    0 before, read after); then, the producer gone, a fresh source on
+    the static final frame against a plain adapter holding that frame
+    as a tensor, P18_GATE frames each, bit for bit. Returns (launches,
+    the gate's frames, the live h2d ms)."""
+    import subprocess as sp
+
+    import torch
+
+    from scenery_insitu_tpu_torch import kernels
+    from scenery_insitu_tpu_torch.ingest import shm
+
+    ch = f"/sitpu_p18_field_{os.getpid()}"
+    nbytes = g ** 3 * 4
+    prod = sp.Popen([demo, ch, "field", str(g), str(P18_PRODUCED), "0"],
+                    stdout=sp.PIPE, stderr=sp.STDOUT, text=True)
+    try:
+        src = shm.ShmVolumeSource(ch, (g,) * 3, timeout_ms=120_000,
+                                  frame_timeout_ms=P18_WAIT_MS, device=dev)
+        live = {}
+        sess = p18_session(dev, g, src, [capture_into(live)])
+        kernels.reset_launches()
+        ms, _ = timed_run(sess, P18_LIVE)
+        launches = kernels.launches()
+        out, _ = prod.communicate(timeout=300)
+        if prod.returncode != 0:
+            raise AssertionError(f"demo producer exited {prod.returncode}: "
+                                 f"{out}")
+        log("p18a.launches", json.dumps(launches))
+        require_only(launches, P18_KERNELS, "phase 18 (a), the ingest "
+                     "session")
+        log("p18a.ms_per_frame", f"{ms:.3f} (host clock, mean of "
+            f"{P18_LIVE} frames with the waits for the producer's, the "
+            f"first seeding)")
+        h2d = p18_upload("p18a", src, nbytes)
+        stats = shm.channel_stats(ch)
+        log("p18a.frames", f"consumed {src.frames} of {stats['last_seq']} "
+            f"published (skipped {src.last_seq - src.frames}), producer "
+            f"frames dropped {stats['frames_dropped']}, stall episodes "
+            f"{src.stall_count}")
+        p18_vdi_ok("p18a.live", live[P18_LIVE - 1])
+        del sess, live
+        src.close()
+        # the gate: the static final frame, through a fresh source and as
+        # a tensor through a plain adapter
+        tensor = torch.from_numpy(shm.ShmConsumer(ch, (g,) * 3).latest(
+            timeout_ms=1000)[0]).to(dev)
+        gate = {}
+        for name, sim in (
+                ("ingest", shm.ShmVolumeSource(ch, (g,) * 3,
+                                               timeout_ms=10_000,
+                                               frame_timeout_ms=0,
+                                               device=dev)),
+                ("tensor", PlainFrame(tensor))):
+            gate[name] = {}
+            p18_session(dev, g, sim, [capture_into(gate[name])]).run(
+                P18_GATE)
+            if name == "ingest":
+                if not torch.equal(sim.field, tensor):
+                    raise AssertionError("p18a: the ingested frame differs "
+                                         "from the final frame")
+                sim.close()
+        check_frames_equal("p18a.ingest_vs_tensor", gate["ingest"],
+                           gate["tensor"])
+        p18_vdi_ok("p18a.gate", gate["ingest"][P18_GATE - 1])
+        return launches, gate["ingest"], h2d
+    finally:
+        if prod.poll() is None:
+            prod.kill()
+            prod.wait()
+        shm.unlink(ch)
+        torch.cuda.empty_cache()
+
+
+def run_sharded(dev, g, demo, want):
+    """Phase 18 (b): RANKS slab producers and one field producer of the
+    same Gaussian, run to their end; ``ShmShardedVolumeSource`` on the
+    8-rank mesh equals the field bit for bit, and its session's
+    P18_GATE frames equal (a)'s gate frames ``want``. Returns the
+    session's launches."""
+    import subprocess as sp
+
+    import torch
+
+    from scenery_insitu_tpu_torch import kernels
+    from scenery_insitu_tpu_torch.ingest import shm
+    from scenery_insitu_tpu_torch.parallel.mesh import make_mesh
+
+    pid = os.getpid()
+    chans = [f"/sitpu_p18_slab{r}_{pid}" for r in range(RANKS)]
+    whole = f"/sitpu_p18_whole_{pid}"
+    procs = [sp.Popen([demo, c, "slab", str(g), str(P18_PRODUCED), "0",
+                       str(r), str(RANKS)], stdout=sp.DEVNULL)
+             for r, c in enumerate(chans)]
+    procs.append(sp.Popen([demo, whole, "field", str(g), str(P18_PRODUCED),
+                           "0"], stdout=sp.DEVNULL))
+    try:
+        t0 = time.perf_counter()
+        rcs = [p.wait(timeout=300) for p in procs]
+        log("p18b.producers_s", f"{time.perf_counter() - t0:.3f} "
+            f"({RANKS} slab producers and the field's, in parallel)")
+        if any(rcs):
+            raise AssertionError(f"p18b: producers exited {rcs}")
+        src = shm.ShmShardedVolumeSource(
+            chans, (g // RANKS, g, g), make_mesh(RANKS, device=dev),
+            timeout_ms=10_000, frame_timeout_ms=0)
+        field = torch.from_numpy(shm.ShmConsumer(whole, (g,) * 3).latest(
+            timeout_ms=1000)[0]).to(dev)
+        if tuple(src.slabs.shape) != (RANKS, g // RANKS, g, g) or \
+                not torch.equal(src.field, field):
+            raise AssertionError("p18b: the assembled slabs differ from "
+                                 "the field producer's frame")
+        log("p18b.assembled", f"{tuple(src.slabs.shape)} bit for bit the "
+            f"field's, seqs {src.last_seqs}")
+        p18_upload("p18b", src, g ** 3 * 4)
+        frames = {}
+        sess = p18_session(dev, g, src, [capture_into(frames)])
+        kernels.reset_launches()
+        sess.run(P18_GATE)
+        launches = kernels.launches()
+        log("p18b.launches", json.dumps(launches))
+        require_only(launches, P18_KERNELS, "phase 18 (b), the sharded "
+                     "session")
+        check_frames_equal("p18b.sharded_vs_ingest", frames, want)
+        src.close()
+        return launches
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for c in chans + [whole]:
+            shm.unlink(c)
+        torch.cuda.empty_cache()
+
+
+def run_lz4(color, depth):
+    """Phase 18 (c): a VDI (host arrays) through
+    ``pack_vdi_segments(codec="lz4")`` in RANKS column segments and an
+    lz4 ``.npz`` artifact, bit for bit; the ratio and MB/s each way
+    (host clock)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from scenery_insitu_tpu_torch.core.vdi import VDI
+    from scenery_insitu_tpu_torch.io import vdi_io
+
+    k, _, h, w = color.shape
+    raw = color.nbytes + depth.nbytes
+    t0 = time.perf_counter()
+    blobs, _, _ = vdi_io.pack_vdi_segments(VDI(color, depth), RANKS,
+                                           codec="lz4")
+    t1 = time.perf_counter()
+    back = vdi_io.unpack_vdi_segments(blobs, k, h, w, codec="lz4")
+    t2 = time.perf_counter()
+    if not (np.array_equal(back.color, color)
+            and np.array_equal(back.depth, depth)):
+        raise AssertionError("p18c: lz4 segments do not round-trip")
+    packed = sum(len(b) for b in blobs)
+    log("p18c.segments", f"{raw} B -> {packed} B, ratio "
+        f"{raw / packed:.3f}; compress {raw / (t1 - t0) / 1e6:.1f} MB/s, "
+        f"decompress {raw / (t2 - t1) / 1e6:.1f} MB/s (host clock, "
+        f"{RANKS} segments, bit for bit)")
+    out = tempfile.mkdtemp(prefix="chip_smoke_lz4_")
+    try:
+        path = os.path.join(out, "vdi.npz")
+        t0 = time.perf_counter()
+        vdi_io.save_vdi(path, VDI(color, depth), codec="lz4")
+        t1 = time.perf_counter()
+        (c2, d2), _ = vdi_io.load_vdi(path)
+        t2 = time.perf_counter()
+        if not (np.array_equal(c2, color) and np.array_equal(d2, depth)):
+            raise AssertionError("p18c: the lz4 .npz does not round-trip")
+        log("p18c.npz", f"{os.path.getsize(path)} B, ratio "
+            f"{raw / os.path.getsize(path):.3f}; save "
+            f"{raw / (t1 - t0) / 1e6:.1f} MB/s, load "
+            f"{raw / (t2 - t1) / 1e6:.1f} MB/s (host clock, bit for bit)")
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    return raw / packed
+
+
+def b10_input(h, w, dev):
+    """Seeded normals with +-0 rows; from 32 rows on, tile 1 holds a
+    NaN, tile 2 is <= 0 with a -0 row (its max -0) and tile 3 <= 0 with
+    a +0 row (its max +0)."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn((h, w), generator=gen, device=dev)
+    x[h // 2] = -0.0
+    x[h // 2 + 1] = 0.0
+    if h >= 32:
+        x[9, w // 3] = float("nan")
+        x[16:32] = -x[16:32].abs()
+        x[16] = -0.0
+        x[27] = 0.0
+    return x
+
+
+def same_bits(a, b) -> bool:
+    """Equal bit for bit, NaN positions equal (NaN payloads not
+    compared)."""
+    import torch
+
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return bool(torch.equal(na, nb)) and bool(torch.equal(
+        a[~na].view(torch.int32), b[~nb].view(torch.int32)))
+
+
+def run_lint_b10(dev, b10):
+    """Phase 18 (d): the port's lint exits 0 with --fail-on-stale; B10 at
+    B10_SHAPES (the counts set to 0 before those two calls, read after)
+    equals its plain version bit for bit, NaN and +-0 tiles included;
+    a height of B10_BAD_H raises; B10 with the stream kept full beside
+    its bound, its plain version and the two torch calls."""
+    import subprocess as sp
+
+    import torch
+
+    from scenery_insitu_tpu_torch import kernels
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    lint = sp.run([sys.executable, "-m", "scenery_insitu_tpu_torch.tools.lint",
+                   "--fail-on-stale"], cwd=root, capture_output=True,
+                  text=True, timeout=300)
+    last = (lint.stdout.strip().splitlines() or [""])[-1]
+    log("p18d.lint", f"exit {lint.returncode} in "
+        f"{time.perf_counter() - t0:.1f} s: {last}")
+    if lint.returncode != 0:
+        raise AssertionError(f"p18d: the lint failed:\n{lint.stdout}"
+                             f"{lint.stderr}")
+    xs = [b10_input(h, w, dev) for h, w in B10_SHAPES]
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    outs = [b10.double_chunk(x) for x in xs]
+    torch.cuda.synchronize()
+    launches = kernels.launches()
+    log("p18d.launches", json.dumps(launches))
+    require_only(launches, ("double_chunk",), "phase 18 (d), B10")
+    err = 0.0
+    for (h, w), x, got in zip(B10_SHAPES, xs, outs):
+        want = b10.double_chunk_plain(x)
+        for g_, w_ in zip(got, want):
+            if not same_bits(g_, w_):
+                raise AssertionError(f"p18d: B10 at {h}x{w} differs from "
+                                     f"its plain version")
+            fin = ~torch.isnan(w_)
+            err = max(err, float((g_[fin] - w_[fin]).abs().max()))
+        log(f"b10_{h}x{w}.bit_exact", f"y and the {h // 8} tile maxima "
+            f"(NaN tiles {int(torch.isnan(got[1]).sum())})")
+    m = outs[1][1][:4, 0].tolist()
+    if not (math.isnan(m[1]) and m[2] == 0 and math.copysign(1, m[2]) < 0
+            and m[3] == 0 and math.copysign(1, m[3]) > 0):
+        raise AssertionError(f"p18d: tiles 1-3's maxima {m}: expected NaN, "
+                             f"-0, +0")
+    try:
+        b10.double_chunk(torch.zeros((B10_BAD_H, 128), device=dev))
+    except ValueError as e:
+        log("b10_bad_height", f"raises before the launch: {e}")
+    else:
+        raise AssertionError(f"p18d: B10 took a height of {B10_BAD_H}")
+    x = xs[1]
+    h, w = x.shape
+    ms = stream_ms(lambda: b10.double_chunk(x))
+    plain = stream_ms(lambda: b10.double_chunk_plain(x))
+    pair = stream_ms(lambda: (x * 2, x.view(h // 8, -1).amax(1)))
+    bnd, by = bound_ms(2 * h * w * 4 + h // 8 * 4, 2 * h * w)
+    log("b10.ms", f"{ms:.4f} (stream kept full, {h}x{w}; bound {bnd:.4f} "
+        f"by {by}; plain {plain:.4f}; x * 2 and amax {pair:.4f})")
+    return dict(launches=launches["double_chunk"], err=err, ms=ms,
+                plain_ms=plain, pair_ms=pair, bound_ms=bnd, bound_by=by)
+
+
+def run_phase18(dev, done, b10, vdi=None):
+    """Phase 18 (a)-(d): the external simulation's ingest on the card,
+    its sharded feed, LZ4 on ``vdi`` (phase 3's, host arrays; (a)'s last
+    VDI when None) and the lint with B10."""
+    from scenery_insitu_tpu_torch.ingest import shm
+
+    t18 = time.perf_counter()
+    g = p18_grid()
+    t0 = time.perf_counter()
+    demo = shm.ensure_built()["demo_producer"]
+    log("p18.native_build_s", f"{time.perf_counter() - t0:.2f}")
+    launches, gate, h2d = run_ingest(dev, g, demo)
+    done("phase18.a")
+    sharded = run_sharded(dev, g, demo, gate)
+    done("phase18.b")
+    if vdi is None:
+        vdi = (gate[P18_GATE - 1]["vdi_color"],
+               gate[P18_GATE - 1]["vdi_depth"])
+    ratio = run_lz4(*vdi)
+    done("phase18.c")
+    lint = run_lint_b10(dev, b10)
+    done("phase18.d")
+    log("phase18.wall_s", f"{time.perf_counter() - t18:.1f} (the ingest, "
+        f"LZ4 and the lint)")
+    return dict(ingest=launches, sharded=sharded, grid=g, h2d_ms=h2d,
+                lz4_ratio=ratio, b10=lint)
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -8319,6 +8755,11 @@ def main(argv=None) -> int:
                          "multi-process fleet: the process mesh, the "
                          "host path, the gathers and the scaling twin), "
                          "then exit without the kernel table")
+    ap.add_argument("--phase18-only", action="store_true",
+                    help="run the build and phase 18 only (the external "
+                         "simulation's ingest, its sharded feed, LZ4 and "
+                         "the lint with B10), then exit without the "
+                         "kernel table")
     ap.add_argument("--events-compare", action="append", default=[],
                     metavar="NAME=PATH",
                     help="another design of csrc/fold_chunk.cu (the same C "
@@ -8343,7 +8784,9 @@ def main(argv=None) -> int:
         f"python={sys.version.split()[0]}")
     dev = torch.device("cuda")
     log("device", torch.cuda.get_device_name(0))
-    log("build_s", f"{kernels.build():.2f}")
+    b10 = load_b10()
+    build_s = kernels.build(kernels.LIBRARIES + ("good_double",))
+    log("build_s", f"{build_s:.2f}")
 
     t0 = time.perf_counter()
 
@@ -8379,6 +8822,12 @@ def main(argv=None) -> int:
         run_phase16(dev, phase_done)
         phase_done("phase16")
         log("phase16_only", "done (no kernel table: run without flags for "
+            "it)")
+        return 0
+    if args.phase18_only:
+        run_phase18(dev, phase_done, b10)
+        phase_done("phase18")
+        log("phase18_only", "done (no kernel table: run without flags for "
             "it)")
         return 0
     if args.phase17_only:
@@ -8509,6 +8958,9 @@ def main(argv=None) -> int:
     del scene_field
     torch.cuda.empty_cache()
     phase_done("phase17")
+    p18 = run_phase18(dev, phase_done, b10, (PHASE3_VDI.pop("color"),
+                                             PHASE3_VDI.pop("depth")))
+    phase_done("phase18")
     n_frames = WARMUP_FRAMES + TIMED_FRAMES
 
     table = [
@@ -8743,6 +9195,11 @@ def main(argv=None) -> int:
                for p, v in enumerate(p17["fleet"])},
             **{f"host_path_p{p}": v.get(name, 0)
                for p, v in enumerate(p17["host_path"])}}
+        # phase 18: the ingest session's live frames (a) and the sharded
+        # feed's session (b)
+        row["phase18_launches"] = {
+            "ingest_session": p18["ingest"].get(name, 0),
+            "sharded_session": p18["sharded"].get(name, 0)}
         if name == "seg_fold_compact":
             row["bf16_max_abs_err"] = p16["bf16"]["k1_err"]
         if name == "seg_fold_compact":
@@ -8763,13 +9220,27 @@ def main(argv=None) -> int:
             row.update(gather_dist_max_abs_err=err, gather_dist_frame_ms=ms,
                        gather_dist_frame_bound_ms=b,
                        gather_dist_frame_bound_by=by)
+    # B10, the lint fixture's kernel: its launches in phase 18 (d)'s two
+    # calls; no single torch call computes it: the pair x * 2 and amax
+    # is timed beside it
+    b = p18["b10"]
+    table.append(dict(
+        name="double_chunk", route="cuda",
+        source="tests/torch_lint_fixtures/good_double.cu",
+        replaces="tests/lint_fixtures/good_pallas.py:24",
+        also_replaces=["tests/lint_fixtures/bad_pallas.py:24"],
+        launches=b["launches"], max_abs_err=b["err"], ms=b["ms"],
+        plain_ms=b["plain_ms"], bound_ms=b["bound_ms"],
+        bound_by=b["bound_by"], library_ms=None,
+        library_pair_ms=b["pair_ms"]))
     log("library_ms", "null for every kernel: no single PyTorch call "
         "computes the fused Gray-Scott steps, the segmented write fold, "
         "the multi-threshold count, the sort-and-resegment of a "
         "supersegment stream, the supersegment machine (with its close "
         "events deferred or not), the shading "
-        "and fold of a value stream or the stencil with per-brick "
-        "ranges")
+        "and fold of a value stream, the stencil with per-brick "
+        "ranges or the doubling with its tile maxima (B10: x * 2 and "
+        "amax timed as library_pair_ms)")
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

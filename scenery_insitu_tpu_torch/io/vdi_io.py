@@ -11,14 +11,14 @@ A VDI is split for the wire into N column segments, each compressed on
 its own, with the byte counts ("limits") carried alongside
 (`pack_vdi_segments`).
 
-Codecs: ``none``, ``zlib``, ``lzma`` and ``zstd``; ``zstd`` degrades to
-``zlib`` (ledgered ``io.vdi_codec``) where the ``zstandard`` package is
-missing. ``precision="qpack8"`` quantizes the buffers with the sort-last
+Codecs: ``none``, ``zlib``, ``lzma``, ``zstd`` and ``lz4`` (the native
+LZ4 block codec, ``io/lz4.py``, built with ``g++`` at first use);
+``zstd`` degrades to ``zlib`` (ledgered ``io.vdi_codec``) where the
+``zstandard`` package is missing. ``precision="qpack8"`` quantizes the buffers with the sort-last
 wire's quantizer (``ops/wire.qpack8_quantize_np``) before the codec and
 ``load_vdi`` dequantizes them back to f32. The temporal-delta records
 of ``ops/delta.py`` serialize through `pack_delta_blobs` and
-`unpack_delta_payload`. The LZ4 block codec is ROADMAP A11 and raises
-here.
+`unpack_delta_payload`.
 """
 
 from __future__ import annotations
@@ -48,10 +48,16 @@ def _zstd():
     return zstandard
 
 
-def _lz4(*_):
-    raise NotImplementedError(
-        "the lz4 codec (the reference's vendored native LZ4 block codec) "
-        "is not ported yet (ROADMAP A11)")
+def _lz4_enc(b, level):
+    from scenery_insitu_tpu_torch.io import lz4   # builds the codec lazily
+
+    return lz4.compress(b)                       # level: LZ4 has none
+
+
+def _lz4_dec(b):
+    from scenery_insitu_tpu_torch.io import lz4
+
+    return lz4.decompress(b)
 
 
 def _lzma_codec():
@@ -68,7 +74,7 @@ CODECS = {
                  level=level if level >= 0 else 3).compress(b),
              lambda b: _zstd().ZstdDecompressor().decompress(b)),
     "lzma": _lzma_codec(),
-    "lz4": (_lz4, _lz4),
+    "lz4": (_lz4_enc, _lz4_dec),
 }
 
 _ZSTD_OK = None

@@ -16,7 +16,8 @@ that does not build or does not launch raises.
 
 Every wrapper calls `launch`, which adds one to the kernel's launch
 count; `reset_launches` and `launches` let a run show that its main path
-went through the kernels.
+went through the kernels. `register_library` serves a library built
+from a source outside ``csrc/`` (the lint fixture's kernel) the same way.
 """
 
 from __future__ import annotations
@@ -107,6 +108,7 @@ QUERIES = {
 _LAUNCHES: collections.Counter = collections.Counter()
 _LOADED: Dict[str, ctypes.CDLL] = {}   # by source path
 _SOURCES: Dict[str, str] = {}          # `source_override`'s sources
+_REGISTERED: Dict[str, str] = {}       # `register_library`'s sources
 
 
 def _nvcc() -> str:
@@ -122,7 +124,23 @@ def _nvcc() -> str:
 def source_path(name: str) -> str:
     """The CUDA source library ``name`` is built from: ``csrc/<name>.cu``
     unless `source_override` serves another."""
-    return _SOURCES.get(name, os.path.join(CSRC_DIR, f"{name}.cu"))
+    return _SOURCES.get(name) or _REGISTERED.get(
+        name, os.path.join(CSRC_DIR, f"{name}.cu"))
+
+
+def register_library(name: str, source: str, entries) -> None:
+    """Serve library ``name`` from the CUDA source at ``source`` (a file
+    outside ``csrc/``) with the C entries ``entries`` (name -> argtypes,
+    the stream last, as in `ENTRIES`): hashed and built with `NVCC_FLAGS`
+    at first use, launched through `launch` and counted in `launches`
+    like the package's own. Registering builds nothing."""
+    clash = [e for e in entries if ENTRIES.get(e, (name,))[0] != name]
+    if name in LIBRARIES or clash:
+        raise ValueError(f"library {name!r} or entries {clash} are the "
+                         f"package's own")
+    _REGISTERED[name] = os.path.abspath(source)
+    for entry, argtypes in entries.items():
+        ENTRIES[entry] = (name, list(argtypes))
 
 
 @contextlib.contextmanager

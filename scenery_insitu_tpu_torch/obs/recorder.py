@@ -99,6 +99,9 @@ _LEDGER_REGISTRY: Dict[str, str] = {
     "head.rank_down": "head node: a render rank went silent past "
                       "stale_frames; frames composite without it "
                       "(degraded flag) until it returns",
+    "ingest.stall": "shm ingest: no strictly-newer producer frame past "
+                    "frame_timeout_ms; the session keeps rendering the "
+                    "last-good frame until frames resume",
     "io.vdi_codec": "zstd codec unavailable; VDI IO degrades to stdlib "
                     "zlib",
     "lod.engine": "a multi-level brick map reached the gather engine, "
@@ -227,6 +230,10 @@ _COUNTER_REGISTRY: Dict[str, str] = {
                          "hierarchical exchange was built",
     "iframe_forced": "the delta encoder forced a full I-tile (resync or "
                      "cadence)",
+    "ingest_stall_recoveries": "shm ingest saw a strictly-newer producer "
+                               "frame again after a stall",
+    "ingest_stalls": "shm ingest found no strictly-newer producer frame "
+                     "past frame_timeout_ms",
     "occupancy_kbudget_builds": "a K-budget occupancy plan was built",
     "rebalance_replans": "a rebalance replan (slab or brick-steal) was "
                          "executed",

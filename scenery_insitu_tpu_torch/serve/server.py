@@ -411,7 +411,7 @@ class ViewerServer:
         try:
             cam = camera_from_message(msg, self.device)
             seq = int(msg.get("seq", 0))
-        except Exception:
+        except Exception:  # sitpu-lint: disable=SITPU-LEDGER (mints via _drop_client)
             self._drop_client("camera payload failed validation")
             return
         # implicit hello — still through admission; a tier carried on

@@ -174,8 +174,9 @@ def _child_main(argv=None) -> int:
     try:
         getattr(importlib.import_module(mod_name), fn_name)(ctx)
         print(f"[mp {args.process_id}] ENTRY_OK", flush=True)
-    # any failure, an interrupt too: the exit code is the verdict
-    except BaseException as e:      # noqa: B036
+    # any failure, an interrupt too: the exit code is the verdict, and
+    # the parent raises on it
+    except BaseException as e:  # noqa: B036  # sitpu-lint: disable=SITPU-LEDGER
         import traceback
 
         traceback.print_exc()

@@ -3,8 +3,9 @@ on the CPU: ``.npz`` VDIs written by one package load in the other
 (codecs none, zlib, lzma, and zstd with its zlib degrade) with their
 metadata and tile placement; column segments packed by one unpack in the
 other; ``save_png``'s decoded pixels equal the reference's (which writes
-through PIL); the codecs and formats still to port raise naming their
-ROADMAP row. Values made from a seed with numpy; comparisons exact."""
+through PIL); the codecs and formats once still to port (lz4, qpack8,
+the delta records) work. Values made from a seed with numpy; comparisons
+exact."""
 
 import numpy as np
 import pytest
@@ -210,23 +211,30 @@ def _delta_unpacks(path):
     np.testing.assert_array_equal(tdl.apply_runs(base, *cp), c2)
 
 
+def _lz4_encodes(path):
+    """The lz4 codec (ROADMAP A11) encodes the reference's bytes."""
+    assert tio.compress(b"x" * 64, "lz4") == jio.compress(b"x" * 64, "lz4")
+
+
+def _lz4_decodes(path):
+    """The lz4 codec decodes the reference's blob."""
+    assert tio.decompress(jio.compress(b"xy" * 40, "lz4"), "lz4") == \
+        b"xy" * 40
+
+
 @pytest.mark.parametrize("call", [
-    lambda p: tio.compress(b"x", "lz4"),
-    lambda p: tio.decompress(b"x", "lz4"),
+    _lz4_encodes,
+    _lz4_decodes,
     _qpack8_saves,
     _delta_packs,
     _delta_unpacks,
 ], ids=["lz4_enc", "lz4_dec", "qpack8", "delta_pack", "delta_unpack"])
 def test_unported_formats_raise(call, tmp_path):
-    """The formats still to port raise naming their ROADMAP row; qpack8
-    artifacts (ROADMAP A8b item 2) are ported and now save, and the
-    temporal-delta records (item 6) round-trip with the reference's
-    bytes."""
-    if call in (_qpack8_saves, _delta_packs, _delta_unpacks):
-        call(str(tmp_path / "x.npz"))
-        return
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A(11|8b)"):
-        call(str(tmp_path / "x.npz"))
+    """The formats once still to port raise no longer: the lz4 codec
+    (ROADMAP A11) encodes and decodes the reference's bytes, qpack8
+    artifacts (ROADMAP A8b item 2) save, and the temporal-delta records
+    (item 6) round-trip with the reference's bytes."""
+    call(str(tmp_path / "x.npz"))
 
 
 def test_qpack8_artifact_raises_on_load(tmp_path):

@@ -39,7 +39,9 @@ memory) hold thresholds and live slots exactly, so do its cases at a
 brick map's 640-slot column block; K2's builds (C = 16, 1, 7, 33 by
 B = 16, 5, 32, candidates in either order) count exactly; K1 on a
 brick pooled to level 1 (``test_seg_fold_on_pooled_brick``) equals the
-same march's plain version within 1e-5."""
+same march's plain version within 1e-5. B10, the lint fixture's kernel
+(``tests/torch_lint_fixtures/good_double.cu``), equals its plain
+version bit for bit, NaN positions equal."""
 
 import numpy as np
 import pytest
@@ -1068,3 +1070,56 @@ def test_resegment_on_hier_top_stream(dev):
     assert int(live(plain[1]).sum()) > 0
     for a, b in zip(kern, plain):
         assert _err(a, b) <= 1e-6
+
+
+def _b10():
+    """The B10 fixture module, loaded by path (it registers its library
+    with ``kernels``)."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "torch_lint_fixtures", "good_cuda.py")
+    spec = importlib.util.spec_from_file_location("b10_good_cuda", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _same_bits(a, b):
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return bool(torch.equal(na, nb)) and bool(torch.equal(
+        a[~na].view(torch.int32), b[~nb].view(torch.int32)))
+
+
+@pytest.mark.parametrize("h,w,offset", [(8, 128, 0), (64, 256, 0),
+                                        (64, 130, 0), (40, 1, 0),
+                                        (16, 128, 1), (8192, 8192, 0)])
+def test_b10_double_chunk_matches_plain(dev, h, w, offset):
+    """B10 (``tests/torch_lint_fixtures/good_double.cu``, the Pallas lint
+    fixture's kernel) equals its plain version bit for bit, NaN
+    positions equal: float4 rows, rows of other widths, a buffer off the
+    16-byte alignment, a NaN tile and tiles whose max is -0 and +0; one
+    launch a call; a height that is not a multiple of 8 raises."""
+    b10 = _b10()
+    gen = torch.Generator(device=dev).manual_seed(h + w)
+    buf = torch.randn(h * w + offset, generator=gen, device=dev)
+    x = buf[offset:].view(h, w)
+    x[h // 2] = 0.0
+    if h >= 32:
+        x[9, w // 3] = float("nan")
+        x[16:32] = -x[16:32].abs()
+        x[16] = -0.0
+        x[27] = 0.0
+    before = kernels.launches()["double_chunk"]
+    got = b10.double_chunk(x)
+    assert kernels.launches()["double_chunk"] == before + 1
+    want = b10.double_chunk_plain(x)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and _same_bits(a, b)
+    if h >= 32:
+        m = got[1][:4, 0].tolist()
+        assert np.isnan(m[1]) and np.signbit(m[2]) and not np.signbit(m[3])
+    with pytest.raises(ValueError, match="multiple of 8"):
+        b10.double_chunk(torch.zeros((h + 4, w), device=dev))

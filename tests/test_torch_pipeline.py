@@ -424,6 +424,9 @@ def test_package_imports_no_jax():
                 assert m.split(".")[0] not in lazy \
                     or id(node) in in_function, (path, m)
     assert len(files) >= 40, files
+    for new in ("ingest/shm.py", "ingest/shm_tool.py", "io/lz4.py",
+                "tools/lint/cuda.py", "tools/lint/ledger.py"):
+        assert os.path.join(ROOT, "scenery_insitu_tpu_torch", new) in files
     code = (
         "import pkgutil, sys\n"
         "import scenery_insitu_tpu_torch as p\n"
@@ -437,6 +440,9 @@ def test_package_imports_no_jax():
         "\n"
         "assert not bad, bad\n"
         "assert len(names) >= 20, names\n"
+        "assert {'scenery_insitu_tpu_torch.ingest.shm', "
+        "'scenery_insitu_tpu_torch.io.lz4', "
+        "'scenery_insitu_tpu_torch.tools.lint.cuda'} <= set(names)\n"
         "print('ok', len(names))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = ROOT

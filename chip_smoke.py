@@ -21,6 +21,7 @@ process mesh, the two-level composite's host path, the host gathers).
     python3 chip_smoke.py --phase16-only  # the build and phase 16
     python3 chip_smoke.py --phase17-only  # the build and phase 17
     python3 chip_smoke.py --phase18-only  # the build and phase 18
+    python3 chip_smoke.py --phase19-only  # the build and phase 19
     python3 chip_smoke.py --k4-compare old=OTHER/resegment.cu \
         --k2-compare old=OTHER/count_multi.cu \
         --events-compare old=OTHER/fold_chunk.cu  # + designs in turns
@@ -465,6 +466,26 @@ and prints no result):
    height of 8196 raises, B10's ms with the stream kept full beside its
    bound, its plain version and the torch pair ``x * 2``, ``amax``.
    ``phase18.wall_s`` prints its seconds.
+19. observability: (a) `ProfileCapture` (``obs/profiler.py``) over
+   phase 3's 512^3 frame and phase 4's 8-rank frame (phase 4's sim
+   advance under its ``sim_step`` scope), and over each path's seed: the
+   capture succeeds with nothing on the ``obs.profiler`` ledger, every
+   phase is in the catalog, the phases sum to the wall within 15 %, and
+   every launch of K3, K1, K2 and K4 counted in the window is in the
+   trace, joined to ``sim_step``, ``march``, ``march`` and
+   ``resegment``; each kernel's device ms a frame beside
+   `profile_frames`' over the same frames; (b) both frames' unprofiled
+   ms with the scopes in place, beside earlier runs' ranges (no gate);
+   (c) the bench twin at 512 with ``SITPU_BENCH_PROFILE=1``: every
+   roofline field non-null, ``hbm_frac_peak`` and ``mfu_matmul`` in
+   (0, 1]; (d) phase 4's 8 ranks as a session (histogram thresholds,
+   async delivery) publishing to a `Collector` in this process: the
+   merged fleet trace holds its spans and every frame's lineage, its
+   ``run(profile_dir=...)`` trace names K1 to K4, and its
+   ``device_snapshot()`` counts the step's bytes with its kernels'; (e)
+   the chaos matrix (``testing/faults.run_matrix(seed=7)``) with the
+   serving scenarios rendering on the card: all 15 scenarios ok.
+   ``phase19.wall_s`` prints its seconds.
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -1889,11 +1910,12 @@ def profile_frames(prefix, frame, frames=2):
     # operator's row repeats the device time of the kernels it launched,
     # so it is listed apart (the port's own kernels have no operator row).
     # "Command Buffer Full" marks the host waiting on a full launch queue,
-    # not device work, and a "ProfilerStep#" row spans a whole step.
+    # not device work, and a "ProfilerStep#" row spans a whole step, as
+    # a phase scope's row (``sitpu_*``, obs/profiler.py) spans its phase.
     kern, ops = [], []
     for e in prof.key_averages():
         if e.self_device_time_total <= 0 or e.key == "Command Buffer Full" \
-                or e.key.startswith("ProfilerStep"):
+                or e.key.startswith(("ProfilerStep", "sitpu_")):
             continue
         row = (e.self_device_time_total / 1e3, e.count, e.key)
         (kern if e.device_type == DeviceType.CUDA else ops).append(row)
@@ -1919,6 +1941,9 @@ def profile_frames(prefix, frame, frames=2):
     path = os.path.join("chiprun_out", f"{prefix}_trace.json")
     prof.export_chrome_trace(path)
     trace_gaps(prefix, path, frames)
+    # the port's kernels' {build: [device ms, launches]} over the frames,
+    # and the trace's path
+    return dict(own), path
 
 
 def trace_gaps(prefix, path, frames):
@@ -8697,6 +8722,346 @@ def run_phase18(dev, done, b10, vdi=None):
 
 
 
+# ------------------------------------------------------------- phase 19
+
+# the unprofiled frame ms of earlier runs on the card, before the phase
+# scopes (CUDA events, median of TIMED_FRAMES): phase 3's single-chip
+# frame and phase 4's 8-rank frame
+P3_RANGE_MS = (110.634, 120.193)
+P4_RANGE_MS = (143.756, 191.856)
+P19_FRAMES = 2                  # profiled frames a capture
+P19_WARMUP = 1                  # its warm-up frames, traced and dropped
+P19_SUM_TOL = 0.15              # phases' sum against the wall
+# the attributed kernels: C entry -> (kernel function, the phase it runs in)
+P19_KERNELS = {"grayscott_fused": ("grayscott_stream_kernel", "sim_step"),
+               "seg_fold_compact": ("seg_fold_kernel", "march"),
+               "count_multi": ("count_multi_kernel", "march"),
+               "resegment_sorted": ("resegment_kernel", "resegment")}
+
+
+def p19_window(prefix, run, entries, frames):
+    """`ProfileCapture` over ``frames`` calls of ``run`` after its
+    warm-up call, with the launch counts set to 0 between the two and
+    read after: the capture succeeds, every phase is in the catalog,
+    the phases sum to the wall within P19_SUM_TOL, and every launch of
+    each C entry of
+    ``entries`` (each launched at least once) shows in the trace joined
+    to its phase. Returns (attribution, launches, {entry: device ms a
+    frame})."""
+    import torch
+
+    from scenery_insitu_tpu_torch import kernels, obs
+    from scenery_insitu_tpu_torch.obs.profiler import (EXTRA_PHASES, PHASES,
+                                                       ProfileCapture)
+
+    obs.clear_ledger()
+    calls = [0]
+
+    def counted():
+        # the counts start with the measured frames, after the capture's
+        # warm-up frame (its events are dropped with the warm-up step)
+        calls[0] += 1
+        if calls[0] == P19_WARMUP + 1:
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+        run()
+
+    cap = ProfileCapture(frames=frames, warmup=P19_WARMUP)
+    attr = cap.capture(None, step=counted)
+    launches = kernels.launches()
+    if attr is None or any(e["component"] == "obs.profiler"
+                           for e in obs.ledger()):
+        raise AssertionError(f"{prefix}: the capture failed: "
+                             f"{obs.ledger()}")
+    log(f"{prefix}.attribution", json.dumps(attr))
+    bad = set(attr["phases"]) - set(PHASES) - set(EXTRA_PHASES)
+    if bad:
+        raise AssertionError(f"{prefix}: phases outside the catalog: {bad}")
+    total = sum(p["ms"] for p in attr["phases"].values())
+    wall = attr["wall_ms_per_frame"]
+    log(f"{prefix}.sum_vs_wall_ms", f"{total:.3f} of {wall:.3f} (gate "
+        f"within {P19_SUM_TOL:.0%}; devices {attr['devices']}, coverage "
+        f"{attr['coverage']})")
+    if abs(total - wall) > P19_SUM_TOL * wall:
+        raise AssertionError(f"{prefix}: phases sum to {total} ms, the "
+                             f"wall is {wall} ms")
+    ms = {}
+    for entry in entries:
+        fn, want = P19_KERNELS[entry]
+        rows = [(ph, dur) for name, ph, dur in cap.rows if fn in name]
+        phases = collections.Counter(ph for ph, _ in rows)
+        log(f"{prefix}.{entry}.joined", f"{dict(phases)} of "
+            f"{launches[entry]} launches (want all in {want})")
+        if launches[entry] < 1 or len(rows) != launches[entry] \
+                or phases[want] != len(rows):
+            raise AssertionError(
+                f"{prefix}: {entry} launched {launches[entry]} times, "
+                f"trace rows by phase {dict(phases)} (want every one in "
+                f"{want})")
+        ms[entry] = sum(d for _, d in rows) / 1e3 / frames
+    return attr, launches, ms
+
+
+def p19_frame_ms(prefix, run, want_range):
+    """The frame's unprofiled ms with the scopes in place (CUDA events,
+    median of TIMED_FRAMES after a warm-up call), logged beside the
+    range of earlier runs; no gate."""
+    import torch
+
+    run()
+    torch.cuda.synchronize()
+    ev = []
+    for _ in range(TIMED_FRAMES):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        run()
+        b.record()
+        b.synchronize()
+        ev.append(a.elapsed_time(b))
+    ev.sort()
+    ms = ev[len(ev) // 2]
+    log(f"{prefix}.unprofiled_ms", f"{ms:.3f} (median of {TIMED_FRAMES}, "
+        f"CUDA events; before the scopes: {want_range[0]}-"
+        f"{want_range[1]})")
+    return ms
+
+
+def p19_paths(dev):
+    """(a) and (b) on phase 3's single-chip frame and phase 4's 8-rank
+    frame: each seeded, its unprofiled ms, its seed and P19_FRAMES frames
+    under the capture, and the same frames through `profile_frames`;
+    the kernels' device ms from both, side by side."""
+    import torch
+
+    from scenery_insitu_tpu_torch.core.camera import Camera, orbit
+    from scenery_insitu_tpu_torch.core.volume import Volume
+    from scenery_insitu_tpu_torch.models.pipelines import \
+        grayscott_vdi_frame_step
+    from scenery_insitu_tpu_torch.obs.profiler import phase
+    from scenery_insitu_tpu_torch.ops import slicer
+    from scenery_insitu_tpu_torch.parallel.mesh import shard_volume
+    from scenery_insitu_tpu_torch.sim import grayscott as gs
+
+    out = {}
+    # phase 3's frame
+    base = Camera.create(BASE_EYE, fov_y_deg=50.0, near=0.5, far=20.0,
+                         device=dev)
+    step = grayscott_vdi_frame_step(grid_shape=(GRID,) * 3,
+                                    axis_sign=slicer.choose_axis(base),
+                                    **frame_config(dev))
+    st = gs.GrayScott.init((GRID,) * 3, seed=SEED, device=dev)
+    state = [st.u, st.v, None]
+    count = [0]
+
+    def eye():
+        count[0] += 1
+        return orbit(base, yaw_of(count[0])).eye
+
+    def seed3():
+        state[2] = step.init_threshold(state[0], state[1], eye())
+
+    def frame3():
+        _, _, state[0], state[1], state[2] = step(state[0], state[1], eye(),
+                                                  state[2])
+
+    seed3()
+    frame3()
+    out["p3_ms"] = p19_frame_ms("phase19.p3", frame3, P3_RANGE_MS)
+    out["p3_seed"] = p19_window("phase19.p3_seed", seed3, ("count_multi",),
+                                1)
+    out["p3"] = p19_window("phase19.p3", frame3,
+                           ("grayscott_fused", "seg_fold_compact"),
+                           P19_FRAMES)
+    own, trace = profile_frames("phase19.p3.profile", lambda i: frame3(),
+                                P19_FRAMES)
+    os.remove(trace)
+    p19_beside("phase19.p3", out["p3"][2], own, P19_FRAMES)
+    del step, state[:]
+    torch.cuda.empty_cache()
+
+    # phase 4's frame: the sim advance under its sim_step scope, as the
+    # reference's frame body scopes it
+    mesh, spec, tf, _, seed, step, camera = dist_steps(dev, RANKS, GRID,
+                                                       BASE_EYE)
+    st = gs.GrayScott.init((GRID,) * 3, seed=SEED, device=dev)
+    box = Volume.centered(st.v, extent=2.0)
+    origin, spacing = box.origin, box.spacing
+    dstate = [st.u, st.v, None]
+    count[0] = 0
+
+    def seed4():
+        dstate[2] = seed(shard_volume(dstate[1], mesh), origin, spacing,
+                         camera(-1))
+
+    def frame4():
+        with phase("sim_step"):
+            s = gs.multi_step_fast(gs.GrayScott(dstate[0], dstate[1],
+                                                st.params), SIM_STEPS)
+        count[0] += 1
+        (_, _), dstate[2] = step(shard_volume(s.field, mesh), origin,
+                                 spacing, camera(count[0]), dstate[2])
+        dstate[0], dstate[1] = s.u, s.v
+
+    seed4()
+    frame4()
+    out["p4_ms"] = p19_frame_ms("phase19.p4", frame4, P4_RANGE_MS)
+    out["p4_seed"] = p19_window("phase19.p4_seed", seed4, ("count_multi",),
+                                1)
+    out["p4"] = p19_window("phase19.p4", frame4,
+                           ("grayscott_fused", "seg_fold_compact",
+                            "resegment_sorted"), P19_FRAMES)
+    own, trace = profile_frames("phase19.p4.profile", lambda i: frame4(),
+                                P19_FRAMES)
+    os.remove(trace)
+    p19_beside("phase19.p4", out["p4"][2], own, P19_FRAMES)
+    del step, dstate[:]
+    torch.cuda.empty_cache()
+    return out
+
+
+def p19_beside(prefix, ms, own, frames):
+    """Each attributed kernel's device ms a frame from the capture beside
+    `profile_frames`' figure over the same frames' calls."""
+    for entry, got in ms.items():
+        fn = P19_KERNELS[entry][0]
+        theirs = sum(v[0] for k, v in own.items() if k.startswith(fn))
+        log(f"{prefix}.{entry}.ms_per_frame", f"capture {got:.3f}, "
+            f"profile_frames {theirs / frames:.3f}")
+
+
+P19_BENCH_FIELDS = ("vs_baseline", "vs_baseline_unscaled",
+                    "vs_baseline_note", "mfu_matmul", "hbm_gbps",
+                    "hbm_frac_peak", "hbm_bytes_per_frame",
+                    "hbm_bytes_source", "cost_analysis",
+                    "phase_attribution", "roofline_verdicts")
+
+
+def p19_bench(dev):
+    """(c) the bench twin at 512 with the phase attribution: every
+    roofline field non-null, both shares of peak in (0, 1]."""
+    from scenery_insitu_tpu_torch import bench
+
+    res = bench.run(dev, env={"SITPU_BENCH_GRID": str(GRID),
+                              "SITPU_BENCH_FRAMES": str(BENCH_FRAMES),
+                              "SITPU_BENCH_PROFILE": "1",
+                              "SITPU_BENCH_PROFILE_FRAMES": "2"})
+    log("phase19.bench_twin", json.dumps(res))
+    missing = [k for k in P19_BENCH_FIELDS if res.get(k) is None]
+    if missing:
+        raise AssertionError(f"bench twin: null fields {missing}")
+    for key in ("hbm_frac_peak", "mfu_matmul"):
+        if not 0.0 < res[key] <= 1.0:
+            raise AssertionError(f"bench twin: {key} = {res[key]} is not a "
+                                 f"share of peak in (0, 1]")
+    log("phase19.bench_roofline", f"ms_per_frame {res['ms_per_frame']} "
+        f"mfu_matmul {res['mfu_matmul']} hbm_gbps {res['hbm_gbps']} "
+        f"hbm_frac_peak {res['hbm_frac_peak']} (source "
+        f"{res['hbm_bytes_source']}, {res['hbm_bytes_per_frame']} bytes a "
+        f"frame; {res['config']['device']} at {res['config']['power_limit']})")
+    return res
+
+
+def p19_session(dev):
+    """(d) phase 4's 8 ranks as a session (histogram thresholds, async
+    delivery) publishing to a `Collector` in this process: linked, 3
+    frames under ``run(profile_dir=...)``, the merged fleet trace holds
+    the session's spans and its frames' lineage, the profile trace names
+    the port's kernels, and ``device_snapshot`` counts the regime step's
+    bytes, its kernels' among them."""
+    import shutil
+    import tempfile
+    import threading
+
+    from scenery_insitu_tpu_torch.obs.collector import Collector
+
+    col = Collector()
+    tmp = tempfile.mkdtemp(prefix="p19_", dir=os.path.abspath("."))
+    try:
+        cfg = session_config(GRID, ranks=RANKS).with_overrides(
+            "vdi.adaptive_mode=histogram", "obs.enabled=true",
+            f"obs.collector={col.endpoint}",
+            f"obs.collector_hb={col.hb_endpoint}",
+            "obs.collector_interval_s=0.001", "delivery.enabled=true")
+        sess = session(dev, cfg, sinks=(lambda i, p: None,))
+        deadline = time.monotonic() + 20.0
+        while not sess._obs_pub.linked and time.monotonic() < deadline:
+            sess._obs_pub.probe()
+            col.poll(10)
+        if not sess._obs_pub.linked:
+            raise AssertionError("session: the publisher never linked")
+        # the collector answers heartbeats while the session runs (its
+        # sockets are this thread's alone until the join)
+        stop = threading.Event()
+        poller = threading.Thread(target=lambda: [
+            col.poll(10) for _ in iter(stop.is_set, True)])
+        poller.start()
+        try:
+            sess.run(1)
+            sess.run(3, profile_dir=tmp)
+        finally:
+            stop.set()
+            poller.join(timeout=30)
+        for _ in range(100):
+            col.poll(20)
+        merged = col.merged_events()
+        names = collections.Counter(e["name"] for e in merged)
+        frames = col.frames_seen()
+        log("phase19.session.fleet", f"batches {col.batches}, events "
+            f"{dict(names)}, lineage frames {frames}")
+        if not ({"sim", "dispatch", "fetch"} <= set(names)
+                and set(range(4)) <= set(frames)):
+            raise AssertionError(f"session: the fleet trace lacks spans or "
+                                 f"lineage: {dict(names)}, {frames}")
+        with open(os.path.join(tmp, "trace.json")) as f:
+            text = f.read()
+        found = [fn for fn, _ in P19_KERNELS.values() if fn in text]
+        log("phase19.session.profile_trace", f"{len(text)} bytes, kernels "
+            f"{found}")
+        if len(found) != len(P19_KERNELS):
+            raise AssertionError(f"session: the profile trace names "
+                                 f"{found} of the port's kernels")
+        snaps = sess.device_snapshot()
+        log("phase19.session.device_snapshot", json.dumps(snaps))
+        key = str(sess._slicer.choose_axis(sess.camera))
+        snap = snaps.get(key) or {}
+        if not (snap.get("source") == "torch_dispatch_count"
+                and snap.get("kernel_bytes", 0) > 0
+                and snap["bytes_accessed"] > snap["kernel_bytes"]):
+            raise AssertionError(f"session: device_snapshot {snaps}")
+        return snaps
+    finally:
+        col.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def p19_chaos(dev):
+    """(e) the chaos matrix at seed 7 with the serving scenarios on the
+    card: every scenario ok."""
+    from scenery_insitu_tpu_torch.testing.faults import run_matrix
+
+    rep = run_matrix(seed=7, device=dev)
+    bad = [s for s in rep["scenarios"] if not s["ok"]]
+    log("phase19.chaos", f"{sum(s['ok'] for s in rep['scenarios'])}/"
+        f"{len(rep['scenarios'])} scenarios ok")
+    if bad or len(rep["scenarios"]) != 15:
+        raise AssertionError(f"chaos matrix: {bad}")
+    return rep
+
+
+def run_phase19(dev, done):
+    """Phase 19 (a)-(e); returns the attributed kernels' rows."""
+    out = p19_paths(dev)
+    done("phase19.ab")
+    out["bench"] = p19_bench(dev)
+    done("phase19.c")
+    out["snaps"] = p19_session(dev)
+    done("phase19.d")
+    p19_chaos(dev)
+    done("phase19.e")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -8760,6 +9125,11 @@ def main(argv=None) -> int:
                          "simulation's ingest, its sharded feed, LZ4 and "
                          "the lint with B10), then exit without the "
                          "kernel table")
+    ap.add_argument("--phase19-only", action="store_true",
+                    help="run the build and phase 19 only (phase "
+                         "attribution, the bench twin's roofline fields, "
+                         "the collector with a session, the chaos "
+                         "matrix), then exit without the kernel table")
     ap.add_argument("--events-compare", action="append", default=[],
                     metavar="NAME=PATH",
                     help="another design of csrc/fold_chunk.cu (the same C "
@@ -8828,6 +9198,12 @@ def main(argv=None) -> int:
         run_phase18(dev, phase_done, b10)
         phase_done("phase18")
         log("phase18_only", "done (no kernel table: run without flags for "
+            "it)")
+        return 0
+    if args.phase19_only:
+        run_phase19(dev, phase_done)
+        phase_done("phase19")
+        log("phase19_only", "done (no kernel table: run without flags for "
             "it)")
         return 0
     if args.phase17_only:
@@ -8961,6 +9337,9 @@ def main(argv=None) -> int:
     p18 = run_phase18(dev, phase_done, b10, (PHASE3_VDI.pop("color"),
                                              PHASE3_VDI.pop("depth")))
     phase_done("phase18")
+    torch.cuda.empty_cache()
+    p19 = run_phase19(dev, phase_done)
+    phase_done("phase19")
     n_frames = WARMUP_FRAMES + TIMED_FRAMES
 
     table = [
@@ -9200,6 +9579,16 @@ def main(argv=None) -> int:
         row["phase18_launches"] = {
             "ingest_session": p18["ingest"].get(name, 0),
             "sharded_session": p18["sharded"].get(name, 0)}
+        # phase 19: the profiled windows' launches (each path's frames,
+        # then its seed) and the phase each one was joined to, with the
+        # kernel's device ms a frame in that window
+        if name in P19_KERNELS:
+            row["phase19_attribution"] = {
+                "phase": P19_KERNELS[name][1],
+                **{w: {"launches": p19[w][1][name],
+                       "ms_per_frame": p19[w][2].get(name)}
+                   for w in ("p3", "p3_seed", "p4", "p4_seed")
+                   if p19[w][1][name]}}
         if name == "seg_fold_compact":
             row["bf16_max_abs_err"] = p16["bf16"]["k1_err"]
         if name == "seg_fold_compact":

@@ -268,7 +268,9 @@ def events_fold_chunk(big, small, rgba: torch.Tensor, t0: torch.Tensor,
     _, _, h, w = big[0].shape
     kernels.launch("events_fold_chunk",
                    *_pointers(big, small, rgba, t0, t1, threshold), c,
-                   max_k, h, w)
+                   max_k, h, w, nbytes=kernels.operand_bytes(
+                       (rgba, t0, t1, threshold, *big, small),
+                       (*big, small)))
     return big, small
 
 
@@ -290,7 +292,9 @@ def scratch_fold_chunk(big, small, rgba: torch.Tensor, t0: torch.Tensor,
     _, _, h, w = big[0].shape
     kernels.launch("scratch_fold_chunk",
                    *_pointers(big, small, rgba, t0, t1, threshold), c,
-                   max_k, h, w, threads)
+                   max_k, h, w, threads, nbytes=kernels.operand_bytes(
+                       (rgba, t0, t1, threshold, *big, small),
+                       (*big, small)))
     return big, small
 
 

@@ -332,7 +332,7 @@ class ObsConfig:
     trace_path: str = ""           # Chrome-trace JSON ("" = don't write)
     metrics_path: str = ""         # JSONL events + summary ("" = don't)
     window: int = 0                # timer window; 0 = runtime.stats_window
-    # fleet telemetry side-channel endpoints (ROADMAP A12)
+    # fleet telemetry side-channel endpoints (obs/collector.py)
     collector: str = ""
     collector_hb: str = ""
     collector_interval_s: float = 0.25

@@ -15,8 +15,11 @@ raises when it is not 0. Nothing here falls back: a kernel
 that does not build or does not launch raises.
 
 Every wrapper calls `launch`, which adds one to the kernel's launch
-count; `reset_launches` and `launches` let a run show that its main path
-went through the kernels. `register_library` serves a library built
+count and the bytes the wrapper says the launch moves (`operand_bytes`:
+each operand read once, each output written once) to its byte count;
+`reset_launches` and `launches` let a run show that its main path went
+through the kernels, and `launched_bytes` lets a cost count see the
+bytes of launches that bypass PyTorch's dispatch. `register_library` serves a library built
 from a source outside ``csrc/`` (the lint fixture's kernel) the same way.
 """
 
@@ -106,6 +109,7 @@ QUERIES = {
 }
 
 _LAUNCHES: collections.Counter = collections.Counter()
+_BYTES: collections.Counter = collections.Counter()
 _LOADED: Dict[str, ctypes.CDLL] = {}   # by source path
 _SOURCES: Dict[str, str] = {}          # `source_override`'s sources
 _REGISTERED: Dict[str, str] = {}       # `register_library`'s sources
@@ -212,9 +216,18 @@ def _library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def launch(entry: str, *args) -> None:
+def operand_bytes(reads=(), writes=()) -> int:
+    """The bytes a launch moves: each tensor of ``reads`` read once and
+    each of ``writes`` written once (a state updated in place is in
+    both); None entries are skipped."""
+    return sum(t.numel() * t.element_size()
+               for t in (*reads, *writes) if t is not None)
+
+
+def launch(entry: str, *args, nbytes: int = 0) -> None:
     """Call C entry ``entry`` on PyTorch's current stream and count the
-    launch; raises when the launch was refused."""
+    launch and its ``nbytes`` (`operand_bytes`); raises when the launch
+    was refused."""
     import torch
 
     owner = ENTRIES[entry][0]
@@ -225,6 +238,7 @@ def launch(entry: str, *args) -> None:
         raise RuntimeError(f"CUDA kernel {entry} failed to launch: "
                            f"cudaError {err}")
     _LAUNCHES[entry] += 1
+    _BYTES[entry] += nbytes
 
 
 def query(name: str, *args, nout: int) -> tuple:
@@ -257,8 +271,15 @@ def check_operands(want, anchor: str) -> None:
 
 def reset_launches() -> None:
     _LAUNCHES.clear()
+    _BYTES.clear()
 
 
 def launches() -> Dict[str, int]:
     """Launch count of every C entry since the last `reset_launches`."""
     return {name: _LAUNCHES[name] for name in ENTRIES}
+
+
+def launched_bytes() -> int:
+    """The bytes every counted launch moved since the last
+    `reset_launches` (what each wrapper passed as ``nbytes``)."""
+    return sum(_BYTES.values())

@@ -18,6 +18,7 @@ from scenery_insitu_tpu_torch.core.transfer import (TransferFunction,
                                                     for_dataset)
 from scenery_insitu_tpu_torch.core.volume import Volume
 from scenery_insitu_tpu_torch.device import resolve_device
+from scenery_insitu_tpu_torch.obs.profiler import phase as _phase
 from scenery_insitu_tpu_torch.ops import occupancy as occupancy_mod
 from scenery_insitu_tpu_torch.ops import slicer
 from scenery_insitu_tpu_torch.ops.composite import composite_vdis
@@ -140,26 +141,30 @@ def grayscott_vdi_frame_step(sim_steps: int = 5,
                 "temporal mode carries threshold state: call as "
                 "frame_step(u, v, eye, thr), seeding thr with "
                 "frame_step.init_threshold(u, v, eye)")
-        if sim_occ:
-            state, rng = gs.multi_step_fast_ranges(
-                gs.GrayScott(u, v, params), sim_steps, fused=sim_fused)
-        else:
-            state = advance(gs.GrayScott(u, v, params), sim_steps)
-        field = state.field if rdt is None else state.field.to(rdt)
-        vol = Volume.centered(field, extent=2.0)
-        occ = (occupancy_mod.pyramid_from_ranges(rng, vol, tf, spec)
-               if sim_occ else None)
+        with _phase("sim_step"):
+            if sim_occ:
+                state, rng = gs.multi_step_fast_ranges(
+                    gs.GrayScott(u, v, params), sim_steps, fused=sim_fused)
+            else:
+                state = advance(gs.GrayScott(u, v, params), sim_steps)
         cam = camera(eye)
-        if temporal:
-            vdi, _, _, thr = slicer.generate_vdi_mxu_temporal(
-                vol, tf, cam, spec, thr, vdi_cfg, occupancy=occ)
-        elif engine == "mxu":
-            vdi, _, _ = slicer.generate_vdi_mxu(vol, tf, cam, spec, vdi_cfg,
-                                                occupancy=occ)
-        else:
-            vdi, _ = generate_vdi(vol, tf, cam, width, height, vdi_cfg,
-                                  max_steps=max_steps)
-        out = composite_vdis(vdi.color[None], vdi.depth[None], comp_cfg)
+        with _phase("march"):
+            field = state.field if rdt is None else state.field.to(rdt)
+            vol = Volume.centered(field, extent=2.0)
+            occ = (occupancy_mod.pyramid_from_ranges(rng, vol, tf, spec)
+                   if sim_occ else None)
+            if temporal:
+                vdi, _, _, thr = slicer.generate_vdi_mxu_temporal(
+                    vol, tf, cam, spec, thr, vdi_cfg, occupancy=occ)
+            elif engine == "mxu":
+                vdi, _, _ = slicer.generate_vdi_mxu(vol, tf, cam, spec,
+                                                    vdi_cfg, occupancy=occ)
+            else:
+                vdi, _ = generate_vdi(vol, tf, cam, width, height, vdi_cfg,
+                                      max_steps=max_steps)
+        with _phase("merge"):
+            out = composite_vdis(vdi.color[None], vdi.depth[None],
+                                 comp_cfg)
         if temporal:
             return out.color, out.depth, state.u, state.v, thr
         return out.color, out.depth, state.u, state.v
@@ -168,10 +173,11 @@ def grayscott_vdi_frame_step(sim_steps: int = 5,
         def init_threshold(u, v, eye):
             """Seed of the carried threshold state: one histogram counting
             march on the current sim state."""
-            vol = Volume.centered(gs.GrayScott(u, v, params).field,
-                                  extent=2.0)
-            return slicer.initial_threshold(vol, tf, camera(eye), spec,
-                                            vdi_cfg)
+            with _phase("march"):
+                vol = Volume.centered(gs.GrayScott(u, v, params).field,
+                                      extent=2.0)
+                return slicer.initial_threshold(vol, tf, camera(eye), spec,
+                                                vdi_cfg)
 
         frame_step.init_threshold = init_threshold
     frame_step.spec = spec
@@ -207,19 +213,25 @@ def hybrid_vortex_frame_step(width: int, height: int, grid_shape, axis_sign,
 
     def frame_step(u_flow, tracer_pos, eye):
         flow = vortex.VortexFlow(u_flow, params)
-        for _ in range(sim_steps):
-            tracer_pos = vortex.advect_tracers(flow.u, tracer_pos, params.dt)
-            flow = vortex.step(flow)
+        with _phase("sim_step"):
+            for _ in range(sim_steps):
+                tracer_pos = vortex.advect_tracers(flow.u, tracer_pos,
+                                                   params.dt)
+                flow = vortex.step(flow)
         vol = Volume.centered(flow.field, extent=2.0)
         cam = Camera.create(eye, fov_y_deg=fov_y_deg, near=0.5, far=20.0,
                             device=dev)
-        vdi, _, axcam = slicer.generate_vdi_mxu(vol, tf, cam, spec, vdi_cfg)
+        with _phase("march"):
+            vdi, _, axcam = slicer.generate_vdi_mxu(vol, tf, cam, spec,
+                                                    vdi_cfg)
         vel = vortex.tracer_velocities(flow.u, tracer_pos)
         world = vortex.tracers_to_world(tracer_pos, vol.origin, vol.spacing)
-        sp = splat_particles(world, speed_colors(vel, colormap), radius,
-                             None, spec.ni, spec.nj, stamp, view=axcam.view,
-                             proj=axcam.proj)
-        inter = composite_vdi_with_particles(vdi, sp)
+        with _phase("march"):
+            sp = splat_particles(world, speed_colors(vel, colormap), radius,
+                                 None, spec.ni, spec.nj, stamp,
+                                 view=axcam.view, proj=axcam.proj)
+        with _phase("merge"):
+            inter = composite_vdi_with_particles(vdi, sp)
         img = slicer.warp_to_camera(inter, axcam, spec, cam, width, height,
                                     background)
         return img, flow.u, tracer_pos
@@ -242,8 +254,9 @@ def lj_particle_frame_step(width: int, height: int, params: pt.LJParams,
     dev = resolve_device(device)
 
     def frame_step(pos, vel, box, eye):
-        state = pt.lj_multi_step(pt.ParticleState(pos, vel, box), params,
-                                 spec, sim_steps)
+        with _phase("sim_step"):
+            state = pt.lj_multi_step(pt.ParticleState(pos, vel, box),
+                                     params, spec, sim_steps)
         cam = Camera.create(eye, target=(0.0, 0.0, 0.0),
                             fov_y_deg=fov_y_deg, near=0.5, far=100.0,
                             device=dev)

@@ -1,6 +1,10 @@
 """Observability: structured spans, counters, the fallback ledger, the
-Perfetto/JSONL exporters (``obs.recorder``) and the live SLO engine
-(``obs.slo``). Torch-free, so any module may import it at load."""
+Perfetto/JSONL exporters (``obs.recorder``), the live SLO engine
+(``obs.slo``), the fleet telemetry side-channel (``obs.collector``),
+the phase attribution (``obs.profiler``), the cost snapshot
+(``obs.device``) and the roofline verdicts (``obs.roofline``). This
+import is torch-free, so any module may import it at load; the
+submodules are imported where they are used."""
 
 from scenery_insitu_tpu_torch.obs.recorder import (Recorder, clear_ledger,
                                                    counter_registry,

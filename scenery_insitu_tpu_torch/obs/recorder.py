@@ -76,6 +76,8 @@ def degrade(component: str, from_: str, to: str, reason: str,
 _LEDGER_REGISTRY: Dict[str, str] = {
     "bench.adaptive_mode": "bench: temporal adaptive mode needs the mxu "
                            "engine; histogram runs instead",
+    "bench.cost_analysis": "bench: XLA cost analysis unavailable; "
+                           "artifact bytes fall back to the floor model",
     "bricks.partition": "a brick render partition was configured where "
                         "the builder has no brick march (hybrid/plain "
                         "steps); the even z-slab decomposition renders",
@@ -122,10 +124,19 @@ _LEDGER_REGISTRY: Dict[str, str] = {
                            "KV store because this backend cannot run "
                            "cross-process device collectives (the "
                            "multi-process CPU harness)",
+    "obs.collector": "fleet telemetry side-channel: a batch publish to "
+                     "the collector could not complete without blocking "
+                     "(dead/slow collector, HWM full); the batch is "
+                     "dropped, the render loop never waits",
     "obs.flight_recorder": "an unhandled exception tore down a frame "
                            "loop; the last unflushed obs window was "
                            "dumped best-effort to the configured "
                            "trace/metrics paths",
+    "obs.profiler": "a ProfileCapture could not produce a phase "
+                    "attribution (trace backend absent, no trace "
+                    "emitted, or the HLO/trace join failed); the step "
+                    "keeps running unprofiled (docs/OBSERVABILITY.md "
+                    "'Phase attribution')",
     "occupancy.k_budget": "occupancy K budgets requested where no "
                           "pyramid/adaptive threshold exists; static "
                           "budgets run",
@@ -234,7 +245,13 @@ _COUNTER_REGISTRY: Dict[str, str] = {
                                "frame again after a stall",
     "ingest_stalls": "shm ingest found no strictly-newer producer frame "
                      "past frame_timeout_ms",
+    "obs_batch_drops": "a fleet-telemetry batch was dropped because the "
+                       "collector socket would have blocked",
+    "obs_batches_published": "a fleet-telemetry batch was handed to the "
+                             "collector PUB socket",
     "occupancy_kbudget_builds": "a K-budget occupancy plan was built",
+    "profile_captures": "a ProfileCapture produced a phase attribution "
+                        "(profiled frames joined back to sitpu_* scopes)",
     "rebalance_replans": "a rebalance replan (slab or brick-steal) was "
                          "executed",
     "rebalance_steps_built": "a render step was built for a rebalanced "

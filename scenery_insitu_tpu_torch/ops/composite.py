@@ -21,6 +21,7 @@ import torch
 
 from scenery_insitu_tpu_torch.config import CompositeConfig
 from scenery_insitu_tpu_torch.core.vdi import VDI
+from scenery_insitu_tpu_torch.obs.profiler import phase as _phase
 from scenery_insitu_tpu_torch.ops import cuda_composite as cc
 
 
@@ -44,7 +45,8 @@ def composite_vdis(colors: torch.Tensor, depths: torch.Tensor,
     if assume_sorted:
         sc, sd = flat_c, flat_d
     else:
-        sc, sd = sort_stream(flat_c, flat_d)
+        with _phase("merge"):
+            sc, sd = sort_stream(flat_c, flat_d)
 
     k_out = cfg.max_output_supersegments
     if (assume_sorted and n == 1 and k_out >= k and cfg.adaptive
@@ -59,7 +61,8 @@ def composite_vdis(colors: torch.Tensor, depths: torch.Tensor,
                    torch.cat([flat_d, torch.full(
                        (pad,) + tuple(flat_d.shape[1:]), torch.inf,
                        dtype=flat_d.dtype, device=flat_d.device)]))
-    return resegment_stream(sc, sd, cfg, gap_eps)
+    with _phase("resegment"):
+        return resegment_stream(sc, sd, cfg, gap_eps)
 
 
 def sort_stream(flat_c: torch.Tensor, flat_d: torch.Tensor):

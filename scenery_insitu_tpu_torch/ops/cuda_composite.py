@@ -64,7 +64,8 @@ def resegment_sorted(sc: torch.Tensor, sd: torch.Tensor,
                    threshold.data_ptr(), color.data_ptr(), depth.data_ptr(),
                    None if threshold_out is None else threshold_out.data_ptr(),
                    sc.shape[0], k_out, h, w, adaptive_iters, gap_eps,
-                   thr_max)
+                   thr_max, nbytes=kernels.operand_bytes(
+                       (sc, sd, threshold), (color, depth, threshold_out)))
     return color, depth
 
 

@@ -115,7 +115,9 @@ def _launch(entry, packed, val, length, ratio, threshold, sk0, sk1, tf,
                    ratio.data_ptr(), threshold.data_ptr(), sk0.data_ptr(),
                    sk1.data_ptr(), knots.data_ptr(), color.data_ptr(),
                    depth.data_ptr(), small.data_ptr(), *sizes,
-                   color.shape[0], h, w)
+                   color.shape[0], h, w, nbytes=kernels.operand_bytes(
+                       (val, length, ratio, threshold, sk0, sk1, knots,
+                        *packed), packed))
     return packed
 
 

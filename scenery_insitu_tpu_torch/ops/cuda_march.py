@@ -82,7 +82,8 @@ def count_multi_chunk(carry, rgba: torch.Tensor, tvec: torch.Tensor):
     b, h, w = count.shape
     kernels.launch("count_multi", rgba.data_ptr(), tvec.data_ptr(),
                    count.data_ptr(), prev.data_ptr(), fe.data_ptr(),
-                   rgba.shape[0], b, h, w)
+                   rgba.shape[0], b, h, w, nbytes=kernels.operand_bytes(
+                       (rgba, tvec, *carry), carry))
     return carry
 
 
@@ -179,7 +180,9 @@ def fold_chunk(packed, rgba: torch.Tensor, t0: torch.Tensor,
                    t1.data_ptr(), threshold.data_ptr(), color.data_ptr(),
                    depth.data_ptr(), small.data_ptr(),
                    None if count is None else count.data_ptr(), c, k, h, w,
-                   gap_eps)
+                   gap_eps, nbytes=kernels.operand_bytes(
+                       (rgba, t0, t1, threshold, *packed, count),
+                       (*packed, count)))
     return packed if count is None else (packed, count)
 
 

@@ -142,12 +142,17 @@ def fold_chunk_packed(packed, rgba: torch.Tensor, threshold, *, max_k: int,
     if t0 is not None:
         kernels.launch("seg_fold_planes", rgba.data_ptr(), t0.data_ptr(),
                        t1.data_ptr(), threshold.data_ptr(), color.data_ptr(),
-                       depth.data_ptr(), small.data_ptr(), c, k, h, w)
+                       depth.data_ptr(), small.data_ptr(), c, k, h, w,
+                       nbytes=kernels.operand_bytes(
+                           (rgba, t0, t1, threshold, *packed), packed))
     else:
         kernels.launch("seg_fold_compact", rgba.data_ptr(),
                        length.data_ptr(), threshold.data_ptr(),
                        sk0.data_ptr(), sk1.data_ptr(), color.data_ptr(),
-                       depth.data_ptr(), small.data_ptr(), c, k, h, w)
+                       depth.data_ptr(), small.data_ptr(), c, k, h, w,
+                       nbytes=kernels.operand_bytes(
+                           (rgba, length, threshold, sk0, sk1, *packed),
+                           packed))
     return packed
 
 

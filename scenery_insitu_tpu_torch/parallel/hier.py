@@ -69,6 +69,7 @@ from scenery_insitu_tpu_torch import obs as _obs
 from scenery_insitu_tpu_torch.config import CompositeConfig, VDIConfig
 from scenery_insitu_tpu_torch.core.vdi import VDI, VDIMetadata
 from scenery_insitu_tpu_torch.device import resolve_device
+from scenery_insitu_tpu_torch.obs.profiler import phase as _phase
 from scenery_insitu_tpu_torch.ops import wire as _wire
 from scenery_insitu_tpu_torch.ops.composite import (
     composite_plain, modeled_exchange_traffic, resegment_stream, sort_stream)
@@ -162,8 +163,10 @@ def domain_accumulate(color: torch.Tensor, depth: torch.Tensor,
                 for j in range(d)]
     rc, rd = _exchange_vdi_columns(color, depth, d, comp_cfg.wire)
     _, _, _, _, h, w = rc.shape
-    return [sort_stream(rc[j].reshape(d * k, 4, h, w),
-                        rd[j].reshape(d * k, 2, h, w)) for j in range(d)]
+    with _phase("merge"):
+        return [sort_stream(rc[j].reshape(d * k, 4, h, w),
+                            rd[j].reshape(d * k, 2, h, w))
+                for j in range(d)]
 
 
 def dcn_accumulate(accs: List[List[Stream]], topo: Topology
@@ -179,10 +182,11 @@ def dcn_accumulate(accs: List[List[Stream]], topo: Topology
     for j in range(d):
         blocks = []
         for h in range(hosts):
-            ec, ed, scale = _wire.encode_fragment(*accs[h][j], wire)
+            with _phase("wire_encode"):
+                ec, ed, scale = _wire.encode_fragment(*accs[h][j], wire)
             blocks.append((_column_blocks(ec, hosts),
                            _column_blocks(ed, hosts), scale))
-        out += [_ring_accumulate(blocks, h, wire, None)
+        out += [_ring_accumulate(blocks, h, wire, None, hop_scope="dcn_hop")
                 for h in range(hosts)]
     return out
 
@@ -207,8 +211,11 @@ def hier_composite_vdi(color: torch.Tensor, depth: torch.Tensor,
     levels, then one resegment a rank at the top. Returns every rank's
     composited column block in output order, so the blocks side by side
     are the frame's columns."""
-    return [resegment_stream(sc, sd, comp_cfg)
-            for sc, sd in hier_accumulate(color, depth, topo, comp_cfg)]
+    out = []
+    for sc, sd in hier_accumulate(color, depth, topo, comp_cfg):
+        with _phase("resegment"):
+            out.append(resegment_stream(sc, sd, comp_cfg))
+    return out
 
 
 def hier_composite_plain(images: torch.Tensor, depths: torch.Tensor,
@@ -231,16 +238,19 @@ def hier_composite_plain(images: torch.Tensor, depths: torch.Tensor,
     for h in range(hosts):
         ims, dps = images[h * d:(h + 1) * d], depths[h * d:(h + 1) * d]
         ri, rd = _exchange_plain_columns(ims, dps, d, wire)
-        partials.append([(composite_plain(ri[j], rd[j], clear),
-                          torch.amin(rd[j], dim=0)) for j in range(d)])
+        with _phase("merge"):
+            partials.append([(composite_plain(ri[j], rd[j], clear),
+                              torch.amin(rd[j], dim=0)) for j in range(d)])
     out = [None] * (hosts * d)
     for j in range(d):
         pi = torch.stack([partials[h][j][0] for h in range(hosts)])
         pd = torch.stack([partials[h][j][1] for h in range(hosts)])
-        ri, rd = _exchange_plain_columns(pi, pd, hosts, topo.dcn_wire)
-        for h in range(hosts):
-            out[_out_block_index(topo, h * d + j)] = composite_plain(
-                ri[h], rd[h], background)
+        ri, rd = _exchange_plain_columns(pi, pd, hosts, topo.dcn_wire,
+                                         hop_scope="dcn_hop")
+        with _phase("merge"):
+            for h in range(hosts):
+                out[_out_block_index(topo, h * d + j)] = composite_plain(
+                    ri[h], rd[h], background)
     return out
 
 
@@ -371,9 +381,11 @@ def merge_partial_blocks(parts: List[Tuple[np.ndarray, np.ndarray]],
                             for c, _ in parts])
         flat_d = torch.cat([torch.as_tensor(z, device=dev)
                             for _, z in parts])
-    sc, sd = sort_stream(flat_c, flat_d)
+    with _phase("merge"):
+        sc, sd = sort_stream(flat_c, flat_d)
     del flat_c, flat_d
-    return resegment_stream(sc, sd, comp_cfg, gap_eps)
+    with _phase("resegment"):
+        return resegment_stream(sc, sd, comp_cfg, gap_eps)
 
 
 class HierTileAssembler:

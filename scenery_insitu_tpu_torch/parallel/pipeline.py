@@ -119,6 +119,7 @@ from scenery_insitu_tpu_torch.core.camera import Camera
 from scenery_insitu_tpu_torch.core.transfer import TransferFunction
 from scenery_insitu_tpu_torch.core.vdi import VDI
 from scenery_insitu_tpu_torch.core.volume import Volume
+from scenery_insitu_tpu_torch.obs.profiler import phase as _phase
 from scenery_insitu_tpu_torch.ops import ao as _ao
 from scenery_insitu_tpu_torch.ops import slicer
 from scenery_insitu_tpu_torch.ops import supersegments as ss
@@ -221,13 +222,15 @@ def _frame_rows(slabs: torch.Tensor, spec: slicer.AxisSpec, plan=None,
     reads."""
     h = 0 if spec.axis == 2 else 1
     if bricks is not None:
-        if spec.render_dtype == "bf16" and slabs.dtype == torch.float32:
-            slabs = slabs.to(torch.bfloat16)
-        if bricks.max_level == 0:
-            return {0: reslab_bricks(slabs, bricks, h=h)}
-        return reslab_bricks_lod(slabs, bricks, h=h)
+        with _phase("halo"):
+            if spec.render_dtype == "bf16" and slabs.dtype == torch.float32:
+                slabs = slabs.to(torch.bfloat16)
+            if bricks.max_level == 0:
+                return {0: reslab_bricks(slabs, bricks, h=h)}
+            return reslab_bricks_lod(slabs, bricks, h=h)
     if plan is not None:
-        return reslab_z(slabs, plan, h=h)
+        with _phase("halo"):
+            return reslab_z(slabs, plan, h=h)
     return _halo_for(slabs, spec, mesh)
 
 
@@ -342,13 +345,16 @@ def _column_blocks(x: torch.Tensor, n: int) -> torch.Tensor:
     return x.reshape(x.shape[:-1] + (n, w // n)).movedim(-2, 0)
 
 
-def _exchange_columns(x: torch.Tensor, n: int) -> torch.Tensor:
+def _exchange_columns(x: torch.Tensor, n: int,
+                      hop_scope: str = "exchange") -> torch.Tensor:
     """The column all_to_all of rank-stacked fragments ``[n, ..., W]``:
     rank j receives the j-th of n column blocks from every rank. Returns
-    ``[n_dst, n_src, ..., W/n]``."""
+    ``[n_dst, n_src, ..., W/n]``. ``hop_scope`` names its phase
+    (``dcn_hop`` across the domains of a two-level composite)."""
     w = x.shape[-1]
     parts = x.reshape(x.shape[:-1] + (n, w // n))
-    return parts.movedim(-2, 0).contiguous()
+    with _phase(hop_scope):
+        return parts.movedim(-2, 0).contiguous()
 
 
 def _encode_ranks(color: torch.Tensor, depth: torch.Tensor, wire: str):
@@ -356,11 +362,13 @@ def _encode_ranks(color: torch.Tensor, depth: torch.Tensor, wire: str):
     W]``, ``depth [n, K, 2, H, W]`` encoded for ``wire``, each against
     its own scale. Returns (color_enc [n, ...], depth_enc [n, ...],
     scales f32[n, 2] or None)."""
-    enc = [_wire.encode_fragment(c, d, wire) for c, d in zip(color, depth)]
-    scales = None if enc[0][2] is None else \
-        torch.stack([e[2] for e in enc])
-    return (torch.stack([e[0] for e in enc]),
-            torch.stack([e[1] for e in enc]), scales)
+    with _phase("wire_encode"):
+        enc = [_wire.encode_fragment(c, d, wire)
+               for c, d in zip(color, depth)]
+        scales = None if enc[0][2] is None else \
+            torch.stack([e[2] for e in enc])
+        return (torch.stack([e[0] for e in enc]),
+                torch.stack([e[1] for e in enc]), scales)
 
 
 def _exchange_vdi_columns(color: torch.Tensor, depth: torch.Tensor,
@@ -376,8 +384,9 @@ def _exchange_vdi_columns(color: torch.Tensor, depth: torch.Tensor,
     ec, ed, scales = _encode_ranks(color, depth, wire)
     rc, rd = _exchange_columns(ec, n), _exchange_columns(ed, n)
     # every destination decodes source s against scales[s]
-    return _wire.decode_fragment(rc, rd, None if scales is None
-                                 else scales[None], wire)
+    with _phase("wire_encode"):
+        return _wire.decode_fragment(rc, rd, None if scales is None
+                                     else scales[None], wire)
 
 
 def _ring_cap(cfg: CompositeConfig, k: int) -> Optional[int]:
@@ -400,13 +409,16 @@ def _ring_blocks(color: torch.Tensor, depth: torch.Tensor, n: int,
     [n, K, ...], depth blocks, scale or None)."""
     out = []
     for c, d in zip(color, depth):
-        c, d = sort_stream(c, d)
-        ec, ed, scale = _wire.encode_fragment(c, d, wire)
+        with _phase("merge"):
+            c, d = sort_stream(c, d)
+        with _phase("wire_encode"):
+            ec, ed, scale = _wire.encode_fragment(c, d, wire)
         out.append((_column_blocks(ec, n), _column_blocks(ed, n), scale))
     return out
 
 
-def _ring_accumulate(blocks, r: int, wire: str, cap: Optional[int]):
+def _ring_accumulate(blocks, r: int, wire: str, cap: Optional[int],
+                     hop_scope: str = "exchange"):
     """Rank r's ring: its own block through the codec, then at hop
     s = 1..n-1 the block of rank (r+s) mod n decoded and merged into the
     sorted accumulator (arrival order r, r+1, ... with wrap-around; ties
@@ -414,14 +426,23 @@ def _ring_accumulate(blocks, r: int, wire: str, cap: Optional[int]):
     W/n], depth [M, 2, H, W/n]), not yet resegmented. The same core
     serves the single-level ring and both rings of the two-level
     composite (``parallel/hier.py``); the build markers count its hops
-    (`ring_hop_markers`) under each ring's names."""
+    (`ring_hop_markers`) under each ring's names. ``hop_scope`` names a
+    hop's phase (``dcn_hop`` in the two-level composite's level 2); an
+    in-process hop hands the block over by reference, so its scope holds
+    no device work."""
     n = len(blocks)
     bc, bd, scale = blocks[r]
-    acc_c, acc_d = _wire.decode_fragment(bc[r], bd[r], scale, wire)
+    with _phase("wire_encode"):
+        acc_c, acc_d = _wire.decode_fragment(bc[r], bd[r], scale, wire)
     for s in range(1, n):
-        bc, bd, scale = blocks[(r + s) % n]
-        mc, md = _wire.decode_fragment(bc[r], bd[r], scale, wire)
-        acc_c, acc_d = merge_vdis_pairwise(acc_c, acc_d, mc, md, k_cap=cap)
+        with _phase(hop_scope):
+            bc, bd, scale = blocks[(r + s) % n]
+            bc, bd = bc[r], bd[r]
+        with _phase("wire_encode"):
+            mc, md = _wire.decode_fragment(bc, bd, scale, wire)
+        with _phase("merge"):
+            acc_c, acc_d = merge_vdis_pairwise(acc_c, acc_d, mc, md,
+                                               k_cap=cap)
     return acc_c, acc_d
 
 
@@ -435,8 +456,12 @@ def _ring_exchange_composite(color: torch.Tensor, depth: torch.Tensor,
     order)."""
     cap = _ring_cap(cfg, color.shape[1])
     blocks = _ring_blocks(color, depth, n, cfg.wire)
-    return [resegment_stream(*_ring_accumulate(blocks, r, cfg.wire, cap),
-                             cfg, gap_eps) for r in range(n)]
+    out = []
+    for r in range(n):
+        acc = _ring_accumulate(blocks, r, cfg.wire, cap)
+        with _phase("resegment"):
+            out.append(resegment_stream(*acc, cfg, gap_eps))
+    return out
 
 
 def _composite_exchanged(color: torch.Tensor, depth: torch.Tensor, n: int,
@@ -479,7 +504,8 @@ def _composite_exchanged_procs(color: torch.Tensor, depth: torch.Tensor,
     frag = torch.cat([color, depth], dim=2)             # [nl, K, 6, H, W]
     parts = _exchange_columns(frag, mesh.n)       # [n_dst, nl_src, ...]
     parts = parts.reshape((mesh.n // nl, nl) + tuple(parts.shape[1:]))
-    got = all_to_all(parts, mesh.group)  # [P_src, nl_dst, nl_src, ...]
+    with _phase("exchange"):
+        got = all_to_all(parts, mesh.group)  # [P_src, nl_dst, nl_src, ...]
     out = []
     for j in range(nl):
         blk = got[:, j].reshape((mesh.n,) + tuple(got.shape[3:]))
@@ -718,13 +744,14 @@ def _shaded_rows(slabs: torch.Tensor, spec: slicer.AxisSpec, origin,
     n, dn = slabs.shape[:2]
     dz = spacing[2]
     hr = shade_halo + 1
-    if plan is None:
-        ext = halo_exchange_z(slabs, h=hr)
-        starts, depth = [r * dn for r in range(n)], dn
-    else:
-        ext = reslab_z(slabs, plan, h=hr)
-        starts = [sum(plan[:r]) for r in range(n)]
-        depth = max(plan)
+    with _phase("halo"):
+        if plan is None:
+            ext = halo_exchange_z(slabs, h=hr)
+            starts, depth = [r * dn for r in range(n)], dn
+        else:
+            ext = reslab_z(slabs, plan, h=hr)
+            starts = [sum(plan[:r]) for r in range(n)]
+            depth = max(plan)
     lo, hi = (hr, hr + depth) if spec.axis == 2 else (hr - 1,
                                                       hr + depth + 1)
     out = []
@@ -739,7 +766,10 @@ def _halo_for(slabs: torch.Tensor, spec: slicer.AxisSpec,
               mesh: Optional[Mesh] = None):
     """The halo-padded slabs an x or y march reads; None for a z march,
     which needs none."""
-    return None if spec.axis == 2 else halo_exchange_z(slabs, mesh=mesh)
+    if spec.axis == 2:
+        return None
+    with _phase("halo"):
+        return halo_exchange_z(slabs, mesh=mesh)
 
 
 class _RankFrame:
@@ -757,17 +787,18 @@ class _RankFrame:
                  first: int = 0, n_total: Optional[int] = None):
         from scenery_insitu_tpu_torch.ops import occupancy as _occ
 
-        self.dec = _rank_units(slabs, halo, r, origin, spacing, spec, plan,
-                               bricks, first, n_total)
-        self.axcam = slicer.make_axis_camera(self.dec.ref, cam, spec,
-                                             box_min=origin,
-                                             box_max=self.dec.gmax)
-        self.volps = [slicer.permute_volume(u.vol, spec)
-                      for u in self.dec.units]
-        build = spec.skip_empty or pyramid
-        self.pyrs = [_occ.pyramid_from_volume(u.vol, tf, spec, volp=vp)
-                     if build else None
-                     for u, vp in zip(self.dec.units, self.volps)]
+        with _phase("march"):
+            self.dec = _rank_units(slabs, halo, r, origin, spacing, spec,
+                                   plan, bricks, first, n_total)
+            self.axcam = slicer.make_axis_camera(self.dec.ref, cam, spec,
+                                                 box_min=origin,
+                                                 box_max=self.dec.gmax)
+            self.volps = [slicer.permute_volume(u.vol, spec)
+                          for u in self.dec.units]
+            build = spec.skip_empty or pyramid
+            self.pyrs = [_occ.pyramid_from_volume(u.vol, tf, spec, volp=vp)
+                         if build else None
+                         for u, vp in zip(self.dec.units, self.volps)]
 
 
 def _march_units(fr: _RankFrame, cam, spec, axcam, tf, vdi_cfg,
@@ -781,22 +812,23 @@ def _march_units(fr: _RankFrame, cam, spec, axcam, tf, vdi_cfg,
     budget target, else None. Returns (color, depth, each unit's next
     maps or None)."""
     colors, depths, thr2s = [], [], []
-    for s, u in enumerate(fr.dec.units):
-        kw = dict(v_bounds=u.v_bounds, w_bounds=u.w_bounds,
-                  occupancy=fr.pyrs[s], axcam=_unit_camera(axcam, u.f),
-                  volp=fr.volps[s], step_scale=1.0 / u.f,
-                  k_target=k_target)
-        if slot_thr is None:
-            vdi, _, _ = slicer.generate_vdi_mxu(u.vol, tf, cam, spec,
-                                                vdi_cfg, **kw)
-        else:
-            vdi, _, _, t2 = slicer.generate_vdi_mxu_temporal(
-                u.vol, tf, cam, spec, slot_thr[s], vdi_cfg, **kw)
-            thr2s.append(t2)
-        colors.append(vdi.color)
-        depths.append(vdi.depth)
-    return (_cat_slots(colors), _cat_slots(depths),
-            thr2s if slot_thr is not None else None)
+    with _phase("march"):
+        for s, u in enumerate(fr.dec.units):
+            kw = dict(v_bounds=u.v_bounds, w_bounds=u.w_bounds,
+                      occupancy=fr.pyrs[s], axcam=_unit_camera(axcam, u.f),
+                      volp=fr.volps[s], step_scale=1.0 / u.f,
+                      k_target=k_target)
+            if slot_thr is None:
+                vdi, _, _ = slicer.generate_vdi_mxu(u.vol, tf, cam, spec,
+                                                    vdi_cfg, **kw)
+            else:
+                vdi, _, _, t2 = slicer.generate_vdi_mxu_temporal(
+                    u.vol, tf, cam, spec, slot_thr[s], vdi_cfg, **kw)
+                thr2s.append(t2)
+            colors.append(vdi.color)
+            depths.append(vdi.depth)
+        return (_cat_slots(colors), _cat_slots(depths),
+                thr2s if slot_thr is not None else None)
 
 
 def _slot_maps(thr: Optional[ss.ThresholdState], fr: _RankFrame,
@@ -1044,14 +1076,15 @@ def _waves_frame(frames, origin, cam, spec, tf, vdi_cfg, comp_cfg, n,
         return frag
 
     outs = []                       # per wave: every rank's block
-    frag = march(0)
-    for w in range(1, t):
+    with _phase("wave"):
+        frag = march(0)
+        for w in range(1, t):
+            outs.append(_composite_exchanged(*frag, n, comp_cfg, topo))
+            frag = march(w)
         outs.append(_composite_exchanged(*frag, n, comp_cfg, topo))
-        frag = march(w)
-    outs.append(_composite_exchanged(*frag, n, comp_cfg, topo))
-    del frag
-    color = _assemble_waves(outs, n, "color")
-    depth = _assemble_waves(outs, n, "depth")
+        del frag
+        color = _assemble_waves(outs, n, "color")
+        depth = _assemble_waves(outs, n, "depth")
     fr0 = frames[0]
     meta = _global_meta(fr0.dec, fr0.axcam, spec, origin)
     thr2 = None if thr is None else _stack_thr(thr_full)
@@ -1248,18 +1281,20 @@ def distributed_initial_threshold_mxu(mesh: Mesh, tf: TransferFunction,
         slabs = _check_sharded(vol_data, mesh)
         rows = _frame_rows(slabs, spec, plan, bricks, mesh)
         states = []
-        for r in range(first, first + nl):
-            dec = _rank_units(slabs, rows, r, origin, spacing, spec, plan,
-                              bricks, first, n)
-            axcam = slicer.make_axis_camera(dec.ref, cam, spec,
-                                            box_min=origin,
-                                            box_max=dec.gmax)
-            states += [slicer.initial_threshold(
-                u.vol, tf, cam, spec, vdi_cfg, v_bounds=u.v_bounds,
-                w_bounds=u.w_bounds, axcam=_unit_camera(axcam, u.f),
-                step_scale=1.0 / u.f) for u in dec.units]
-        return ss.ThresholdState(*(torch.cat(parts)
-                                   for parts in zip(*states)))
+        # the seed is one counting march a unit (K2 on a card)
+        with _phase("march"):
+            for r in range(first, first + nl):
+                dec = _rank_units(slabs, rows, r, origin, spacing, spec,
+                                  plan, bricks, first, n)
+                axcam = slicer.make_axis_camera(dec.ref, cam, spec,
+                                                box_min=origin,
+                                                box_max=dec.gmax)
+                states += [slicer.initial_threshold(
+                    u.vol, tf, cam, spec, vdi_cfg, v_bounds=u.v_bounds,
+                    w_bounds=u.w_bounds, axcam=_unit_camera(axcam, u.f),
+                    step_scale=1.0 / u.f) for u in dec.units]
+            return ss.ThresholdState(*(torch.cat(parts)
+                                       for parts in zip(*states)))
 
     return seed
 
@@ -1377,18 +1412,20 @@ def distributed_hybrid_step_mxu(mesh: Mesh, tf: TransferFunction,
             del color, depth
         # the sort-first particle pass on the shared virtual camera's rays
         axcam = frames[0].axcam
-        sp = sort_first_splat(_check_particles(tr_pos, mesh),
-                              _check_particles(tr_vel, mesh), spec.ni,
-                              spec.nj, radius, stamp, colormap,
-                              view=axcam.view, proj=axcam.proj)
+        with _phase("march"):
+            sp = sort_first_splat(_check_particles(tr_pos, mesh),
+                                  _check_particles(tr_vel, mesh), spec.ni,
+                                  spec.nj, radius, stamp, colormap,
+                                  view=axcam.view, proj=axcam.proj)
         out = [None] * n
-        for r in range(n):
-            # rank r's column block of the particle layer
-            b = _out_block_index(topo, r)
-            cols = slice(b * wb, (b + 1) * wb)
-            out[b] = composite_vdi_with_particles(
-                blocks[b], SplatOutput(sp.image[..., cols],
-                                       sp.depth[..., cols]))
+        with _phase("merge"):
+            for r in range(n):
+                # rank r's column block of the particle layer
+                b = _out_block_index(topo, r)
+                cols = slice(b * wb, (b + 1) * wb)
+                out[b] = composite_vdi_with_particles(
+                    blocks[b], SplatOutput(sp.image[..., cols],
+                                           sp.depth[..., cols]))
         return torch.cat(out, dim=-1), meta, thr2
 
     if temporal:
@@ -1495,11 +1532,12 @@ def _composite_exchanged_waves(color: torch.Tensor, depth: torch.Tensor,
     the rank-stacked fragments through `_composite_exchanged`, in wave
     order, reassembled; per pixel the frame schedule's result."""
     t = comp_cfg.wave_tiles
-    outs = [_composite_exchanged(slicer.wave_cols(color, n, t, w),
-                                 slicer.wave_cols(depth, n, t, w), n,
-                                 comp_cfg, topo) for w in range(t)]
-    return VDI(_assemble_waves(outs, n, "color"),
-               _assemble_waves(outs, n, "depth"))
+    with _phase("wave"):
+        outs = [_composite_exchanged(slicer.wave_cols(color, n, t, w),
+                                     slicer.wave_cols(depth, n, t, w), n,
+                                     comp_cfg, topo) for w in range(t)]
+        return VDI(_assemble_waves(outs, n, "color"),
+                   _assemble_waves(outs, n, "depth"))
 
 
 def distributed_vdi_step(mesh: Mesh, tf: TransferFunction, width: int,
@@ -1553,11 +1591,12 @@ def distributed_vdi_step(mesh: Mesh, tf: TransferFunction, width: int,
 
     def step(vol_data, origin, spacing, cam: Camera) -> VDI:
         slabs = _check_sharded(vol_data, mesh)
-        if bricks is not None:
-            bands = reslab_bricks(slabs, bricks, h=1)
-        else:
-            rows = (halo_exchange_z(slabs, mesh=mesh) if plan is None
-                    else reslab_z(slabs, plan, h=1))
+        with _phase("halo"):
+            if bricks is not None:
+                bands = reslab_bricks(slabs, bricks, h=1)
+            else:
+                rows = (halo_exchange_z(slabs, mesh=mesh) if plan is None
+                        else reslab_z(slabs, plan, h=1))
         colors, depths = [], []
         for r in range(first, first + nl):
             if bricks is not None:
@@ -1578,10 +1617,12 @@ def distributed_vdi_step(mesh: Mesh, tf: TransferFunction, width: int,
                                          torch.inf, device=origin.device))
                     continue
                 vol, cmin, cmax = unit
-                vdi, _ = generate_vdi(vol, tf, cam, width, height, vdi_cfg,
-                                      max_steps=max_steps, clip_min=cmin,
-                                      clip_max=cmax, sample_min=origin,
-                                      sample_max=gmax)
+                with _phase("march"):
+                    vdi, _ = generate_vdi(vol, tf, cam, width, height,
+                                          vdi_cfg, max_steps=max_steps,
+                                          clip_min=cmin, clip_max=cmax,
+                                          sample_min=origin,
+                                          sample_max=gmax)
                 cs.append(vdi.color)
                 ds.append(vdi.depth)
             colors.append(_cat_slots(cs))
@@ -1612,20 +1653,28 @@ def _out_block_index(topo, r: int) -> int:
 
 
 def _exchange_plain_columns(images: torch.Tensor, depths: torch.Tensor,
-                            n: int, wire: str = "f32"):
+                            n: int, wire: str = "f32",
+                            hop_scope: str = "exchange"):
     """Column all_to_all of the rank-stacked plain fragments (``images
     [n, 4, H, W]``, ``depths [n, H, W]``) on ``wire``: each fragment is
     encoded once against its own scale, every received block decoded
     against its sender's. Returns f32 ``([n_dst, n_src, 4, H, W/n],
-    [n_dst, n_src, H, W/n])``."""
+    [n_dst, n_src, H, W/n])``. ``hop_scope`` names the exchange's
+    phase."""
     if wire == "f32":
-        return _exchange_columns(images, n), _exchange_columns(depths, n)
-    enc = [_wire.encode_plain(i, d, wire) for i, d in zip(images, depths)]
-    ri = _exchange_columns(torch.stack([e[0] for e in enc]), n)
-    rd = _exchange_columns(torch.stack([e[1] for e in enc]), n)
+        return (_exchange_columns(images, n, hop_scope),
+                _exchange_columns(depths, n, hop_scope))
+    with _phase("wire_encode"):
+        enc = [_wire.encode_plain(i, d, wire)
+               for i, d in zip(images, depths)]
+        ei = torch.stack([e[0] for e in enc])
+        ed = torch.stack([e[1] for e in enc])
+    ri = _exchange_columns(ei, n, hop_scope)
+    rd = _exchange_columns(ed, n, hop_scope)
     scales = None if enc[0][2] is None else \
         torch.stack([e[2] for e in enc])[None]
-    return _wire.decode_plain(ri, rd, scales, wire)
+    with _phase("wire_encode"):
+        return _wire.decode_plain(ri, rd, scales, wire)
 
 
 def _composite_plain_exchanged(images: torch.Tensor, depths: torch.Tensor,
@@ -1646,7 +1695,9 @@ def _composite_plain_exchanged(images: torch.Tensor, depths: torch.Tensor,
 
         return hier_composite_plain(images, depths, topo, background, wire)
     ri, rd = _exchange_plain_columns(images, depths, n, wire)
-    return [composite_plain(ri[j], rd[j], background) for j in range(n)]
+    with _phase("merge"):
+        return [composite_plain(ri[j], rd[j], background)
+                for j in range(n)]
 
 
 def _composite_plain_waves(images: torch.Tensor, depths: torch.Tensor,
@@ -1664,10 +1715,11 @@ def _composite_plain_waves(images: torch.Tensor, depths: torch.Tensor,
         def march_wave(w):
             return (slicer.wave_cols(images, n, t, w),
                     slicer.wave_cols(depths, n, t, w))
-    outs = [_composite_plain_exchanged(*march_wave(w), n, background,
-                                       wire, topo)
-            for w in range(t)]
-    return _assemble_waves(outs, n)
+    with _phase("wave"):
+        outs = [_composite_plain_exchanged(*march_wave(w), n, background,
+                                           wire, topo)
+                for w in range(t)]
+        return _assemble_waves(outs, n)
 
 
 def _plain_build_markers(n: int, h: int, w: int, knobs: CompositeConfig,
@@ -1764,15 +1816,17 @@ def distributed_plain_step_mxu(mesh: Mesh, tf: TransferFunction,
         del rows
 
         def render(u, axcam, spec_u, **kw):
-            return slicer.render_slices(
-                u.vol, tf_r, axcam, spec_u, cfg.early_exit_alpha,
-                v_bounds=u.v_bounds, step_scale=cfg.step_scale,
-                w_bounds=u.w_bounds, **kw)
+            with _phase("march"):
+                return slicer.render_slices(
+                    u.vol, tf_r, axcam, spec_u, cfg.early_exit_alpha,
+                    v_bounds=u.v_bounds, step_scale=cfg.step_scale,
+                    w_bounds=u.w_bounds, **kw)
 
         if waves:
-            volps = [slicer.permute_volume(u.vol, spec) for u in units]
-            occs = [slicer.occupancy_for(u.vol, tf_r, spec, volp=vp)
-                    for u, vp in zip(units, volps)]
+            with _phase("march"):
+                volps = [slicer.permute_volume(u.vol, spec) for u in units]
+                occs = [slicer.occupancy_for(u.vol, tf_r, spec, volp=vp)
+                        for u, vp in zip(units, volps)]
 
             def march_wave(w):
                 outs = []
@@ -1838,28 +1892,30 @@ def distributed_plain_step(mesh: Mesh, tf: TransferFunction, width: int,
 
     def step(vol_data, origin, spacing, cam: Camera) -> torch.Tensor:
         slabs = _check_sharded(vol_data, mesh)
-        if plan is None:
-            rows = halo_exchange_z(slabs)
-            ext = halo_exchange_z(slabs, h=hr) if ao_on else None
-            n_keep = slabs.shape[1]
-        else:
-            rows = reslab_z(slabs, plan, h=1)
-            ext = reslab_z(slabs, plan, h=hr) if ao_on else None
-            n_keep = int(max(plan))
+        with _phase("halo"):
+            if plan is None:
+                rows = halo_exchange_z(slabs)
+                ext = halo_exchange_z(slabs, h=hr) if ao_on else None
+                n_keep = slabs.shape[1]
+            else:
+                rows = reslab_z(slabs, plan, h=1)
+                ext = reslab_z(slabs, plan, h=hr) if ao_on else None
+                n_keep = int(max(plan))
         images, depths = [], []
         for r in range(n):
             vol, cmin, cmax, smin, smax = _local_volume_and_clip(
                 slabs, rows, r, origin, spacing, plan)
             ao_vol = None
-            if ao_on:
-                occ = _ao.occlusion_field(
-                    _ao.tf_alpha(Volume(ext[r], vol.origin, spacing), tf),
-                    cfg.ao_radius, cfg.ao_strength)
-                ao_vol = Volume(occ[hr - 1:hr + n_keep + 1], vol.origin,
-                                spacing)
-            out = raycast(vol, tf, cam, width, height, rank_cfg,
-                          clip_min=cmin, clip_max=cmax, ao_field=ao_vol,
-                          sample_min=smin, sample_max=smax)
+            with _phase("march"):
+                if ao_on:
+                    occ = _ao.occlusion_field(
+                        _ao.tf_alpha(Volume(ext[r], vol.origin, spacing),
+                                     tf), cfg.ao_radius, cfg.ao_strength)
+                    ao_vol = Volume(occ[hr - 1:hr + n_keep + 1], vol.origin,
+                                    spacing)
+                out = raycast(vol, tf, cam, width, height, rank_cfg,
+                              clip_min=cmin, clip_max=cmax, ao_field=ao_vol,
+                              sample_min=smin, sample_max=smax)
             images.append(out.image)
             depths.append(out.depth)
         images, depths = torch.stack(images), torch.stack(depths)

@@ -11,8 +11,7 @@ lossless backpressure (disk dumps, checkpoints), ``drop_oldest`` sheds
 the stalest undelivered frame latest-wins and mints a ``delivery.shed``
 ledger row, a ``delivery_sheds`` counter bump and a ``delivery_shed``
 event. ``drain()`` empties the queue on teardown and on the session's
-crash paths. A copy of the reference's ``runtime/delivery.py``, with its
-own copies of the collector's ``lineage`` instant and ``trace_ctx``.
+crash paths. A copy of the reference's ``runtime/delivery.py``.
 """
 
 from __future__ import annotations
@@ -20,9 +19,10 @@ from __future__ import annotations
 import threading
 import time
 from collections import deque
-from typing import Any, Dict, List, Optional, Sequence
+from typing import List, Optional, Sequence
 
 from scenery_insitu_tpu_torch import obs as _obs
+from scenery_insitu_tpu_torch.obs.collector import lineage
 
 _SHED_REASON = ("bounded delivery queue overflowed with overflow="
                 "'drop_oldest'; the stalest undelivered frame was shed "
@@ -30,33 +30,6 @@ _SHED_REASON = ("bounded delivery queue overflowed with overflow="
 _DRAIN_REASON = ("teardown drain timed out with frames still queued; "
                  "remaining jobs were abandoned so shutdown could "
                  "proceed")
-
-
-def trace_ctx(frame: int, src: int) -> Dict[str, Any]:
-    """The wire trace context: frame id, origin rank, origin wall clock.
-    Senders embed it under the ``"tc"`` header key; decoders that predate
-    it ignore unknown keys (the reference's ``obs/collector.trace_ctx``)."""
-    return {"frame": int(frame), "src": int(src),
-            "t": round(time.time(), 6)}
-
-
-def lineage(stage: str, role: str, frame: Optional[int],
-            ctx: Optional[dict] = None, rec=None, **attrs) -> None:
-    """Mint one ``lineage`` instant on the active recorder: ``stage`` is
-    the hop (deliver, publish, ...), ``role`` is ``"send"`` or
-    ``"recv"``. A receive with the sender's ``ctx`` (frame, src, t) also
-    records the origin stamp and the wall-clock age of the bytes."""
-    rec = rec or _obs.get_recorder()
-    if not rec.enabled:
-        return
-    if ctx:
-        frame = ctx.get("frame", frame)
-        attrs["src"] = ctx.get("src")
-        t0 = ctx.get("t")
-        if t0:
-            attrs["t_origin"] = t0
-            attrs["age_ms"] = round((time.time() - t0) * 1e3, 3)
-    rec.event("lineage", frame=frame, stage=stage, role=role, **attrs)
 
 
 class _FrameJob:

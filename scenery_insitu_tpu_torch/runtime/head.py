@@ -29,7 +29,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 
 from scenery_insitu_tpu_torch import obs as _obs
-from scenery_insitu_tpu_torch.runtime.delivery import lineage, trace_ctx
+from scenery_insitu_tpu_torch.obs.collector import lineage, trace_ctx
 from scenery_insitu_tpu_torch.runtime.failsafe import SinkGuard
 from scenery_insitu_tpu_torch.runtime.streaming import _host, _msgpack, _zmq
 

@@ -37,7 +37,7 @@ from scenery_insitu_tpu_torch.ops import slicer as _slicer
 from scenery_insitu_tpu_torch.parallel import multihost
 from scenery_insitu_tpu_torch.runtime.failsafe import SinkGuard
 from scenery_insitu_tpu_torch.runtime.session import (
-    _unported, advance_camera_and_index, apply_tf_steering, drain_steering,
+    advance_camera_and_index, apply_tf_steering, drain_steering,
     drop_on_regime_reentry, regime_camera)
 
 Sink = Callable[[int, dict], None]
@@ -54,9 +54,8 @@ class SceneSession:
                  sinks: Sequence[Sink] = (), log=None, device=None):
         self.cfg = cfg or FrameworkConfig()
         self.log = log or (lambda s: None)
-        if self.cfg.obs.collector:
-            _unported("obs.collector (the fleet telemetry side-channel)",
-                      "A12")
+        # obs.collector is accepted and unused, as the reference's scene
+        # session pumps no publisher
         self.device = resolve_device(device)
         self.scene = MultiGridScene(self.device)
         # the same recorder-wraps-timers layering as InSituSession (spans

@@ -57,10 +57,16 @@ the ``tf_updates`` and ``tf_steps_reused`` counters). The scenario zoo
 reach it through ``sess.steering`` (a ``runtime/streaming.
 SteeringEndpoint``), drained at the top of every frame.
 
-The reference's other session features are later slices of the port and
-raise ``NotImplementedError`` naming their ROADMAP row: frame blocks in
-one launch (``runtime.scan_frames > 1``, A3/A7), and the telemetry
-collector, device profiles and cost snapshots (A12).
+Observability (``obs/``): with ``obs.collector`` set the session builds
+an ``obs.collector.ObsPublisher`` and pumps it after every frame (and,
+forced, at the end of a run and on its crash path); ``run(profile_dir=
+...)`` runs the loop under ``torch.profiler`` and writes its Chrome
+trace into that directory; ``device_snapshot()`` is the per-regime cost
+snapshot of the steps the session holds (``obs/device.py``).
+
+Frame blocks in one launch (``runtime.scan_frames > 1``) are a later
+slice of the port and raise ``NotImplementedError`` naming their
+ROADMAP row (A3/A7).
 
 ``composite.k_budget="occupancy"`` re-targets every rank's adaptive
 threshold in the steps themselves. ``composite.temporal_reuse="ranges"``
@@ -147,9 +153,6 @@ def check_ported(cfg: FrameworkConfig) -> None:
         _unported(f"runtime.scan_frames={cfg.runtime.scan_frames} (frame "
                   "blocks in one launch)", "A3/A7: a CUDA graph after A3")
     _slicer.resolve_engine(cfg.slicer.engine)
-    if cfg.obs.collector:
-        _unported("obs.collector (the fleet telemetry side-channel)",
-                  "A12")
 
 
 def steer_session(sess, msg: dict) -> None:
@@ -412,6 +415,15 @@ class InSituSession:
         _obs.set_recorder(self.obs)
         from scenery_insitu_tpu_torch.obs.slo import SLOEngine
         self.slo = SLOEngine(self.cfg.slo, recorder=self.obs)
+        # the fleet telemetry side-channel: batched, non-blocking event
+        # publish on the frame loop, drops ledgered
+        self._obs_pub = None
+        if self.cfg.obs.collector:
+            from scenery_insitu_tpu_torch.obs.collector import ObsPublisher
+            self._obs_pub = ObsPublisher(
+                self.cfg.obs.collector, self.cfg.obs.collector_hb,
+                rank=self.obs.rank,
+                interval_s=self.cfg.obs.collector_interval_s)
         if sim is not None:
             self.sim = sim
         elif particles:
@@ -650,10 +662,22 @@ class InSituSession:
             profile_dir: Optional[str] = None) -> dict:
         """Run ``frames`` frames with the depth-k device-to-host pipeline;
         returns the last fetched payload (``vdi_color``, ``vdi_depth``:
-        host numpy arrays; ``frame``; ``meta``)."""
-        if profile_dir:
-            _unported("run(profile_dir=...) (device profiles)", "A12")
+        host numpy arrays; ``frame``; ``meta``).
+
+        ``profile_dir``: run the loop under ``torch.profiler`` (the
+        card's kernels and copies too, on a card) and write its Chrome
+        trace to ``<profile_dir>/trace.json`` (open it at
+        ``ui.perfetto.dev``); the ``sitpu_*`` phase scopes of the steps
+        are in it."""
         depth = self.cfg.runtime.pipeline_depth
+        prof = None
+        if profile_dir:
+            from torch.profiler import ProfilerActivity, profile
+            acts = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(ProfilerActivity.CUDA)
+            prof = profile(activities=acts)
+            prof.start()
         try:
             # the deque holds the in-flight frames, newest last; a frame
             # retires (fetch + sinks, device refs dropped) once `depth`
@@ -684,6 +708,8 @@ class InSituSession:
                 self.slo.observe("frame_ms",
                                  (time.perf_counter() - t_f) * 1e3,
                                  frame=self.frame_index - 1)
+                if self._obs_pub is not None:
+                    self._obs_pub.pump(self.obs)
             while pending:
                 payload = self._retire(pending.popleft(), fetch, payload)
         except BaseException:
@@ -692,11 +718,23 @@ class InSituSession:
             if self._delivery is not None:
                 self._delivery.drain()
             _obs.flight_flush(self.obs, where="run")
+            if self._obs_pub is not None:
+                self._obs_pub.pump(self.obs, force=True)
             raise
+        finally:
+            if prof is not None:
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                prof.stop()
+                os.makedirs(profile_dir, exist_ok=True)
+                prof.export_chrome_trace(
+                    os.path.join(profile_dir, "trace.json"))
         if self._delivery is not None:
             self._delivery.drain()
         self.timers.dump_totals()
         self.obs.flush()
+        if self._obs_pub is not None:
+            self._obs_pub.pump(self.obs, force=True)
         return payload
 
     def _record_done(self) -> Optional[torch.cuda.Event]:
@@ -1284,8 +1322,47 @@ class InSituSession:
             window_dims=(r.width, r.height), nw=self._vox, index=index)
 
     def device_snapshot(self) -> dict:
-        """The device-cost snapshot is ROADMAP A12."""
-        _unported("device_snapshot (the device-cost snapshot)", "A12")
+        """Per-regime cost snapshot (bytes and FLOPs, ``obs/device.
+        cost_snapshot``) of every step this session holds, keyed as the
+        reference keys its step caches: ``gather``/``plain`` for the
+        gather engine's step, ``str(regime key)`` for a slice-march one.
+        Each step runs once on the current field and camera. A step that
+        carries the session's temporal thresholds or reuse carry (a
+        host-side closure over the session's state) and the particle and
+        hybrid modes' steps report as unavailable, with the reference's
+        texts, rather than running. The snapshot is also recorded as an
+        obs event."""
+        from scenery_insitu_tpu_torch.obs import device as _dev
+
+        snaps = {}
+        if self.mode in ("vdi", "plain"):
+            field = shard_volume(self.sim.field, self.mesh)
+            args = (field, self._origin, self._spacing, self.camera)
+            if self._step is not None:
+                snaps["gather" if self.mode == "vdi" else "plain"] = \
+                    _dev.cost_snapshot(self._step, *args)
+            for key, entry in self._mxu_steps.items():
+                if isinstance(entry, tuple):
+                    # a plain regime's step returns (image, axcam) on
+                    # the intermediate grid; its warp is not counted
+                    snaps[str(key)] = _dev.cost_snapshot(entry[0], *args)
+                elif self._temporal or self._reuse:
+                    snaps[str(key)] = {"source": "unavailable",
+                                       "error": "host-side closure "
+                                                "(temporal step)"}
+                else:
+                    snaps[str(key)] = _dev.cost_snapshot(entry, *args)
+        else:
+            keys = (list(self._mxu_steps) if self._mxu_steps
+                    else ([self.mode] if self._step is not None else []))
+            for key in keys:
+                snaps[str(key)] = {"source": "unavailable",
+                                   "error": f"mode {self.mode!r} operands "
+                                            "not snapshotted"}
+        if snaps:
+            self.obs.event("device_snapshot", frame=self.frame_index,
+                           regimes=list(snaps))
+        return snaps
 
 
 def _vdi_numpy(payload: dict) -> VDI:

@@ -46,7 +46,7 @@ from scenery_insitu_tpu_torch.config import DeltaConfig, FaultConfig
 from scenery_insitu_tpu_torch.core.camera import Camera
 from scenery_insitu_tpu_torch.core.vdi import VDI, VDIMetadata
 from scenery_insitu_tpu_torch.io.vdi_io import compress, decompress
-from scenery_insitu_tpu_torch.runtime.delivery import lineage, trace_ctx
+from scenery_insitu_tpu_torch.obs.collector import lineage, trace_ctx
 from scenery_insitu_tpu_torch.utils.retry import Backoff
 
 

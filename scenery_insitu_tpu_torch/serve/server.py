@@ -68,7 +68,7 @@ from scenery_insitu_tpu_torch.core.vdi import VDI, VDIMetadata
 from scenery_insitu_tpu_torch.device import resolve_device
 from scenery_insitu_tpu_torch.obs.slo import SLOEngine
 from scenery_insitu_tpu_torch.ops import slicer, vdi_novel
-from scenery_insitu_tpu_torch.runtime.delivery import lineage, trace_ctx
+from scenery_insitu_tpu_torch.obs.collector import lineage, trace_ctx
 from scenery_insitu_tpu_torch.runtime.streaming import (FrameAssembler,
                                                         StreamDrop,
                                                         VDISubscriber,

@@ -92,7 +92,8 @@ def step_fused(u: torch.Tensor, v: torch.Tensor, params: torch.Tensor,
     d, h, w = u.shape
     kernels.launch("grayscott_fused", u.data_ptr(), v.data_ptr(),
                    params.data_ptr(), uo.data_ptr(), vo.data_ptr(),
-                   d, h, w, t_steps)
+                   d, h, w, t_steps,
+                   nbytes=kernels.operand_bytes((u, v, params), (uo, vo)))
     return uo, vo
 
 
@@ -128,6 +129,19 @@ def multi_step_fused(u: torch.Tensor, v: torch.Tensor, params: torch.Tensor,
     return u, v
 
 
+def modeled_sim_traffic(shape, n: int, fused: bool = True) -> float:
+    """Modeled device-memory bytes of ``n`` Gray-Scott steps on a ``shape
+    = (D, H, W)`` grid, a floor: each fused pass of `decompose` reads u
+    and v once and writes them once (the halo re-reads K3's blocks share
+    through L2 are not counted); ``fused=False`` charges one read and
+    one write of u and v per step (``grayscott.multi_step``). The bench
+    twin's traffic model when the cost count is unavailable."""
+    d, h, w = shape
+    vol_bytes = 2 * 4.0 * d * h * w          # u + v, f32
+    passes = len(decompose(n)) if fused else n
+    return passes * 2.0 * vol_bytes
+
+
 def _check_bricks(v, bricks):
     nzb, nyb = bricks
     d, h, _ = v.shape
@@ -159,7 +173,9 @@ def step_fused_ranges(u: torch.Tensor, v: torch.Tensor,
     d, h, w = u.shape
     kernels.launch("grayscott_fused_ranges", u.data_ptr(), v.data_ptr(),
                    params.data_ptr(), uo.data_ptr(), vo.data_ptr(),
-                   lo.data_ptr(), hi.data_ptr(), d, h, w, t_steps, nzb, nyb)
+                   lo.data_ptr(), hi.data_ptr(), d, h, w, t_steps, nzb, nyb,
+                   nbytes=kernels.operand_bytes((u, v, params, lo, hi),
+                                                (uo, vo, lo, hi)))
     return uo, vo, lo, hi
 
 

@@ -46,7 +46,8 @@ PORTED_KNOBS = {"ENGINE": {"gather": "gather"},
                 "RENDER_DTYPE": {"bf16": "bf16"},
                 "EXCHANGE": {"ring": "ring"}, "WIRE": {"qpack8": "qpack8"},
                 "SCHEDULE": {"waves": "waves"},
-                "REBALANCE": {"occupancy": "occupancy"}}
+                "REBALANCE": {"occupancy": "occupancy"},
+                "PROFILE": {"1": True}}
 
 
 @pytest.mark.parametrize("knob,value", [
@@ -57,7 +58,7 @@ def test_bench_unported_knobs_raise(knob, value):
     """Each knob of a part not yet ported raises, naming its ROADMAP row;
     a knob ported since (the gather engine; the render dtype, the bf16
     march copy; the exchange, the wire, the schedule and the rebalance
-    plans) takes the value instead."""
+    plans; the phase attribution) takes the value instead."""
     env = {f"SITPU_BENCH_{knob}": value}
     if knob in PORTED_KNOBS:
         cfg = bench.bench_config(env, on_card=False)

@@ -425,7 +425,9 @@ def test_package_imports_no_jax():
                     or id(node) in in_function, (path, m)
     assert len(files) >= 40, files
     for new in ("ingest/shm.py", "ingest/shm_tool.py", "io/lz4.py",
-                "tools/lint/cuda.py", "tools/lint/ledger.py"):
+                "tools/lint/cuda.py", "tools/lint/ledger.py",
+                "obs/profiler.py", "obs/collector.py", "obs/device.py",
+                "obs/roofline.py", "testing/faults.py"):
         assert os.path.join(ROOT, "scenery_insitu_tpu_torch", new) in files
     code = (
         "import pkgutil, sys\n"
@@ -442,7 +444,12 @@ def test_package_imports_no_jax():
         "assert len(names) >= 20, names\n"
         "assert {'scenery_insitu_tpu_torch.ingest.shm', "
         "'scenery_insitu_tpu_torch.io.lz4', "
-        "'scenery_insitu_tpu_torch.tools.lint.cuda'} <= set(names)\n"
+        "'scenery_insitu_tpu_torch.tools.lint.cuda', "
+        "'scenery_insitu_tpu_torch.obs.profiler', "
+        "'scenery_insitu_tpu_torch.obs.collector', "
+        "'scenery_insitu_tpu_torch.obs.device', "
+        "'scenery_insitu_tpu_torch.obs.roofline', "
+        "'scenery_insitu_tpu_torch.testing.faults'} <= set(names)\n"
         "print('ok', len(names))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = ROOT

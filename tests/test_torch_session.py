@@ -380,6 +380,27 @@ def _tf_message():
     return sess
 
 
+def _profiled():
+    import tempfile
+
+    sess = port_session(1, "temporal", state=False,
+                        **{"obs.enabled": "true"})
+    with tempfile.TemporaryDirectory() as d:
+        sess.run(1, profile_dir=d)
+        with open(os.path.join(d, "trace.json")) as f:
+            assert "sitpu_march" in f.read()
+    return sess
+
+
+def _snapshot():
+    sess = _runs_with(**{"obs.enabled": "true"})()
+    assert sess.device_snapshot() == {
+        str(sess._slicer.choose_axis(sess.camera)): {
+            "source": "unavailable",
+            "error": "host-side closure (temporal step)"}}
+    return sess
+
+
 UNPORTED = {
     "scan_frames": (_raises_with(**{"runtime.scan_frames": "4"}), "A3/A7"),
     # ported since (A4, A9): a one-rank session renders its plain image
@@ -431,12 +452,15 @@ UNPORTED = {
     "num_hosts": (_runs_with(n=2, **{"topology.num_hosts": "2",
                                      "obs.enabled": "true"}),
                   {"hier_composite_builds": 1, "dcn_hops_built": 1}),
-    "obs_collector": (_raises_with(**{"obs.collector": "tcp://x:1"}),
-                      "A12"),
-    "profile_dir": (lambda: port_session(1, "temporal", state=False).run(
-        1, profile_dir="prof"), "A12"),
-    "device_snapshot": (lambda: port_session(
-        1, "temporal", state=False).device_snapshot(), "A12"),
+    # ported since (A12): a configured collector gets the frame's batch
+    # and the end-of-run forced one (nothing listens: the PUB socket
+    # drops them, unblocked); a profiled run writes its trace; the cost
+    # snapshot of a temporal step is the reference's "unavailable"
+    "obs_collector": (_runs_with(**{"obs.collector": "tcp://127.0.0.1:1",
+                                    "obs.enabled": "true"}),
+                      {"obs_batches_published": 2}),
+    "profile_dir": (_profiled, {"frames_eager_dispatch": 1}),
+    "device_snapshot": (_snapshot, {"frames_eager_dispatch": 1}),
     # ported since (A11): the session drains its steering endpoint at
     # the top of the frame (camera applied, other kinds to on_steer)
     "steering": (_steering, {"tf_updates": 0}),

@@ -8,8 +8,10 @@ VDI's novel views with the pre-shaded (ambient-occlusion) march, the
 particle and hybrid workloads, the externally driven multi-grid
 scene with in-process steering and the example twins, bf16
 resampling with the system's edges (the VDI stream, the serving tier,
-the head node and the H.264 movie), and the multi-process fleet (the
-process mesh, the two-level composite's host path, the host gathers).
+the head node and the H.264 movie), the multi-process fleet (the
+process mesh, the two-level composite's host path, the host gathers),
+the ingest, the lint, observability, and the process mesh's knobs with
+its session and the streamed-VDI client.
 
     python3 chip_smoke.py               # the whole run (needs one card)
     python3 chip_smoke.py --profile     # + device time by kernel
@@ -22,6 +24,7 @@ process mesh, the two-level composite's host path, the host gathers).
     python3 chip_smoke.py --phase17-only  # the build and phase 17
     python3 chip_smoke.py --phase18-only  # the build and phase 18
     python3 chip_smoke.py --phase19-only  # the build and phase 19
+    python3 chip_smoke.py --phase20-only  # phase 3's frame and phase 20
     python3 chip_smoke.py --k4-compare old=OTHER/resegment.cu \
         --k2-compare old=OTHER/count_multi.cu \
         --events-compare old=OTHER/fold_chunk.cu  # + designs in turns
@@ -486,6 +489,26 @@ and prints no result):
    the chaos matrix (``testing/faults.run_matrix(seed=7)``) with the
    serving scenarios rendering on the card: all 15 scenarios ok.
    ``phase19.wall_s`` prints its seconds.
+20. the process mesh beyond the smoke's path: two worker processes of
+   RANKS / 2 ranks on the card over gloo (``testing/multiproc.py``,
+   ``p20_worker``). (a) phase 8's eight exchange configurations and
+   phase 11's K budget and reuse on phase 4's 512^3 field, each the
+   seed and 2 frames (the camera still under reuse): every frame's two
+   column blocks equal the in-process 8-rank frame's columns bit for
+   bit (sha256 of each block), K4 4 times a process a frame (4 T under
+   waves), K1 in each process but on the clean reuse frame, where
+   neither launches it; each process's ms a frame and the bytes it
+   sent, received and copied through the host beside
+   ``modeled_exchange_traffic``; (b) phase 7's session with the ring
+   and reuse on the process mesh (``InSituSession(mesh=multihost.
+   global_mesh(4))``, ``run(3, fetch=False)`` then ``render_frame``):
+   each process's block equals the in-process 8-rank session's columns
+   bit for bit, K3, K2, K1 and K4 launched in each; (c) the port's
+   streamed-VDI client (``examples/vdi_client.py``) in a subprocess on
+   the card against a publisher here streaming phase 3's VDI: its PNG
+   within one 8-bit level of this process's ``render_vdi_any`` +
+   ``save_png``, its ``--steer`` camera delivered to a steering
+   endpoint here. ``phase20.wall_s`` prints its seconds.
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -575,7 +598,8 @@ SESSION_EVERY = 4
 SESSION_ORBIT = 0.05
 # each timed path's median ms a frame (CUDA events, host clock), by prefix
 FRAME_MS = {}
-PHASE3_VDI = {}             # phase 3's last timed VDI on the host (18 c)
+PHASE3_VDI = {}             # phase 3's last timed VDI on the host (18 c,
+                            # 20 c) with its metadata
 # the session's ms a frame (host clock), by prefix
 SESSION_MS = {}
 
@@ -1774,8 +1798,20 @@ def run_frame(dev, profile=False, fold="auto", prefix="frame",
     wall.sort()
     FRAME_MS[prefix] = (ev[len(ev) // 2], wall[len(wall) // 2])
     if prefix == "frame":
+        # the last frame's metadata, as the step's march made it
+        from scenery_insitu_tpu_torch.core.vdi import VDIMetadata
+        from scenery_insitu_tpu_torch.core.volume import Volume
+
+        last = WARMUP_FRAMES + TIMED_FRAMES - 1
+        vol = Volume.centered(v, extent=2.0)
+        meta = slicer._vdi_meta(vol, slicer.make_axis_camera(
+            vol, Camera.create(eye(last), fov_y_deg=50.0, near=0.5,
+                               far=20.0, device=dev), step.spec),
+            step.spec.ni, step.spec.nj)
         PHASE3_VDI.update(color=color.cpu().numpy(),
-                          depth=depth.cpu().numpy())
+                          depth=depth.cpu().numpy(),
+                          meta=VDIMetadata(*(torch.as_tensor(x).cpu().numpy()
+                                             for x in meta)))
     log(f"{prefix}.ms_per_frame", f"{ev[len(ev) // 2]:.3f} (median of "
         f"{TIMED_FRAMES}, CUDA events; host clock {wall[len(wall) // 2]:.3f})")
 
@@ -1889,21 +1925,29 @@ def profile_frames(prefix, frame, frames=2):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
+    from scenery_insitu_tpu_torch.obs.profiler import WINDOW_MARGIN_S
+
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
     with profile(activities=acts, schedule=schedule(
             wait=0, warmup=1, active=frames, repeat=1)) as prof:
         frame(99)
-        # the warm-up frame's device work ends before the window opens
+        # the warm-up frame's device work ends before the window opens,
+        # and the device idles on either side of the window's edges
+        # (WINDOW_MARGIN_S: a trace's device timestamps can be off by
+        # milliseconds, and an event stamped outside the window is lost)
         torch.cuda.synchronize()
+        time.sleep(WINDOW_MARGIN_S)
         prof.step()
+        time.sleep(WINDOW_MARGIN_S)
         a.record()
         for i in range(frames):
             frame(100 + i)
             if i == frames - 1:
                 b.record()
                 b.synchronize()
+                time.sleep(WINDOW_MARGIN_S)
             prof.step()
     window_ms = a.elapsed_time(b)
     # device-side rows (kernels, copies, fills) make the busy time; an
@@ -2645,10 +2689,10 @@ def exchange_parts(prefix, dp, colors, depths, ccfg):
         parts["decode_ms"] = median_ms(lambda _: [
             wire_mod.decode_fragment(bc[r], bd[r], sc, wire)
             for bc, bd, sc in blocks for r in range(n)], 3)
-        parts["merge_ms"] = median_ms(lambda _: [
-            dp._ring_accumulate(blocks, r, wire, cap) for r in range(n)], 3)
-        streams = [dp._ring_accumulate(blocks, r, wire, cap)
-                   for r in range(n)]
+        parts["merge_ms"] = median_ms(lambda _: dp._ring_accumulate(
+            dp._local_hop(blocks, range(n)), n, wire, cap), 3)
+        streams = dp._ring_accumulate(dp._local_hop(blocks, range(n)), n,
+                                      wire, cap)
         del blocks
         parts["resegment_ms"] = median_ms(lambda _: [
             resegment_stream(sc, sd, ccfg) for sc, sd in streams], 3)
@@ -2710,9 +2754,9 @@ def wave_parts(prefix, dp, slabs, halo, origin, spacing, cam, spec, tf,
     for c, d in frags:
         if ccfg.exchange == "ring":
             blocks = dp._ring_blocks(c, d, n, ccfg.wire)
-            streams += [dp._ring_accumulate(blocks, r, ccfg.wire,
-                                            dp._ring_cap(ccfg, K))
-                        for r in range(n)]
+            streams += dp._ring_accumulate(dp._local_hop(blocks, range(n)),
+                                           n, ccfg.wire,
+                                           dp._ring_cap(ccfg, K))
         else:
             rc, rd = dp._exchange_vdi_columns(c, d, n, ccfg.wire)
             _, _, k, _, h, w = rc.shape
@@ -4423,8 +4467,8 @@ def hier_parts(prefix, colors, depths, topo, ccfg):
     def level1(_):
         if ring:
             cap = dp._ring_cap(ccfg, k)
-            return [[[dp._ring_accumulate(b, j, wire, cap) for j in range(d)]
-                     for b in wave] for wave in sent]
+            return [[dp._ring_accumulate(dp._local_hop(b, range(d)), d, wire,
+                                         cap) for b in wave] for wave in sent]
         out = []
         for wave in sent:
             accs = []
@@ -9062,6 +9106,461 @@ def run_phase19(dev, done):
     return out
 
 
+# ------------------------------------------------------------- phase 20
+
+P20_PROCS = 2               # processes on the card, RANKS / P20_PROCS ranks
+P20_FRAMES = 2              # (a): frames of each configuration after the seed
+# (a): phase 8's configurations, then phase 11's K budget and reuse
+P20_CONFIGS = tuple((c, exchange_comp(ex, wire, sched, slots))
+                    for c, ex, wire, sched, slots in EXCHANGE_CONFIGS) + (
+    ("k1_kbudget", dict(k_budget="occupancy")),
+    ("r1_reuse", dict(temporal_reuse="ranges")))
+P20_SESSION_FRAMES = 4      # (b): the session's frames
+P20_CLIENT_SIDE = 512       # (c): the client's view, the root client's size
+P20_CLIENT_YAW = 0.15       # (c): the root client's novel-view offset
+P20_KERNELS = ("grayscott_fused", "seg_fold_compact", "count_multi",
+               "resegment_sorted")
+
+
+def p20_session_config(grid, ranks):
+    """(b): phase 7's session over ``ranks`` ranks, the ring and reuse
+    on."""
+    return session_config(grid, ranks=ranks).with_overrides(
+        "composite.exchange=ring", "composite.temporal_reuse=ranges")
+
+
+def p20_digest(x):
+    """sha256 of a tensor's bytes (C order): a column block's identity."""
+    import hashlib
+
+    return hashlib.sha256(x.contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def p20_blocks(vdi, nproc):
+    """The sha256 of each process's contiguous column block of a whole
+    frame, colour then depth."""
+    w = vdi.color.shape[-1] // nproc
+    return [[p20_digest(getattr(vdi, f)[..., p * w:(p + 1) * w])
+             for f in ("color", "depth")] for p in range(nproc)]
+
+
+def p20_drive(dev, mesh, slabs, origin, spacing, name, comp, frame_done):
+    """(a): configuration ``name``'s seed and frames on ``mesh`` (a
+    process mesh, or the in-process one) at phase 4's camera path; the
+    camera stays at frame 0's under reuse. The launch counts are set to
+    0 before the seed and before each frame and read after it;
+    ``frame_done(i, vdi, ms, wall_ms, launches, dirty)`` takes each
+    frame. Returns the seed's launches."""
+    import torch
+
+    from scenery_insitu_tpu_torch import kernels
+    from scenery_insitu_tpu_torch.parallel import pipeline as dp
+
+    grid = slabs.shape[1] * mesh.n
+    _, spec, tf, (vcfg, ccfg), seed, step, camera = dist_steps(
+        dev, mesh.n, grid, BASE_EYE, mesh=mesh, **comp)
+    reuse = comp.get("temporal_reuse") == "ranges"
+    cam = (lambda i: camera(0)) if reuse else camera
+    kernels.reset_launches()
+    thr = seed(slabs, origin, spacing, cam(-1))
+    ru = (dp.distributed_initial_reuse_mxu(mesh, tf, spec, vcfg, ccfg)(
+        slabs, origin, spacing, cam(0)) if reuse else None)
+    torch.cuda.synchronize()
+    seed_launches = kernels.launches()
+    for i in range(P20_FRAMES):
+        if mesh.spans_processes:
+            from scenery_insitu_tpu_torch.parallel import multihost as mh
+
+            mh.barrier(f"p20a_{name}")
+            mh.reset_wire_bytes()
+        kernels.reset_launches()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        h0 = time.perf_counter()
+        a.record()
+        if ru is None:
+            (vdi, _), thr = step(slabs, origin, spacing, cam(i), thr)
+        else:
+            (vdi, _), thr, ru = step(slabs, origin, spacing, cam(i), thr,
+                                     ru)
+        b.record()
+        b.synchronize()
+        frame_done(i, vdi, a.elapsed_time(b),
+                   (time.perf_counter() - h0) * 1e3, kernels.launches(),
+                   None if ru is None else ru.dirty.tolist())
+        del vdi
+    del thr, ru
+    torch.cuda.empty_cache()
+    return seed_launches
+
+
+def p20_worker(ctx):
+    """Phase 20's fleet worker (an entry of ``testing/multiproc.py``):
+    one of P20_PROCS processes on gloo, RANKS / P20_PROCS ranks, all on
+    one card. (a) every configuration of P20_CONFIGS on this process's
+    slabs of phase 4's field in the workdir: per frame its column
+    block's digests, ms, launches and the bytes this process sent,
+    received and copied through the host; (b) the session on the
+    process mesh, its last block's digests. Everything goes to
+    ``p20_<pid>.json``."""
+    import numpy as np
+    import torch
+
+    from scenery_insitu_tpu_torch import kernels
+    from scenery_insitu_tpu_torch.core.camera import Camera
+    from scenery_insitu_tpu_torch.parallel import multihost as mh
+    from scenery_insitu_tpu_torch.runtime.session import InSituSession
+
+    wd, pid = ctx.workdir, ctx.process_id
+    dev = torch.device(ctx.device)
+    with open(os.path.join(wd, "p20.json")) as f:
+        cfg = json.load(f)
+    field = np.load(os.path.join(wd, "field.npy"), mmap_mode="r")
+    grid = field.shape[0]
+    origin = torch.tensor(cfg["origin"], device=dev)
+    spacing = torch.tensor(cfg["spacing"], device=dev)
+    mesh = mh.global_mesh(ctx.ranks_per_proc, dev)
+    dn = grid // mesh.n
+    lo = mesh.first_rank * dn
+    slabs = mh.shard_global(np.ascontiguousarray(
+        field[lo:lo + mesh.n_local * dn]), mesh)
+    out = {"a": {}, "seed": {}}
+
+    # (a) the knobs on the process mesh
+    for name, comp in P20_CONFIGS:
+        rows = []
+
+        def frame_done(i, vdi, ms, wall, launches, dirty):
+            rows.append(dict(digest=[p20_digest(vdi.color),
+                                     p20_digest(vdi.depth)],
+                             ms=ms, wall_ms=wall, launches=launches,
+                             dirty=dirty, wire=mh.wire_bytes()))
+
+        out["seed"][name] = p20_drive(dev, mesh, slabs, origin, spacing,
+                                      name, comp, frame_done)
+        out["a"][name] = rows
+    del slabs
+    torch.cuda.empty_cache()
+
+    # (b) the session on the process mesh: every process runs the whole
+    # sim and renders its ranks
+    mh.barrier("p20b")
+    cam = Camera.create(BASE_EYE, fov_y_deg=50.0, near=0.5, far=20.0,
+                        device=dev)
+    sess = InSituSession(p20_session_config(grid, mesh.n), mesh=mesh,
+                         camera=cam, device=dev)
+    sess.orbit_rate = SESSION_ORBIT
+    kernels.reset_launches()
+    mh.reset_wire_bytes()
+    h0 = time.perf_counter()
+    sess.run(P20_SESSION_FRAMES - 1, fetch=False)
+    vdi = sess.render_frame()
+    torch.cuda.synchronize()
+    out["b"] = dict(digest=[p20_digest(vdi.color), p20_digest(vdi.depth)],
+                    wall_s=time.perf_counter() - h0,
+                    launches=kernels.launches(), wire=mh.wire_bytes())
+    with open(os.path.join(wd, f"p20_{pid}.json"), "w") as fp:
+        json.dump(out, fp)
+
+
+def p20_gate_frame(prefix, got, want, launches, k4, dirty):
+    """(a): one frame of one configuration: every process's block equal
+    to the in-process frame's columns bit for bit; K4 ``k4`` times a
+    process (its ranks, times T under waves); K1 in every process but
+    on a clean reuse frame, where neither process launches it."""
+    for p, (g, w) in enumerate(zip(got, want)):
+        if g != w:
+            raise AssertionError(f"{prefix}: process {p}'s column block "
+                                 f"differs from the in-process frame's")
+    for p, la in enumerate(launches):
+        if la.get("resegment_sorted", 0) != k4:
+            raise AssertionError(f"{prefix}: process {p} launched K4 "
+                                 f"{la.get('resegment_sorted', 0)} times, "
+                                 f"not {k4}")
+        clean = dirty is not None and not any(dirty[p])
+        k1 = la.get("seg_fold_compact", 0)
+        if clean and k1:
+            raise AssertionError(f"{prefix}: process {p} launched K1 {k1} "
+                                 f"times on a frame with every rank clean")
+        if not clean and not k1:
+            raise AssertionError(f"{prefix}: process {p} launched no K1")
+
+
+def p20_client(dev, vdi, meta, tmp):
+    """(c): the port's client (``examples/vdi_client.py``) in a
+    subprocess on the card, subscribed to a publisher in this process
+    that streams ``vdi`` (phase 3's) until the client exits, its
+    ``--steer`` pointed at a steering endpoint here. Its PNG against
+    this process's ``render_vdi_any`` of the same VDI from the same
+    metadata, written by ``save_png``: within one 8-bit level. Returns
+    the client's wall seconds, the gap and the steering messages."""
+    import numpy as np
+    import torch
+
+    from scenery_insitu_tpu_torch.core.camera import Camera, orbit
+    from scenery_insitu_tpu_torch.core.vdi import VDI, VDIMetadata
+    from scenery_insitu_tpu_torch.ops import vdi_novel
+    from scenery_insitu_tpu_torch.runtime import streaming as stm
+    from scenery_insitu_tpu_torch.utils.image import load_png, save_png
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(tmp, "client")
+    pub = stm.VDIPublisher("tcp://127.0.0.1:0", codec="zlib")
+    steer = stm.SteeringEndpoint("tcp://127.0.0.1:0")
+    host = VDI(vdi[0], vdi[1])
+    msgs = []
+    h0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "scenery_insitu_tpu_torch.examples."
+         "vdi_client", "--connect", pub.endpoint, "--frames", "1",
+         "--timeout", "150", "--width", str(P20_CLIENT_SIDE), "--height",
+         str(P20_CLIENT_SIDE), "--yaw", str(P20_CLIENT_YAW), "--out", out,
+         "--steer", steer.endpoint],
+        cwd=root, env={**os.environ, "PYTHONPATH": root},
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        deadline = time.monotonic() + 180
+        while proc.poll() is None and time.monotonic() < deadline:
+            pub.publish(host, meta)
+            msgs += list(steer.drain())
+            time.sleep(0.2)
+        for _ in range(20):
+            msgs += list(steer.drain())
+            time.sleep(0.05)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        log_out = proc.communicate()[0]
+        pub.close()
+        steer.close()
+    wall = time.perf_counter() - h0
+    if proc.returncode != 0:
+        raise AssertionError(f"p20c: the client exited {proc.returncode}:"
+                             f"\n{log_out[-4000:]}")
+    # the client's chain in this process, from the same host arrays
+    dmeta = VDIMetadata(*(torch.as_tensor(np.asarray(x), device=dev)
+                          for x in meta))
+    spec0 = vdi_novel.axis_spec_from_meta(dmeta)
+    axcam0 = vdi_novel.axis_camera_from_meta(dmeta, spec0)
+    eye = np.linalg.inv(dmeta.view.cpu().numpy())[:3, 3]
+    cam = Camera.create(tuple(float(x) for x in eye), fov_y_deg=50.0,
+                        near=0.3, far=20.0, device=dev)
+    novel = orbit(cam, P20_CLIENT_YAW)
+    img = vdi_novel.render_vdi_any(
+        VDI(torch.as_tensor(vdi[0], device=dev),
+            torch.as_tensor(vdi[1], device=dev)), axcam0, spec0, novel,
+        P20_CLIENT_SIDE, P20_CLIENT_SIDE)
+    ref = os.path.join(tmp, "ref.png")
+    save_png(ref, img.cpu().numpy())
+    got, want = load_png(os.path.join(out, "novel000.png")), load_png(ref)
+    if got.shape != want.shape:
+        raise AssertionError(f"p20c: the client's PNG is {got.shape}, "
+                             f"this process's {want.shape}")
+    gap = int(np.abs(got.astype(np.int32) - want.astype(np.int32)).max())
+    lit = int((want[..., :3] < 250).any(-1).sum())
+    if gap > 1 or not lit:
+        raise AssertionError(f"p20c: the client's view is {gap} levels "
+                             f"from this process's ({lit} lit pixels)")
+    cams = [m for m in msgs if m.get("type") == "camera"]
+    if not cams or not np.allclose(cams[0]["eye"],
+                                   novel.eye.cpu().numpy(), atol=1e-5):
+        raise AssertionError(f"p20c: --steer delivered {msgs}")
+    return wall, gap, lit, len(cams)
+
+
+def run_phase20(dev, done, field=None, vdi=None):
+    """Phase 20 (a)-(c): the process mesh beyond the smoke's path, two
+    processes on the card over gloo. ``field`` is phase 4's host field
+    and ``vdi`` phase 3's host VDI ``(color, depth, meta)`` (each made
+    here when None). Returns the launch counts: the in-process and
+    fleet runs of (a) by configuration, and (b)'s."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from scenery_insitu_tpu_torch import kernels
+    from scenery_insitu_tpu_torch.core.volume import Volume
+    from scenery_insitu_tpu_torch.ops.composite import (
+        modeled_exchange_traffic)
+    from scenery_insitu_tpu_torch.parallel.mesh import make_mesh, shard_volume
+    from scenery_insitu_tpu_torch.testing import multiproc
+
+    t20 = time.perf_counter()
+    if field is None:
+        field = phase4_field(dev)
+        done("phase20.field")
+    if vdi is None:
+        run_frame(dev, prefix="frame")
+        vdi = (PHASE3_VDI["color"], PHASE3_VDI["depth"], PHASE3_VDI["meta"])
+        done("phase20.phase3")
+    grid = field.shape[0]
+    ranks = RANKS // P20_PROCS
+    box = Volume.centered(torch.from_numpy(field), extent=2.0)
+    origin, spacing = box.origin.to(dev), box.spacing.to(dev)
+    log("p20.config", f"{P20_PROCS} processes x {ranks} ranks on {dev} over "
+        f"gloo; (a) {len(P20_CONFIGS)} configurations of phases 8 and 11 "
+        f"on phase 4's {grid}^3 field, the seed and {P20_FRAMES} frames; "
+        f"(b) phase 7's session with the ring and reuse, "
+        f"{P20_SESSION_FRAMES} frames; (c) the client on phase 3's VDI at "
+        f"{P20_CLIENT_SIDE}^2")
+
+    # the in-process references: phase 4's 8-rank mesh on the same field
+    mesh = make_mesh(RANKS, device=dev)
+    slabs = shard_volume(torch.from_numpy(field).to(dev), mesh)
+    ref = {}
+    for name, comp in P20_CONFIGS:
+        rows = []
+
+        def frame_done(i, v, ms, wall, launches, dirty):
+            rows.append(dict(blocks=p20_blocks(v, P20_PROCS), ms=ms,
+                             wall_ms=wall, launches=launches, dirty=dirty,
+                             shape=list(v.color.shape)))
+
+        seed_launches = p20_drive(dev, mesh, slabs, origin, spacing, name,
+                                  comp, frame_done)
+        ref[name] = dict(frames=rows, seed=seed_launches)
+    del slabs
+    torch.cuda.empty_cache()
+    done("phase20.references_a")
+    sess = session(dev, p20_session_config(grid, RANKS))
+    kernels.reset_launches()
+    h0 = time.perf_counter()
+    sess.run(P20_SESSION_FRAMES - 1, fetch=False)
+    v = sess.render_frame()
+    torch.cuda.synchronize()
+    ref_b = dict(blocks=p20_blocks(v, P20_PROCS), launches=kernels.launches(),
+                 wall_s=time.perf_counter() - h0)
+    del sess, v
+    torch.cuda.empty_cache()
+    done("phase20.references_b")
+
+    with tempfile.TemporaryDirectory(prefix="p20_") as wd:
+        np.save(os.path.join(wd, "field.npy"), field)
+        with open(os.path.join(wd, "p20.json"), "w") as f:
+            json.dump(dict(origin=origin.tolist(), spacing=spacing.tolist()),
+                      f)
+        h0 = time.perf_counter()
+        results = multiproc.run_multiproc(
+            "chip_smoke:p20_worker", P20_PROCS, ranks, workdir=wd,
+            timeout_s=600.0, device=dev)
+        log("p20.fleet_wall_s", f"{time.perf_counter() - h0:.1f} (two "
+            f"processes: start, (a), (b))")
+        done("phase20.fleet")
+        for r in results:
+            if not r.ok:
+                raise AssertionError(f"phase 20 worker {r.process_id} "
+                                     f"failed (rc {r.returncode}):\n"
+                                     f"{r.output[-6000:]}")
+        res = []
+        for p in range(P20_PROCS):
+            with open(os.path.join(wd, f"p20_{p}.json")) as f:
+                res.append(json.load(f))
+
+        # (a): each configuration's frames
+        for name, comp in P20_CONFIGS:
+            want = ref[name]["frames"]
+            k_out, nj, ni = (want[0]["shape"][i] for i in (0, 2, 3))
+            waves = comp.get("schedule") == "waves"
+            tiles = wave_tiles_for(ni, RANKS) if waves else 1
+            if comp.get("temporal_reuse") == "ranges":
+                # the frozen field's last frame has every rank clean, in
+                # the in-process reference and in both processes, and
+                # the reference launched no K1 on it
+                last = [want[-1]["dirty"]] + [r["a"][name][-1]["dirty"]
+                                              for r in res]
+                k1 = want[-1]["launches"].get("seg_fold_compact", 0)
+                if last != [[0] * RANKS] + [[0] * ranks] * P20_PROCS or k1:
+                    raise AssertionError(
+                        f"p20a.{name}: the last frame's dirty bits {last} "
+                        f"(in process, then each process), in-process K1 "
+                        f"{k1}: not a clean reuse frame")
+                log(f"p20a.{name}.last_dirty", json.dumps(last) + " (in "
+                    "process, then each process: every rank clean)")
+            for i, w in enumerate(want):
+                got = [r["a"][name][i] for r in res]
+                dirty = None if w["dirty"] is None else \
+                    [g["dirty"] for g in got]
+                p20_gate_frame(f"p20a.{name}.frame{i}",
+                               [g["digest"] for g in got], w["blocks"],
+                               [g["launches"] for g in got], ranks * tiles,
+                               dirty)
+            model = modeled_exchange_traffic(
+                RANKS, K, nj, ni, k_out=k_out,
+                mode=comp.get("exchange", "all_to_all"),
+                ring_slots=comp.get("ring_slots", 0),
+                wire=comp.get("wire", "f32"),
+                schedule=comp.get("schedule", "frame"), wave_tiles=tiles)
+            cross = model["ici_bytes_per_rank"] // (RANKS - 1) * ranks \
+                * (RANKS - ranks)
+            for p, r in enumerate(res):
+                rows = r["a"][name]
+                ms = sorted(x["ms"] for x in rows)
+                wall = sorted(x["wall_ms"] for x in rows)
+                log(f"p20a.{name}.p{p}.ms_per_frame",
+                    f"{ms[len(ms) // 2]:.3f} (CUDA events, median of "
+                    f"{len(ms)}; host clock {wall[len(wall) // 2]:.3f}; two "
+                    f"processes time-slicing one card; frame by frame "
+                    f"{[round(x['ms'], 3) for x in rows]})")
+                log(f"p20a.{name}.p{p}.wire_bytes", json.dumps(
+                    rows[-1]["wire"]) + f" (the last frame's; modelled: "
+                    f"{model['ici_bytes_per_rank']} a rank, {cross} a "
+                    f"process to the other process's ranks)")
+                log(f"p20a.{name}.p{p}.launches",
+                    json.dumps([x["launches"] for x in rows]))
+            ms = sorted(x["ms"] for x in want)
+            log(f"p20a.{name}.in_process.ms_per_frame",
+                f"{ms[len(ms) // 2]:.3f} (one process, {RANKS} ranks in "
+                f"turn, CUDA events)")
+            log(f"p20a.{name}.bitwise", f"equal ({len(want)} frames, "
+                f"{P20_PROCS} column blocks of {want[0]['shape']} a frame; "
+                f"K4 {ranks * tiles} a process a frame)")
+
+        # (b): the session's last block in each process
+        for p, r in enumerate(res):
+            if r["b"]["digest"] != ref_b["blocks"][p]:
+                raise AssertionError(f"p20b: process {p}'s block of frame "
+                                     f"{P20_SESSION_FRAMES - 1} differs from "
+                                     f"the in-process session's columns")
+            la = r["b"]["launches"]
+            missing = [n for n in P20_KERNELS if not la.get(n)]
+            if missing:
+                raise AssertionError(f"p20b: process {p} launched no "
+                                     f"{missing} in its session")
+            log(f"p20b.p{p}", f"launches {json.dumps(la)} wall_s "
+                f"{r['b']['wall_s']:.3f} wire {json.dumps(r['b']['wire'])}")
+        log("p20b.bitwise", f"equal (frame {P20_SESSION_FRAMES - 1}, both "
+            f"processes' blocks; the in-process session {ref_b['wall_s']:.3f}"
+            f" s for its {P20_SESSION_FRAMES} frames)")
+
+        # (c): the client on phase 3's VDI
+        wall, gap, lit, ncam = p20_client(dev, vdi[:2], vdi[2], wd)
+        log("p20c", f"client subprocess {wall:.1f} s (start, subscribe, "
+            f"render, PNG); its view within {gap} level of this process's "
+            f"({lit} lit pixels of {P20_CLIENT_SIDE}^2); --steer delivered "
+            f"{ncam} camera message(s)")
+    done("phase20.c")
+    log("phase20.wall_s", f"{time.perf_counter() - t20:.1f} (the process "
+        f"mesh's knobs, its session and the client)")
+    def total(runs):
+        """Each kernel's launches over (a)'s seeds and frames."""
+        c = collections.Counter()
+        for name, _ in P20_CONFIGS:
+            for la in [runs["seed"][name]] + runs["frames"][name]:
+                c.update(la)
+        return c
+
+    counts = {"a_in_process": total(dict(
+        seed={n: ref[n]["seed"] for n in ref},
+        frames={n: [x["launches"] for x in ref[n]["frames"]] for n in ref})),
+        "b_in_process": ref_b["launches"]}
+    for p, r in enumerate(res):
+        counts[f"a_p{p}"] = total(dict(seed=r["seed"], frames={
+            n: [x["launches"] for x in r["a"][n]] for n in r["a"]}))
+        counts[f"b_p{p}"] = r["b"]["launches"]
+    return {k: dict(v) for k, v in counts.items()}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -9130,6 +9629,11 @@ def main(argv=None) -> int:
                          "attribution, the bench twin's roofline fields, "
                          "the collector with a session, the chaos "
                          "matrix), then exit without the kernel table")
+    ap.add_argument("--phase20-only", action="store_true",
+                    help="run the build, phase 3's frame (the client's VDI) "
+                         "and phase 20 only (the process mesh's knobs, its "
+                         "session and the streamed-VDI client), then exit "
+                         "without the kernel table")
     ap.add_argument("--events-compare", action="append", default=[],
                     metavar="NAME=PATH",
                     help="another design of csrc/fold_chunk.cu (the same C "
@@ -9204,6 +9708,12 @@ def main(argv=None) -> int:
         run_phase19(dev, phase_done)
         phase_done("phase19")
         log("phase19_only", "done (no kernel table: run without flags for "
+            "it)")
+        return 0
+    if args.phase20_only:
+        run_phase20(dev, phase_done)
+        phase_done("phase20")
+        log("phase20_only", "done (no kernel table: run without flags for "
             "it)")
         return 0
     if args.phase17_only:
@@ -9331,15 +9841,20 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     phase_done("phase16")
     p17 = run_phase17(dev, phase_done, scene_field)
-    del scene_field
     torch.cuda.empty_cache()
     phase_done("phase17")
-    p18 = run_phase18(dev, phase_done, b10, (PHASE3_VDI.pop("color"),
-                                             PHASE3_VDI.pop("depth")))
+    p18 = run_phase18(dev, phase_done, b10, (PHASE3_VDI["color"],
+                                             PHASE3_VDI["depth"]))
     phase_done("phase18")
     torch.cuda.empty_cache()
     p19 = run_phase19(dev, phase_done)
     phase_done("phase19")
+    torch.cuda.empty_cache()
+    p20 = run_phase20(dev, phase_done, scene_field,
+                      (PHASE3_VDI.pop("color"), PHASE3_VDI.pop("depth"),
+                       PHASE3_VDI.pop("meta")))
+    del scene_field
+    phase_done("phase20")
     n_frames = WARMUP_FRAMES + TIMED_FRAMES
 
     table = [
@@ -9574,6 +10089,12 @@ def main(argv=None) -> int:
                for p, v in enumerate(p17["fleet"])},
             **{f"host_path_p{p}": v.get(name, 0)
                for p, v in enumerate(p17["host_path"])}}
+        # phase 20: the process mesh's configurations (a) (seeds and
+        # frames, the in-process references and each fleet process) and
+        # the sessions (b)
+        if name in P20_KERNELS:
+            row["phase20_launches"] = {c: v.get(name, 0)
+                                       for c, v in p20.items()}
         # phase 18: the ingest session's live frames (a) and the sharded
         # feed's session (b)
         row["phase18_launches"] = {

@@ -65,6 +65,17 @@ _NULL = contextlib.nullcontext()
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 _LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
 
+# Host seconds the capture waits, with the device idle, on either side
+# of the window's opening and before its close. The tracer keeps a
+# device event only if its timestamp, converted to the host's clock,
+# falls inside the window, and that conversion is at times off by
+# milliseconds: on an H100, kernels stamped up to 5.2 ms before the call
+# that launched them, and without the margins 9 of 120 captures of a
+# 512^3 frame lost one or two of its first kernels
+# (``benchmarks/profile_window.py``). The margins keep the measured
+# frames' events inside the window and the warm-up's outside it.
+WINDOW_MARGIN_S = 0.05
+
 
 def phase(name: str):
     """Named scope for one step phase: ``with phase("march"): ...``. A
@@ -244,7 +255,8 @@ class ProfileCapture:
 
         run = step if step is not None else (lambda: fn(*args))
         acts = [ProfilerActivity.CPU]
-        if torch.cuda.is_available() and torch.cuda.is_initialized():
+        on_card = torch.cuda.is_available() and torch.cuda.is_initialized()
+        if on_card:
             acts.append(ProfilerActivity.CUDA)
         # the warm-up frames run as the profiler's own warm-up step: the
         # device tracer is live before the measured frames begin (a
@@ -255,7 +267,11 @@ class ProfileCapture:
             for _ in range(self.warmup):
                 run()
             _synchronize()
+            if on_card:
+                time.sleep(WINDOW_MARGIN_S)
             prof.step()
+            if on_card:
+                time.sleep(WINDOW_MARGIN_S)
             h0 = self.host_time_fn() if self.host_time_fn else 0.0
             t0 = time.perf_counter()
             for i in range(self.frames):
@@ -265,6 +281,8 @@ class ProfileCapture:
             _synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3 / self.frames
             h1 = self.host_time_fn() if self.host_time_fn else 0.0
+            if on_card:
+                time.sleep(WINDOW_MARGIN_S)
             prof.step()
         hook_ms = 0.0
         if self.host_time_fn:

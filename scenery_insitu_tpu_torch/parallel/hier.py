@@ -76,8 +76,9 @@ from scenery_insitu_tpu_torch.ops.composite import (
 from scenery_insitu_tpu_torch.parallel.mesh import halo_exchange_z
 from scenery_insitu_tpu_torch.parallel.pipeline import (
     _check_sharded, _column_blocks, _exchange_plain_columns,
-    _exchange_vdi_columns, _local_volume_and_clip, _out_block_index,
-    _ring_accumulate, _ring_blocks, _ring_cap, ring_hop_markers)
+    _exchange_vdi_columns, _local_hop, _local_volume_and_clip,
+    _out_block_index, _ring_accumulate, _ring_blocks, _ring_cap,
+    ring_hop_markers)
 from scenery_insitu_tpu_torch.parallel.topology import Topology
 from scenery_insitu_tpu_torch.runtime.streaming import _host
 
@@ -159,8 +160,8 @@ def domain_accumulate(color: torch.Tensor, depth: torch.Tensor,
     if comp_cfg.exchange == "ring" and d > 1:
         cap = _ring_cap(comp_cfg, k)
         blocks = _ring_blocks(color, depth, d, comp_cfg.wire)
-        return [_ring_accumulate(blocks, j, comp_cfg.wire, cap)
-                for j in range(d)]
+        return _ring_accumulate(_local_hop(blocks, range(d)), d,
+                                comp_cfg.wire, cap)
     rc, rd = _exchange_vdi_columns(color, depth, d, comp_cfg.wire)
     _, _, _, _, h, w = rc.shape
     with _phase("merge"):
@@ -186,8 +187,8 @@ def dcn_accumulate(accs: List[List[Stream]], topo: Topology
                 ec, ed, scale = _wire.encode_fragment(*accs[h][j], wire)
             blocks.append((_column_blocks(ec, hosts),
                            _column_blocks(ed, hosts), scale))
-        out += [_ring_accumulate(blocks, h, wire, None, hop_scope="dcn_hop")
-                for h in range(hosts)]
+        out += _ring_accumulate(_local_hop(blocks, range(hosts)), hosts,
+                                wire, None, hop_scope="dcn_hop")
     return out
 
 

@@ -16,15 +16,22 @@ the twin of the reference's ``parallel/multihost.py``.
   process's ranks (``parallel/mesh.Mesh`` with this process's first
   global rank and its rank count), and `shard_global` places this
   process's slabs on it; the global volume never lives in one process.
-  ``parallel/pipeline.py`` runs its gather-engine step and its temporal
-  MXU chain on such a mesh: each process marches its own ranks and the
-  column exchange is one ``all_to_all_single`` (`all_to_all`); the
+  ``parallel/pipeline.py`` runs its gather-engine step and its MXU
+  steps on such a mesh, flat on even slabs: each process marches its
+  own ranks; the all_to_all exchange is one ``all_to_all_single``
+  (`all_to_all`), the ring one message a process pair a hop
+  (`ring_hop`), the K budget's live fractions one `all_gather`; the
   halo's seam slices cross process boundaries point to point
-  (`neighbour_slices`).
+  (`neighbour_slices`). A block on the bf16 or qpack8 wire travels as
+  one ``uint8`` view of its encoded tensors with its scale, so no
+  collective sees those dtypes and the exchange is bit-exact.
 
 A CUDA tensor given to a collective of a group whose backend is not
-NCCL crosses through an explicit host copy; `wire_bytes` counts those
-copies and the bytes each process sent and received.
+NCCL crosses through an explicit host copy (the NCCL branch, one
+process a card, takes it on the card; it is written the same way but
+unchecked, since NCCL refuses two ranks on one card); `wire_bytes`
+counts those copies and the bytes each process sent and received, in
+all and by collective.
 
 Smoke test (one machine, 2 processes, 2 ranks each):
 
@@ -246,12 +253,24 @@ def _unwire(x: torch.Tensor, device: torch.device) -> torch.Tensor:
     return x
 
 
+def _count(op: str, sent: int, received: int) -> None:
+    """Add one collective's bytes to other processes (``sent``) and from
+    them (``received``) to the totals and to ``op``'s own."""
+    _WIRE["sent_bytes"] += sent
+    _WIRE["received_bytes"] += received
+    _WIRE[f"{op}_sent_bytes"] += sent
+
+
 def wire_bytes() -> dict:
     """Bytes this process moved through the group since the last
     `reset_wire_bytes`: ``sent``, ``received`` (other processes' blocks
-    only) and ``host_copy`` (both directions of the host copies)."""
+    only), ``host_copy`` (both directions of the host copies) and
+    ``by_op``, the bytes sent by each collective (``all_to_all``,
+    ``all_gather``, ``ring``, ``neighbours``)."""
+    ops = ("all_to_all", "all_gather", "ring", "neighbours")
     return {"sent": _WIRE["sent_bytes"], "received": _WIRE["received_bytes"],
-            "host_copy": _WIRE["host_copy_bytes"]}
+            "host_copy": _WIRE["host_copy_bytes"],
+            "by_op": {op: _WIRE[f"{op}_sent_bytes"] for op in ops}}
 
 
 def reset_wire_bytes() -> None:
@@ -268,9 +287,79 @@ def all_to_all(x: torch.Tensor, group=None) -> torch.Tensor:
     out = torch.empty_like(wire)
     dist.all_to_all_single(out, wire, group=group)
     others = (x.shape[0] - 1) * wire[0].numel() * wire.element_size()
-    _WIRE["sent_bytes"] += others
-    _WIRE["received_bytes"] += others
+    _count("all_to_all", others, others)
     return _unwire(out, x.device)
+
+
+def all_gather(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The all_gather of a small tensor over a process ``mesh``: ``x
+    [n_local, ...]`` holds this process's ranks' values; returns ``[n,
+    ...]``, every rank's in global rank order (process p holds ranks
+    ``p * n_local ..``), on ``x``'s device. Without a process mesh it is
+    ``x`` itself."""
+    if not mesh.spans_processes:
+        return x
+    import torch.distributed as dist
+
+    wire = _wire(x.contiguous())
+    parts = [torch.empty_like(wire) for _ in range(mesh.n // mesh.n_local)]
+    dist.all_gather(parts, wire, group=mesh.group)
+    nbytes = wire.numel() * wire.element_size()
+    _count("all_gather", (len(parts) - 1) * nbytes,
+           (len(parts) - 1) * nbytes)
+    return _unwire(torch.cat(parts), x.device)
+
+
+def ring_hop(send, s: int, mesh: Mesh, pack, unpack):
+    """Hop ``s`` of the ring over a process ``mesh``: ``send[q - first]``
+    is the block that this process's rank q addresses to rank ``(q - s)
+    mod n``; returns, for every local rank r, the block that rank ``(r +
+    s) mod n`` addressed to it. A peer in this process hands its block
+    over by reference. A block bound for another process is packed
+    (``pack(block)``: ``uint8[m]``, every block of one size); the blocks
+    between two processes travel as one message a process pair
+    (`dist.batch_isend_irecv`), in ascending destination rank, and each
+    is unpacked on receipt (``unpack(uint8[m])``)."""
+    n, first, nl = mesh.n, mesh.first_rank, mesh.n_local
+    out = [None] * nl
+    to_proc, from_proc = {}, {}
+    for ql in range(nl):
+        r = (first + ql - s) % n
+        if first <= r < first + nl:
+            out[r - first] = send[ql]
+        else:
+            to_proc.setdefault(r // nl, []).append((r, send[ql]))
+    for rl in range(nl):
+        q = (first + rl + s) % n
+        if not first <= q < first + nl:
+            from_proc.setdefault(q // nl, []).append(rl)
+    if not to_proc and not from_proc:
+        return out
+    import torch.distributed as dist
+
+    ops, bufs, sent, m, dev = [], {}, 0, None, None
+    for p, items in sorted(to_proc.items()):
+        items.sort(key=lambda it: it[0])
+        packed = [pack(b) for _, b in items]
+        m, dev = packed[0].numel(), packed[0].device
+        buf = _wire(torch.cat(packed))
+        ops.append(dist.P2POp(dist.isend, buf, p, mesh.group))
+        sent += buf.numel()
+    for p, rls in sorted(from_proc.items()):
+        bufs[p] = torch.empty(len(rls) * m, dtype=torch.uint8,
+                              device=dev if _STATE.get("backend") == "nccl"
+                              else "cpu")
+        ops.append(dist.P2POp(dist.irecv, bufs[p], p, mesh.group))
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    got = 0
+    for p, rls in from_proc.items():
+        buf = _unwire(bufs[p], dev)
+        got += buf.numel()
+        for i, rl in enumerate(rls):
+            out[rl] = unpack(buf[i * m:(i + 1) * m])
+    _count("ring", sent, got)
+    return out
 
 
 def neighbour_slices(first: torch.Tensor, last: torch.Tensor, group=None
@@ -290,14 +379,14 @@ def neighbour_slices(first: torch.Tensor, last: torch.Tensor, group=None
         prev = torch.empty_like(wl)
         ops += [dist.P2POp(dist.irecv, prev, p - 1, group),
                 dist.P2POp(dist.isend, wf, p - 1, group)]
-        _WIRE["sent_bytes"] += wf.numel() * wf.element_size()
-        _WIRE["received_bytes"] += wl.numel() * wl.element_size()
+        _count("neighbours", wf.numel() * wf.element_size(),
+               wl.numel() * wl.element_size())
     if p < nproc - 1:
         nxt = torch.empty_like(wf)
         ops += [dist.P2POp(dist.irecv, nxt, p + 1, group),
                 dist.P2POp(dist.isend, wl, p + 1, group)]
-        _WIRE["sent_bytes"] += wl.numel() * wl.element_size()
-        _WIRE["received_bytes"] += wf.numel() * wf.element_size()
+        _count("neighbours", wl.numel() * wl.element_size(),
+               wf.numel() * wf.element_size())
     if ops:
         for req in dist.batch_isend_irecv(ops):
             req.wait()

@@ -82,8 +82,9 @@ Two knobs of ``CompositeConfig`` act on the march, as in the reference
                 temporal mode, bisects) toward its share of the ``n *
                 K`` budget (``ops/occupancy.k_budget_target``), by its
                 pyramid's live fraction over the sum of all ranks' (the
-                reference's psum, here a sum over the in-process
-                ranks). Output shapes stay at K.
+                reference's psum, here a sum over the ranks in rank
+                order, their fractions gathered across processes on a
+                process mesh). Output shapes stay at K.
 ``temporal_reuse="ranges"``  the step carries each rank's last marched
                 fragment (``ops/delta.ReuseState``); a rank whose
                 pyramid ranges and camera did not move (within
@@ -95,6 +96,13 @@ these steps, then splats the rank-sharded tracers sort-first
 (``parallel/particles.sort_first_splat``) on the shared virtual camera
 and inserts the particle layer into every rank's composited column block
 (``ops/hybrid.py``).
+
+On a process mesh (``multihost.global_mesh``) each process runs its own
+ranks of every step above, flat on even slabs (`_process_scope` says
+what raises): the column blocks cross processes as byte blocks of the
+wire's codes with their scale (`_pack_blocks`), in one all_to_all or
+one message a process pair a ring hop, and every seed and carry is the
+process's own ranks'.
 
 A frame therefore runs in two passes: every rank's frame state (one
 pyramid a rank, built when the spec skips empty space or a knob needs
@@ -148,31 +156,28 @@ def _check_sharded(data: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     return data
 
 
-_PROCESS_SCOPE = ("on a process mesh the distributed steps run the frame "
-                  "schedule's all_to_all on the f32 wire over a flat mesh "
-                  "with even slabs; {what} across processes is ROADMAP A8b "
-                  "item 9, the rest")
+_PROCESS_SCOPE = ("on a process mesh the distributed VDI steps run flat "
+                  "with even slabs (every exchange, wire and schedule, the "
+                  "K budget and fragment reuse); {what} across processes "
+                  "is ROADMAP A8b item 9, the rest")
 
 
 def _process_scope(mesh: Mesh, comp_cfg=None, plan=None, bricks=None,
                    topology=None, builder: Optional[str] = None) -> None:
     """Raise `NotImplementedError` for what a process mesh does not run
-    yet: any knob of ``comp_cfg`` off the reference smoke's path, a plan,
-    a brick map, a topology, or the ``builder`` named."""
+    yet: a render decomposition other than the even slabs (``comp_cfg.
+    rebalance``, a plan, a brick map), a two-level topology or mesh, or
+    the ``builder`` named (the hybrid and plain steps)."""
     if not mesh.spans_processes:
         return
     bad = [builder] if builder else []
-    if comp_cfg is not None:
-        for knob, want in (("exchange", "all_to_all"), ("wire", "f32"),
-                           ("schedule", "frame"), ("rebalance", "even"),
-                           ("k_budget", "static"), ("temporal_reuse", "off")):
-            got = getattr(comp_cfg, knob)
-            if got != want:
-                bad.append(f"{knob}={got!r}")
-    for name, knob in (("plan", plan), ("bricks", bricks),
-                       ("topology", topology)):
+    if comp_cfg is not None and comp_cfg.rebalance != "even":
+        bad.append(f"rebalance={comp_cfg.rebalance!r}")
+    for name, knob in (("plan", plan), ("bricks", bricks)):
         if knob is not None:
             bad.append(name)
+    if topology is not None and topology.num_hosts > 1:
+        bad.append("a topology")
     if mesh.num_hosts > 1:
         bad.append("a two-level mesh")
     if bad:
@@ -417,12 +422,104 @@ def _ring_blocks(color: torch.Tensor, depth: torch.Tensor, n: int,
     return out
 
 
-def _ring_accumulate(blocks, r: int, wire: str, cap: Optional[int],
+# a byte block of the process mesh's exchange starts on this boundary,
+# so every encoded tensor in it views back in place
+_BLOCK_ALIGN = 16
+
+
+def _pack_blocks(color: torch.Tensor, depth: torch.Tensor,
+                 scale: Optional[torch.Tensor], lead: int) -> torch.Tensor:
+    """The process mesh's exchange unit: the encoded column blocks
+    ``color [*L, ...]``, ``depth [*L, ...]`` (the wire's dtypes; ``L``
+    their first ``lead`` dims) and the qpack8 ``scale`` each block
+    carries (f32[..., 2] broadcast to ``L``; None on the other wires),
+    as ``uint8[*L, nbytes]``: the scale, the colour bytes and the depth
+    bytes, padded to `_BLOCK_ALIGN`. A view of the encoded bits, so the
+    exchange is bit-exact by construction."""
+    shape = tuple(color.shape[:lead])
+    parts = [] if scale is None else \
+        [scale.expand(shape + (2,)).contiguous().view(torch.uint8)]
+    parts += [x.contiguous().view(torch.uint8).reshape(shape + (-1,))
+              for x in (color, depth)]
+    pad = -sum(p.shape[-1] for p in parts) % _BLOCK_ALIGN
+    if pad:
+        parts.append(torch.zeros(shape + (pad,), dtype=torch.uint8,
+                                 device=color.device))
+    return torch.cat(parts, dim=-1)
+
+
+def _unpack_blocks(buf: torch.Tensor, like_c: torch.Tensor,
+                   like_d: torch.Tensor, scaled: bool):
+    """`_pack_blocks`'s inverse on ``buf uint8[*L, nbytes]``, one block's
+    encoded colour and depth ``like_c``/``like_d`` giving the shapes and
+    dtypes: (color [*L, ...], depth [*L, ...], scales f32[*L, 2] or
+    None)."""
+    lead, at = tuple(buf.shape[:-1]), 0
+
+    def take(shape, dtype):
+        nonlocal at
+        nb = math.prod(shape) * dtype.itemsize
+        x = buf[..., at:at + nb].contiguous().view(dtype)
+        at += nb
+        return x.reshape(lead + tuple(shape))
+
+    scales = take((2,), torch.float32) if scaled else None
+    return (take(like_c.shape, like_c.dtype),
+            take(like_d.shape, like_d.dtype), scales)
+
+
+def _local_hop(blocks, ranks):
+    """The in-process ring hop over every rank's send side ``blocks``
+    (`_ring_blocks`): hop s hands each rank r of ``ranks`` the block of
+    rank (r+s) mod n by reference (s = 0: its own)."""
+    n = len(blocks)
+
+    def hop(s: int):
+        out = []
+        for r in ranks:
+            bc, bd, scale = blocks[(r + s) % n]
+            out.append((bc[r], bd[r], scale))
+        return out
+
+    return hop
+
+
+def _process_hop(blocks, mesh: Mesh):
+    """The ring hop on a process ``mesh``, over this process's ranks'
+    send sides ``blocks`` (`_ring_blocks`): at hop s each local rank q
+    sends the block it addresses to rank (q - s) mod n, and each local
+    rank r gets the block of rank (r+s) mod n. `multihost.ring_hop`
+    hands a block over by reference within the process and packs
+    (`_pack_blocks`) only the blocks that cross processes, one message a
+    process pair."""
+    from scenery_insitu_tpu_torch.parallel.multihost import ring_hop
+
+    n, first = mesh.n, mesh.first_rank
+    like_c, like_d, scale = blocks[0][0][0], blocks[0][1][0], blocks[0][2]
+
+    def pack(block):
+        return _pack_blocks(*block, lead=0)
+
+    def unpack(buf):
+        return _unpack_blocks(buf, like_c, like_d, scale is not None)
+
+    def hop(s: int):
+        send = [(bc[(first + ql - s) % n], bd[(first + ql - s) % n], sc)
+                for ql, (bc, bd, sc) in enumerate(blocks)]
+        return ring_hop(send, s, mesh, pack, unpack)
+
+    return hop
+
+
+def _ring_accumulate(hop, n: int, wire: str, cap: Optional[int],
                      hop_scope: str = "exchange"):
-    """Rank r's ring: its own block through the codec, then at hop
-    s = 1..n-1 the block of rank (r+s) mod n decoded and merged into the
-    sorted accumulator (arrival order r, r+1, ... with wrap-around; ties
-    go to the accumulator). Returns the accumulator (color [M, 4, H,
+    """The ring: ``hop(s)`` gives, for each accumulating rank r, the
+    encoded block (color, depth, scale) that rank (r+s) mod n addresses
+    to it (`_local_hop` in process, `_process_hop` across processes).
+    Each rank's own block (s = 0) goes through the codec; at hop s =
+    1..n-1 the arriving block is decoded and merged into the sorted
+    accumulator (arrival order r, r+1, ... with wrap-around; ties go to
+    the accumulator). Returns each rank's accumulator (color [M, 4, H,
     W/n], depth [M, 2, H, W/n]), not yet resegmented. The same core
     serves the single-level ring and both rings of the two-level
     composite (``parallel/hier.py``); the build markers count its hops
@@ -430,37 +527,44 @@ def _ring_accumulate(blocks, r: int, wire: str, cap: Optional[int],
     hop's phase (``dcn_hop`` in the two-level composite's level 2); an
     in-process hop hands the block over by reference, so its scope holds
     no device work."""
-    n = len(blocks)
-    bc, bd, scale = blocks[r]
-    with _phase("wire_encode"):
-        acc_c, acc_d = _wire.decode_fragment(bc[r], bd[r], scale, wire)
-    for s in range(1, n):
+    accs = []
+    for s in range(n):
         with _phase(hop_scope):
-            bc, bd, scale = blocks[(r + s) % n]
-            bc, bd = bc[r], bd[r]
-        with _phase("wire_encode"):
-            mc, md = _wire.decode_fragment(bc, bd, scale, wire)
-        with _phase("merge"):
-            acc_c, acc_d = merge_vdis_pairwise(acc_c, acc_d, mc, md,
-                                               k_cap=cap)
-    return acc_c, acc_d
+            got = hop(s)
+        for i, (bc, bd, scale) in enumerate(got):
+            with _phase("wire_encode"):
+                mc, md = _wire.decode_fragment(bc, bd, scale, wire)
+            if s == 0:
+                accs.append((mc, md))
+                continue
+            with _phase("merge"):
+                accs[i] = merge_vdis_pairwise(*accs[i], mc, md, k_cap=cap)
+    return accs
 
 
 def _ring_exchange_composite(color: torch.Tensor, depth: torch.Tensor,
                              n: int, cfg: CompositeConfig,
+                             mesh: Optional[Mesh] = None,
                              gap_eps: float = 1e-4) -> List[VDI]:
     """The ring exchange and composite of the rank-stacked fragments:
     every rank's accumulator resegmented once by the all_to_all path's
     fold, so the lossless ring equals the all_to_all composite (up to
     the order of bit-identical start depths, which follows arrival
-    order)."""
+    order). In process one rank's ring runs at a time; on a process
+    ``mesh`` the fragments are this process's ranks', their rings run
+    hop by hop together (`_process_hop`), and the blocks returned are
+    theirs, in column order."""
     cap = _ring_cap(cfg, color.shape[1])
     blocks = _ring_blocks(color, depth, n, cfg.wire)
+    if mesh is not None and mesh.spans_processes:
+        hops = [_process_hop(blocks, mesh)]
+    else:
+        hops = [_local_hop(blocks, [r]) for r in range(n)]
     out = []
-    for r in range(n):
-        acc = _ring_accumulate(blocks, r, cfg.wire, cap)
-        with _phase("resegment"):
-            out.append(resegment_stream(*acc, cfg, gap_eps))
+    for hop in hops:
+        for acc in _ring_accumulate(hop, n, cfg.wire, cap):
+            with _phase("resegment"):
+                out.append(resegment_stream(*acc, cfg, gap_eps))
     return out
 
 
@@ -473,15 +577,16 @@ def _composite_exchanged(color: torch.Tensor, depth: torch.Tensor, n: int,
     ``topo`` (a two-level `parallel.topology.Topology`) runs the
     two-level composite (``parallel/hier.py``). On a process ``mesh``
     the fragments are this process's ranks' and so are the blocks
-    returned (`_composite_exchanged_procs`)."""
-    if mesh is not None and mesh.spans_processes:
-        return _composite_exchanged_procs(color, depth, mesh, cfg)
-    if topo is not None:
+    returned (the ring's hops or `_composite_exchanged_procs`)."""
+    procs = mesh is not None and mesh.spans_processes
+    if topo is not None and not procs:
         from scenery_insitu_tpu_torch.parallel.hier import hier_composite_vdi
 
         return hier_composite_vdi(color, depth, topo, cfg)
     if cfg.exchange == "ring" and n > 1:
-        return _ring_exchange_composite(color, depth, n, cfg)
+        return _ring_exchange_composite(color, depth, n, cfg, mesh)
+    if procs:
+        return _composite_exchanged_procs(color, depth, mesh, cfg)
     rc, rd = _exchange_vdi_columns(color, depth, n, cfg.wire)
     return [composite_vdis(rc[j], rd[j], cfg) for j in range(n)]
 
@@ -489,31 +594,36 @@ def _composite_exchanged(color: torch.Tensor, depth: torch.Tensor, n: int,
 def _composite_exchanged_procs(color: torch.Tensor, depth: torch.Tensor,
                                mesh: Mesh, cfg: CompositeConfig
                                ) -> List[VDI]:
-    """The all_to_all exchange and composite on a process mesh: this
+    """The all_to_all exchange and composite on a process mesh, of this
     process's ``n_local`` fragments (``color [n_local, K, 4, H, W]``,
-    ``depth [n_local, K, 2, H, W]``), colour and depth side by side in
-    one buffer, split into the n column blocks and sent in ONE
+    ``depth [n_local, K, 2, H, W]``): every fragment encoded once for
+    ``cfg.wire`` (`_encode_ranks`), its n column blocks packed as byte
+    blocks with the fragment's scale (`_pack_blocks`) and sent in ONE
     ``all_to_all_single`` (process q receives the blocks of its ranks
     from every process, in source-rank order); each of this process's
-    ranks then composites its N·K-slot block (K4 on a card), as
+    ranks then decodes every block against its sender's scale and
+    composites its N·K-slot block (K4 on a card), as
     `_exchange_vdi_columns` and `composite_vdis` do on one process.
     Returns this process's ranks' blocks in column order."""
     from scenery_insitu_tpu_torch.parallel.multihost import all_to_all
 
-    nl, k = color.shape[:2]
-    frag = torch.cat([color, depth], dim=2)             # [nl, K, 6, H, W]
-    parts = _exchange_columns(frag, mesh.n)       # [n_dst, nl_src, ...]
-    parts = parts.reshape((mesh.n // nl, nl) + tuple(parts.shape[1:]))
+    n, nl = mesh.n, mesh.n_local
+    ec, ed, scales = _encode_ranks(color, depth, cfg.wire)
+    cc, cd = _column_blocks(ec, n), _column_blocks(ed, n)
+    with _phase("wire_encode"):
+        # [n_dst, nl_src, nbytes], the destinations grouped by process
+        parts = _pack_blocks(cc, cd, scales, lead=2)
+    parts = parts.reshape((n // nl, nl) + tuple(parts.shape[1:]))
     with _phase("exchange"):
-        got = all_to_all(parts, mesh.group)  # [P_src, nl_dst, nl_src, ...]
+        got = all_to_all(parts, mesh.group)  # [P_src, nl_dst, nl_src, .]
     out = []
     for j in range(nl):
-        blk = got[:, j].reshape((mesh.n,) + tuple(got.shape[3:]))
-        out.append(composite_vdis(blk[:, :, :4], blk[:, :, 4:], cfg))
+        with _phase("wire_encode"):
+            bc, bd, sc = _unpack_blocks(got[:, j].reshape(n, -1), cc[0, 0],
+                                        cd[0, 0], scales is not None)
+            c, d = _wire.decode_fragment(bc, bd, sc, cfg.wire)
+        out.append(composite_vdis(c, d, cfg))
     return out
-
-
-# -------------------------------------------------------- build markers
 
 
 def _ring_build_marker(n: int, k: int, h: int, w: int,
@@ -902,16 +1012,25 @@ def _resolve_reuse(comp_cfg: CompositeConfig, supported: bool = True,
 
 
 def _k_targets(frames: List[_RankFrame], n: int, vdi_cfg: VDIConfig,
-               comp_cfg: CompositeConfig) -> List[torch.Tensor]:
+               comp_cfg: CompositeConfig,
+               mesh: Optional[Mesh] = None) -> List[torch.Tensor]:
     """Every rank's K budget target (``ops/occupancy.k_budget_target``)
     from the live fractions of the ranks' pyramids, summed over all n
     ranks in rank order (the reference's sum over the mesh); f32
-    0-dim tensors on the device, never read by the host."""
+    0-dim tensors on the device, never read by the host. On a process
+    ``mesh`` ``frames`` are this process's ranks: every rank's fraction
+    comes from `multihost.all_gather` and is summed here in the same
+    order, so the targets are the in-process mesh's bit for bit."""
     from scenery_insitu_tpu_torch.ops import occupancy as _occ
 
     live = [fr.pyrs[0].live_fraction() for fr in frames]
-    total = live[0]
-    for x in live[1:]:
+    every = live
+    if mesh is not None and mesh.spans_processes:
+        from scenery_insitu_tpu_torch.parallel.multihost import all_gather
+
+        every = list(all_gather(torch.stack(live), mesh))
+    total = every[0]
+    for x in every[1:]:
         total = total + x
     return [_occ.k_budget_target(x, total, n, vdi_cfg.max_supersegments,
                                  comp_cfg.k_budget_min) for x in live]
@@ -1043,22 +1162,27 @@ def _march_wave(frames, w: int, n: int, t: int, cam, spec, tf, vdi_cfg,
 
 
 def _waves_frame(frames, origin, cam, spec, tf, vdi_cfg, comp_cfg, n,
-                 thr, topo=None, kts=None, dec: Optional[_Reuse] = None):
+                 thr, topo=None, kts=None, dec: Optional[_Reuse] = None,
+                 mesh: Optional[Mesh] = None):
     """The tile-wave frame on the ranks' shared frame states, in the
     reference's pipeline order (march wave 0; composite wave w-1, march
     wave w; composite the last wave), each wave's fragments exchanged
     and composited by `_composite_exchanged` (two-level under ``topo``).
     Under reuse the marched ranks' waves fill the outgoing fragment
-    column by column. Returns (VDI, meta, thr', fragments or None)."""
+    column by column. ``frames`` are this process's ranks on a process
+    ``mesh`` (every rank otherwise), and so are the column blocks
+    returned: rank j's wave tiles side by side, the blocks in column
+    order. Returns (VDI, meta, thr', fragments or None)."""
     t = comp_cfg.wave_tiles
+    nl = len(frames)
     rows = spec.nj * len(frames[0].dec.units)
     thr_full = None if thr is None else \
-        [_rank_thr(thr, r, rows) for r in range(n)]
+        [_rank_thr(thr, r, rows) for r in range(nl)]
     acc = None
     if dec is not None:
         if dec.dirty.any():
             acc = (torch.empty_like(dec.color), torch.empty_like(dec.depth))
-            for r in range(n):
+            for r in range(nl):
                 if not dec.dirty[r]:
                     acc[0][r].copy_(dec.color[r])
                     acc[1][r].copy_(dec.depth[r])
@@ -1069,7 +1193,7 @@ def _waves_frame(frames, origin, cam, spec, tf, vdi_cfg, comp_cfg, n,
         frag = _march_wave(frames, w, n, t, cam, spec, tf, vdi_cfg,
                            thr_full, kts, dec)
         if dec is not None and dec.dirty.any():
-            for r in range(n):
+            for r in range(nl):
                 if dec.dirty[r]:
                     for a, x in zip(acc, frag):
                         _wave_put(a[r], x[r], n, t, w)
@@ -1079,12 +1203,13 @@ def _waves_frame(frames, origin, cam, spec, tf, vdi_cfg, comp_cfg, n,
     with _phase("wave"):
         frag = march(0)
         for w in range(1, t):
-            outs.append(_composite_exchanged(*frag, n, comp_cfg, topo))
+            outs.append(_composite_exchanged(*frag, n, comp_cfg, topo,
+                                             mesh))
             frag = march(w)
-        outs.append(_composite_exchanged(*frag, n, comp_cfg, topo))
+        outs.append(_composite_exchanged(*frag, n, comp_cfg, topo, mesh))
         del frag
-        color = _assemble_waves(outs, n, "color")
-        depth = _assemble_waves(outs, n, "depth")
+        color = _assemble_waves(outs, nl, "color")
+        depth = _assemble_waves(outs, nl, "depth")
     fr0 = frames[0]
     meta = _global_meta(fr0.dec, fr0.axcam, spec, origin)
     thr2 = None if thr is None else _stack_thr(thr_full)
@@ -1175,10 +1300,11 @@ def _build_mxu_step(mesh, tf, spec, vdi_cfg, comp_cfg, temporal: bool,
 
     On a process mesh (``multihost.global_mesh``) the step takes this
     process's slabs, marches its ranks only, exchanges the column
-    blocks with one all_to_all across processes and returns this
-    process's contiguous column block, the meta of its first rank (rank
-    0's on process 0) and its ranks' rows of the threshold maps; only
-    the reference smoke's configuration runs there (`_process_scope`)."""
+    blocks across processes (`_composite_exchanged_procs`) and returns
+    this process's contiguous column block, the meta of its first rank
+    (rank 0's on process 0), its ranks' rows of the threshold maps and
+    its ranks' reuse carry; the K budget sums every rank's live
+    fraction (`_k_targets`). `_process_scope` says what runs there."""
     vdi_cfg = vdi_cfg or VDIConfig()
     comp_cfg = comp_cfg or CompositeConfig()
     _process_scope(mesh, comp_cfg, plan, bricks, topology)
@@ -1208,14 +1334,15 @@ def _build_mxu_step(mesh, tf, spec, vdi_cfg, comp_cfg, temporal: bool,
                              first=first, n_total=n)
                   for r in range(first, first + nl)]
         del rows
-        kts = _k_targets(frames, n, vdi_cfg, comp_cfg) if budget else None
+        kts = (_k_targets(frames, n, vdi_cfg, comp_cfg, mesh) if budget
+               else None)
         dec = None if ru is None else _reuse_decide(frames, cam, ru,
                                                     reuse_tol, k)
         # pass 2: the dirty ranks' marches, the exchange and composite
         if waves:
             out, meta, thr2, acc = _waves_frame(
                 frames, origin, cam, spec, tf, vdi_cfg, comp_cfg, n, thr,
-                topo, kts, dec)
+                topo, kts, dec, mesh)
             return out, meta, thr2, (None if dec is None
                                      else _reuse_carry(dec, *acc))
         color, depth, thr2 = _frame_schedule(frames, cam, spec, tf, vdi_cfg,
@@ -1311,24 +1438,29 @@ def distributed_initial_reuse_mxu(mesh: Mesh, tf: TransferFunction,
     (one pyramid a rank, on its slab or its ``plan`` band), so the
     shapes agree; the seed builds no K budget. On a two-level mesh the
     carry is seeded over the flat rank view: it is per-rank state the
-    composite levels never see."""
+    composite levels never see. On a process mesh each process seeds
+    its own ``n_local`` ranks, the carry its step takes."""
     from scenery_insitu_tpu_torch.ops import delta as _delta
     from scenery_insitu_tpu_torch.ops import occupancy as _occ
 
     vdi_cfg = vdi_cfg or VDIConfig()
     comp_cfg = comp_cfg or CompositeConfig()
-    _process_scope(mesh, builder="distributed_initial_reuse_mxu")
+    _process_scope(mesh, comp_cfg, plan)
     _, n, _ = resolve_mesh_topology(mesh)
     plan = _resolve_plan(comp_cfg, n, plan)
+    first, nl = mesh.first_rank, mesh.n_local
 
     def seed(vol_data, origin, spacing, cam: Camera):
         slabs = _check_sharded(vol_data, mesh)
+        # only the signature's length is read: this process's first
+        # rank's rows without the seam exchange have its shape
         rows = _frame_rows(slabs, spec, plan)
-        dec = _rank_units(slabs, rows, 0, origin, spacing, spec, plan)
+        dec = _rank_units(slabs, rows, first, origin, spacing, spec, plan,
+                          first=first, n_total=n)
         pyr = _occ.pyramid_from_volume(dec.units[0].vol, tf, spec)
         sig = _delta.reuse_signature(pyr, cam)
         return _delta.init_reuse_like(sig, vdi_cfg.max_supersegments,
-                                      spec.nj, spec.ni, n=n)
+                                      spec.nj, spec.ni, n=nl)
 
     return seed
 
@@ -1526,18 +1658,22 @@ def _assemble_waves(outs, n: int, field: str = None) -> torch.Tensor:
 
 def _composite_exchanged_waves(color: torch.Tensor, depth: torch.Tensor,
                                n: int, comp_cfg: CompositeConfig,
-                               topo=None) -> VDI:
+                               topo=None, mesh: Optional[Mesh] = None
+                               ) -> VDI:
     """Tile-wave exchange and composite of full-frame fragments (the
     gather engine marches the frame once): every wave's column blocks of
     the rank-stacked fragments through `_composite_exchanged`, in wave
-    order, reassembled; per pixel the frame schedule's result."""
+    order, reassembled; per pixel the frame schedule's result. On a
+    process ``mesh`` the fragments and the blocks are this process's
+    ranks'."""
     t = comp_cfg.wave_tiles
     with _phase("wave"):
         outs = [_composite_exchanged(slicer.wave_cols(color, n, t, w),
                                      slicer.wave_cols(depth, n, t, w), n,
-                                     comp_cfg, topo) for w in range(t)]
-        return VDI(_assemble_waves(outs, n, "color"),
-                   _assemble_waves(outs, n, "depth"))
+                                     comp_cfg, topo, mesh)
+                for w in range(t)]
+        return VDI(_assemble_waves(outs, len(outs[0]), "color"),
+                   _assemble_waves(outs, len(outs[0]), "depth"))
 
 
 def distributed_vdi_step(mesh: Mesh, tf: TransferFunction, width: int,
@@ -1631,7 +1767,7 @@ def distributed_vdi_step(mesh: Mesh, tf: TransferFunction, width: int,
         del colors, depths
         if waves:
             return _composite_exchanged_waves(color, depth, n, comp_cfg,
-                                              topo)
+                                              topo, mesh)
         blocks = _composite_exchanged(color, depth, n, comp_cfg, topo, mesh)
         return VDI(torch.cat([b.color for b in blocks], dim=-1),
                    torch.cat([b.depth for b in blocks], dim=-1))

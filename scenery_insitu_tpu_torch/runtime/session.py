@@ -96,6 +96,20 @@ A plan, owners or levels that change rebuild the steps (and re-seed the
 thresholds), and nothing else does; one rank (without LOD) ledgers the
 knob inert, as ``lod.enabled`` does without bricks.
 
+A process mesh (``mesh=multihost.global_mesh(ranks_per_process)``, the
+reference's one renderer process a node) runs the VDI modes: every
+process runs the whole sim, as the reference's unsharded sim adapter
+does, and hands its own ranks' rows of the field to the steps
+(``multihost.shard_global``); the seeds, the carried thresholds and the
+reuse carry are the process's own. A frame is this process's column
+block, so such a session fetches nothing: ``render_frame`` returns the
+block and ``run(..., fetch=False)`` runs the loop, while sinks and
+``fetch=True`` raise a ``ValueError`` (the reference's fetch refuses an
+array that spans other processes' devices too);
+``multihost.gather_vdi_compressed`` puts a frame together on process 0.
+The particle, hybrid and plain modes and a replanning decomposition
+raise there, naming ROADMAP A8b item 9.
+
 The composite's exchange, wire and schedule come from
 ``cfg.composite`` (``parallel/pipeline.py``). With
 ``composite.schedule="waves"`` every fetched VDI frame is also cut into
@@ -138,6 +152,12 @@ from scenery_insitu_tpu_torch.sim import particles as pt
 from scenery_insitu_tpu_torch.sim import vortex as vx
 
 Sink = Callable[[int, dict], None]
+
+_NO_FETCH = ("{what}: a session on a process mesh holds only this "
+             "process's column block of each frame, so it fetches no "
+             "frame and feeds no sink; run it with fetch=False and no "
+             "sinks, take each block from render_frame, and put a frame "
+             "together on process 0 with multihost.gather_vdi_compressed")
 
 _PARTICLE_SIMS = ("lennard_jones", "sho")
 
@@ -479,6 +499,8 @@ class InSituSession:
         # picks it on its accelerator only)
         self.engine = _slicer.resolve_engine(self.cfg.slicer.engine)
         self._build_steps()
+        if self.mesh.spans_processes:
+            self._check_process_mesh()
 
         # world placement: sim grid centered, largest side = 2 world
         # units; a particle step centres the box [0, box) itself
@@ -504,6 +526,41 @@ class InSituSession:
         self._copy_stream = (torch.cuda.Stream(self.device)
                              if self.device.type == "cuda" else None)
         self._free_sets: List[Dict[str, torch.Tensor]] = []
+
+    def _check_process_mesh(self) -> None:
+        """What a session on a process mesh does not run: the particle,
+        hybrid and plain modes and a replanning decomposition raise
+        `NotImplementedError` naming their ROADMAP row; sinks raise a
+        ``ValueError`` (`_NO_FETCH`)."""
+        what = None
+        if self.mode != "vdi":
+            what = f"the {self.mode} mode"
+        elif self.cfg.composite.rebalance != "even":
+            what = f"composite.rebalance={self.cfg.composite.rebalance!r}"
+        if what is not None:
+            raise NotImplementedError(
+                f"{what} on a process mesh is ROADMAP A8b item 9, the "
+                f"rest (a process mesh runs the VDI modes on even slabs)")
+        if self.sinks:
+            raise ValueError(_NO_FETCH.format(what="sinks"))
+
+    def _slabs(self, field: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The steps' volume argument from the sim's field (``field``,
+        else the sim's): the mesh's even slabs (`shard_volume`); on a
+        process mesh this process's rows ``[first * D/n, (first +
+        n_local) * D/n)`` of the field every process simulates whole,
+        through `multihost.shard_global`."""
+        field = self.sim.field if field is None else field
+        m = self.mesh
+        if not m.spans_processes:
+            return shard_volume(field, m)
+        d = int(field.shape[0])
+        if d % m.n:
+            raise ValueError(f"volume depth {d} not divisible by mesh "
+                             f"size {m.n}")
+        lo = m.first_rank * (d // m.n)
+        return multihost.shard_global(field[lo:lo + m.n_local * (d // m.n)],
+                                      m)
 
     def _build_steps(self) -> None:
         """(Re)build the steps for the current mode, engine and TF: the
@@ -632,16 +689,14 @@ class InSituSession:
                 meta = meta._replace(index=torch.tensor(
                     self.frame_index, dtype=torch.int32))
             elif self._step is not None:
-                field = shard_volume(self.sim.field, self.mesh)
-                out = self._step(field, self._origin, self._spacing,
-                                 self.camera)
+                out = self._step(self._slabs(), self._origin,
+                                 self._spacing, self.camera)
                 meta = self.frame_metadata(self.frame_index)
             elif self.mode == "plain":
-                out = self._plain_mxu_dispatch(
-                    shard_volume(self.sim.field, self.mesh))
+                out = self._plain_mxu_dispatch(self._slabs())
                 meta = self.frame_metadata(self.frame_index)
             else:
-                field = shard_volume(self.sim.field, self.mesh)
+                field = self._slabs()
                 out, meta = self._mxu_step()(field, self._origin,
                                              self._spacing, self.camera)
                 # a host scalar: no copy to the device on the dispatch
@@ -668,7 +723,15 @@ class InSituSession:
         card's kernels and copies too, on a card) and write its Chrome
         trace to ``<profile_dir>/trace.json`` (open it at
         ``ui.perfetto.dev``); the ``sitpu_*`` phase scopes of the steps
-        are in it."""
+        are in it.
+
+        On a process mesh ``fetch`` must be False and the session must
+        have no sinks (a ``ValueError`` otherwise): each frame is this
+        process's column block (`render_frame`)."""
+        if self.mesh.spans_processes and (fetch or self.sinks
+                                          or self.tile_sinks):
+            raise ValueError(_NO_FETCH.format(
+                what="fetch=True" if fetch else "sinks"))
         depth = self.cfg.runtime.pipeline_depth
         prof = None
         if profile_dir:
@@ -934,12 +997,10 @@ class InSituSession:
                     if self.mode == "hybrid":
                         self._hybrid_dispatch()
                     elif self.mode == "plain":
-                        self._plain_mxu_dispatch(
-                            shard_volume(self.sim.field, self.mesh))
+                        self._plain_mxu_dispatch(self._slabs())
                     else:
-                        self._mxu_step()(shard_volume(self.sim.field,
-                                                      self.mesh),
-                                         self._origin, self._spacing, cam)
+                        self._mxu_step()(self._slabs(), self._origin,
+                                         self._spacing, cam)
                     done = self._record_done()
                     if done is not None:
                         done.synchronize()
@@ -991,7 +1052,7 @@ class InSituSession:
         step, seed, spec = entry
         field = self.sim.field
         flow, tracers = self.sim.flow, self.sim.tracers
-        args = (shard_volume(field, self.mesh), self._origin, self._spacing,
+        args = (self._slabs(field), self._origin, self._spacing,
                 shard_particles(vx.tracers_to_world(
                     tracers, self._origin, self._spacing), self.mesh),
                 shard_particles(vx.tracer_velocities(flow.u, tracers),
@@ -1135,7 +1196,7 @@ class InSituSession:
                 else (self._bricks.owner, self._bricks.level))
 
     def _even_slabs(self) -> torch.Tensor:
-        return shard_volume(self.sim.field, self.mesh)
+        return self._slabs()
 
     def _replan_profile(self) -> np.ndarray:
         """The global per-z-bin live profile of the current field (host
@@ -1336,8 +1397,8 @@ class InSituSession:
 
         snaps = {}
         if self.mode in ("vdi", "plain"):
-            field = shard_volume(self.sim.field, self.mesh)
-            args = (field, self._origin, self._spacing, self.camera)
+            args = (self._slabs(), self._origin, self._spacing,
+                    self.camera)
             if self._step is not None:
                 snaps["gather" if self.mode == "vdi" else "plain"] = \
                     _dev.cost_snapshot(self._step, *args)

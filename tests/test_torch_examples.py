@@ -3,10 +3,20 @@
 same arguments (the views' PNG pixels within one 8-bit level of the
 reference's image written by the reference's ``save_png``, the stored
 VDIs within 1e-5 with their metadata), and ``ao_render``'s four images
-finite and non-empty. ``--publish`` streams the views' VDIs."""
+finite and non-empty. ``--publish`` streams the views' VDIs. The
+streamed-VDI client both ways, each in a subprocess on a loopback stream:
+the port's ``vdi_client`` (``--device cpu``) on the reference's
+publisher, and the root's ``examples/vdi_client.py`` on the port's; each
+PNG within one 8-bit level of the other package's ``render_vdi_any`` and
+``save_png`` of the same VDI (its depths scaled by 1.0007, as
+``tests/test_torch_novel.py`` holds the plane sweep), and ``--steer``
+delivering the novel camera to a steering endpoint."""
 
 import glob
 import os
+import subprocess
+import sys
+import time
 
 import numpy as np
 import pytest
@@ -124,3 +134,162 @@ def test_volume_from_file_publish_raises(tmp_path, monkeypatch):
             np.testing.assert_array_equal(np.asarray(vdi.depth), want.depth)
     finally:
         sub.close()
+
+
+# ------------------------------------------------ the streamed-VDI client
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CLIENT_SIDE, CLIENT_YAW = 32, 0.15
+
+
+# every streamed depth scaled by this: the plane sweep's planes are the
+# slice planes that made the VDI, so unscaled slab edges lie on them and
+# a one-ulp difference between the packages moves a sample across an
+# edge (``tests/test_torch_novel.py`` holds the sweep the same way)
+DEPTH_SHIFT = 1.0007
+
+
+def _stream_vdi():
+    """The reference's slice-march VDI of a small procedural volume, its
+    depths scaled by DEPTH_SHIFT, and the volume for the port."""
+    vol = jvol.procedural_volume(24, kind="blobs", seed=1)
+    cam = jcam.Camera.create((0.0, 0.5, 3.0), fov_y_deg=50.0, near=0.3,
+                             far=20.0)
+    spec = jsl.make_spec(cam, vol.data.shape,
+                         jcfg.SliceMarchConfig(matmul_dtype="f32"))
+    vdi, meta, _ = jsl.generate_vdi_mxu(
+        vol, jtf.for_dataset("procedural"), cam, spec,
+        jcfg.VDIConfig(max_supersegments=4, adaptive_iters=2))
+    return vol, vdi._replace(depth=vdi.depth * DEPTH_SHIFT), meta
+
+
+def _run_client(cmd, env, pub, vdi, meta, steering=None):
+    """Run a client subprocess, publishing (vdi, meta) every 0.2 s until
+    it exits (a loopback SUB drops what the PUB sent before it joined);
+    drains ``steering`` meanwhile. Returns (returncode, output, the
+    steering messages)."""
+    client = subprocess.Popen(cmd, env=env, cwd=ROOT,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+    msgs = []
+    try:
+        deadline = time.monotonic() + 240
+        while client.poll() is None and time.monotonic() < deadline:
+            pub.publish(vdi, meta)
+            if steering is not None:
+                msgs += list(steering.drain())
+            time.sleep(0.2)
+        if steering is not None:
+            for _ in range(10):
+                msgs += list(steering.drain())
+                time.sleep(0.05)
+    finally:
+        if client.poll() is None:
+            client.kill()
+        out = client.communicate()[0]
+    return client.returncode, out, msgs
+
+
+def _within_one_level(got_path, want_path):
+    got, want = load_png(got_path), load_png(want_path)
+    assert got.shape == want.shape
+    assert (want[..., :3] < 250).any(), "a blank reference view"
+    assert np.abs(got.astype(np.int32) - want.astype(np.int32)).max() <= 1
+
+
+def test_port_client_on_reference_stream(tmp_path):
+    """The port's client (``--device cpu``) on the reference's publisher:
+    its novel view within one 8-bit level of the reference's
+    ``render_vdi_any`` + ``save_png`` of the same VDI from the same
+    metadata, resampled in f32 as the port resolves the metadata's bf16
+    on the CPU (the reference's spec keeps bf16 there, ~2 levels away),
+    and ``--steer`` delivers that camera to a steering endpoint."""
+    pytest.importorskip("zmq")
+    from scenery_insitu_tpu.ops import vdi_novel as jnov
+    from scenery_insitu_tpu.runtime import streaming as jst
+    from scenery_insitu_tpu_torch.runtime import streaming as tst
+
+    _, vdi, meta = _stream_vdi()
+    pub = jst.VDIPublisher("tcp://127.0.0.1:0", codec="zlib")
+    steering = tst.SteeringEndpoint("tcp://127.0.0.1:0")
+    out = str(tmp_path / "client")
+    try:
+        rc, log, msgs = _run_client(
+            [sys.executable, "-m", "scenery_insitu_tpu_torch.examples."
+             "vdi_client", "--connect", pub.endpoint, "--frames", "1",
+             "--timeout", "200", "--width", str(CLIENT_SIDE), "--height",
+             str(CLIENT_SIDE), "--yaw", str(CLIENT_YAW), "--out", out,
+             "--steer", steering.endpoint, "--device", "cpu"],
+            {**os.environ, "PYTHONPATH": ROOT}, pub, vdi, meta, steering)
+    finally:
+        pub.close()
+        steering.close()
+    assert rc == 0, log[-3000:]
+    spec0 = jnov.axis_spec_from_meta(meta, matmul_dtype="f32")
+    axcam0 = jnov.axis_camera_from_meta(meta, spec0)
+    cam = jcam.Camera.create(tuple(np.linalg.inv(np.asarray(meta.view))[
+        :3, 3]), fov_y_deg=50.0, near=0.3, far=20.0)
+    novel = jcam.orbit(cam, CLIENT_YAW)
+    ref = str(tmp_path / "ref.png")
+    jimg.save_png(ref, np.asarray(jnov.render_vdi_any(
+        vdi, axcam0, spec0, novel, CLIENT_SIDE, CLIENT_SIDE)))
+    _within_one_level(os.path.join(out, "novel000.png"), ref)
+    cams = [m for m in msgs if m.get("type") == "camera"]
+    assert cams, msgs
+    np.testing.assert_allclose(cams[0]["eye"], np.asarray(novel.eye),
+                               atol=1e-5)
+
+
+def test_reference_client_on_port_stream(tmp_path):
+    """The root's ``examples/vdi_client.py`` on the port's publisher of
+    the port's VDI of the same volume: its novel view (resampled in bf16,
+    the reference's default on the CPU too) within one 8-bit level of the
+    port's ``render_vdi_any`` + ``save_png`` from the same metadata (f32
+    on the CPU)."""
+    pytest.importorskip("zmq")
+    import torch
+
+    from scenery_insitu_tpu_torch.config import SliceMarchConfig, VDIConfig
+    from scenery_insitu_tpu_torch.core.camera import Camera, orbit
+    from scenery_insitu_tpu_torch.core.transfer import for_dataset
+    from scenery_insitu_tpu_torch.core.volume import Volume
+    from scenery_insitu_tpu_torch.ops import slicer as tsl
+    from scenery_insitu_tpu_torch.ops import vdi_novel as tnov
+    from scenery_insitu_tpu_torch.runtime import streaming as tst
+    from scenery_insitu_tpu_torch.utils.image import save_png
+
+    jv, _, _ = _stream_vdi()
+    vol = Volume(*(torch.from_numpy(np.array(x)) for x in (
+        jv.data, jv.origin, jv.spacing)))
+    cam0 = Camera.create((0.0, 0.5, 3.0), fov_y_deg=50.0, near=0.3,
+                         far=20.0, device="cpu")
+    spec = tsl.make_spec(cam0, tuple(vol.data.shape),
+                         SliceMarchConfig(matmul_dtype="f32"))
+    vdi, meta, _ = tsl.generate_vdi_mxu(
+        vol, for_dataset("procedural", device="cpu"), cam0, spec,
+        VDIConfig(max_supersegments=4, adaptive_iters=2))
+    vdi = vdi._replace(depth=vdi.depth * DEPTH_SHIFT)
+    pub = tst.VDIPublisher("tcp://127.0.0.1:0", codec="zlib")
+    out = str(tmp_path / "client")
+    try:
+        rc, log, _ = _run_client(
+            [sys.executable, "-u", os.path.join(ROOT, "examples",
+                                                "vdi_client.py"),
+             "--connect", pub.endpoint, "--frames", "1", "--timeout", "200",
+             "--width", str(CLIENT_SIDE), "--height", str(CLIENT_SIDE),
+             "--yaw", str(CLIENT_YAW), "--out", out],
+            {**os.environ, "PYTHONPATH": ROOT, "JAX_PLATFORMS": "cpu",
+             "_EX_CHILD": "1"}, pub, vdi, meta)
+    finally:
+        pub.close()
+    assert rc == 0, log[-3000:]
+    spec0 = tnov.axis_spec_from_meta(meta)
+    axcam0 = tnov.axis_camera_from_meta(meta, spec0)
+    eye = np.linalg.inv(meta.view.numpy())[:3, 3]
+    cam = Camera.create(tuple(float(x) for x in eye), fov_y_deg=50.0,
+                        near=0.3, far=20.0, device="cpu")
+    ref = str(tmp_path / "ref.png")
+    save_png(ref, tnov.render_vdi_any(vdi, axcam0, spec0,
+                                      orbit(cam, CLIENT_YAW), CLIENT_SIDE,
+                                      CLIENT_SIDE).numpy())
+    _within_one_level(os.path.join(out, "novel000.png"), ref)

@@ -451,24 +451,40 @@ def test_initialize_unreachable_coordinator_raises():
 
 
 def test_process_mesh_unported_knobs_raise():
-    """A process mesh runs the smoke's configuration only; every other
-    knob, and the builders off its path, name ROADMAP A8b item 9."""
+    """A process mesh runs the VDI steps flat on even slabs (every
+    exchange, wire and schedule, the K budget and reuse:
+    ``tests/test_torch_multihost_knobs.py``); a render plan, a brick map,
+    a two-level topology, and the plain and hybrid builders name ROADMAP
+    A8b item 9."""
+    from scenery_insitu_tpu_torch.config import RenderConfig, TopologyConfig
+    from scenery_insitu_tpu_torch.parallel.bricks import BrickMap
+
     mesh = tmesh.Mesh(4, torch.device(CPU), first_rank=2, local_ranks=2)
     s = _scene()
     spec = tsl.make_spec(s["cam"], (GRID,) * 3,
                          SliceMarchConfig(matmul_dtype="f32"),
                          multiple_of=4)
+    topo = TopologyConfig(num_hosts=2)
     for call in (
-            lambda: tpipe.distributed_vdi_step(
-                mesh, s["tf"], W, H, comp_cfg=CompositeConfig(
-                    exchange="ring")),
             lambda: tpipe.distributed_vdi_step_mxu_temporal(
                 mesh, s["tf"], spec, comp_cfg=CompositeConfig(
-                    wire="bf16")),
+                    rebalance="occupancy"), plan=(2, 6, 4, 4)),
             lambda: tpipe.distributed_vdi_step_mxu(
                 mesh, s["tf"], spec, comp_cfg=CompositeConfig(
-                    schedule="waves")),
-            lambda: tpipe.distributed_plain_step(mesh, s["tf"], W, H)):
+                    rebalance="bricks"), bricks=BrickMap.contiguous(
+                        GRID, 4, 8)),
+            lambda: tpipe.distributed_vdi_step(
+                mesh, s["tf"], W, H, topology=topo),
+            lambda: tpipe.distributed_vdi_step_mxu(
+                mesh._replace(axis_names=("hosts", "ranks"), num_hosts=2),
+                s["tf"], spec),
+            lambda: tpipe.distributed_initial_threshold_mxu(
+                mesh, s["tf"], spec, plan=(2, 6, 4, 4)),
+            lambda: tpipe.distributed_plain_step(mesh, s["tf"], W, H),
+            lambda: tpipe.distributed_plain_step_mxu(
+                mesh, s["tf"], spec, RenderConfig()),
+            lambda: tpipe.distributed_hybrid_step_mxu(mesh, s["tf"],
+                                                      spec)):
         with pytest.raises(NotImplementedError, match="A8b item 9"):
             call()
     with pytest.raises(ValueError, match="shard_global"):

@@ -27,6 +27,7 @@ from scenery_insitu_tpu_torch.core import scene as tscene
 from scenery_insitu_tpu_torch.core import transfer as ttf
 from scenery_insitu_tpu_torch.core import volume as tvol
 from scenery_insitu_tpu_torch.core.vdi import VDI, render_vdi_same_view
+from scenery_insitu_tpu_torch.examples import vdi_client as tclient
 from scenery_insitu_tpu_torch.models import pipelines as tpipe
 from scenery_insitu_tpu_torch.ops import composite as tcomp
 from scenery_insitu_tpu_torch.ops import slicer as tsl
@@ -385,6 +386,9 @@ def test_entry_points_without_cuda_raise(monkeypatch):
         lambda: thier.merge_partial_blocks([(np.zeros((1, 4, 2, 2)),
                                              np.zeros((1, 2, 2, 2)))]),
         lambda: tmultiproc.run_multiproc("tests.x:y", 2),
+        # the streamed-VDI client twin
+        lambda: tclient.main(["--connect", "tcp://127.0.0.1:1", "--frames",
+                              "0"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -427,7 +431,8 @@ def test_package_imports_no_jax():
     for new in ("ingest/shm.py", "ingest/shm_tool.py", "io/lz4.py",
                 "tools/lint/cuda.py", "tools/lint/ledger.py",
                 "obs/profiler.py", "obs/collector.py", "obs/device.py",
-                "obs/roofline.py", "testing/faults.py"):
+                "obs/roofline.py", "testing/faults.py",
+                "examples/vdi_client.py"):
         assert os.path.join(ROOT, "scenery_insitu_tpu_torch", new) in files
     code = (
         "import pkgutil, sys\n"

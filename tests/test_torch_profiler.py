@@ -577,3 +577,45 @@ def test_bench_twin_profile_prints_reference_keys(monkeypatch, capsys):
     assert verdicts["verdicts"]["host"]["bound"] == "host"
     assert out["config"]["assumed_peak_tflops"] is None
     assert any(e["name"] == "phase_attribution" for e in rec.events)
+
+
+def test_capture_margins_stay_off_the_cpu(monkeypatch):
+    """The window margins are for a device trace's clock error: a CPU
+    capture sleeps none of them, and its attribution is as before."""
+    slept = []
+    monkeypatch.setattr(tprof.time, "sleep", slept.append)
+    x = torch.ones(64)
+
+    def step():
+        with tprof.phase("march"):
+            x.add_(1.0)
+
+    attr = tprof.ProfileCapture(frames=2, warmup=1).capture(step)
+    assert attr is not None and "march" in attr["phases"]
+    assert slept == []
+
+
+def test_profile_window_gap_and_card_refusal(tmp_path):
+    """``benchmarks/profile_window.py``: the least kernel-minus-launch
+    gap of a trace (negative where the device clock is off), and the
+    script refuses to run without a card."""
+    from scenery_insitu_tpu_torch.benchmarks import profile_window as pw
+
+    events = [
+        {"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel",
+         "ts": 100.0, "dur": 2, "args": {"correlation": 1}},
+        {"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel",
+         "ts": 200.0, "dur": 2, "args": {"correlation": 2}},
+        {"ph": "X", "cat": "kernel", "name": "k", "ts": 104.5, "dur": 9,
+         "args": {"correlation": 1}},
+        {"ph": "X", "cat": "kernel", "name": "k", "ts": 150.0, "dur": 9,
+         "args": {"correlation": 2}},
+        {"ph": "X", "cat": "kernel", "name": "lone", "ts": 10.0, "dur": 1,
+         "args": {"correlation": 9}},
+    ]
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+    assert pw._least_gap_us(str(path)) == -50.0
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit, match="needs a card"):
+            pw.main(["--captures", "1"])
